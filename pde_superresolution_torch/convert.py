@@ -1,0 +1,83 @@
+"""Checkpoint conversion: JAX-layout parameters -> this package's state dict.
+
+The JAX package keeps its parameters as a pytree
+``{"tower": [(w [K, Cin, Co], b [Co]), ...], "heads": {"<order>": (w [1, C,
+free], b [free])}}``; ``params_from_jax`` takes that tree with numpy leaves
+and imports no JAX. The committed assets under ``assets/`` hold a trained
+checkpoint's tree as ``.npz`` (keys ``tower/<i>/w``, ``heads/<order>/b``, ...)
+beside its config in the JSON layout of a checkpoint's ``config/metadata``;
+``tools/export_jax_checkpoint.py`` writes them from an orbax checkpoint.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from pde_superresolution_torch.device import resolve_device
+from pde_superresolution_torch.equations import from_name
+from pde_superresolution_torch.grids import Grid
+from pde_superresolution_torch.models.stencil_net import ModelConfig, StencilModel
+
+ASSET_DIR = Path(__file__).resolve().parent / "assets"
+
+
+def params_from_jax(tree: Mapping, device=None) -> dict[str, torch.Tensor]:
+    """The port's state dict from a JAX params tree with numpy leaves.
+
+    Conv weights go from ``[K, Cin, Co]`` to ``[Co, Cin, K]``; both
+    frameworks compute cross-correlation, so no flip is needed.
+    """
+    device = resolve_device(device)
+
+    def conv(w):
+        w = np.asarray(w)
+        return torch.from_numpy(np.ascontiguousarray(np.transpose(w, (2, 1, 0))))
+
+    state = {}
+    for i, (w, b) in enumerate(tree["tower"]):
+        state[f"tower.{i}.weight"] = conv(w)
+        state[f"tower.{i}.bias"] = torch.from_numpy(np.array(b))
+    for name, (w, b) in tree["heads"].items():
+        state[f"heads.{name}.weight"] = conv(w)
+        state[f"heads.{name}.bias"] = torch.from_numpy(np.array(b))
+    return {k: v.to(device) for k, v in state.items()}
+
+
+def jax_tree_from_npz(path) -> dict:
+    """Read an asset ``.npz`` back into the JAX params tree layout."""
+    with np.load(path) as data:
+        arrays = {k: data[k] for k in data.files}
+    n_layers = len({k.split("/")[1] for k in arrays if k.startswith("tower/")})
+    heads = sorted({k.split("/")[1] for k in arrays if k.startswith("heads/")})
+    return {
+        "tower": [
+            (arrays[f"tower/{i}/w"], arrays[f"tower/{i}/b"]) for i in range(n_layers)
+        ],
+        "heads": {d: (arrays[f"heads/{d}/w"], arrays[f"heads/{d}/b"]) for d in heads},
+    }
+
+
+def model_from_config(config: Mapping, device=None) -> StencilModel:
+    """The model a checkpoint config (``config/metadata`` JSON layout)
+    describes: equation, coarse grid and ``ModelConfig``."""
+    equation = from_name(
+        config["equation"],
+        conservative=config["conservative"],
+        **config.get("equation_params", {}),
+    )
+    fine = Grid(config["fine_size"], equation.period)
+    coarse = fine.resample(config["resample_factor"], conservative=config["conservative"])
+    return StencilModel(equation, coarse, ModelConfig(**config["model"]), device=device)
+
+
+def load_asset(name: str = "ckpt_ks8", device=None):
+    """(model, params, config) from the committed ``assets/<name>.{npz,json}``."""
+    config = json.loads((ASSET_DIR / f"{name}.json").read_text())
+    model = model_from_config(config, device=device)
+    params = params_from_jax(jax_tree_from_npz(ASSET_DIR / f"{name}.npz"), device)
+    return model, params, config
