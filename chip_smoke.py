@@ -12,8 +12,12 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
   3. ``fused_rhs`` against its plain version: at the flagship (KS-8x
      checkpoint coefficients, B=256, nx=128) and in all six equation forms
      at a ragged shape (B=3, nx=96, forced for Burgers);
-  4. ``fused_learned_rk4`` against its plain version: the KS-8x checkpoint
-     at B=256 for 100 steps, and a seeded conservative-KdV model;
+  4. ``fused_learned_rk4`` against its plain version: one step of the KS-8x
+     checkpoint from a standard-normal state (energy at every wavenumber,
+     where the tower's output matters), then 100 steps of it at B=256 and of
+     a seeded conservative-KdV model; the KS-8x checks must also catch three
+     faults planted in the weights (heads zeroed, the last tower layer
+     skipped, layer 1's input channels reversed);
   5. the main path, 100 RK4 steps at B=256 from a seeded initial condition
      through ``integrate(model.rhs_fn(params))`` and
      ``integrate_fused(model.fused_rk4_fn(params, dt, 100))``, with the
@@ -22,7 +26,9 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      small batch;
   6. times (CUDA events, warm median of 7) at B=256 and B=4096: each
      kernel's device time and call time, its plain version, both routes,
-     and the ``rhs_fn`` route's device time by kernel (torch.profiler);
+     the ``rhs_fn`` route's device time (one RK4 step queued behind a
+     device-side sleep, times 100) and its launches per RHS, and its device
+     time by kernel (torch.profiler, which can drop records);
   7. one ``{"kernels": [...]}`` line, then the card's line, then the result.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -43,6 +49,13 @@ STEPS = 100  # RK4 steps per main-path call
 BATCH = 256
 THROUGHPUT_BATCH = 4096
 SAMPLES = 7
+# One-step increment tolerances, relative to max|plain increment|, from a
+# standard-normal state, near 10x the largest reading on an H100: kernel vs
+# plain (phase 4) read 2.4e-7, and 1.7e-7 to 2.8e-7 for the GPU tests'
+# models; the bf16 tower route vs the float32 one (phase 5) read 1.1e-3.
+# The planted faults read 1.3e-1 to 2.4e-1.
+STEP_TOL = 3e-6
+ROUTE_STEP_TOL = 1e-2
 SLEEP_CYCLES = 60_000_000  # about 30 ms of device-side sleep at H100 clocks
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -77,6 +90,35 @@ def check(name: str, got, want, tol: float) -> float:
     if rel > tol:
         raise AssertionError(f"{name}: relative error {rel} > {tol}")
     return err
+
+
+def check_catches(name: str, got, want, tol: float) -> None:
+    """Raises unless ``got`` (from planted-fault weights) misses ``want`` by
+    more than ``tol`` x max|want|: a check that passes a fault has no power."""
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    verdict = "caught" if rel > tol else "NOT CAUGHT"
+    log(f"  planted fault, {name}: rel err {rel:.3e} (tolerance {tol:.0e}) {verdict}")
+    if not rel > tol:
+        raise AssertionError(f"planted fault {name} passes the {tol} check: {rel}")
+
+
+def planted_faults(params: dict) -> dict:
+    """{name: a copy of a tower model's state dict with one planted fault}."""
+    import torch
+
+    layers = sum(1 for k in params if k.startswith("tower.") and k.endswith(".weight"))
+    last = f"tower.{layers - 1}"
+    w = params[f"{last}.weight"]  # [C, C, K]
+    identity = torch.zeros_like(w)
+    identity[range(w.shape[0]), range(w.shape[0]), (w.shape[2] - 1) // 2] = 1.0
+    return {
+        "heads zeroed": {k: torch.zeros_like(v) if k.startswith("heads.") else v
+                         for k, v in params.items()},
+        "last tower layer skipped": {**params, f"{last}.weight": identity,
+                                     f"{last}.bias": torch.zeros_like(params[f"{last}.bias"])},
+        "layer 1 input channels reversed": {
+            **params, "tower.1.weight": params["tower.1.weight"].flip(1).contiguous()},
+    }
 
 
 def time_ms(fn, inner: int = 1, queued: bool = False) -> float:
@@ -120,6 +162,24 @@ def time_ms(fn, inner: int = 1, queued: bool = False) -> float:
             log(f"    note: queuing took {host_ms:.2f} ms > the {sleep_ms:.2f} ms sleep")
         samples.append(start.elapsed_time(end) / inner)
     return statistics.median(samples)
+
+
+def launch_count(fn) -> tuple:
+    """(kernel launches the host issued, kernel records on the device) in
+    one call of ``fn``, from torch.profiler, after one warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = sum(1 for e in events if e.device_type == DeviceType.CPU and "LaunchKernel" in e.name)
+    device = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+    return host, device
 
 
 def device_profile(fn, calls: int) -> dict:
@@ -187,6 +247,7 @@ def learned_rk4_bound_ms(pack, batch: int, steps: int) -> float:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -246,21 +307,41 @@ def main() -> int:
                                      fk.fused_rhs_plain(u, c, f, *a), rhs_tol))
 
     # ---- 4. fused_learned_rk4 against its plain version ---------------------
-    # both round the tower's inputs to bf16 at the same places; float32 sums
-    # in other orders can flip single bf16 roundings, whose effect grows over
-    # 100 steps of chaotic KS: 1e-3 of max|u|
-    rk4_tol = 1e-3
-    log(f"[4] fused_learned_rk4 vs plain, {STEPS} steps")
+    # Both round the tower's inputs to bf16 at the same places and sum in
+    # float32 in other orders, which can flip single bf16 roundings.
+    # One step from a standard-normal state, compared on the increment
+    # u(dt) - u(0), relative to the plain increment's max: the tower's output
+    # moves it at every point. The tolerance must fail each planted fault.
+    log("[4] fused_learned_rk4 vs plain")
     pack = fk.pack_learned_rk4(params, eq, grid, model.config.kernel_size,
                                model.constraint_layers, model.taps)
-    rk4_err = check(f"ckpt_ks8 B={BATCH}", fk.fused_learned_rk4(u0, pack, dt, STEPS),
-                    fk.fused_learned_rk4_plain(u0, pack, dt, STEPS), rk4_tol)
+    rng = np.random.default_rng(SEED)
+    u_rough = torch.from_numpy(rng.standard_normal((BATCH, grid.size)).astype(np.float32)).to(device)
+    want_inc = fk.fused_learned_rk4_plain(u_rough, pack, dt, 1) - u_rough
+    rk4_err = check(f"ckpt_ks8 one step from N(0,1), B={BATCH}, increment",
+                    fk.fused_learned_rk4(u_rough, pack, dt, 1) - u_rough, want_inc, STEP_TOL)
+    faults = planted_faults(params)
+    fault_packs = {name: fk.pack_learned_rk4(p, eq, grid, model.config.kernel_size,
+                                             model.constraint_layers, model.taps)
+                   for name, p in faults.items()}
+    for name, bad in fault_packs.items():
+        check_catches(f"{name}, one step", fk.fused_learned_rk4(u_rough, bad, dt, 1) - u_rough,
+                      want_inc, STEP_TOL)
+    # 100 steps from the smooth seeded state: 1e-5 of max|u|, 9x the largest
+    # reading on an H100 (1.1e-6); the planted faults read 9.3e-5 to 5.2e-4
+    rk4_tol = 1e-5
+    want = fk.fused_learned_rk4_plain(u0, pack, dt, STEPS)
+    rk4_err = max(rk4_err, check(f"ckpt_ks8 {STEPS} steps B={BATCH}",
+                                 fk.fused_learned_rk4(u0, pack, dt, STEPS), want, rk4_tol))
+    for name, bad in fault_packs.items():
+        check_catches(f"{name}, {STEPS} steps", fk.fused_learned_rk4(u0, bad, dt, STEPS),
+                      want, rk4_tol)
     m, p, u = perturbed_model("kdv", True, 6, device, nx=128, batch=BATCH)
     kdv_pack = fk.pack_learned_rk4(p, m.equation, m.grid, m.config.kernel_size,
                                    m.constraint_layers, m.taps)
     kdv_dt = m.equation.stable_time_step(m.grid, u_scale=3.0)
     rk4_err = max(rk4_err, check(
-        f"kdv conservative seeded B={BATCH}",
+        f"kdv conservative seeded {STEPS} steps B={BATCH}",
         fk.fused_learned_rk4(0.3 * u, kdv_pack, kdv_dt, STEPS),
         fk.fused_learned_rk4_plain(0.3 * u, kdv_pack, kdv_dt, STEPS), rk4_tol))
 
@@ -279,8 +360,14 @@ def main() -> int:
         raise AssertionError(f"the main path did not run through the kernels: {launches}")
     if traj_rhs.shape != (STEPS + 1, BATCH, grid.size) or traj_fused.shape != (2, BATCH, grid.size):
         raise AssertionError(f"shapes {traj_rhs.shape}, {traj_fused.shape}")
-    # the fused route's tower is bf16-rounded, the rhs_fn route's float32
-    check("integrate_fused vs integrate(rhs_fn)", traj_fused[-1], traj_rhs[-1], 2e-2)
+    # the fused route's tower is bf16-rounded, the rhs_fn route's float32;
+    # from the smooth seeded state that moves u by 6.7e-7 of max|u| after
+    # 100 steps on an H100: 1e-5. From a standard-normal state, one step,
+    # ROUTE_STEP_TOL:
+    check("integrate_fused vs integrate(rhs_fn)", traj_fused[-1], traj_rhs[-1], 1e-5)
+    check("one step from N(0,1), increment, fused vs rhs_fn route",
+          model.fused_rk4_fn(params, dt, 1)(u_rough) - u_rough,
+          integrate.rk4_step(model.rhs_fn(params), u_rough, 0.0, dt) - u_rough, ROUTE_STEP_TOL)
     _, traj_plain = integrate.integrate(model.rhs_fn(params, use_kernel=False), u0, dt, STEPS)
     check("integrate(rhs_fn) kernel vs plain path", traj_rhs[-1], traj_plain[-1], 1e-4)
     ref_model, ref_params, _ = convert.load_asset("ckpt_ks8", device="cpu")
@@ -322,10 +409,20 @@ def main() -> int:
         # where the rhs_fn route's time goes: device time by kernel name over
         # one 100-step call (torch.profiler), against the call's event time.
         # The profiler can drop kernel records, so the sum is a lower bound.
+        # the route's device time: one RK4 step queued behind a device-side
+        # sleep (no host in it; the card's own gaps between kernels count as
+        # busy), times STEPS. Launches: one RHS, host side and device side.
+        rhs = model.rhs_fn(params)
+        t0 = torch.zeros((), device=device)
+        row["rhs_fn_route_device_ms"] = STEPS * time_ms(
+            lambda: integrate.rk4_step(rhs, u, t0, dt), queued=True)
+        row["rhs_fn_route_idle_share"] = (
+            1 - row["rhs_fn_route_device_ms"] / row["rhs_fn_route_100_steps_ms"])
+        host_launches, device_kernels = launch_count(lambda: rhs(u, t0))
+        row["rhs_fn_launches_per_rhs"] = host_launches
+        row["rhs_fn_device_kernels_per_rhs"] = device_kernels
         path = device_profile(path_kernel, 1)
-        busy_ms = sum(path.values()) / 1e3
-        row["rhs_fn_route_profiled_device_ms"] = busy_ms
-        row["rhs_fn_route_idle_share"] = 1 - busy_ms / row["rhs_fn_route_100_steps_ms"]
+        row["rhs_fn_route_profiled_device_ms"] = sum(path.values()) / 1e3  # a lower bound
         row["rhs_fn_route_profiled_fused_rhs_ms"] = sum(
             t for k, t in path.items() if "fused_rhs_kernel" in k) / 1e3
         times[batch] = row

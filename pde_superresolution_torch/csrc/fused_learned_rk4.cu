@@ -46,15 +46,16 @@ using pde::kMaxOrders;
 
 constexpr int kChannelsPerThread = 8;  // fused_kernels.CHANNELS_PER_THREAD
 constexpr int kMaxFree = 24;           // fused_kernels.MAX_FREE
+constexpr int kMaxLayers = 16;         // fused_kernels.MAX_LAYERS
 
 struct Config {
   int nx, channels, ksize, layers, n_free, n_rows, n_orders, n_weights;
   int size[kMaxOrders], tap0[kMaxOrders];
+  // offsets (in floats) of the weight blocks in the packed buffer
+  int w_off[kMaxLayers], b_off[kMaxLayers], hw_off, hb_off, c0_off, pn_off;
   float dx, eta, half_dt, dt, dt_sixth;
   int num_steps;
 };
-
-__host__ __device__ __forceinline__ int align4(int n) { return (n + 3) & ~3; }
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -73,9 +74,9 @@ __device__ __forceinline__ void fma8(float* acc, const float* w, float a) {
   acc[7] = fmaf(w1.w, a, acc[7]);
 }
 
-// Weight buffer layout (fused_kernels.pack_learned_rk4), each block padded
-// to a multiple of 4 floats: per layer w [K*Cin][C] then b [C]; heads
-// hw [C][F], hb [F]; c0 [S]; pn [S][F].
+// Weight blocks (fused_kernels.pack_learned_rk4 lays them out and passes
+// their offsets, each a multiple of 4 floats): per layer w [K*Cin][C] and
+// b [C]; heads hw [C][F], hb [F]; c0 [S]; pn [S][F].
 template <int EQ, bool CONS>
 __global__ void __launch_bounds__(1024)
     fused_learned_rk4_kernel(const float* __restrict__ u_in,
@@ -98,15 +99,10 @@ __global__ void __launch_bounds__(1024)
   for (int i = tid; i < cfg.n_weights / 4; i += blockDim.x) {
     reinterpret_cast<float4*>(s_w)[i] = reinterpret_cast<const float4*>(weights)[i];
   }
-  int off = 0;
-  for (int l = 0; l < cfg.layers; ++l) off += align4(K * (l == 0 ? 1 : C) * C) + align4(C);
-  const float* s_hw = s_w + off;
-  off += align4(C * F);
-  const float* s_hb = s_w + off;
-  off += align4(F);
-  const float* s_c0 = s_w + off;
-  off += align4(cfg.n_rows);
-  const float* s_pn = s_w + off;
+  const float* s_hw = s_w + cfg.hw_off;
+  const float* s_hb = s_w + cfg.hb_off;
+  const float* s_c0 = s_w + cfg.c0_off;
+  const float* s_pn = s_w + cfg.pn_off;
 
   float u0 = 0.f, ksum = 0.f;
   if (tail) {
@@ -120,10 +116,9 @@ __global__ void __launch_bounds__(1024)
       // ---- conv tower: h_out[co][j] = bf16(relu(b + sum_{k,ci} w * h_in)) ----
       const float* h_in = s_u;
       float* h_out = s_h0;
-      const float* w = s_w;
       for (int l = 0; l < cfg.layers; ++l) {
-        const int cin = l == 0 ? 1 : C;
-        const float* bias = w + align4(K * cin * C);
+        const float* w = s_w + cfg.w_off[l];
+        const float* bias = s_w + cfg.b_off[l];
         float acc[kChannelsPerThread];
 #pragma unroll
         for (int i = 0; i < kChannelsPerThread; ++i) acc[i] = 0.f;
@@ -145,7 +140,6 @@ __global__ void __launch_bounds__(1024)
           h_out[(co0 + i) * nx + j] = bf16_round(v);
         }
         __syncthreads();
-        w = bias + align4(C);
         h_in = h_out;
         h_out = h_out == s_h0 ? s_h1 : s_h0;
       }
@@ -237,11 +231,15 @@ int launch(const float* u, const float* weights, float* out, int batch, const Co
 
 // meta: equation code, conservative, nx, channels, ksize, layers, n_free,
 //       n_rows, n_orders, size[3], tap0[3].
+// offsets: n_weights (floats in the buffer), then the blocks' offsets in
+//          buffer order: w[0], b[0], ..., w[layers-1], b[layers-1], hw, hb,
+//          c0, pn.
 // scalars: dx, eta, dt/2, dt, dt/6.
 // Returns cudaGetLastError() after the launch (or the attribute call's error).
 extern "C" int pde_fused_learned_rk4(const float* u, const float* weights, float* out,
                                      int batch, int num_steps, const int* meta,
-                                     const float* scalars, int smem_bytes, void* stream) {
+                                     const int* offsets, const float* scalars, int smem_bytes,
+                                     void* stream) {
   if (batch == 0) return 0;
   Config cfg;
   cfg.nx = meta[2];
@@ -261,14 +259,18 @@ extern "C" int pde_fused_learned_rk4(const float* u, const float* weights, float
   cfg.dt = scalars[3];
   cfg.dt_sixth = scalars[4];
   cfg.num_steps = num_steps;
-  int n = 0;
+  if (cfg.layers > kMaxLayers) return (int)cudaErrorInvalidValue;
+  cfg.n_weights = offsets[0];
+  const int* block = offsets + 1;
   for (int l = 0; l < cfg.layers; ++l) {
-    n += align4(cfg.ksize * (l == 0 ? 1 : cfg.channels) * cfg.channels) + align4(cfg.channels);
+    cfg.w_off[l] = *block++;
+    cfg.b_off[l] = *block++;
   }
-  n += align4(cfg.channels * cfg.n_free) + align4(cfg.n_free) + align4(cfg.n_rows) +
-       align4(cfg.n_rows * cfg.n_free);
-  cfg.n_weights = n;
-  if (smem_bytes < (int)sizeof(float) * (n + (2 * cfg.channels + 2) * cfg.nx)) {
+  cfg.hw_off = *block++;
+  cfg.hb_off = *block++;
+  cfg.c0_off = *block++;
+  cfg.pn_off = *block++;
+  if (smem_bytes < (int)sizeof(float) * (cfg.n_weights + (2 * cfg.channels + 2) * cfg.nx)) {
     return (int)cudaErrorInvalidValue;
   }
   const bool cons = meta[1] != 0;

@@ -108,7 +108,8 @@ def load_library() -> ctypes.CDLL:
     lib.pde_fused_learned_rk4.argtypes = [
         ptr, ptr, ptr,  # u, weights, out
         i32, i32,  # batch, num_steps
-        ctypes.POINTER(i32),  # see fused_learned_rk4.cu
+        ctypes.POINTER(i32),  # meta: see fused_learned_rk4.cu
+        ctypes.POINTER(i32),  # n_weights, then the weight blocks' offsets
         ctypes.POINTER(f32),  # dx, eta, dt/2, dt, dt/6
         i32,  # shared-memory bytes
         ptr,  # stream

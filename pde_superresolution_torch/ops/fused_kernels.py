@@ -33,9 +33,11 @@ from pde_superresolution_torch.grids import Grid
 
 EQUATION_CODES = {"burgers": 0, "kdv": 1, "ks": 2}
 MAX_ORDERS = 3
-# fused_learned_rk4.cu's compile-time limits (kCPT, kMaxFree)
+# fused_learned_rk4.cu's compile-time limits (kChannelsPerThread, kMaxFree,
+# kMaxLayers)
 CHANNELS_PER_THREAD = 8
 MAX_FREE = 24
+MAX_LAYERS = 16
 MAX_THREADS = 1024
 MAX_SHARED_BYTES = 232448  # opt-in shared memory per block on sm_90
 
@@ -178,28 +180,56 @@ def _align4(n: int) -> int:
 class LearnedRK4Pack:
     """The learned model's weights in the fused kernel's layout.
 
-    ``tower[l] = (w [Co, K*Cin], b [Co])`` with the contraction index
-    ``k*Cin + ci``; ``head_w [F, C]`` stacks the heads of the sorted orders.
-    Tower and head weights hold bf16-rounded values in float32; biases,
-    ``c0 [S]`` and the block-diagonal ``pn [S, F]`` (scale folded in) are
-    float32. ``flat`` is the same data as one buffer for the CUDA kernel
-    (each block transposed to ``[in, out]`` and padded to 4 floats).
+    ``flat`` is one float32 buffer of blocks, each starting at a multiple of
+    4 floats; ``offsets`` holds the start of each block, in buffer order:
+    per tower layer ``w [K*Cin, C]`` then ``b [C]``, then ``head_w [C, F]``,
+    ``head_b [F]``, ``c0 [S]`` and ``pn [S, F]``. The kernel reads the
+    offsets and nothing else of the layout. The properties are views into
+    ``flat`` in the plain version's orientation: ``tower[l] = (w [Co,
+    K*Cin], b [Co])`` with the contraction index ``k*Cin + ci``, ``head_w
+    [F, C]`` stacking the heads of the sorted orders. Tower and head weights
+    hold bf16-rounded values; biases, ``c0`` and the block-diagonal ``pn``
+    (scale folded in) are float32.
     """
 
     equation: Equation
     grid: Grid
     kernel_size: int
     taps: dict
-    tower: tuple
-    head_w: torch.Tensor
-    head_b: torch.Tensor
-    c0: torch.Tensor
-    pn: torch.Tensor
+    channels: int
+    num_layers: int
+    n_free: int
+    n_rows: int
     flat: torch.Tensor
+    offsets: tuple
+
+    def _block(self, i: int, *shape: int) -> torch.Tensor:
+        start = self.offsets[i]
+        return self.flat[start : start + int(np.prod(shape))].view(*shape)
 
     @property
-    def channels(self) -> int:
-        return self.tower[0][0].shape[0]
+    def tower(self) -> tuple:
+        k, c = self.kernel_size, self.channels
+        return tuple(
+            (self._block(2 * l, k * (1 if l == 0 else c), c).t(), self._block(2 * l + 1, c))
+            for l in range(self.num_layers)
+        )
+
+    @property
+    def head_w(self) -> torch.Tensor:
+        return self._block(2 * self.num_layers, self.channels, self.n_free).t()
+
+    @property
+    def head_b(self) -> torch.Tensor:
+        return self._block(2 * self.num_layers + 1, self.n_free)
+
+    @property
+    def c0(self) -> torch.Tensor:
+        return self._block(2 * self.num_layers + 2, self.n_rows)
+
+    @property
+    def pn(self) -> torch.Tensor:
+        return self._block(2 * self.num_layers + 3, self.n_rows, self.n_free)
 
 
 def pack_learned_rk4(
@@ -230,63 +260,58 @@ def pack_learned_rk4(
         raise ValueError(f"tap union {union} is not contiguous")
 
     with torch.no_grad():
-        tower = []
+        blocks = []  # in buffer order, each as the kernel reads it
         n_layers = sum(1 for k in params if k.startswith("tower.") and k.endswith(".weight"))
         for i in range(n_layers):
             w = params[f"tower.{i}.weight"].detach().float()  # [Co, Cin, K]
             co, cin, k = w.shape
-            tower.append((
-                _bf16(w.permute(0, 2, 1).reshape(co, k * cin)).contiguous(),
-                params[f"tower.{i}.bias"].detach().float().contiguous(),
-            ))
-        head_w = _bf16(torch.cat(
-            [params[f"heads.{d}.weight"].detach().float()[:, :, 0] for d in orders]
-        )).contiguous()
-        head_b = torch.cat(
-            [params[f"heads.{d}.bias"].detach().float() for d in orders]
-        ).contiguous()
-        blocks = []
+            blocks += [
+                _bf16(w.permute(2, 1, 0).reshape(k * cin, co)),  # [K*Cin, Co]
+                params[f"tower.{i}.bias"].detach().float(),
+            ]
+        blocks += [
+            _bf16(torch.cat(  # [C, F]
+                [params[f"heads.{d}.weight"].detach().float()[:, :, 0] for d in orders]
+            ).t()),
+            torch.cat([params[f"heads.{d}.bias"].detach().float() for d in orders]),
+        ]
+        proj = []
         for d in orders:
             layer = constraint_layers[d]
             ns = getattr(layer, "nullspace", None)
             if ns is None:  # FixedCoefficients: c = c0 + scale * z
                 ns = np.eye(len(taps[d]))
-            blocks.append(float(layer.scale) * np.asarray(ns, np.float64).T)
-        s_tot = sum(b.shape[0] for b in blocks)
-        f_tot = sum(b.shape[1] for b in blocks)
+            proj.append(float(layer.scale) * np.asarray(ns, np.float64).T)
+        s_tot = sum(b.shape[0] for b in proj)
+        f_tot = sum(b.shape[1] for b in proj)
         pn = np.zeros((s_tot, f_tot))
         r = c = 0
-        for blk in blocks:
+        for blk in proj:
             pn[r : r + blk.shape[0], c : c + blk.shape[1]] = blk
             r += blk.shape[0]
             c += blk.shape[1]
-        device = head_w.device
-        pn = torch.as_tensor(pn, dtype=torch.float32, device=device)
-        c0 = torch.as_tensor(
-            np.concatenate([np.asarray(constraint_layers[d].c0, np.float64) for d in orders]),
-            dtype=torch.float32, device=device,
-        )
+        c0 = np.concatenate([np.asarray(constraint_layers[d].c0, np.float64) for d in orders])
+        device = blocks[0].device
+        blocks += [torch.as_tensor(a, dtype=torch.float32, device=device) for a in (c0, pn)]
 
-        def padded(t):
-            t = t.reshape(-1)
-            return torch.cat([t, t.new_zeros(_align4(t.numel()) - t.numel())])
-
-        parts = []
-        for w, b in tower:
-            parts += [padded(w.t().contiguous()), padded(b)]
-        parts += [padded(head_w.t().contiguous()), padded(head_b), padded(c0), padded(pn)]
-        flat = torch.cat(parts).contiguous()
+        offsets, n = [], 0
+        for blk in blocks:
+            offsets.append(n)
+            n += _align4(blk.numel())
+        flat = torch.zeros(n, device=device)
+        for start, blk in zip(offsets, blocks):
+            flat[start : start + blk.numel()] = blk.reshape(-1)
     return LearnedRK4Pack(
         equation=equation,
         grid=grid,
         kernel_size=kernel_size,
         taps={d: tuple(taps[d]) for d in orders},
-        tower=tuple(tower),
-        head_w=head_w,
-        head_b=head_b,
-        c0=c0,
-        pn=pn,
+        channels=blocks[1].numel(),
+        num_layers=n_layers,
+        n_free=f_tot,
+        n_rows=s_tot,
         flat=flat,
+        offsets=tuple(offsets),
     )
 
 
@@ -370,8 +395,9 @@ def fused_learned_rk4(
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
 
-    channels = pack.channels
-    n_free, n_rows = pack.pn.shape[1], pack.pn.shape[0]
+    channels, n_free, n_rows = pack.channels, pack.n_free, pack.n_rows
+    if pack.num_layers > MAX_LAYERS:
+        raise ValueError(f"{pack.num_layers} tower layers > kernel limit {MAX_LAYERS}")
     if channels % CHANNELS_PER_THREAD:
         raise ValueError(f"filters must be a multiple of {CHANNELS_PER_THREAD}, got {channels}")
     threads = channels // CHANNELS_PER_THREAD * nx
@@ -397,18 +423,19 @@ def fused_learned_rk4(
     meta = (ctypes.c_int * 15)(
         EQUATION_CODES[pack.equation.name],
         int(pack.equation.conservative),
-        nx, channels, pack.kernel_size, len(pack.tower), n_free, n_rows,
+        nx, channels, pack.kernel_size, pack.num_layers, n_free, n_rows,
         len(orders),
         *[len(pack.taps[d]) for d in orders], *pad,
         *[pack.taps[d][0] for d in orders], *pad,
     )
+    offsets = (ctypes.c_int * (1 + len(pack.offsets)))(pack.flat.numel(), *pack.offsets)
     scalars = (ctypes.c_float * 5)(
         pack.grid.dx, float(getattr(pack.equation, "eta", 0.0)),
         0.5 * dt, dt, dt / 6.0,
     )
     code = lib.pde_fused_learned_rk4(
         u.data_ptr(), pack.flat.data_ptr(), out.data_ptr(), batch, num_steps,
-        meta, scalars, smem, _stream(u.device),
+        meta, offsets, scalars, smem, _stream(u.device),
     )
     _raise_on_cuda_error(code, "fused_learned_rk4 launch")
     fused_learned_rk4.launches += 1
