@@ -29,7 +29,25 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      the ``rhs_fn`` route's device time (one RK4 step queued behind a
      device-side sleep, times 100) and its launches per RHS, and its device
      time by kernel (torch.profiler, which can drop records);
-  7. one ``{"kernels": [...]}`` line, then the card's line, then the result.
+  7. forced ``fused_learned_rk4`` (Burgers-8x checkpoint, forcing evaluated
+     in the kernel from t0 = 3.7) against its plain version: one step from a
+     standard-normal state, 100 steps from a seeded state at B=256, and one
+     save interval at the ensemble's batch; the limits must also catch three
+     faults planted in the forcing (amplitudes zeroed, rotation angle
+     halved, start time ignored); ``fused_rhs`` in the forced Burgers form
+     at the ensemble's batch;
+  8. ``fused_rk4`` (the fixed-stencil baseline) against its plain version
+     and against ``integrate(PolynomialDifferentiator(...).rhs_fn())`` for KS
+     and KdV, conservative and direct, at B=256, nx=128 and at B=3, nx=96;
+  9. the ensemble path at full width, in-process through
+     ``scripts.run_ensemble.main``: the Burgers-8x checkpoint, 10240
+     trajectories, an exact-solver warm-up, 100 RK4 steps in 10 saves, by
+     the fused route and by ``rhs_fn`` steps, then the KS-8x checkpoint by
+     the fused route and a baseline leg of ``fused_rk4`` from the same
+     warmed-up states; launch counts zeroed before and read after each;
+ 10. times of the new kernels at B=256, 4096 and 10240 per 100 steps, of
+     the warm-up, and of both ensemble routes end to end;
+ 11. one ``{"kernels": [...]}`` line, then the card's line, then the result.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
@@ -49,6 +67,11 @@ STEPS = 100  # RK4 steps per main-path call
 BATCH = 256
 THROUGHPUT_BATCH = 4096
 SAMPLES = 7
+LONG_SAMPLES = 3  # for calls of a second or so (the ensemble's batch)
+ENSEMBLE = 10240  # trajectories of the ensemble path (run_ensemble's default)
+ENSEMBLE_SAVES = 10
+WARMUP_TIME = 1.0
+FORCING_T0 = 3.7  # start time of the forced checks: a time after a warm-up
 # One-step increment tolerances, relative to max|plain increment|, from a
 # standard-normal state, near 10x the largest reading on an H100: kernel vs
 # plain (phase 4) read 2.4e-7, and 1.7e-7 to 2.8e-7 for the GPU tests'
@@ -56,6 +79,24 @@ SAMPLES = 7
 # The planted faults read 1.3e-1 to 2.4e-1.
 STEP_TOL = 3e-6
 ROUTE_STEP_TOL = 1e-2
+# The forced kernel against its plain version (phase 7), chosen the same way
+# from readings on an H100. One step from N(0,1), on the increment: read
+# 1.6e-7; the planted forcing faults read 2.4e-4 to 1.2e-2. One save interval
+# (10 steps) from the smooth seeded state, of max|u|: read 2.9e-7; faults
+# 2.5e-4 to 6.4e-2. After 100 steps the trained Burgers model has steepened
+# fronts, where single flipped bf16 roundings grow: read 1.6e-4; faults 1.1e-1
+# to 1.2.
+# At the ensemble's batch the worst of 40 times as many trajectories after
+# one save interval read 6.1e-6.
+FORCED_STEP_TOL = 3e-6
+FORCED_INTERVAL_TOL = 3e-6
+FORCED_RUN_TOL = 2e-3
+FORCED_ENSEMBLE_TOL = 6e-5
+# The Burgers ensemble's two routes after 100 steps (phase 9), bf16 tower and
+# rotated phases against float32 tower and a sine per stage: of max|u| at the
+# worst of 1.3 M points (read 1.8e-3) and in root mean square (read 1.3e-4).
+ROUTE_MAX_TOL = 2e-2
+ROUTE_RMS_TOL = 1.5e-3
 SLEEP_CYCLES = 60_000_000  # about 30 ms of device-side sleep at H100 clocks
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -121,8 +162,8 @@ def planted_faults(params: dict) -> dict:
     }
 
 
-def time_ms(fn, inner: int = 1, queued: bool = False) -> float:
-    """Median over SAMPLES of the per-call time of ``inner`` back-to-back
+def time_ms(fn, inner: int = 1, queued: bool = False, samples: int = 0) -> float:
+    """Median over ``samples`` (default SAMPLES) of the per-call time of ``inner`` back-to-back
     calls, on CUDA events, after one warm-up call.
 
     Unqueued, the events also count the host's dispatch whenever the host is
@@ -146,7 +187,7 @@ def time_ms(fn, inner: int = 1, queued: bool = False) -> float:
         end.synchronize()
         sleep_ms = start.elapsed_time(end)
     samples = []
-    for _ in range(SAMPLES):
+    for _ in range(samples or SAMPLES):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         host = time.perf_counter()
@@ -232,18 +273,49 @@ def rhs_bound_ms(u, coeffs, f) -> float:
     return 1e3 * max(4 * numel / HBM_BYTES_PER_S, flops / FP32_FLOPS)
 
 
-def learned_rk4_bound_ms(pack, batch: int, steps: int) -> float:
+def learned_rk4_bound_ms(pack, batch: int, steps: int, terms: int = 0) -> float:
     """Least time for ``steps`` fused RK4 steps. Per grid point and RHS the
     tower (K*Cin*C per layer) and heads (C*F) multiply bf16-rounded inputs,
     at the bf16 tensor-core rate; the projection (S*F) and stencil (S) are
-    float32, at the CUDA-core rate. The bytes (state in and out, weights)
-    are far below either."""
-    points = pack.grid.size * batch * 4 * steps
+    float32, at the CUDA-core rate. Forcing with ``terms`` sinusoids adds,
+    per point and step, three sums of ``terms`` multiply-adds (the step's
+    start, middle and end) and two rotations of 4 products and 2 sums per
+    term, float32. The bytes (state in and out, weights, and the forcing's
+    pack of 3 + 2 nx floats per term and trajectory, once per launch) are
+    far below either."""
+    nx = pack.grid.size
+    points = nx * batch * steps
     bf16_macs = sum(w.numel() for w, _ in pack.tower) + pack.head_w.numel()
     f32_macs = pack.pn.numel() + pack.pn.shape[0]
-    ops_s = 2.0 * points * (bf16_macs / BF16_TENSOR_FLOPS + f32_macs / FP32_FLOPS)
-    bytes_s = 4 * (2 * batch * pack.grid.size + pack.flat.numel()) / HBM_BYTES_PER_S
-    return 1e3 * max(ops_s, bytes_s)
+    ops_s = points * (
+        4 * 2.0 * (bf16_macs / BF16_TENSOR_FLOPS + f32_macs / FP32_FLOPS)
+        + (3 * 2 + 2 * 6) * terms / FP32_FLOPS)
+    floats = 2 * batch * nx + pack.flat.numel() + batch * terms * (3 + 2 * nx)
+    return 1e3 * max(ops_s, 4 * floats / HBM_BYTES_PER_S)
+
+
+def baseline_rk4_bounds_ms(scheme, batch: int) -> tuple:
+    """(bytes bound, operations bound) of ``scheme.num_steps`` fused baseline
+    RK4 steps: the state read and written once; per point and stage two
+    flops per tap, about 8 for the flux or equation of motion and its
+    divergence and 4 for the stage combine, float32."""
+    nx = scheme.grid.size
+    taps = sum(len(t) for t in scheme.taps.values())
+    flops = nx * batch * scheme.num_steps * 4 * (2 * taps + 12)
+    return 1e3 * 8 * batch * nx / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOPS
+
+
+def forcing_faults(forcing, fpack, pack_again) -> dict:
+    """{name: a ForcingPack with one planted fault}; ``pack_again(t, dt_scale)``
+    repacks the same forcing at another start time or step."""
+    import torch
+
+    halved = pack_again(FORCING_T0, 0.5)
+    return {
+        "amplitudes zeroed": fpack._replace(amplitude=torch.zeros_like(fpack.amplitude)),
+        "rotation angle halved": fpack._replace(rot_cos=halved.rot_cos, rot_sin=halved.rot_sin),
+        "start time ignored": pack_again(0.0, 1.0),
+    }
 
 
 def main() -> int:
@@ -254,9 +326,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
 
-    from pde_superresolution_torch import convert, integrate
+    from pde_superresolution_torch import convert, equations, integrate
     from pde_superresolution_torch.ops import _build
     from pde_superresolution_torch.ops import fused_kernels as fk
+    from pde_superresolution_torch.scripts import run_ensemble
 
     device = torch.device("cuda")
     card = card_line()
@@ -430,15 +503,241 @@ def main() -> int:
         for name, us in sorted(path.items(), key=lambda kv: -kv[1])[:8]:
             log(f"      rhs_fn route kernel {us / 1e3:9.3f} ms  {name[:110]}")
 
-    # ---- 7. report ------------------------------------------------------------
+    # ---- 7. forced fused_learned_rk4 against its plain version ----------------
+    # Kernel and plain version take the same ForcingPack and rotate and sum
+    # it with the same separately rounded operations in the same order, so
+    # the forcing adds no difference of its own: the limits follow phase 4's
+    # scheme (about 10x the largest reading on an H100, see FORCED_*_TOL), and
+    # each must fail three faults planted in the forcing.
+    log("[7] forced fused_learned_rk4 vs plain (ckpt_burgers8)")
+    bmodel, bparams, _ = convert.load_asset("ckpt_burgers8", device=device)
+    beq, bgrid = bmodel.equation, bmodel.grid
+    bdt = bmodel.stable_time_step(u_scale=3.0)  # run_ensemble's model-aware step
+    bgen = torch.Generator().manual_seed(SEED + 1)
+    bu0 = beq.initial_conditions(bgen, bgrid, (BATCH,), device)
+    bforcing = beq.sample_forcing(bgen, (BATCH,), device)
+    bpack = fk.pack_learned_rk4(bparams, beq, bgrid, bmodel.config.kernel_size,
+                                bmodel.constraint_layers, bmodel.taps)
+    terms = bforcing.amplitude.shape[-1]
+    log(f"    model: ckpt_burgers8 (conservative={beq.conservative}, nx={bgrid.size}, "
+        f"stencil {bmodel.config.stencil_size}, {terms} forcing terms), dt={bdt}, "
+        f"t0={FORCING_T0}; block: {fk.learned_rk4_launch(bpack, bgrid.size, terms)} "
+        "(threads, shared bytes)")
+
+    def repack(t, dt_scale):
+        return fk.pack_forcing(bforcing, t, beq, bgrid, dt_scale * bdt, BATCH)
+
+    fpack = repack(FORCING_T0, 1.0)
+    faults = forcing_faults(bforcing, fpack, repack)
+    want_inc = fk.fused_learned_rk4_plain(u_rough, bpack, bdt, 1, fpack) - u_rough
+    forced_err = check(
+        f"one step from N(0,1), B={BATCH}, increment",
+        fk.fused_learned_rk4(u_rough, bpack, bdt, 1, forcing=bforcing, t=FORCING_T0) - u_rough,
+        want_inc, FORCED_STEP_TOL)
+    for name, bad in faults.items():
+        check_catches(f"{name}, one step",
+                      fk.fused_learned_rk4(u_rough, bpack, bdt, 1, forcing=bad) - u_rough,
+                      want_inc, FORCED_STEP_TOL)
+    interval = STEPS // ENSEMBLE_SAVES
+    for steps, tol in ((interval, FORCED_INTERVAL_TOL), (STEPS, FORCED_RUN_TOL)):
+        want = fk.fused_learned_rk4_plain(bu0, bpack, bdt, steps, fpack)
+        forced_err = max(forced_err, check(
+            f"{steps} steps B={BATCH}",
+            fk.fused_learned_rk4(bu0, bpack, bdt, steps, forcing=bforcing, t=FORCING_T0),
+            want, tol))
+        for name, bad in faults.items():
+            check_catches(f"{name}, {steps} steps",
+                          fk.fused_learned_rk4(bu0, bpack, bdt, steps, forcing=bad), want, tol)
+    # the ensemble's shapes: one save interval of the full batch
+    eu0 = beq.initial_conditions(bgen, bgrid, (ENSEMBLE,), device)
+    eforcing = beq.sample_forcing(bgen, (ENSEMBLE,), device)
+    epack = fk.pack_forcing(eforcing, FORCING_T0, beq, bgrid, bdt, ENSEMBLE)
+    forced_err = max(forced_err, check(
+        f"{interval} steps B={ENSEMBLE}",
+        fk.fused_learned_rk4(eu0, bpack, bdt, interval, forcing=epack),
+        fk.fused_learned_rk4_plain(eu0, bpack, bdt, interval, epack), FORCED_ENSEMBLE_TOL))
+    x32 = torch.as_tensor(bgrid.x, dtype=torch.float32, device=device)
+    ef = equations.forcing_term(eforcing, x32, FORCING_T0, beq.period, bgrid.dx).contiguous()
+    ecoeffs = bmodel.coefficients(bparams, eu0)
+    brhs_args = (beq, bgrid, bmodel.taps)
+    rhs_err = max(rhs_err, check(
+        f"fused_rhs, forced Burgers form, B={ENSEMBLE} nx={bgrid.size}",
+        fk.fused_rhs(eu0, ecoeffs, ef, *brhs_args),
+        fk.fused_rhs_plain(eu0, ecoeffs, ef, *brhs_args), rhs_tol))
+    del ecoeffs, ef, epack
+
+    # ---- 8. fused_rk4 against its plain version --------------------------------
+    # The same float32 operations in the same order, each rounded on its own
+    # on both sides: 1e-6 of max|u| after 100 steps. Against integrate() with
+    # the PolynomialDifferentiator's RHS, whose tap sums run in another
+    # order: 1e-5.
+    log("[8] fused_rk4 vs plain and vs integrate(PolynomialDifferentiator)")
+    baseline_err = 0.0
+    for name in ("ks", "kdv"):
+        for cons in (True, False):
+            for batch, nx in ((BATCH, 128), (3, 96)):
+                period = equations.from_name(name).period * nx / 128  # the same dx
+                e = equations.from_name(name, conservative=cons, period=period)
+                g = type(grid)(nx, period)
+                u = 0.3 * e.initial_conditions(gen, g, (batch,), device)
+                step = e.stable_time_step(g)
+                advance = fk.make_fused_rk4(e, g, step, STEPS)
+                got = advance(u)
+                form = f"{name} {'conservative' if cons else 'direct'} B={batch} nx={nx}"
+                baseline_err = max(baseline_err, check(
+                    f"{form}, {STEPS} steps", got, fk.fused_rk4_plain(u, advance.scheme), 1e-6))
+                rhs = integrate.PolynomialDifferentiator(e, g, device=device).rhs_fn()
+                _, ref = integrate.integrate(rhs, u, step, STEPS, STEPS)
+                check(f"{form}, vs integrate", got, ref[-1], 1e-5)
+
+    # ---- 9. the ensemble path at full width ---------------------------------
+    def ensemble(checkpoint, route, step):
+        """One in-process run of the entry point, with the launch counts
+        zeroed just before it and read just after."""
+        fk.fused_rhs.launches = fk.fused_learned_rk4.launches = fk.fused_rk4.launches = 0
+        result = run_ensemble.main([
+            "--checkpoint_dir", checkpoint, "--num_trajectories", str(ENSEMBLE),
+            "--warmup_time", str(WARMUP_TIME), "--time_max", str((STEPS - 0.5) * step),
+            "--num_saves", str(ENSEMBLE_SAVES), "--seed", str(SEED), "--fused", route])
+        torch.cuda.synchronize()
+        counts = {"fused_rhs": fk.fused_rhs.launches,
+                  "fused_learned_rk4": fk.fused_learned_rk4.launches}
+        log(f"    launches: {counts}")
+        if result["num_steps"] != STEPS or result["finite"] != ENSEMBLE:
+            raise AssertionError(
+                f"{checkpoint} {route}: {result['num_steps']} steps, "
+                f"{result['finite']}/{ENSEMBLE} finite")
+        if result["final"].shape != (ENSEMBLE, 128) or result["t0"] < WARMUP_TIME:
+            raise AssertionError(f"shape {result['final'].shape}, t0 {result['t0']}")
+        return result, counts
+
+    log(f"[9] ensemble path: {ENSEMBLE} trajectories, warm-up {WARMUP_TIME}, {STEPS} RK4 "
+        f"steps in {ENSEMBLE_SAVES} saves, through scripts.run_ensemble.main")
+    ens = {}
+    ens["burgers_fused"], counts = ensemble("ckpt_burgers8", "true", bdt)
+    if counts != {"fused_rhs": 0, "fused_learned_rk4": ENSEMBLE_SAVES}:
+        raise AssertionError(f"the fused route did not run through its kernel: {counts}")
+    forced_launches = counts["fused_learned_rk4"]
+    ens["burgers_rhs"], counts = ensemble("ckpt_burgers8", "false", bdt)
+    if counts != {"fused_rhs": 4 * STEPS, "fused_learned_rk4": 0}:
+        raise AssertionError(f"the rhs_fn route did not run through its kernel: {counts}")
+    rhs_ensemble_launches = counts["fused_rhs"]
+    # Same warmed-up states, same forcing. The fused route rounds the tower's
+    # inputs to bf16 and carries the forcing's phase by rotation; the trained
+    # Burgers model steepens fronts, where a small shift of a front is a
+    # large difference at a point, so the maximum over 1.3 M points is held
+    # to ROUTE_MAX_TOL of max|u| and the root mean square to ROUTE_RMS_TOL.
+    a, b = ens["burgers_fused"]["final"], ens["burgers_rhs"]["final"]
+    check("warmed-up start states equal", ens["burgers_fused"]["initial"],
+          ens["burgers_rhs"]["initial"], 1e-6)
+    route_err = check("Burgers ensemble, fused vs rhs_fn route, max", a, b, ROUTE_MAX_TOL)
+    route_rms = float((a - b).square().mean().sqrt() / b.square().mean().sqrt())
+    log(f"  Burgers ensemble, fused vs rhs_fn route, rms: rel {route_rms:.3e} "
+        f"(tolerance {ROUTE_RMS_TOL:.1e})")
+    if not route_rms <= ROUTE_RMS_TOL:
+        raise AssertionError(f"routes differ by rms {route_rms} > {ROUTE_RMS_TOL}")
+    ks_dt = model.stable_time_step(u_scale=3.0)
+    ens["ks_fused"], counts = ensemble("ckpt_ks8", "true", ks_dt)
+    if counts != {"fused_rhs": 0, "fused_learned_rk4": ENSEMBLE_SAVES}:
+        raise AssertionError(f"the KS fused route did not run through its kernel: {counts}")
+    unforced_ensemble_launches = counts["fused_learned_rk4"]
+    # the baseline leg: the fixed-stencil scheme from the same warmed-up
+    # states, one fused_rk4 launch per save interval
+    warmed = ens["ks_fused"]["initial"]
+    base_advance = fk.make_fused_rk4(eq, grid, ks_dt, interval)
+    fk.fused_rk4.launches = 0
+    start = time.perf_counter()
+    _, base_traj = integrate.integrate_fused(
+        lambda u, t: base_advance(u), warmed, ks_dt, STEPS, interval, t0=ens["ks_fused"]["t0"])
+    torch.cuda.synchronize()
+    base_elapsed = time.perf_counter() - start
+    baseline_launches = fk.fused_rk4.launches
+    log(f"    baseline leg: {baseline_launches} fused_rk4 launches, {base_elapsed:.3f} s")
+    if baseline_launches != ENSEMBLE_SAVES or base_traj.shape != (ENSEMBLE_SAVES + 1, ENSEMBLE, 128):
+        raise AssertionError(f"baseline leg: {baseline_launches} launches, {base_traj.shape}")
+    whole = fk.make_fused_rk4(eq, grid, ks_dt, STEPS)
+    baseline_err = max(baseline_err, check(
+        f"baseline leg B={ENSEMBLE}, {STEPS} steps vs plain", base_traj[-1],
+        fk.fused_rk4_plain(warmed, whole.scheme), 1e-6))
+    gap = float((ens["ks_fused"]["final"] - base_traj[-1]).abs().max() / base_traj[-1].abs().max())
+    log(f"    learned against baseline scheme after the same steps: {gap:.3e} of max|u| "
+        "(two schemes, no limit)")
+
+    # ---- 10. times of the new kernels -----------------------------------------
+    log(f"[10] times (ms per {STEPS} steps, CUDA events, device time queued) on {card}")
+    new_times = {}
+    for batch in (BATCH, THROUGHPUT_BATCH, ENSEMBLE):
+        samples = SAMPLES if batch == BATCH else LONG_SAMPLES
+        u = eu0[:batch].contiguous()
+        fp = fk.pack_forcing(
+            type(eforcing)(*(leaf[:batch].contiguous() for leaf in eforcing)),
+            FORCING_T0, beq, bgrid, bdt, batch)
+        ks_u = warmed[:batch].contiguous()
+        base = fk.make_fused_rk4(eq, grid, ks_dt, STEPS)
+        bytes_ms, ops_ms = baseline_rk4_bounds_ms(base.scheme, batch)
+        row = {
+            "forced_rk4_ms": time_ms(
+                lambda: fk.fused_learned_rk4(u, bpack, bdt, STEPS, forcing=fp),
+                queued=True, samples=samples),
+            "forced_rk4_with_pack_ms": time_ms(
+                lambda: fk.fused_learned_rk4(u, bpack, bdt, STEPS, forcing=type(eforcing)(
+                    *(leaf[:batch] for leaf in eforcing)), t=FORCING_T0), samples=samples),
+            "forced_rk4_plain_ms": time_ms(
+                lambda: fk.fused_learned_rk4_plain(u, bpack, bdt, STEPS, fp), samples=LONG_SAMPLES),
+            "forced_rk4_bound_ms": learned_rk4_bound_ms(bpack, batch, STEPS, terms),
+            "unforced_rk4_ms": time_ms(
+                lambda: fk.fused_learned_rk4(ks_u, pack, ks_dt, STEPS), queued=True,
+                samples=samples),
+            "fused_rk4_ms": time_ms(lambda: base(ks_u), queued=True, samples=samples),
+            "fused_rk4_call_ms": time_ms(lambda: base(ks_u), samples=samples),
+            "fused_rk4_plain_ms": time_ms(
+                lambda: fk.fused_rk4_plain(ks_u, base.scheme), samples=LONG_SAMPLES),
+            "fused_rk4_bytes_bound_ms": bytes_ms,
+            "fused_rk4_ops_bound_ms": ops_ms,
+        }
+        new_times[batch] = row
+        log(f"    B={batch}: " + json.dumps(row))
+    # the floor that binds fused_rk4: 4 x STEPS dependent stages, each closed
+    # by two block-wide barriers. One block alone (2 trajectories) shows the
+    # latency of one stage with nothing to hide it.
+    alone = fk.make_fused_rk4(eq, grid, ks_dt, 10 * STEPS)
+    alone_ms = time_ms(lambda: alone(warmed[:2].contiguous()), queued=True)
+    stage_us = 1e3 * alone_ms / (4 * 10 * STEPS)
+    chain_ms = 4 * STEPS * stage_us / 1e3
+    log(f"    fused_rk4, one block alone: {stage_us:.3f} us per barrier-separated stage; "
+        f"{4 * STEPS} dependent stages: {chain_ms:.4f} ms per {STEPS} steps")
+    warm_dt = 0.2 * bgrid.dx
+    warm_steps = int(np.ceil(WARMUP_TIME / warm_dt))
+    warmup_ms = time_ms(lambda: integrate.integrate_spectral(
+        beq, bgrid, eu0, warm_dt, warm_steps, save_every=warm_steps, forcing=eforcing),
+        samples=LONG_SAMPLES)
+    log(f"    integrate_spectral warm-up, Burgers, B={ENSEMBLE}, {warm_steps} ETDRK4 steps: "
+        f"{warmup_ms:.2f} ms")
+    # both ensemble routes end to end, a second (warm) run of each: the entry
+    # point's own clock around its integration, host in the loop
+    for key, checkpoint, route, step in (("burgers_fused", "ckpt_burgers8", "true", bdt),
+                                         ("burgers_rhs", "ckpt_burgers8", "false", bdt),
+                                         ("ks_fused", "ckpt_ks8", "true", ks_dt)):
+        again, _ = ensemble(checkpoint, route, step)
+        log(f"    ensemble {key}: first run {1e3 * ens[key]['elapsed_s']:.1f} ms, second "
+            f"{1e3 * again['elapsed_s']:.1f} ms ({again['traj_steps_per_s']:,.0f} "
+            f"traj-steps/s); warm-up {1e3 * again['warmup_s']:.1f} ms")
+        ens[key + "_warm_ms"] = 1e3 * again["elapsed_s"]
+    log(f"    baseline leg: {1e3 * base_elapsed:.1f} ms")
+
+    # ---- 11. report -----------------------------------------------------------
     flagship = times[BATCH]
+    full = new_times[ENSEMBLE]
     kernels = [
         {
             "name": "fused_rhs",
             "route": "cuda",
             "source": "pde_superresolution_torch/csrc/fused_rhs.cu",
             "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:135",
-            "launches": launches["fused_rhs"],
+            "launches": launches["fused_rhs"] + rhs_ensemble_launches,
+            "launches_by_path": {"ks8 integrate(rhs_fn) B=256": launches["fused_rhs"],
+                                 "burgers8 ensemble --fused false": rhs_ensemble_launches},
+            "shape": f"B={BATCH} nx={grid.size}",
             "max_abs_err": rhs_err,
             "ms": flagship["fused_rhs_ms"],
             "call_ms": flagship["fused_rhs_call_ms"],
@@ -452,7 +751,10 @@ def main() -> int:
             "route": "cuda",
             "source": "pde_superresolution_torch/csrc/fused_learned_rk4.cu",
             "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:390",
-            "launches": launches["fused_learned_rk4"],
+            "launches": launches["fused_learned_rk4"] + unforced_ensemble_launches,
+            "launches_by_path": {"ks8 integrate_fused B=256": launches["fused_learned_rk4"],
+                                 "ks8 ensemble --fused true": unforced_ensemble_launches},
+            "shape": f"B={BATCH} nx={grid.size}, {STEPS} steps",
             "max_abs_err": rk4_err,
             "ms": flagship["fused_learned_rk4_ms"],
             "call_ms": flagship["fused_learned_rk4_call_ms"],
@@ -461,7 +763,43 @@ def main() -> int:
             "bound_by": "operations",
             "library_ms": None,
         },
+        {
+            "name": "fused_learned_rk4_forced",
+            "route": "cuda",
+            "source": "pde_superresolution_torch/csrc/fused_learned_rk4.cu",
+            "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:595",
+            "launches": forced_launches,
+            "launches_by_path": {"burgers8 ensemble --fused true": forced_launches},
+            "shape": f"B={ENSEMBLE} nx={bgrid.size}, {STEPS} steps, {terms} terms",
+            "max_abs_err": forced_err,
+            "ms": full["forced_rk4_ms"],
+            "call_ms": full["forced_rk4_with_pack_ms"],
+            "plain_ms": full["forced_rk4_plain_ms"],
+            "bound_ms": full["forced_rk4_bound_ms"],
+            "bound_by": "operations",
+            "library_ms": None,
+        },
+        {
+            "name": "fused_rk4",
+            "route": "cuda",
+            "source": "pde_superresolution_torch/csrc/fused_rk4.cu",
+            "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:304",
+            "launches": baseline_launches,
+            "launches_by_path": {"ks8 ensemble baseline leg": baseline_launches},
+            "shape": f"B={ENSEMBLE} nx={grid.size}, {STEPS} steps",
+            "max_abs_err": baseline_err,
+            "ms": full["fused_rk4_ms"],
+            "call_ms": full["fused_rk4_call_ms"],
+            "plain_ms": full["fused_rk4_plain_ms"],
+            "bound_ms": max(full["fused_rk4_bytes_bound_ms"], full["fused_rk4_ops_bound_ms"]),
+            "bound_by": ("bytes" if full["fused_rk4_bytes_bound_ms"]
+                         > full["fused_rk4_ops_bound_ms"] else "operations"),
+            "dependent_stage_chain_ms": chain_ms,
+            "library_ms": None,
+        },
     ]
+    if any(k["launches"] == 0 or 0 in k["launches_by_path"].values() for k in kernels):
+        raise AssertionError(f"a kernel was not launched on its path: {kernels}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     print(json.dumps({"ok": True, "device": {

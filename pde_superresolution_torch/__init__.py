@@ -7,14 +7,21 @@ package's module names and public layouts (``[batch, nx]`` fields,
 ``{order: [batch, nx, stencil]}`` coefficients) and imports nothing of it.
 
 Layers, from the entry point down:
+  scripts/run_ensemble  the ensemble entry point (python -m ...)
   models/stencil_net  StencilModel: rhs_fn, fused_rk4_fn
   models/conv_net     periodic conv tower (nn.Module, plain PyTorch)
   stencils            float64 constraint setup, projection, apply_stencil
-  equations, grids    Burgers/KdV/KS, forcing, periodic grids
-  integrate           RK4/RK3 loops, integrate, integrate_fused
-  ops/fused_kernels   CUDA kernel wrappers with their plain twins
+  equations, grids    Burgers/KdV/KS, forcing, spectral form, periodic grids
+  integrate           RK4/RK3 loops, integrate, integrate_fused; the exact
+                      ETDRK4 solver (SpectralETDRK4, integrate_spectral)
+  ops/spectral        FFT derivatives and filters (torch.fft)
+  ops/resample        block-mean and strided coarse-graining
+  ops/fused_kernels   CUDA kernel wrappers with their plain twins:
+                      fused_rhs, fused_learned_rk4 (forced too), fused_rk4
   csrc/               the CUDA C++ sources (sm_90a), built on first use
-  convert             JAX checkpoint params -> this package's state dict
+  analysis            energy_spectrum
+  convert             JAX checkpoint params -> this package's state dict;
+                      the committed assets (ckpt_ks8, ckpt_burgers8, ckpt_kdv8)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -75,9 +75,29 @@ def model_from_config(config: Mapping, device=None) -> StencilModel:
     return StencilModel(equation, coarse, ModelConfig(**config["model"]), device=device)
 
 
+def asset_names() -> list[str]:
+    """The committed assets (``ckpt_ks8``, ``ckpt_burgers8``, ``ckpt_kdv8``)."""
+    return sorted(p.stem for p in ASSET_DIR.glob("*.npz"))
+
+
 def load_asset(name: str = "ckpt_ks8", device=None):
-    """(model, params, config) from the committed ``assets/<name>.{npz,json}``."""
-    config = json.loads((ASSET_DIR / f"{name}.json").read_text())
+    """(model, params, config) from ``<stem>.npz`` and ``<stem>.json``.
+
+    ``name`` is a committed asset's name (``assets/<name>``) or the path
+    stem of a pair written by ``tools/export_jax_checkpoint.py`` (with or
+    without a ``.npz``/``.json`` suffix).
+    """
+    stem = Path(name)
+    if stem.suffix in (".npz", ".json"):
+        stem = stem.with_suffix("")
+    if not stem.with_suffix(".npz").is_file():
+        stem = ASSET_DIR / stem.name
+    if not (stem.with_suffix(".npz").is_file() and stem.with_suffix(".json").is_file()):
+        raise FileNotFoundError(
+            f"no asset {name!r}: expected {stem}.npz and .json; committed "
+            f"assets: {asset_names()}"
+        )
+    config = json.loads(stem.with_suffix(".json").read_text())
     model = model_from_config(config, device=device)
-    params = params_from_jax(jax_tree_from_npz(ASSET_DIR / f"{name}.npz"), device)
+    params = params_from_jax(jax_tree_from_npz(stem.with_suffix(".npz")), device)
     return model, params, config

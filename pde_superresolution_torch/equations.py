@@ -195,6 +195,23 @@ class Equation:
         phase = 2 * np.pi * k[..., None] * x / self.period + phi[..., None]
         return torch.sum(a[..., None] * torch.sin(phase), dim=-2).to(device)
 
+    # Fourier-space form u_t = L u + N(u), for the exact ETDRK4 solves
+    def linear_symbol(self, k: np.ndarray) -> np.ndarray:
+        """Diagonal symbol L(k) of the stiff linear part for the rfft modes
+        ``k`` (angular wavenumbers). Float64/complex128 numpy, at set-up."""
+        raise NotImplementedError
+
+    def nonlinear_term(
+        self,
+        u: torch.Tensor,
+        u_x: torch.Tensor,
+        grid: Grid,
+        t,
+        forcing: Optional[ForcingParams],
+    ) -> torch.Tensor:
+        """Real-space nonlinear part N(u): everything but ``linear_symbol``."""
+        raise NotImplementedError
+
     def stable_time_step(self, grid: Grid, u_scale: float = 2.0) -> float:
         """Conservative explicit-RK4 stable step for this equation on ``grid``:
         the minimum of the advective ``dx/|u|`` limit and each linear term's
@@ -225,6 +242,16 @@ class BurgersEquation(Equation):
     def flux(self, face_values):
         return 0.5 * face_values[0] ** 2 - self.eta * face_values[1]
 
+    def linear_symbol(self, k):
+        return -self.eta * k**2
+
+    def nonlinear_term(self, u, u_x, grid, t, forcing):
+        n = -u * u_x
+        if forcing is not None:
+            x = torch.as_tensor(grid.x, dtype=u.dtype, device=u.device)
+            n = n + forcing_term(forcing, x, t, self.period)
+        return n
+
     def stable_time_step(self, grid: Grid, u_scale: float = 2.0) -> float:
         dx = grid.dx
         dt_adv = _advective_dt(dx, u_scale)
@@ -248,6 +275,13 @@ class KdVEquation(Equation):
 
     def flux(self, face_values):
         return 3.0 * face_values[0] ** 2 + face_values[2]
+
+    def linear_symbol(self, k):
+        # -u_xxx -> -(ik)^3 = +i k^3 (purely dispersive)
+        return 1j * k**3
+
+    def nonlinear_term(self, u, u_x, grid, t, forcing):
+        return -6.0 * u * u_x
 
     def stable_time_step(self, grid: Grid, u_scale: float = 2.0) -> float:
         dx = grid.dx
@@ -274,6 +308,13 @@ class KSEquation(Equation):
 
     def flux(self, face_values):
         return 0.5 * face_values[0] ** 2 + face_values[1] + face_values[3]
+
+    def linear_symbol(self, k):
+        # -u_xx - u_xxxx -> +k^2 - k^4
+        return k**2 - k**4
+
+    def nonlinear_term(self, u, u_x, grid, t, forcing):
+        return -u * u_x
 
     def stable_time_step(self, grid: Grid, u_scale: float = 2.0) -> float:
         dx = grid.dx

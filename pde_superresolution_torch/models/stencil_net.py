@@ -310,10 +310,14 @@ class StencilModel:
         sums), as in the JAX kernel, so agreement with ``rhs_fn`` +
         ``integrate.rk4_step`` is to bf16 tolerance.
 
-        Returns ``advance(u [batch, nx], t=None) -> u``. Forced equations
-        (Burgers' in-kernel forcing) are not ported yet: a forced equation
-        without ``forcing`` raises here, and ``forcing`` raises in the
-        kernel wrapper.
+        A forced equation (Burgers) passes its per-trajectory ``forcing``
+        and the start time ``t0``; the kernel advances the sinusoids' phases
+        by planar rotation, with no transcendental per stage. Forcing for an
+        unforced equation raises at the call, as in the JAX package.
+
+        Returns ``advance(u [batch, nx], t=None) -> u``: ``t`` is the start
+        time of the call (default ``t0``), so ``integrate_fused`` can hand
+        each save interval its own.
         """
         if self.equation.forced and forcing is None:
             raise ValueError(
@@ -329,10 +333,13 @@ class StencilModel:
         )
 
         def advance(u: torch.Tensor, t=None) -> torch.Tensor:
-            """Advance ``num_steps`` RK4 steps (``t`` is the start time;
-            unforced equations do not read it)."""
+            """Advance ``num_steps`` RK4 steps from time ``t`` (default: the
+            ``t0`` this closure was built with); the forcing's phase state
+            is rebuilt from ``t`` at every call."""
             return fused_kernels.fused_learned_rk4(
-                u, pack, dt, num_steps, forcing=forcing
+                u, pack, dt, num_steps, forcing=forcing,
+                t=t0 if t is None else t,
             )
 
+        advance.pack = pack
         return advance

@@ -111,10 +111,20 @@ def load_library() -> ctypes.CDLL:
         ctypes.POINTER(i32),  # meta: see fused_learned_rk4.cu
         ctypes.POINTER(i32),  # n_weights, then the weight blocks' offsets
         ctypes.POINTER(f32),  # dx, eta, dt/2, dt, dt/6
+        ctypes.POINTER(ptr),  # forcing: amp, rot_c, rot_s, sin0, cos0
         i32,  # shared-memory bytes
         ptr,  # stream
     ]
     lib.pde_fused_learned_rk4.restype = i32
+    lib.pde_fused_rk4.argtypes = [
+        ptr, ptr,  # u, out
+        i32, i32,  # batch, num_steps
+        ctypes.POINTER(i32),  # meta: see fused_rk4.cu
+        ctypes.POINTER(f32),  # coefficients [3][16]
+        ctypes.POINTER(f32),  # dx, eta, dt/2, dt, dt/6
+        ptr,  # stream
+    ]
+    lib.pde_fused_rk4.restype = i32
     lib.pde_cuda_error_string.argtypes = [i32]
     lib.pde_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,13 +9,19 @@ The counterpart of ``pde_superresolution_tpu/ops/pallas_kernels.py``:
   * ``fused_learned_rk4`` (``csrc/fused_learned_rk4.cu``, replaces
     ``make_fused_learned_rk4``): ``num_steps`` whole RK4 steps of the learned
     model in one launch (tower, heads, constraint projection, stencil, flux,
-    all four stages), one thread block per trajectory.
+    all four stages), one thread block per trajectory. For a forced equation
+    (Burgers) the sum-of-sinusoids forcing is evaluated in the kernel from a
+    ``ForcingPack``: per-term (sin, cos) phase state advanced by a planar
+    rotation per half step.
+  * ``make_fused_rk4`` (``csrc/fused_rk4.cu``, replaces ``make_fused_rk4``):
+    ``num_steps`` RK4 steps of the fixed classic-stencil baseline scheme,
+    coefficients passed by value, unforced equations only.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else. It takes its plain PyTorch version (``*_plain``, in this
 module) only for CPU tensors; for CUDA tensors it launches its kernel or
 raises. Each keeps a launch count, ``<wrapper>.launches``, a plain integer
-that grows by one per kernel launch. Both are forward only: an input that
+that grows by one per kernel launch. All are forward only: an input that
 requires grad raises.
 """
 
@@ -23,12 +29,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Mapping, Optional, Sequence
+from typing import Mapping, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from pde_superresolution_torch.equations import Equation
+from pde_superresolution_torch import stencils
+from pde_superresolution_torch.equations import Equation, ForcingParams
 from pde_superresolution_torch.grids import Grid
 
 EQUATION_CODES = {"burgers": 0, "kdv": 1, "ks": 2}
@@ -40,6 +47,9 @@ MAX_FREE = 24
 MAX_LAYERS = 16
 MAX_THREADS = 1024
 MAX_SHARED_BYTES = 232448  # opt-in shared memory per block on sm_90
+# fused_rk4.cu's compile-time limit (kMaxTaps) and its block size target
+MAX_TAPS = 16
+RK4_BLOCK_THREADS = 256
 
 
 def _check_forward_only(tensors) -> None:
@@ -346,20 +356,150 @@ def _learned_rhs_plain(u: torch.Tensor, pack: LearnedRK4Pack) -> torch.Tensor:
     return pack.equation.time_derivative(u, vals, pack.grid)
 
 
+class ForcingPack(NamedTuple):
+    """A batch's forcing in the fused kernel's form, built by ``pack_forcing``.
+
+    ``amplitude`` has the cell-average ``sinc`` factor folded in for
+    conservative schemes; ``rot_cos``/``rot_sin`` are the planar rotation by
+    ``omega dt/2``; ``sin0``/``cos0`` are the per-point phase state at the
+    launch's start time.
+    """
+
+    amplitude: torch.Tensor  # [B, terms]
+    rot_cos: torch.Tensor  # [B, terms]
+    rot_sin: torch.Tensor  # [B, terms]
+    sin0: torch.Tensor  # [B, terms, nx]
+    cos0: torch.Tensor  # [B, terms, nx]
+
+
+def pack_forcing(
+    forcing: ForcingParams,
+    t,
+    equation: Equation,
+    grid: Grid,
+    dt: float,
+    batch: int,
+    device=None,
+) -> ForcingPack:
+    """``ForcingParams`` (leaves ``[B, terms]`` or broadcastable to it) at
+    start time ``t`` -> the kernel's ``ForcingPack``.
+
+    Everything is float32 on the device, from a float32 ``x``, in the order
+    of the JAX kernel's host-side pack: ``theta0 = omega t + kappa x + phi``
+    and its sin and cos are rounded as the reference rounds them, which
+    matters at a large ``t`` after a warm-up.
+    """
+    leaves = tuple(forcing)
+    device = leaves[0].device if device is None else torch.device(device)
+    for name, leaf in zip(ForcingParams._fields, leaves):
+        if not isinstance(leaf, torch.Tensor) or leaf.dtype != torch.float32:
+            raise TypeError(f"forcing.{name} must be a float32 tensor")
+        if leaf.device != device:
+            raise ValueError(f"forcing.{name} is on {leaf.device}, expected {device}")
+    terms = leaves[0].shape[-1]
+    try:
+        amp, omega, k, phi = (leaf.expand(batch, terms) for leaf in leaves)
+    except RuntimeError as e:
+        raise ValueError(
+            f"forcing leaves {[tuple(l.shape) for l in leaves]} do not "
+            f"broadcast to [batch={batch}, terms={terms}]"
+        ) from e
+    with torch.no_grad():
+        kappa = 2 * np.pi * k / equation.period
+        if equation.conservative:
+            # exact cell average of sin over [x - dx/2, x + dx/2]
+            amp = amp * torch.sinc(kappa * grid.dx / 2 / np.pi)
+        x = torch.as_tensor(grid.x, dtype=torch.float32, device=device)
+        t = torch.as_tensor(t, dtype=torch.float32, device=device)
+        theta0 = omega[:, :, None] * t + kappa[:, :, None] * x + phi[:, :, None]
+        half = omega * (dt / 2)
+        return ForcingPack(
+            amp.contiguous(), torch.cos(half), torch.sin(half),
+            torch.sin(theta0), torch.cos(theta0),
+        )
+
+
+def _force(fp: ForcingPack, s: torch.Tensor) -> torch.Tensor:
+    """sum_m amplitude[m] * s[m], in term order, each product and each sum
+    rounded on its own (as the kernel's _rn intrinsics round them)."""
+    f = fp.amplitude[:, 0, None] * s[:, 0]
+    for m in range(1, s.shape[1]):
+        f = f + fp.amplitude[:, m, None] * s[:, m]
+    return f
+
+
+def _rotate(fp: ForcingPack, s: torch.Tensor, c: torch.Tensor):
+    """Advance every term's phase by omega dt/2, from the old (s, c)."""
+    rc, rs = fp.rot_cos[:, :, None], fp.rot_sin[:, :, None]
+    return s * rc + c * rs, c * rc - s * rs
+
+
 def fused_learned_rk4_plain(
-    u: torch.Tensor, pack: LearnedRK4Pack, dt: float, num_steps: int
+    u: torch.Tensor,
+    pack: LearnedRK4Pack,
+    dt: float,
+    num_steps: int,
+    forcing: Optional[ForcingPack] = None,
 ) -> torch.Tensor:
     """``fused_learned_rk4`` in plain PyTorch: the same RK4 loop, with the
     tower's weights and activations rounded through bfloat16 before float32
-    matmuls."""
+    matmuls. With a ``ForcingPack`` each stage adds the forcing from the
+    rotated phase state: k1 at the step's start, k2 and k3 share the
+    half-step value, k4 takes the full step's, and the state carries on."""
     half_dt, dt_sixth = 0.5 * dt, dt / 6.0
+    if forcing is not None:
+        s, c = forcing.sin0, forcing.cos0
     for _ in range(num_steps):
-        k1 = _learned_rhs_plain(u, pack)
-        k2 = _learned_rhs_plain(u + half_dt * k1, pack)
-        k3 = _learned_rhs_plain(u + half_dt * k2, pack)
-        k4 = _learned_rhs_plain(u + dt * k3, pack)
+        if forcing is None:
+            f0 = f_half = f1 = 0.0
+        else:
+            f0 = _force(forcing, s)
+            s, c = _rotate(forcing, s, c)
+            f_half = _force(forcing, s)
+            s, c = _rotate(forcing, s, c)
+            f1 = _force(forcing, s)
+        k1 = _learned_rhs_plain(u, pack) + f0
+        k2 = _learned_rhs_plain(u + half_dt * k1, pack) + f_half
+        k3 = _learned_rhs_plain(u + half_dt * k2, pack) + f_half
+        k4 = _learned_rhs_plain(u + dt * k3, pack) + f1
         u = u + dt_sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
     return u
+
+
+def learned_rk4_launch(pack: LearnedRK4Pack, nx: int, terms: int = 0) -> tuple:
+    """(threads per block, dynamic shared-memory bytes) of a
+    ``fused_learned_rk4`` launch: ``filters / 8`` threads per grid point; the
+    weights, the stage input, the face fluxes and two activation buffers
+    and, for a forced equation with ``terms`` sinusoids, the forcing value,
+    three per-term constants and the (sin, cos) phase state per point."""
+    threads = pack.channels // CHANNELS_PER_THREAD * nx
+    floats = pack.flat.numel() + (2 * pack.channels + 2) * nx
+    if terms:
+        floats += nx + 3 * terms + 2 * terms * nx
+    return threads, 4 * floats
+
+
+def learned_rk4_refusal(
+    pack: LearnedRK4Pack, nx: int, terms: int = 0,
+    shared_limit: int = MAX_SHARED_BYTES,
+) -> Optional[str]:
+    """Why the kernel cannot take this shape, or None if it can. The limits
+    are the kernel's compile-time bounds, 1024 threads per block, and the
+    opt-in shared memory of one block (232448 bytes on sm_90)."""
+    if pack.num_layers > MAX_LAYERS:
+        return f"{pack.num_layers} tower layers > kernel limit {MAX_LAYERS}"
+    if pack.channels % CHANNELS_PER_THREAD:
+        return f"filters must be a multiple of {CHANNELS_PER_THREAD}, got {pack.channels}"
+    if pack.n_free > MAX_FREE:
+        return f"{pack.n_free} free dims > kernel limit {MAX_FREE}"
+    threads, smem = learned_rk4_launch(pack, nx, terms)
+    if threads > MAX_THREADS:
+        return (f"nx={nx} with {pack.channels} filters needs {threads} threads "
+                f"per block > {MAX_THREADS}")
+    if smem > shared_limit:
+        return (f"needs {smem} bytes of shared memory per block > the "
+                f"limit of {shared_limit}")
+    return None
 
 
 def fused_learned_rk4(
@@ -367,20 +507,22 @@ def fused_learned_rk4(
     pack: LearnedRK4Pack,
     dt: float,
     num_steps: int,
-    forcing=None,
+    forcing: Union[ForcingParams, ForcingPack, None] = None,
+    t=0.0,
 ) -> torch.Tensor:
     """``num_steps`` RK4 steps of the packed learned model from ``u [B, nx]``.
 
-    Unforced equations only: Burgers' in-kernel forcing is not ported yet,
-    and ``forcing`` raises.
+    A forced equation (Burgers) needs ``forcing``: ``ForcingParams`` with
+    leaves ``[B, terms]`` (or broadcastable), packed here at start time
+    ``t``, or a ready ``ForcingPack``. Forcing for an unforced equation
+    raises, as does a forced equation without it.
     """
-    if forcing is not None:
-        raise NotImplementedError(
-            "forced fused learned RK4 (in-kernel rotated-phase forcing) is "
-            "not ported yet; use rhs_fn with integrate for forced equations"
-        )
-    if pack.equation.forced:
+    if pack.equation.forced and forcing is None:
         raise ValueError(f"{pack.equation.name} is forced: forcing required")
+    if not pack.equation.forced and forcing is not None:
+        # rhs_fn applies any forcing it is handed; dropping it here would
+        # make the two routes differ
+        raise ValueError(f"{pack.equation.name} is unforced but forcing was passed")
     if u.dim() != 2:
         raise ValueError(f"u must be [batch, nx], got shape {tuple(u.shape)}")
     batch, nx = u.shape
@@ -390,52 +532,53 @@ def fused_learned_rk4(
     _check_forward_only([u])
     if num_steps < 0:
         raise ValueError(f"num_steps must be >= 0, got {num_steps}")
+    terms = 0
+    if forcing is not None:
+        if not isinstance(forcing, ForcingPack):
+            forcing = pack_forcing(forcing, t, pack.equation, pack.grid, dt, batch, u.device)
+        terms = forcing.amplitude.shape[-1]
+        for name, leaf in zip(ForcingPack._fields, forcing):
+            shape = (batch, terms, nx) if name in ("sin0", "cos0") else (batch, terms)
+            _check_f32(f"forcing.{name}", leaf, shape, u.device)
+        _check_forward_only(forcing)
     if u.device.type == "cpu":
-        return fused_learned_rk4_plain(u, pack, dt, num_steps)
+        return fused_learned_rk4_plain(u, pack, dt, num_steps, forcing)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
 
-    channels, n_free, n_rows = pack.channels, pack.n_free, pack.n_rows
-    if pack.num_layers > MAX_LAYERS:
-        raise ValueError(f"{pack.num_layers} tower layers > kernel limit {MAX_LAYERS}")
-    if channels % CHANNELS_PER_THREAD:
-        raise ValueError(f"filters must be a multiple of {CHANNELS_PER_THREAD}, got {channels}")
-    threads = channels // CHANNELS_PER_THREAD * nx
-    if threads > MAX_THREADS:
-        raise ValueError(
-            f"nx={nx} with {channels} filters needs {threads} threads per "
-            f"block > {MAX_THREADS}"
-        )
-    if n_free > MAX_FREE:
-        raise ValueError(f"{n_free} free dims > kernel limit {MAX_FREE}")
-    orders = list(pack.taps)
+    refusal = learned_rk4_refusal(pack, nx, terms)
+    if refusal:
+        raise ValueError(refusal)
     if pack.flat.data_ptr() % 16:
         raise ValueError("packed weights must be 16-byte aligned")
-    smem = 4 * (pack.flat.numel() + (2 * channels + 2) * nx)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"needs {smem} bytes of shared memory > {MAX_SHARED_BYTES}")
+    _, smem = learned_rk4_launch(pack, nx, terms)
+    orders = list(pack.taps)
 
     from pde_superresolution_torch.ops import _build
 
     lib = _build.load_library()
     out = torch.empty_like(u)
     pad = [0] * (MAX_ORDERS - len(orders))
-    meta = (ctypes.c_int * 15)(
+    meta = (ctypes.c_int * 16)(
         EQUATION_CODES[pack.equation.name],
         int(pack.equation.conservative),
-        nx, channels, pack.kernel_size, pack.num_layers, n_free, n_rows,
+        nx, pack.channels, pack.kernel_size, pack.num_layers, pack.n_free, pack.n_rows,
         len(orders),
         *[len(pack.taps[d]) for d in orders], *pad,
         *[pack.taps[d][0] for d in orders], *pad,
+        terms,
     )
     offsets = (ctypes.c_int * (1 + len(pack.offsets)))(pack.flat.numel(), *pack.offsets)
     scalars = (ctypes.c_float * 5)(
         pack.grid.dx, float(getattr(pack.equation, "eta", 0.0)),
         0.5 * dt, dt, dt / 6.0,
     )
+    forcing_ptrs = (ctypes.c_void_p * 5)(
+        *([leaf.data_ptr() for leaf in forcing] if forcing is not None else [None] * 5)
+    )
     code = lib.pde_fused_learned_rk4(
         u.data_ptr(), pack.flat.data_ptr(), out.data_ptr(), batch, num_steps,
-        meta, offsets, scalars, smem, _stream(u.device),
+        meta, offsets, scalars, forcing_ptrs, smem, _stream(u.device),
     )
     _raise_on_cuda_error(code, "fused_learned_rk4 launch")
     fused_learned_rk4.launches += 1
@@ -443,3 +586,145 @@ def fused_learned_rk4(
 
 
 fused_learned_rk4.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused RK4 of the fixed-stencil baseline
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BaselineRK4:
+    """The classic-stencil scheme of ``make_fused_rk4``: per order the
+    integer taps and the float coefficients (already divided by dx^order)."""
+
+    equation: Equation
+    grid: Grid
+    dt: float
+    num_steps: int
+    taps: dict  # order -> tuple of contiguous integer taps
+    coefficients: dict  # order -> tuple of floats
+
+
+def _baseline_rhs_plain(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
+    vals = {}
+    for d, taps in scheme.taps.items():
+        acc = None
+        for c, t in zip(scheme.coefficients[d], taps):
+            term = c * torch.roll(u, -t, dims=-1)
+            acc = term if acc is None else acc + term
+        vals[d] = acc
+    return scheme.equation.time_derivative(u, vals, scheme.grid)
+
+
+def fused_rk4_plain(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
+    """``fused_rk4`` in plain PyTorch: tap sums in tap order (each product
+    and sum rounded on its own), then the flux divergence or the equation of
+    motion, in the RK4 loop of ``fused_learned_rk4_plain``."""
+    dt = scheme.dt
+    half_dt, dt_sixth = 0.5 * dt, dt / 6.0
+    for _ in range(scheme.num_steps):
+        k1 = _baseline_rhs_plain(u, scheme)
+        k2 = _baseline_rhs_plain(u + half_dt * k1, scheme)
+        k3 = _baseline_rhs_plain(u + half_dt * k2, scheme)
+        k4 = _baseline_rhs_plain(u + dt * k3, scheme)
+        u = u + dt_sixth * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    return u
+
+
+def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
+    """``scheme.num_steps`` RK4 steps of the baseline scheme from ``u [B, nx]``
+    in one launch of ``csrc/fused_rk4.cu`` (its plain version for a CPU
+    tensor). One thread per grid point, so ``nx <= 1024``."""
+    if u.dim() != 2:
+        raise ValueError(f"u must be [batch, nx], got shape {tuple(u.shape)}")
+    batch, nx = u.shape
+    _check_f32("u", u, (batch, nx), u.device)
+    if nx != scheme.grid.size:
+        raise ValueError(f"u has nx={nx}, the scheme's grid {scheme.grid.size}")
+    _check_forward_only([u])
+    if u.device.type == "cpu":
+        return fused_rk4_plain(u, scheme)
+    if u.device.type != "cuda":
+        raise ValueError(f"unsupported device {u.device}")
+    if nx > MAX_THREADS:
+        raise ValueError(f"nx={nx} > {MAX_THREADS}: the kernel runs one thread per point")
+
+    from pde_superresolution_torch.ops import _build
+
+    lib = _build.load_library()
+    out = torch.empty_like(u)
+    orders = sorted(scheme.taps)
+    pad = [0] * (MAX_ORDERS - len(orders))
+    rows = max(1, RK4_BLOCK_THREADS // nx)  # trajectories per block
+    meta = (ctypes.c_int * 11)(
+        EQUATION_CODES[scheme.equation.name],
+        int(scheme.equation.conservative),
+        nx, rows, len(orders),
+        *[len(scheme.taps[d]) for d in orders], *pad,
+        *[scheme.taps[d][0] for d in orders], *pad,
+    )
+    coefs = (ctypes.c_float * (MAX_ORDERS * MAX_TAPS))()
+    for i, d in enumerate(orders):
+        for s, c in enumerate(scheme.coefficients[d]):
+            coefs[i * MAX_TAPS + s] = c
+    dt = scheme.dt
+    scalars = (ctypes.c_float * 5)(
+        scheme.grid.dx, float(getattr(scheme.equation, "eta", 0.0)),
+        0.5 * dt, dt, dt / 6.0,
+    )
+    code = lib.pde_fused_rk4(
+        u.data_ptr(), out.data_ptr(), batch, scheme.num_steps, meta, coefs,
+        scalars, _stream(u.device),
+    )
+    _raise_on_cuda_error(code, "fused_rk4 launch")
+    fused_rk4.launches += 1
+    return out
+
+
+fused_rk4.launches = 0
+
+
+def make_fused_rk4(
+    equation: Equation,
+    grid: Grid,
+    dt: float,
+    num_steps: int,
+    accuracy_order: int = 2,
+    stencil_size: Optional[int] = None,
+):
+    """Whole multi-step RK4 integration of the fixed-stencil baseline scheme
+    in one kernel: the state stays on chip for all ``num_steps`` steps.
+
+    Unforced equations only (KdV, KS). The classic coefficients are
+    computed here in float64 and passed to the kernel by value. Returns
+    ``advance(u [batch, nx]) -> u`` after ``num_steps`` steps; its
+    ``scheme`` attribute is the ``BaselineRK4`` it runs.
+    """
+    if equation.forced:
+        raise ValueError("fused RK4 kernel supports unforced equations only")
+    staggered = equation.conservative
+    shift = -0.5 if staggered else 0.0
+    method = (
+        stencils.Method.FINITE_VOLUMES if staggered
+        else stencils.Method.FINITE_DIFFERENCES
+    )
+    taps, coefs = {}, {}
+    for d in sorted(equation.derivative_orders):
+        size = stencil_size or stencils.baseline_stencil_size(d, accuracy_order, staggered)
+        offs = stencils.stencil_offsets(size, staggered=staggered)
+        taps[d] = stencils.int_taps(offs, shift)
+        coefs[d] = tuple(
+            float(c) for c in stencils.coefficients(offs, method, d, None, dx=grid.dx)
+        )
+        if not _contiguous_run(taps[d]):
+            raise ValueError(f"taps of order {d} are not contiguous: {taps[d]}")
+        if len(taps[d]) > MAX_TAPS:
+            raise ValueError(f"{len(taps[d])} taps > kernel limit {MAX_TAPS}")
+    scheme = BaselineRK4(equation, grid, float(dt), int(num_steps), taps, coefs)
+
+    def advance(u: torch.Tensor) -> torch.Tensor:
+        return fused_rk4(u, scheme)
+
+    advance.scheme = scheme
+    return advance

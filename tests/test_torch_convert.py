@@ -1,4 +1,4 @@
-"""The committed ckpt_ks8 asset and the converter against the JAX checkpoint."""
+"""The committed assets and the converter against the JAX checkpoints."""
 
 import json
 
@@ -7,9 +7,11 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+from pde_superresolution_tpu import equations as jeq
 from pde_superresolution_tpu.training.config import TrainingConfig
 from pde_superresolution_tpu.training.loop import load_model
 from pde_superresolution_torch import convert
+from pde_superresolution_torch import equations as teq
 
 torch.set_num_threads(1)
 
@@ -64,3 +66,83 @@ def test_params_from_jax_layout_and_coefficients(jax_checkpoint):
     for d in want:
         w = np.asarray(want[d])
         np.testing.assert_allclose(got[d].numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max())
+
+
+NEW_ASSETS = [("ckpt_burgers8", 2000, ["0", "1"]), ("ckpt_kdv8", 2000, ["0", "2"])]
+
+
+@pytest.mark.parametrize("name,step,heads", NEW_ASSETS)
+def test_new_asset_equals_checkpoint(name, step, heads):
+    """The Burgers-8x and KdV-8x assets hold their checkpoints' latest step:
+    params bit-equal, config equal to the stored metadata."""
+    _, params, config = load_model(f"artifacts/{name}")
+    tree = convert.jax_tree_from_npz(convert.ASSET_DIR / f"{name}.npz")
+    assert sorted(tree["heads"]) == sorted(params["heads"]) == heads
+    for (w_a, b_a), (w_j, b_j) in zip(tree["tower"], params["tower"]):
+        np.testing.assert_array_equal(w_a, np.asarray(w_j))
+        np.testing.assert_array_equal(b_a, np.asarray(b_j))
+    for d, (w_j, b_j) in params["heads"].items():
+        np.testing.assert_array_equal(tree["heads"][d][0], np.asarray(w_j))
+        np.testing.assert_array_equal(tree["heads"][d][1], np.asarray(b_j))
+    asset = json.loads((convert.ASSET_DIR / f"{name}.json").read_text())
+    with open(f"artifacts/{name}/{step}/config/metadata") as f:
+        assert asset == json.load(f)
+    assert TrainingConfig.from_json(json.dumps(asset)) == config
+    assert name in convert.asset_names()
+
+
+@pytest.mark.parametrize("name,step,heads", NEW_ASSETS)
+def test_new_asset_rhs_matches_jax(name, step, heads):
+    """The asset's model (stencil 8, conservative, 1024 or 512 -> 128 or 64
+    points) against training.loop.load_model on a seeded state, with the
+    same numpy forcing at t = 2.5 for Burgers: float32 convolutions,
+    projection and tap sums in other orders, then a face difference over
+    dx, so 1e-5 of max|u_t| (measured 1.7e-6 and 1.5e-6)."""
+    model_j, params_j, _ = load_model(f"artifacts/{name}")
+    model_t, params_t, config = convert.load_asset(name, device="cpu")
+    assert model_t.config.stencil_size == 8 and model_t.equation.conservative
+    assert model_t.grid.size == config["fine_size"] // 8 == model_j.grid.size
+    assert model_t.equation == type(model_t.equation)(
+        conservative=True, **config["equation_params"])
+    rng = np.random.default_rng(5)
+    x = model_j.grid.x
+    u = np.stack([
+        sum(rng.uniform(-1, 1) * np.sin(2 * np.pi * k * x / model_j.equation.period
+                                        + rng.uniform(0, 2 * np.pi)) for k in (1, 2, 3))
+        for _ in range(4)
+    ]).astype(np.float32)
+    forcing_j = forcing_t = None
+    if model_j.equation.forced:
+        shape = (4, 20)
+        leaves = [
+            rng.uniform(-0.5, 0.5, shape), rng.uniform(-0.4, 0.4, shape),
+            rng.integers(3, 7, shape) * rng.choice([-1.0, 1.0], shape),
+            rng.uniform(0, 2 * np.pi, shape),
+        ]
+        leaves = [a.astype(np.float32) for a in leaves]
+        forcing_j = jeq.ForcingParams(*(jnp.asarray(a) for a in leaves))
+        forcing_t = teq.ForcingParams(*(torch.from_numpy(a) for a in leaves))
+    want = np.asarray(model_j.rhs_fn(params_j, forcing_j, use_pallas=False)(
+        jnp.asarray(u), jnp.float32(2.5)))
+    got = model_t.rhs_fn(params_t, forcing_t, use_kernel=True)(
+        torch.from_numpy(u), torch.tensor(2.5)).numpy()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < 1e-5, err
+
+
+def test_load_asset_by_path_stem_and_unknown(tmp_path):
+    """load_asset takes a committed asset's name or the path stem of a
+    .npz/.json pair, with or without a suffix; equation_params reach the
+    equation; a name that is neither raises with the list of assets."""
+    import shutil
+
+    config = json.loads((convert.ASSET_DIR / "ckpt_burgers8.json").read_text())
+    config["equation_params"] = {"eta": 0.02}
+    (tmp_path / "mine.json").write_text(json.dumps(config))
+    shutil.copy(convert.ASSET_DIR / "ckpt_burgers8.npz", tmp_path / "mine.npz")
+    for ref in (tmp_path / "mine", tmp_path / "mine.npz", tmp_path / "mine.json"):
+        model, params, loaded = convert.load_asset(str(ref), device="cpu")
+        assert model.equation.eta == 0.02 and loaded == config
+        assert params["tower.1.weight"].shape == (32, 32, 5)
+    with pytest.raises(FileNotFoundError, match="ckpt_ks8"):
+        convert.load_asset("ckpt_nothing", device="cpu")

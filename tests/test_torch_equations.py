@@ -82,6 +82,63 @@ def test_forcing_term_matches(cell_width):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("cell_width", [None, 2 * np.pi / 128])
+def test_forcing_term_batch_shaped_t(cell_width):
+    """The cell-average sinc factor (kappa w / 2 up to 0.15 at 8x
+    coarsening of Burgers) with a time per trajectory, ``t [batch]``: float32
+    sin and sinc from two libraries and a 5-term sum, so rtol 1e-5, atol
+    1e-6."""
+    rng = np.random.default_rng(4)
+    leaves = _forcing(rng, 4)
+    x = (np.arange(128) * 2 * np.pi / 128 + 0.02).astype(np.float32)
+    t = rng.uniform(0, 50, 4).astype(np.float32)
+    want = np.asarray(jeq.forcing_term(
+        jeq.ForcingParams(*map(jnp.asarray, leaves)), jnp.asarray(x), jnp.asarray(t),
+        2 * np.pi, cell_width))
+    got = teq.forcing_term(
+        teq.ForcingParams(*map(torch.from_numpy, leaves)), torch.from_numpy(x),
+        torch.from_numpy(t), 2 * np.pi, cell_width).numpy()
+    assert got.shape == want.shape == (4, 128)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["burgers", "kdv", "ks"])
+def test_linear_symbol_matches(name):
+    """Float64/complex128 numpy on both sides: equal."""
+    k = 2 * np.pi * np.fft.rfftfreq(64, d=0.37)
+    want = jeq.from_name(name).linear_symbol(k)
+    got = teq.from_name(name).linear_symbol(k)
+    assert np.asarray(got).dtype == np.asarray(want).dtype
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(NotImplementedError):
+        teq.Equation(period=1.0).linear_symbol(k)
+
+
+@pytest.mark.parametrize("name", ["burgers", "kdv", "ks"])
+@pytest.mark.parametrize("forced", [False, True])
+def test_nonlinear_term_matches(name, forced):
+    """-u u_x (times 6 for KdV), plus Burgers' point-value forcing when
+    params are given (KdV and KS ignore them): the same float32 products,
+    then a 5-term sum of libm sines, so rtol 1e-6 unforced and rtol 1e-5,
+    atol 1e-6 forced."""
+    rng = np.random.default_rng(5)
+    eq_j, eq_t = jeq.from_name(name), teq.from_name(name)
+    grid_j, grid_t = JGrid(64, eq_j.period), TGrid(64, eq_t.period)
+    u = rng.standard_normal((3, 64)).astype(np.float32)
+    u_x = rng.standard_normal((3, 64)).astype(np.float32)
+    leaves = _forcing(rng, 3)
+    fj = jeq.ForcingParams(*map(jnp.asarray, leaves)) if forced else None
+    ft = teq.ForcingParams(*map(torch.from_numpy, leaves)) if forced else None
+    want = np.asarray(eq_j.nonlinear_term(
+        jnp.asarray(u), jnp.asarray(u_x), grid_j, jnp.float32(0.9), fj))
+    got = eq_t.nonlinear_term(
+        torch.from_numpy(u), torch.from_numpy(u_x), grid_t, torch.tensor(0.9), ft).numpy()
+    if forced and name == "burgers":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
 @pytest.mark.parametrize("name,cons", FORMS)
 def test_stable_time_step_and_params_equal(name, cons):
     eq_j = jeq.from_name(name, conservative=cons)

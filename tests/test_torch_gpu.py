@@ -109,3 +109,83 @@ def test_flagship_rhs_fn_on_card_matches_cpu(cuda):
                             use_kernel=False)(torch.from_numpy(u).double(), 0.0)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("cons,size,nx,filters", [
+    (True, 6, 128, 16), (False, 5, 96, 16), (True, 8, 96, 8),
+])
+def test_forced_learned_rk4_matches_plain(cuda, cons, size, nx, filters):
+    """Burgers with in-kernel forcing from t0 = 3.7 against the plain
+    version on the same ForcingPack: both rotate the phase state with
+    separately rounded products and sum the 20 terms in term order, so the
+    forcing adds no difference of its own and the limits are the unforced
+    kernel's (STEP_TOL on one step's increment from a standard-normal
+    state, RUN_TOL after 10 steps). With 8 filters the block has one thread
+    group, which then evaluates the forcing itself. A pack whose start time
+    is ignored must fail both limits."""
+    model, params, u = _model("burgers", cons, size, cuda, nx=nx, filters=filters)
+    gen = torch.Generator().manual_seed(1)
+    forcing = model.equation.sample_forcing(gen, (8,), cuda)
+    dt = model.equation.stable_time_step(model.grid, u_scale=3.0)
+    pack = fk.pack_learned_rk4(params, model.equation, model.grid,
+                               model.config.kernel_size, model.constraint_layers,
+                               model.taps)
+    rough = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((8, nx)).astype(np.float32)).to(cuda)
+    smooth = model.equation.initial_conditions(gen, model.grid, (8,), cuda)
+    fp = fk.pack_forcing(forcing, 3.7, model.equation, model.grid, dt, 8)
+    want_inc = fk.fused_learned_rk4_plain(rough, pack, dt, 1, fp) - rough
+    want = fk.fused_learned_rk4_plain(smooth, pack, dt, 10, fp)
+    before = fk.fused_learned_rk4.launches
+    got_inc = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=forcing, t=3.7) - rough
+    got = fk.fused_learned_rk4(smooth, pack, dt, 10, forcing=fp)
+    stale = fk.fused_learned_rk4(smooth, pack, dt, 10, forcing=forcing, t=0.0)
+    torch.cuda.synchronize()
+    assert fk.fused_learned_rk4.launches == before + 3
+    torch.testing.assert_close(got_inc, want_inc, rtol=0,
+                               atol=STEP_TOL * float(want_inc.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0, atol=RUN_TOL * float(want.abs().max()))
+    assert float((stale - want).abs().max()) > 100 * RUN_TOL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("name,cons", [("ks", True), ("ks", False), ("kdv", True),
+                                       ("kdv", False)])
+@pytest.mark.parametrize("batch,nx", [(3, 96), (256, 128), (5, 1024)])
+def test_fused_rk4_matches_plain(cuda, name, cons, batch, nx):
+    """The fixed-stencil baseline kernel against its plain version, 20 RK4
+    steps: the same float32 operations in the same order, each rounded on
+    its own, so equal to a few ulps: 1e-6 of max|u|. Ragged batches leave the
+    last block partly empty (3 rows of 96 points, 2 per block)."""
+    period = teq.from_name(name).period * nx / 128  # the same dx at every nx
+    eq = teq.from_name(name, conservative=cons, period=period)
+    grid = Grid(nx, period)
+    u = 0.3 * eq.initial_conditions(torch.Generator().manual_seed(2), grid, (batch,), cuda)
+    advance = fk.make_fused_rk4(eq, grid, eq.stable_time_step(grid), 20)
+    want = fk.fused_rk4_plain(u, advance.scheme)
+    before = fk.fused_rk4.launches
+    got = advance(u)
+    torch.cuda.synchronize()
+    assert fk.fused_rk4.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * float(want.abs().max()))
+
+
+def test_run_ensemble_routes_on_card(cuda):
+    """The ensemble entry point on the card, 64 Burgers trajectories with a
+    warm-up: --fused auto takes the kernel (one launch per save), --fused
+    false takes rhs_fn steps (four fused_rhs launches per step), and the two
+    final states agree to the bf16 tower's effect (2e-3 of max|u|, the JAX
+    package's bound for its kernel against a float32 tower)."""
+    from pde_superresolution_torch.scripts import run_ensemble
+
+    args = ["--checkpoint_dir", "ckpt_burgers8", "--num_trajectories", "64",
+            "--time_max", "0.1", "--warmup_time", "0.2", "--num_saves", "3"]
+    fk.fused_learned_rk4.launches = fk.fused_rhs.launches = 0
+    fused = run_ensemble.main(args)
+    assert fused["path"] == "fused kernel" and fused["reason"].startswith("auto: cuda")
+    assert (fk.fused_learned_rk4.launches, fk.fused_rhs.launches) == (3, 0)
+    steps = run_ensemble.main(args + ["--fused", "false"])
+    assert steps["path"] == "rhs_fn steps"
+    assert fk.fused_rhs.launches == 4 * steps["num_steps"]
+    assert fused["finite"] == steps["finite"] == 64
+    torch.testing.assert_close(fused["final"], steps["final"], rtol=0,
+                               atol=2e-3 * float(steps["final"].abs().max()))

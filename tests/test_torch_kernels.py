@@ -10,6 +10,7 @@ import jax
 import jax.numpy as jnp
 
 from pde_superresolution_tpu import equations as jeq
+from pde_superresolution_tpu import integrate as jint
 from pde_superresolution_tpu.grids import Grid as JGrid
 from pde_superresolution_tpu.models import ModelConfig as JConfig
 from pde_superresolution_tpu.models import StencilModel as JModel
@@ -17,6 +18,7 @@ from pde_superresolution_tpu.ops import pallas_kernels as pk
 from pde_superresolution_tpu.training.loop import load_model
 from pde_superresolution_torch import convert
 from pde_superresolution_torch import equations as teq
+from pde_superresolution_torch import integrate as tint
 from pde_superresolution_torch.grids import Grid as TGrid
 from pde_superresolution_torch.models import ModelConfig as TConfig
 from pde_superresolution_torch.models import StencilModel as TModel
@@ -161,7 +163,8 @@ def test_fused_learned_rk4_wrapper_checks():
     assert fk.fused_learned_rk4.launches == before
     forcing = teq.from_name("burgers").sample_forcing(
         torch.Generator().manual_seed(0), (2,), "cpu")
-    with pytest.raises(NotImplementedError, match="forced fused learned RK4"):
+    # forcing for an unforced equation raises at the call, as in JAX
+    with pytest.raises(ValueError, match="unforced"):
         model.fused_rk4_fn(params, 1e-3, 2, forcing=forcing)(u)
     with pytest.raises(ValueError, match="forward only"):
         advance(u.clone().requires_grad_())
@@ -173,6 +176,190 @@ def test_fused_learned_rk4_wrapper_checks():
                      TGrid(NX, 2 * np.pi), TConfig(stencil_size=6), device="cpu")
     with pytest.raises(ValueError, match="forced"):
         burgers.fused_rk4_fn(burgers.init_params(torch.Generator()), 1e-3, 1)
+
+
+def _numpy_forcing(seed, batch, terms=20):
+    rng = np.random.default_rng(seed)
+    shape = (batch, terms)
+    return (
+        rng.uniform(-0.5, 0.5, shape).astype(np.float32),
+        rng.uniform(-0.4, 0.4, shape).astype(np.float32),
+        (rng.integers(3, 7, shape) * rng.choice([-1.0, 1.0], shape)).astype(np.float32),
+        rng.uniform(0, 2 * np.pi, shape).astype(np.float32),
+    )
+
+
+T0 = 3.7  # a start time after a warm-up: omega t0 is up to 1.5 rad
+
+
+@pytest.mark.parametrize("cons,size", [(True, 6), (False, 5)])
+def test_forced_learned_rk4_plain_matches_pallas(cons, size):
+    """Burgers with the forcing evaluated inside the step, from t0 = 3.7:
+    fused_learned_rk4_plain (rotated phase state, sum over 20 terms in term
+    order) against the Pallas kernel in interpret mode on the same numpy
+    ForcingParams, 3 RK4 steps of a small perturbed model. Both pack
+    theta0 = omega t0 + kappa x + phi and its sin and cos in float32; the sums
+    over terms run in another order. 1e-4 of max|u|, as for the unforced
+    kernel (measured 7.7e-8; without the forcing 3.3e-2). The port's own
+    rhs_fn + rk4_step (float32 tower, forcing from sin at each stage's time)
+    bounds it at 2e-3, the JAX package's bound for its kernel against a
+    float32 tower (measured 7.3e-6)."""
+    model_j, tree, model_t, params_t, u = _pair("burgers", cons, size)
+    leaves = _numpy_forcing(21, BATCH)
+    forcing_j = jeq.ForcingParams(*(jnp.asarray(a) for a in leaves))
+    forcing_t = teq.ForcingParams(*(torch.from_numpy(a) for a in leaves))
+    dt = model_j.equation.stable_time_step(model_j.grid, u_scale=3.0)
+    adv_j = model_j.fused_rk4_fn(tree, dt, 3, batch_tile=8, interpret=True,
+                                 forcing=forcing_j, t0=T0)
+    want = np.asarray(adv_j(jnp.asarray(u)))
+    got = model_t.fused_rk4_fn(params_t, dt, 3, forcing=forcing_t, t0=T0)(
+        torch.from_numpy(u)).numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-4
+    # the forcing matters at this tolerance: without it the state differs
+    unforced = fk.fused_learned_rk4_plain(
+        torch.from_numpy(u), model_t.fused_rk4_fn(params_t, dt, 3, forcing=forcing_t).pack,
+        dt, 3).numpy()
+    assert np.abs(unforced - want).max() / np.abs(want).max() > 1e-3
+    rhs = model_t.rhs_fn(params_t, forcing_t, use_kernel=False)
+    ref, t = torch.from_numpy(u), torch.tensor(T0)
+    for _ in range(3):
+        ref = tint.rk4_step(rhs, ref, t, dt)
+        t = t + dt
+    assert np.abs(got - ref.numpy()).max() / np.abs(ref.numpy()).max() < 2e-3
+
+
+def test_fused_rk4_fn_advance_honours_t():
+    """advance(u, t) starts the forcing's phase at t (default: the closure's
+    t0), as the JAX advance does; integrate_fused hands every save interval
+    its own start time, so two intervals equal one call of twice the steps
+    to rounding (1e-6 of max|u|, measured 7.7e-8: the phase state is rebuilt
+    from sin and cos at the interval's start instead of rotated there)."""
+    _, _, model, params, u = _pair("burgers", True, 6)
+    leaves = _numpy_forcing(22, BATCH)
+    forcing = teq.ForcingParams(*(torch.from_numpy(a) for a in leaves))
+    dt = model.equation.stable_time_step(model.grid, u_scale=3.0)
+    u = torch.from_numpy(u)
+    at_zero = model.fused_rk4_fn(params, dt, 2, forcing=forcing)
+    at_t0 = model.fused_rk4_fn(params, dt, 2, forcing=forcing, t0=T0)
+    torch.testing.assert_close(at_zero(u, T0), at_t0(u), rtol=0, atol=0)
+    torch.testing.assert_close(at_zero(u, torch.tensor(T0)), at_t0(u), rtol=0, atol=0)
+    assert float((at_zero(u) - at_t0(u)).abs().max()) > 1e-4
+    _, traj = tint.integrate_fused(at_zero, u, dt, 4, 2, t0=T0)
+    whole = model.fused_rk4_fn(params, dt, 4, forcing=forcing, t0=T0)(u)
+    assert float((traj[-1] - whole).abs().max() / whole.abs().max()) < 1e-6
+
+
+def test_pack_forcing_matches_forcing_term_and_checks():
+    """The pack's amplitude x sin0 summed over terms is forcing_term at t0
+    (cell-averaged for a conservative scheme); one rotation is the forcing
+    half a step later, to float32 rounding of the phase and the angle
+    addition (atol 1e-5 on values of order 1; measured 4.1e-6 and 4.7e-6).
+    Leaves that are not float32 tensors of a broadcastable shape raise."""
+    eq = teq.from_name("burgers", conservative=True)
+    grid = TGrid(8 * NX, eq.period).resample(8, conservative=True)
+    leaves = [torch.from_numpy(a) for a in _numpy_forcing(23, 4)]
+    forcing = teq.ForcingParams(*leaves)
+    dt = 0.01
+    fp = fk.pack_forcing(forcing, T0, eq, grid, dt, 4)
+    assert fp.sin0.shape == fp.cos0.shape == (4, 20, NX) and fp.amplitude.shape == (4, 20)
+    x = torch.as_tensor(grid.x, dtype=torch.float32)
+    want = teq.forcing_term(forcing, x, T0, eq.period, grid.dx)
+    torch.testing.assert_close(fk._force(fp, fp.sin0), want, rtol=0, atol=1e-5)
+    s1, _ = fk._rotate(fp, fp.sin0, fp.cos0)
+    want_half = teq.forcing_term(forcing, x, T0 + dt / 2, eq.period, grid.dx)
+    torch.testing.assert_close(fk._force(fp, s1), want_half, rtol=0, atol=1e-5)
+    shared = teq.ForcingParams(*(leaf[:1] for leaf in leaves))  # [1, terms] broadcasts
+    torch.testing.assert_close(
+        fk.pack_forcing(shared, T0, eq, grid, dt, 4).sin0[3], fp.sin0[0], rtol=0, atol=0)
+    with pytest.raises(TypeError, match="float32"):
+        fk.pack_forcing(forcing._replace(omega=leaves[1].double()), T0, eq, grid, dt, 4)
+    with pytest.raises(ValueError, match="broadcast"):
+        fk.pack_forcing(forcing, T0, eq, grid, dt, 5)
+
+
+def test_forced_wrapper_checks():
+    _, _, model, params, u = _pair("burgers", True, 6)
+    u = torch.from_numpy(u)
+    forcing = teq.ForcingParams(*(torch.from_numpy(a) for a in _numpy_forcing(24, BATCH)))
+    advance = model.fused_rk4_fn(params, 1e-3, 1, forcing=forcing)
+    before = fk.fused_learned_rk4.launches
+    advance(u)
+    assert fk.fused_learned_rk4.launches == before  # the CPU runs the plain version
+    with pytest.raises(ValueError, match="forcing required"):
+        fk.fused_learned_rk4(u, advance.pack, 1e-3, 1)
+    fp = fk.pack_forcing(forcing, 0.0, model.equation, model.grid, 1e-3, BATCH)
+    torch.testing.assert_close(
+        fk.fused_learned_rk4(u, advance.pack, 1e-3, 1, forcing=fp), advance(u), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="shape"):
+        fk.fused_learned_rk4(u[:4].contiguous(), advance.pack, 1e-3, 1, forcing=fp)
+    with pytest.raises(ValueError, match="broadcast"):
+        advance(u[:5].contiguous())
+    assert fk.learned_rk4_refusal(advance.pack, NX, 20) is None
+    assert "threads" in fk.learned_rk4_refusal(advance.pack, 2048, 20)
+    threads, smem = fk.learned_rk4_launch(advance.pack, NX, 20)
+    assert threads == NX and smem == 4 * (
+        advance.pack.flat.numel() + (2 * 8 + 2) * NX + NX + 60 + 40 * NX)
+    assert "shared memory" in fk.learned_rk4_refusal(advance.pack, NX, 20, shared_limit=smem - 1)
+
+
+@pytest.mark.parametrize("name,cons", [("ks", True), ("kdv", False), ("kdv", True),
+                                       ("ks", False)])
+def test_fused_rk4_plain_matches_pallas(name, cons):
+    """The fixed-stencil baseline, 10 RK4 steps: fused_rk4_plain against
+    make_fused_rk4(interpret=True), the same float32 tap sums in the same
+    order from the same float64 coefficients: 2e-6 of max|u| (measured
+    2.0e-7). Against the port's PolynomialDifferentiator + integrate, whose tap
+    sums run in another order: the JAX package's own bound for that pair,
+    rtol 2e-4 and atol 1e-5."""
+    eq_j, eq_t = jeq.from_name(name, conservative=cons), teq.from_name(name, conservative=cons)
+    grid_j, grid_t = JGrid(NX, eq_j.period), TGrid(NX, eq_t.period)
+    rng = np.random.default_rng(31)
+    x = grid_j.x
+    u = 0.3 * np.stack([
+        sum(rng.uniform(-1, 1) * np.sin(2 * np.pi * k * x / eq_j.period
+                                        + rng.uniform(0, 2 * np.pi)) for k in (1, 2, 3))
+        for _ in range(BATCH)
+    ]).astype(np.float32)
+    dt = eq_j.stable_time_step(grid_j)
+    want = np.asarray(pk.make_fused_rk4(eq_j, grid_j, dt, 10, interpret=True)(jnp.asarray(u)))
+    advance = fk.make_fused_rk4(eq_t, grid_t, dt, 10)
+    before = fk.fused_rk4.launches
+    got = advance(torch.from_numpy(u)).numpy()
+    assert fk.fused_rk4.launches == before  # the CPU runs the plain version
+    assert np.abs(got - want).max() / np.abs(want).max() < 2e-6
+    rhs = tint.PolynomialDifferentiator(eq_t, grid_t, device="cpu").rhs_fn()
+    _, traj = tint.integrate(rhs, torch.from_numpy(u), dt, 10, 10)
+    np.testing.assert_allclose(got, traj[-1].numpy(), rtol=2e-4, atol=1e-5)
+
+
+def test_fused_rk4_options_and_checks():
+    """accuracy_order and stencil_size reach the coefficients as in the JAX
+    factory; forced equations and wrong inputs raise."""
+    eq_j, eq_t = jeq.from_name("ks", conservative=True), teq.from_name("ks", conservative=True)
+    grid_j, grid_t = JGrid(NX, eq_j.period), TGrid(NX, eq_t.period)
+    u = (0.2 * np.sin(2 * np.pi * grid_j.x / eq_j.period))[None].repeat(BATCH, 0).astype(np.float32)
+    dt = eq_j.stable_time_step(grid_j)
+    for kwargs in ({"accuracy_order": 4}, {"stencil_size": 6}):
+        want = np.asarray(pk.make_fused_rk4(eq_j, grid_j, dt, 2, interpret=True, **kwargs)(
+            jnp.asarray(u)))
+        advance = fk.make_fused_rk4(eq_t, grid_t, dt, 2, **kwargs)
+        got = advance(torch.from_numpy(u)).numpy()
+        assert np.abs(got - want).max() / np.abs(want).max() < 2e-6
+    assert len(advance.scheme.taps[0]) == 6 and advance.scheme.num_steps == 2
+    burgers = teq.from_name("burgers")
+    with pytest.raises(ValueError, match="unforced"):
+        fk.make_fused_rk4(burgers, TGrid(NX, burgers.period), 0.01, 5)
+    u_t = torch.from_numpy(u)
+    with pytest.raises(TypeError, match="float32"):
+        advance(u_t.double())
+    with pytest.raises(ValueError, match=r"\[batch, nx\]"):
+        advance(u_t[0])
+    with pytest.raises(ValueError, match="grid"):
+        advance(u_t[:, :64].contiguous())
+    with pytest.raises(ValueError, match="forward only"):
+        advance(u_t.clone().requires_grad_())
+    with pytest.raises(ValueError, match="kernel limit"):
+        fk.make_fused_rk4(eq_t, grid_t, dt, 1, stencil_size=18)
 
 
 def test_pack_rejects_even_kernel():
