@@ -12,7 +12,6 @@ ported yet.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Callable, Mapping, Optional
 
 import numpy as np
@@ -301,11 +300,6 @@ class SpectralETDRK4:
         return c["e"] * v_hat + c["f1"] * nv + 2 * c["f2"] * (na + nb) + c["f3"] * nc
 
 
-@functools.lru_cache(maxsize=32)
-def _stepper(equation, grid, dt, device, dtype) -> SpectralETDRK4:
-    return SpectralETDRK4.create(equation, grid, dt, device, dtype)
-
-
 def integrate_spectral(
     equation: Equation,
     grid: Grid,
@@ -320,15 +314,15 @@ def integrate_spectral(
 
     A plain loop over ``step_hat`` under ``torch.no_grad()``, on ``u0``'s
     device; the time is carried as a ``u0.dtype`` scalar tensor, advanced by
-    ``dt`` per step. The stepper (coefficients on the device) is cached per
-    (equation, grid, dt, device, dtype).
+    ``dt`` per step. The stepper (coefficients on the device) is built at
+    every call.
 
     Returns (times [S+1], trajectory [S+1, *u0.shape]).
     """
     if num_steps % save_every:
         raise ValueError(f"{num_steps=} not divisible by {save_every=}")
     num_saves = num_steps // save_every
-    stepper = _stepper(equation, grid, float(dt), u0.device, u0.dtype)
+    stepper = SpectralETDRK4.create(equation, grid, float(dt), u0.device, u0.dtype)
     with torch.no_grad():
         v = torch.fft.rfft(u0)
         t = torch.as_tensor(t0, dtype=u0.dtype, device=u0.device)

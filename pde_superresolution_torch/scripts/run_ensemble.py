@@ -115,6 +115,8 @@ def setup(args: argparse.Namespace) -> Ensemble:
 
 def choose_route(fused: str, ensemble: Ensemble, pack) -> tuple[bool, str]:
     """(take the fused route, why), from the device and the shapes alone.
+    ``pack`` is the fused kernel's packed weights; ``--fused false`` does
+    not read it.
 
     The kernel takes a shape when ``filters / 8 x nx <= 1024`` threads and
     its shared-memory need fits the card's opt-in limit per block.
@@ -179,8 +181,12 @@ def main(argv=None) -> dict:
     # set-up outside the timed region: the weights' pack, the route, and the
     # kernels' build on first use
     start = time.perf_counter()
-    advance = model.fused_rk4_fn(params, dt, save_every, forcing=forcing, t0=t0)
-    fused, reason = choose_route(args.fused, ensemble, advance.pack)
+    advance = None
+    if args.fused == "false":
+        fused, reason = choose_route(args.fused, ensemble, None)
+    else:
+        advance = model.fused_rk4_fn(params, dt, save_every, forcing=forcing, t0=t0)
+        fused, reason = choose_route(args.fused, ensemble, advance.pack)
     if device.type == "cuda":
         from pde_superresolution_torch.ops import _build
 
