@@ -109,7 +109,7 @@ def load_library() -> ctypes.CDLL:
         ptr, ptr, ptr,  # u, weights, out
         i32, i32,  # batch, num_steps
         ctypes.POINTER(i32),  # meta: see fused_learned_rk4.cu
-        ctypes.POINTER(i32),  # n_weights, then the weight blocks' offsets
+        ctypes.POINTER(i32),  # the weights' bytes, then the blocks' byte offsets
         ctypes.POINTER(f32),  # dx, eta, dt/2, dt, dt/6
         ctypes.POINTER(ptr),  # forcing: amp, rot_c, rot_s, sin0, cos0
         i32,  # shared-memory bytes

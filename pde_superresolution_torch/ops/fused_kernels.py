@@ -9,7 +9,9 @@ The counterpart of ``pde_superresolution_tpu/ops/pallas_kernels.py``:
   * ``fused_learned_rk4`` (``csrc/fused_learned_rk4.cu``, replaces
     ``make_fused_learned_rk4``): ``num_steps`` whole RK4 steps of the learned
     model in one launch (tower, heads, constraint projection, stencil, flux,
-    all four stages), one thread block per trajectory. For a forced equation
+    all four stages). The tower and the heads run on the tensor cores
+    (``wgmma`` and ``mma.sync`` on bf16, float32 sums); a warp group owns a
+    trajectory and a block holds up to four of them. For a forced equation
     (Burgers) the sum-of-sinusoids forcing is evaluated in the kernel from a
     ``ForcingPack``: per-term (sin, cos) phase state advanced by a planar
     rotation per half step.
@@ -40,13 +42,17 @@ from pde_superresolution_torch.grids import Grid
 
 EQUATION_CODES = {"burgers": 0, "kdv": 1, "ks": 2}
 MAX_ORDERS = 3
-# fused_learned_rk4.cu's compile-time limits (kChannelsPerThread, kMaxFree,
-# kMaxLayers)
-CHANNELS_PER_THREAD = 8
-MAX_FREE = 24
+# fused_learned_rk4.cu's compile-time limits (kMaxLayers, kMaxTeams,
+# kMaxTeamWarps) and the tower widths it is instantiated for
 MAX_LAYERS = 16
+MAX_TEAMS = 4  # trajectories per block
+MAX_TEAMS_FORCED = 4  # the same for a forced equation (kMaxTeamsForced)
+TEAM_THREADS = 128  # one warp group owns a trajectory (kTeamThreads)
+U_HALO = 8  # periodic copies at both ends of the state in shared memory (kHalo)
+PADDED_CHANNELS = (16, 32, 64)
 MAX_THREADS = 1024
 MAX_SHARED_BYTES = 232448  # opt-in shared memory per block on sm_90
+NUM_SMS = 132  # H100: a launch should have at least this many blocks
 # fused_rk4.cu's compile-time limit (kMaxTaps) and its block size target
 MAX_TAPS = 16
 RK4_BLOCK_THREADS = 256
@@ -178,28 +184,72 @@ fused_rhs.launches = 0
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
-    """Round to bfloat16 (nearest even) and back to float32."""
-    return x.to(torch.bfloat16).to(torch.float32)
+    """Round to bfloat16 (nearest even) and back to ``x``'s dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def _align4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
+def _pad_to(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x`` in the leading corner of zeros of ``shape``."""
+    out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    out[tuple(slice(n) for n in x.shape)] = x
+    return out
+
+
+def _fragment_order(b: torch.Tensor) -> torch.Tensor:
+    """``b [depth, n]`` (depth a multiple of 16, n of 8) as bf16 in the order
+    ``mma.sync.m16n8k16``'s ``.col`` B operand wants it: for each depth step
+    of 16 and each tile of 8 columns, lane ``4 g + q`` holds ``b[2 q + 8 r +
+    e, g]`` of that tile at position ``2 r + e``: 8 bytes that one thread
+    loads at once, consecutive lanes at consecutive addresses."""
+    depth, n = b.shape
+    tiles = b.reshape(depth // 16, 2, 4, 2, n // 8, 8)  # step, r, q, e, tile, g
+    return tiles.permute(0, 4, 5, 2, 1, 3).reshape(-1).to(torch.bfloat16)
+
+
+def _wgmma_order(b: torch.Tensor) -> torch.Tensor:
+    """``b [depth, n]`` (depth a multiple of 16, n of 8) as bf16 the way
+    ``wgmma`` reads its B operand from shared memory without swizzle: per
+    depth step of 16, two halves of 8 depth values, each ``[n][8]`` (16 bytes
+    a row, 8 rows a core matrix): ``[step][half][n][8]``. The descriptor
+    gives 16 n bytes between the halves and 128 between core matrices."""
+    depth, n = b.shape
+    return b.reshape(depth // 16, 2, 8, n).permute(0, 1, 3, 2).reshape(-1).to(torch.bfloat16)
+
+
 @dataclasses.dataclass(frozen=True)
 class LearnedRK4Pack:
-    """The learned model's weights in the fused kernel's layout.
+    """The learned model's weights, for the plain version and for the kernel.
 
-    ``flat`` is one float32 buffer of blocks, each starting at a multiple of
-    4 floats; ``offsets`` holds the start of each block, in buffer order:
-    per tower layer ``w [K*Cin, C]`` then ``b [C]``, then ``head_w [C, F]``,
-    ``head_b [F]``, ``c0 [S]`` and ``pn [S, F]``. The kernel reads the
-    offsets and nothing else of the layout. The properties are views into
-    ``flat`` in the plain version's orientation: ``tower[l] = (w [Co,
-    K*Cin], b [Co])`` with the contraction index ``k*Cin + ci``, ``head_w
-    [F, C]`` stacking the heads of the sorted orders. Tower and head weights
-    hold bf16-rounded values; biases, ``c0`` and the block-diagonal ``pn``
-    (scale folded in) are float32.
+    ``flat`` is one float32 buffer of blocks at the model's own width, each
+    starting at a multiple of 4 floats; ``offsets`` holds the start of each
+    block, in buffer order: per tower layer ``w [K*Cin, C]`` then ``b [C]``,
+    then ``head_w [C, F]``, ``head_b [F]``, ``c0 [S]`` and ``pn [S, F]``. The
+    properties are views into ``flat`` in the plain version's orientation:
+    ``tower[l] = (w [Co, K*Cin], b [Co])`` with the contraction index
+    ``k*Cin + ci``, ``head_w [F, C]`` stacking the heads of the sorted
+    orders. Tower and head weights hold bf16-rounded values; biases, ``c0``
+    and the block-diagonal ``pn`` (scale folded in) are float32.
+
+    ``blob`` is the kernel's buffer (bytes; ``blob_offsets`` the byte offset
+    of each block, a multiple of 128, in the same order). The channels are
+    zero-padded to ``padded_channels`` (16, 32 or 64) and the free dims to a
+    multiple of 8: zero weights and biases add exact zeros. Per layer the
+    weights ``w [depth, padded_channels]`` are bf16: layer 0 (depth = the K
+    taps padded to 16) in the order of ``mma.m16n8k16``'s B fragments
+    (``_fragment_order``), every later layer (depth index ``k *
+    padded_channels + ci``) as ``wgmma`` reads it from shared memory
+    (``_wgmma_order``); then the float32 bias ``[padded_channels]``. The
+    heads are the fragments of ``head_w [padded_channels, padded F]`` and the
+    float32 ``head_b [padded F]``. The last block is the projection,
+    float32: per order and per block of 8 stencil rows, ``c0 [8]`` then the
+    rows' part of ``pn`` transposed, ``[count, 8]``, both zero-padded to 8
+    rows. ``free_ranges[i] = (first, count, start)`` are the columns of
+    ``pn`` that the i-th order's rows use (the rest of those rows is zero)
+    and the float index of the order's first row block in that block.
     """
 
     equation: Equation
@@ -212,6 +262,10 @@ class LearnedRK4Pack:
     n_rows: int
     flat: torch.Tensor
     offsets: tuple
+    padded_channels: int
+    free_ranges: tuple
+    blob: torch.Tensor
+    blob_offsets: tuple
 
     def _block(self, i: int, *shape: int) -> torch.Tensor:
         start = self.offsets[i]
@@ -311,17 +365,65 @@ def pack_learned_rk4(
         flat = torch.zeros(n, device=device)
         for start, blk in zip(offsets, blocks):
             flat[start : start + blk.numel()] = blk.reshape(-1)
+
+        # the kernel's buffer: the same blocks, zero-padded, the matmul
+        # weights as bf16 in the tensor-core operands' orders
+        channels = blocks[1].numel()
+        cp = next((c for c in PADDED_CHANNELS if c >= channels), -(-channels // 16) * 16)
+        fp = -(-f_tot // 8) * 8
+        k = kernel_size
+        kernel_blocks = []
+        for i in range(n_layers):
+            w, b = blocks[2 * i], blocks[2 * i + 1]
+            if i == 0:
+                padded = _pad_to(w, -(-k // 16) * 16, cp)
+            else:
+                padded = _pad_to(w.view(k, channels, channels), k, cp, cp).reshape(k * cp, cp)
+            order = _fragment_order if i == 0 else _wgmma_order
+            kernel_blocks += [order(padded), _pad_to(b, cp)]
+        # projection: per order, per block of 8 stencil rows, c0 [8] then
+        # the rows' columns of pn transposed [free dims of the order][8]
+        tail, proj_starts, row, first = [], [], 0, 0
+        for blk in proj:
+            proj_starts.append(sum(t.numel() for t in tail))
+            size, count = blk.shape
+            for r in range(0, size, 8):
+                rows = slice(row + r, row + min(r + 8, size))
+                tail += [_pad_to(blocks[-2][rows], 8),
+                         _pad_to(blocks[-1][rows, first : first + count].t(), count, 8)]
+            row += size
+            first += count
+        kernel_blocks += [
+            _fragment_order(_pad_to(blocks[-4], cp, fp)), _pad_to(blocks[-3], fp),
+            torch.cat([t.reshape(-1) for t in tail]),
+        ]
+        blob_offsets, n = [], 0
+        for blk in kernel_blocks:
+            blob_offsets.append(n)
+            n += -(-blk.numel() * blk.element_size() // 128) * 128
+        blob = torch.zeros(n, dtype=torch.uint8, device=device)
+        for start, blk in zip(blob_offsets, kernel_blocks):
+            raw = blk.contiguous().reshape(-1).view(torch.uint8)
+            blob[start : start + raw.numel()] = raw
+        free_ranges, first = [], 0
+        for start, blk in zip(proj_starts, proj):
+            free_ranges.append((first, blk.shape[1], start))
+            first += blk.shape[1]
     return LearnedRK4Pack(
         equation=equation,
         grid=grid,
         kernel_size=kernel_size,
         taps={d: tuple(taps[d]) for d in orders},
-        channels=blocks[1].numel(),
+        channels=channels,
         num_layers=n_layers,
         n_free=f_tot,
         n_rows=s_tot,
         flat=flat,
         offsets=tuple(offsets),
+        padded_channels=cp,
+        free_ranges=tuple(free_ranges),
+        blob=blob,
+        blob_offsets=tuple(blob_offsets),
     )
 
 
@@ -466,17 +568,54 @@ def fused_learned_rk4_plain(
     return u
 
 
-def learned_rk4_launch(pack: LearnedRK4Pack, nx: int, terms: int = 0) -> tuple:
-    """(threads per block, dynamic shared-memory bytes) of a
-    ``fused_learned_rk4`` launch: ``filters / 8`` threads per grid point; the
-    weights, the stage input, the face fluxes and two activation buffers
-    and, for a forced equation with ``terms`` sinusoids, the forcing value,
-    three per-term constants and the (sin, cos) phase state per point."""
-    threads = pack.channels // CHANNELS_PER_THREAD * nx
-    floats = pack.flat.numel() + (2 * pack.channels + 2) * nx
+class LearnedRK4Launch(NamedTuple):
+    """Geometry of one ``fused_learned_rk4`` launch."""
+
+    teams: int  # trajectories per block, one warp group (128 threads) each
+    threads: int  # per block
+    team_bytes: int  # shared memory of one trajectory
+    shared_bytes: int  # dynamic shared memory of a block: weights + teams
+    blocks: int
+
+
+def _team_bytes(pack: LearnedRK4Pack, nx: int, terms: int) -> int:
+    """Shared memory of one trajectory (fused_learned_rk4.cu counts the same
+    in ``team_bytes_needed``): two bf16 activation buffers of one plane per
+    8 channels, ``[rows + K, 8]`` each (rows: nx rounded up to 64; K - 1
+    halo rows for the periodic wrap and a dump row), four float32 rows
+    (stage input with 8 halo points at each end, fluxes, the step's start
+    value, the k sum), a ``[32, F | 1]`` tile per warp for the head outputs
+    and, forced, the forcing value, four floats of constants per term and
+    the (sin, cos) phase state per point."""
+    rows = -(-nx // 64) * 64
+    planes = pack.padded_channels // 8
+    n = (2 * planes * (rows + pack.kernel_size) * 16 + 4 * (4 * rows + 2 * U_HALO)
+         + 4 * 32 * (pack.n_free | 1) * 4)
     if terms:
-        floats += nx + 3 * terms + 2 * terms * nx
-    return threads, 4 * floats
+        n += 4 * rows + 16 + 16 * terms + 8 * terms * nx
+    return -(-n // 128) * 128
+
+
+def learned_rk4_launch(
+    pack: LearnedRK4Pack, nx: int, terms: int = 0, batch: int = NUM_SMS * MAX_TEAMS,
+    shared_limit: int = MAX_SHARED_BYTES,
+) -> LearnedRK4Launch:
+    """The launch of ``fused_learned_rk4`` for ``batch`` trajectories of
+    ``nx`` points (``terms`` forcing sinusoids). A warp group owns a
+    trajectory. A block holds one copy of the weights and as many
+    trajectories as fit the shared-memory limit, at most 4, but no more than
+    leave the launch ``NUM_SMS`` blocks: a small batch spreads over the
+    card, a large one shares the weights. ``teams`` is 0 when not even one
+    fits (``learned_rk4_refusal`` says so)."""
+    team_bytes = _team_bytes(pack, nx, terms)
+    weights = pack.blob.numel()
+    fit = max(0, shared_limit - weights) // team_bytes
+    teams = min(MAX_TEAMS_FORCED if terms else MAX_TEAMS, fit, max(1, batch // NUM_SMS))
+    return LearnedRK4Launch(
+        teams=teams, threads=TEAM_THREADS * teams, team_bytes=team_bytes,
+        shared_bytes=weights + max(1, teams) * team_bytes,
+        blocks=-(-batch // max(1, teams)),
+    )
 
 
 def learned_rk4_refusal(
@@ -484,20 +623,21 @@ def learned_rk4_refusal(
     shared_limit: int = MAX_SHARED_BYTES,
 ) -> Optional[str]:
     """Why the kernel cannot take this shape, or None if it can. The limits
-    are the kernel's compile-time bounds, 1024 threads per block, and the
-    opt-in shared memory of one block (232448 bytes on sm_90)."""
+    are the kernel's compile-time bounds and the opt-in shared memory of one
+    block (232448 bytes on sm_90), which must hold the weights and one
+    trajectory."""
     if pack.num_layers > MAX_LAYERS:
         return f"{pack.num_layers} tower layers > kernel limit {MAX_LAYERS}"
-    if pack.channels % CHANNELS_PER_THREAD:
-        return f"filters must be a multiple of {CHANNELS_PER_THREAD}, got {pack.channels}"
-    if pack.n_free > MAX_FREE:
-        return f"{pack.n_free} free dims > kernel limit {MAX_FREE}"
-    threads, smem = learned_rk4_launch(pack, nx, terms)
-    if threads > MAX_THREADS:
-        return (f"nx={nx} with {pack.channels} filters needs {threads} threads "
-                f"per block > {MAX_THREADS}")
-    if smem > shared_limit:
-        return (f"needs {smem} bytes of shared memory per block > the "
+    if pack.padded_channels not in PADDED_CHANNELS:
+        return f"{pack.channels} filters > kernel limit {PADDED_CHANNELS[-1]}"
+    if nx < 32:
+        return f"nx={nx} < 32"
+    reach = max(pack.kernel_size // 2, *(abs(t) for taps in pack.taps.values() for t in taps))
+    if reach > U_HALO:
+        return f"conv kernel or stencil reaches {reach} points > the halo of {U_HALO}"
+    launch = learned_rk4_launch(pack, nx, terms, shared_limit=shared_limit)
+    if launch.teams < 1:
+        return (f"needs {launch.shared_bytes} bytes of shared memory per block > the "
                 f"limit of {shared_limit}")
     return None
 
@@ -527,8 +667,8 @@ def fused_learned_rk4(
         raise ValueError(f"u must be [batch, nx], got shape {tuple(u.shape)}")
     batch, nx = u.shape
     _check_f32("u", u, (batch, nx), u.device)
-    if pack.flat.device != u.device:
-        raise ValueError(f"weights are on {pack.flat.device}, u on {u.device}")
+    if pack.blob.device != u.device:
+        raise ValueError(f"weights are on {pack.blob.device}, u on {u.device}")
     _check_forward_only([u])
     if num_steps < 0:
         raise ValueError(f"num_steps must be >= 0, got {num_steps}")
@@ -549,9 +689,9 @@ def fused_learned_rk4(
     refusal = learned_rk4_refusal(pack, nx, terms)
     if refusal:
         raise ValueError(refusal)
-    if pack.flat.data_ptr() % 16:
+    if pack.blob.data_ptr() % 16:
         raise ValueError("packed weights must be 16-byte aligned")
-    _, smem = learned_rk4_launch(pack, nx, terms)
+    launch = learned_rk4_launch(pack, nx, terms, batch)
     orders = list(pack.taps)
 
     from pde_superresolution_torch.ops import _build
@@ -559,16 +699,20 @@ def fused_learned_rk4(
     lib = _build.load_library()
     out = torch.empty_like(u)
     pad = [0] * (MAX_ORDERS - len(orders))
-    meta = (ctypes.c_int * 16)(
+    meta = (ctypes.c_int * 26)(
         EQUATION_CODES[pack.equation.name],
         int(pack.equation.conservative),
-        nx, pack.channels, pack.kernel_size, pack.num_layers, pack.n_free, pack.n_rows,
+        nx, pack.padded_channels, pack.kernel_size, pack.num_layers, pack.n_free,
         len(orders),
         *[len(pack.taps[d]) for d in orders], *pad,
         *[pack.taps[d][0] for d in orders], *pad,
-        terms,
+        *[first for first, _, _ in pack.free_ranges], *pad,
+        *[count for _, count, _ in pack.free_ranges], *pad,
+        *[start for _, _, start in pack.free_ranges], *pad,
+        terms, launch.teams, launch.team_bytes,
     )
-    offsets = (ctypes.c_int * (1 + len(pack.offsets)))(pack.flat.numel(), *pack.offsets)
+    offsets = (ctypes.c_int * (1 + len(pack.blob_offsets)))(
+        pack.blob.numel(), *pack.blob_offsets)
     scalars = (ctypes.c_float * 5)(
         pack.grid.dx, float(getattr(pack.equation, "eta", 0.0)),
         0.5 * dt, dt, dt / 6.0,
@@ -577,8 +721,8 @@ def fused_learned_rk4(
         *([leaf.data_ptr() for leaf in forcing] if forcing is not None else [None] * 5)
     )
     code = lib.pde_fused_learned_rk4(
-        u.data_ptr(), pack.flat.data_ptr(), out.data_ptr(), batch, num_steps,
-        meta, offsets, scalars, forcing_ptrs, smem, _stream(u.device),
+        u.data_ptr(), pack.blob.data_ptr(), out.data_ptr(), batch, num_steps,
+        meta, offsets, scalars, forcing_ptrs, launch.shared_bytes, _stream(u.device),
     )
     _raise_on_cuda_error(code, "fused_learned_rk4 launch")
     fused_learned_rk4.launches += 1

@@ -118,8 +118,9 @@ def choose_route(fused: str, ensemble: Ensemble, pack) -> tuple[bool, str]:
     ``pack`` is the fused kernel's packed weights; ``--fused false`` does
     not read it.
 
-    The kernel takes a shape when ``filters / 8 x nx <= 1024`` threads and
-    its shared-memory need fits the card's opt-in limit per block.
+    The kernel takes a shape when the tower has at most 64 filters and the
+    weights plus one trajectory's shared memory fit the card's opt-in limit
+    per block.
     ``--fused true`` on a shape it cannot take raises; on the CPU it runs
     the kernel's plain version.
     """
@@ -140,8 +141,11 @@ def choose_route(fused: str, ensemble: Ensemble, pack) -> tuple[bool, str]:
         return False, f"auto: device is {device.type}"
     if refusal:
         return False, f"auto: {refusal}"
-    threads, smem = fused_kernels.learned_rk4_launch(pack, ensemble.coarse.size, terms)
-    return True, f"auto: cuda, {threads} threads and {smem} bytes of shared memory per block fit"
+    launch = fused_kernels.learned_rk4_launch(
+        pack, ensemble.coarse.size, terms, ensemble.u0.shape[0], limit)
+    return True, (f"auto: cuda, {launch.blocks} blocks of {launch.teams} trajectories, "
+                  f"{launch.threads} threads and {launch.shared_bytes} bytes of shared memory "
+                  "per block fit")
 
 
 def main(argv=None) -> dict:

@@ -11,6 +11,7 @@ from pde_superresolution_tpu import analysis as janalysis
 from pde_superresolution_tpu import equations as jeq
 from pde_superresolution_tpu import integrate as jint
 from pde_superresolution_tpu.training.loop import load_model
+from pde_superresolution_torch.ops import fused_kernels as fk
 from pde_superresolution_torch.scripts import run_ensemble
 
 torch.set_num_threads(1)
@@ -149,10 +150,17 @@ def test_domain_factor_builds_larger_grid():
 
 
 def test_fused_true_raises_on_unsupported_shape():
-    """At --domain_factor 3 the block would need 32/8 x 384 = 1536 threads:
-    --fused true raises before anything runs; auto would take rhs_fn."""
-    with pytest.raises(ValueError, match="1536 threads per block > 1024"):
-        run_ensemble.main(ARGS + ["--fused", "true", "--domain_factor", "3"])
+    """At --domain_factor 6 one trajectory's 768 points with their 20-term
+    phase state (160 bytes a point) and activations exceed a block's shared
+    memory: --fused true raises before anything runs. At --domain_factor 3
+    (384 points) the kernel fits."""
+    with pytest.raises(ValueError, match="bytes of shared memory per block > the limit of 232448"):
+        run_ensemble.main(ARGS + ["--fused", "true", "--domain_factor", "6"])
+    parse = run_ensemble.build_parser().parse_args
+    for factor, fits in ((3, True), (6, False)):
+        ensemble = run_ensemble.setup(parse(ARGS + ["--domain_factor", str(factor)]))
+        pack = ensemble.model.fused_rk4_fn(ensemble.params, 1e-3, 1, forcing=ensemble.forcing).pack
+        assert (fk.learned_rk4_refusal(pack, ensemble.coarse.size, 20) is None) == fits
 
 
 def test_ic_scale_and_seed():

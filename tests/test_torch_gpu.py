@@ -18,11 +18,18 @@ from pde_superresolution_torch.ops import fused_kernels as fk
 
 pytestmark = pytest.mark.gpu
 
-# fused_learned_rk4 against its plain version (see the test's docstring);
-# on an H100 the one-step increments read 1.7e-7 to 2.8e-7 and the 10-step
-# states 1.2e-7 to 1.5e-7
-STEP_TOL = 3e-6
-RUN_TOL = 2e-6
+# fused_learned_rk4 against its plain version (see the test's docstring).
+# The tensor cores sum a layer's products in another order than the plain
+# version's float32 matmul, so a few activations per thousand points round
+# to the other bf16 neighbour; each moves its point and its neighbours by up
+# to 2e-4 of the increment. On an H100 one step from N(0,1) read, of the
+# increment's maximum, 2.3e-8 to 3.1e-6 in root mean square and 1.7e-7 to
+# 1.8e-4 at the worst point (the plain version differs from a float64 sum
+# of the same bf16 values too: chip_smoke.py reads both); 10 steps from a
+# smooth state read 8.3e-8 to 1.6e-6 of max|u| (`pytest -rP` prints the readings).
+STEP_RMS_TOL = 3e-5
+STEP_MAX_TOL = 1.5e-3
+RUN_TOL = 2e-5
 
 
 @pytest.fixture
@@ -30,6 +37,22 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _assert_step_close(got_inc, want_inc):
+    """One step's increment within both limits; prints the readings (shown
+    by ``pytest -rP``)."""
+    scale = float(want_inc.abs().max())
+    diff = got_inc - want_inc
+    rms, worst = float(diff.square().mean().sqrt()) / scale, float(diff.abs().max()) / scale
+    print(f"one step, of the increment's max: rms {rms:.3e}, worst point {worst:.3e}")
+    assert rms <= STEP_RMS_TOL and worst <= STEP_MAX_TOL
+
+
+def _assert_run_close(got, want, tol):
+    worst = float((got - want).abs().max() / want.abs().max())
+    print(f"10 steps, of max|u|: worst point {worst:.3e}")
+    assert worst <= tol
 
 
 def _model(name, cons, size, device, nx=96, filters=8, layers=2, seed=0):
@@ -67,16 +90,19 @@ def test_fused_rhs_matches_plain(cuda, name, cons, size):
 
 @pytest.mark.parametrize("name,cons,size,nx", [
     ("ks", True, 6, 128), ("kdv", True, 6, 64), ("ks", False, 7, 96),
+    ("ks", True, 6, 160), ("kdv", False, 7, 1024),
 ])
 def test_fused_learned_rk4_matches_plain(cuda, name, cons, size, nx):
     """The kernel and the plain version round the tower's inputs to bf16 at
     the same places and sum in float32 in other orders, which can flip
     single bf16 roundings. One step from a standard-normal state, where the
     tower's output moves every point, compared on the increment u(dt) -
-    u(0): within STEP_TOL of its max. Then 10 steps from the seeded smooth
-    state: within RUN_TOL of max|u|. Both sit near 10x the largest reading
+    u(0): within STEP_RMS_TOL of its max in root mean square and
+    STEP_MAX_TOL at the worst point. Then 10 steps from the seeded smooth
+    state: within RUN_TOL of max|u|. All sit near 10x the largest reading
     on an H100 and below what a wrong tower gives (chip_smoke.py plants
-    such faults)."""
+    such faults). nx = 160 is an odd number of 64-point tiles, the last half
+    empty; nx = 1024 walks eight pairs of tiles."""
     model, params, u = _model(name, cons, size, cuda, nx=nx, filters=16)
     u = 0.3 * u
     dt = model.equation.stable_time_step(model.grid, u_scale=3.0)
@@ -92,9 +118,8 @@ def test_fused_learned_rk4_matches_plain(cuda, name, cons, size, nx):
     got = fk.fused_learned_rk4(u, pack, dt, 10)
     torch.cuda.synchronize()
     assert fk.fused_learned_rk4.launches == before + 2
-    torch.testing.assert_close(got_inc, want_inc, rtol=0,
-                               atol=STEP_TOL * float(want_inc.abs().max()))
-    torch.testing.assert_close(got, want, rtol=0, atol=RUN_TOL * float(want.abs().max()))
+    _assert_step_close(got_inc, want_inc)
+    _assert_run_close(got, want, RUN_TOL)
 
 
 def test_flagship_rhs_fn_on_card_matches_cpu(cuda):
@@ -119,10 +144,10 @@ def test_forced_learned_rk4_matches_plain(cuda, cons, size, nx, filters):
     version on the same ForcingPack: both rotate the phase state with
     separately rounded products and sum the 20 terms in term order, so the
     forcing adds no difference of its own and the limits are the unforced
-    kernel's (STEP_TOL on one step's increment from a standard-normal
-    state, RUN_TOL after 10 steps). With 8 filters the block has one thread
-    group, which then evaluates the forcing itself. A pack whose start time
-    is ignored must fail both limits."""
+    kernel's (STEP_RMS_TOL and STEP_MAX_TOL on one step's increment from a
+    standard-normal state, RUN_TOL after 10 steps). 8 filters pad to the
+    16-channel instantiation; nx = 96 leaves the second 64-point tile half
+    empty. A pack whose start time is ignored must fail both limits."""
     model, params, u = _model("burgers", cons, size, cuda, nx=nx, filters=filters)
     gen = torch.Generator().manual_seed(1)
     forcing = model.equation.sample_forcing(gen, (8,), cuda)
@@ -142,10 +167,47 @@ def test_forced_learned_rk4_matches_plain(cuda, cons, size, nx, filters):
     stale = fk.fused_learned_rk4(smooth, pack, dt, 10, forcing=forcing, t=0.0)
     torch.cuda.synchronize()
     assert fk.fused_learned_rk4.launches == before + 3
-    torch.testing.assert_close(got_inc, want_inc, rtol=0,
-                               atol=STEP_TOL * float(want_inc.abs().max()))
-    torch.testing.assert_close(got, want, rtol=0, atol=RUN_TOL * float(want.abs().max()))
+    _assert_step_close(got_inc, want_inc)
+    _assert_run_close(got, want, RUN_TOL)
     assert float((stale - want).abs().max()) > 100 * RUN_TOL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("name,cons,size,filters,layers,batch", [
+    ("ks", True, 6, 32, 3, 530), ("burgers", True, 8, 32, 3, 397),
+    ("kdv", False, 7, 32, 3, 265), ("ks", True, 6, 64, 2, 7),
+])
+def test_learned_rk4_flagship_width_ragged_blocks(cuda, name, cons, size, filters, layers, batch):
+    """The flagship tower's width (3 layers x 32 filters, nx = 128) at
+    batches that are no multiple of the trajectories per block: 530 = 132 x
+    4 + 2 (the last block holds 2 of 4), 397 = 132 x 3 + 1 (forced), 265 =
+    132 x 2 + 1; and the widest instantiation, 64 filters, one per block.
+    Limits as in test_fused_learned_rk4_matches_plain; every trajectory is
+    compared, so a team that read or wrote
+    another's rows would show."""
+    model, params, _ = _model(name, cons, size, cuda, nx=128, filters=filters, layers=layers)
+    gen = torch.Generator().manual_seed(3)
+    dt = model.equation.stable_time_step(model.grid, u_scale=3.0)
+    pack = fk.pack_learned_rk4(params, model.equation, model.grid,
+                               model.config.kernel_size, model.constraint_layers,
+                               model.taps)
+    fp, terms = None, 0
+    if model.equation.forced:
+        forcing = model.equation.sample_forcing(gen, (batch,), cuda)
+        fp = fk.pack_forcing(forcing, 3.7, model.equation, model.grid, dt, batch)
+        terms = fp.amplitude.shape[-1]
+    launch = fk.learned_rk4_launch(pack, 128, terms, batch)
+    assert launch.teams == max(1, min(batch // 132, 4))
+    assert launch.teams == 1 or batch % launch.teams
+    rough = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((batch, 128)).astype(np.float32)).to(cuda)
+    smooth = 0.3 * model.equation.initial_conditions(gen, model.grid, (batch,), cuda)
+    want_inc = fk.fused_learned_rk4_plain(rough, pack, dt, 1, fp) - rough
+    want = fk.fused_learned_rk4_plain(smooth, pack, dt, 10, fp)
+    got_inc = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp) - rough
+    got = fk.fused_learned_rk4(smooth, pack, dt, 10, forcing=fp)
+    torch.cuda.synchronize()
+    _assert_step_close(got_inc, want_inc)
+    _assert_run_close(got, want, RUN_TOL)
 
 
 @pytest.mark.parametrize("name,cons", [("ks", True), ("ks", False), ("kdv", True),

@@ -3,6 +3,8 @@ mode on the CPU), and the wrappers' checks. The CUDA kernels themselves are
 held against these plain versions on the card (tests/test_torch_gpu.py,
 chip_smoke.py)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -295,11 +297,18 @@ def test_forced_wrapper_checks():
     with pytest.raises(ValueError, match="broadcast"):
         advance(u[:5].contiguous())
     assert fk.learned_rk4_refusal(advance.pack, NX, 20) is None
-    assert "threads" in fk.learned_rk4_refusal(advance.pack, 2048, 20)
-    threads, smem = fk.learned_rk4_launch(advance.pack, NX, 20)
-    assert threads == NX and smem == 4 * (
-        advance.pack.flat.numel() + (2 * 8 + 2) * NX + NX + 60 + 40 * NX)
-    assert "shared memory" in fk.learned_rk4_refusal(advance.pack, NX, 20, shared_limit=smem - 1)
+    assert "shared memory" in fk.learned_rk4_refusal(advance.pack, 2048, 20)
+    assert "nx=16 < 32" in fk.learned_rk4_refusal(advance.pack, 16, 20)
+    launch = fk.learned_rk4_launch(advance.pack, NX, 20, BATCH)
+    # 8 filters pad to 16: 2 planes of nx + 4 halo rows + a dump row; u with 8
+    # halo points at each end; the z row: F | 1 floats
+    z_row = advance.pack.n_free | 1
+    one = (2 * 2 * (NX + 5) * 16 + 4 * (4 * NX + 16) + 4 * 32 * z_row * 4
+           + 4 * (NX + 4 + 80 + 40 * NX))
+    one = -(-one // 128) * 128
+    assert launch == (1, 128, one, advance.pack.blob.numel() + one, BATCH)
+    assert "shared memory" in fk.learned_rk4_refusal(
+        advance.pack, NX, 20, shared_limit=launch.shared_bytes - 1)
 
 
 @pytest.mark.parametrize("name,cons", [("ks", True), ("kdv", False), ("kdv", True),
@@ -369,3 +378,204 @@ def test_pack_rejects_even_kernel():
                    device="cpu")
     with pytest.raises(ValueError, match="odd"):
         model.fused_rk4_fn(model.init_params(torch.Generator()), 1e-3, 1)
+
+
+def _torch_model(filters, layers=3, name="ks", cons=True, size=6, nx=NX, seed=0):
+    eq = teq.from_name(name, conservative=cons)
+    grid = TGrid(8 * nx, eq.period).resample(8, conservative=cons)
+    model = TModel(eq, grid, TConfig(num_layers=layers, filters=filters, stencil_size=size),
+                   device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    params = {k: v + 0.05 * torch.randn(v.shape, generator=gen)
+              for k, v in model.init_params(gen).items()}
+    return model, params
+
+
+def _pack(model, params):
+    return fk.pack_learned_rk4(params, model.equation, model.grid, model.config.kernel_size,
+                               model.constraint_layers, model.taps)
+
+
+def _read_wgmma(raw, depth, n):
+    """The matrix B [depth, n] that wgmma sees through a descriptor without
+    swizzle at the block's start, 16 n bytes between the two halves of a
+    depth step and 128 bytes between core matrices: the 16 bytes of row
+    ``j`` of core matrix (half, n // 8) hold B[16 step + 8 half + 0..7,
+    8 (n // 8) + j]; a depth step takes 32 n bytes."""
+    values = raw.view(torch.bfloat16).float()
+    b = torch.full((depth, n), float("nan"))
+    for step in range(depth // 16):
+        for half in range(2):
+            for col in range(n):
+                start = (step * 32 * n + half * 16 * n + (col // 8) * 128 + (col % 8) * 16) // 2
+                b[16 * step + 8 * half: 16 * step + 8 * half + 8, col] = values[start: start + 8]
+    return b
+
+
+def _read_fragments(raw, depth, n):
+    """The matrix B [depth, n] that mma.sync.m16n8k16 sees when lane
+    ``4 g + q`` loads the 8 bytes at ``((step * tiles + tile) * 32 + lane) *
+    8`` as its B operand: register r, half e is B[16 step + 2 q + 8 r + e,
+    8 tile + g] (PTX ISA, the .bf16 B fragment of m16n8k16)."""
+    values = raw.view(torch.bfloat16).float()
+    tiles = n // 8
+    b = torch.full((depth, n), float("nan"))
+    for step in range(depth // 16):
+        for tile in range(tiles):
+            for lane in range(32):
+                g, q = lane // 4, lane % 4
+                for r in range(2):
+                    for e in range(2):
+                        b[16 * step + 2 * q + 8 * r + e, 8 * tile + g] = values[
+                            ((step * tiles + tile) * 32 + lane) * 4 + 2 * r + e]
+    return b
+
+
+PACK_CASES = [(8, 2, "ks", True, 6), (16, 2, "burgers", True, 8), (32, 3, "ks", True, 6),
+              (16, 3, "kdv", False, 7), (24, 2, "burgers", False, 5), (40, 1, "ks", False, 7)]
+
+
+@pytest.mark.parametrize("filters,layers,name,cons,size", PACK_CASES)
+def test_pack_blob_reads_back(filters, layers, name, cons, size):
+    """The kernel's buffer, read as the kernel reads it, holds the values of
+    the plain version's views (exactly: both are the same bf16 or float32
+    numbers) in the leading corner of each zero-padded block; every block
+    starts at a multiple of 128 bytes; pn is zero outside each order's
+    free_ranges columns, which alone the projection block holds. Layer 0 and
+    the heads feed mma.sync, the later layers wgmma."""
+    model, params = _torch_model(filters, layers, name, cons, size)
+    pack = _pack(model, params)
+    c, cp, k, f = pack.channels, pack.padded_channels, pack.kernel_size, pack.n_free
+    fp = -(-f // 8) * 8
+    assert c == filters and cp == {8: 16, 16: 16, 24: 32, 32: 32, 40: 64}[filters]
+    assert all(o % 128 == 0 for o in pack.blob_offsets) and pack.blob.numel() % 128 == 0
+    assert pack.blob.dtype == torch.uint8 and len(pack.blob_offsets) == 2 * layers + 3
+
+    def block(i, nbytes):
+        return pack.blob[pack.blob_offsets[i]: pack.blob_offsets[i] + nbytes]
+
+    for l, (w, b) in enumerate(pack.tower):
+        cin = 1 if l == 0 else cp
+        depth = 16 if l == 0 else k * cp
+        read = _read_fragments if l == 0 else _read_wgmma
+        got = read(block(2 * l, 2 * depth * cp), depth, cp)
+        want = torch.zeros(depth, cp)
+        if l == 0:
+            want[:k, :c] = w.t()
+        else:  # depth index k * cp + ci, from the views' k * c + ci
+            want.view(k, cp, cp)[:, :c, :c] = w.t().reshape(k, c, c)
+        assert torch.equal(got, want), f"layer {l} (cin {cin})"
+        bias = block(2 * l + 1, 4 * cp).view(torch.float32)
+        assert torch.equal(bias[:c], b) and not bias[c:].any()
+    got = _read_fragments(block(2 * layers, 2 * cp * fp), cp, fp)
+    want = torch.zeros(cp, fp)
+    want[:c, :f] = pack.head_w.t()
+    assert torch.equal(got, want)
+    hb = block(2 * layers + 1, 4 * fp).view(torch.float32)
+    assert torch.equal(hb[:f], pack.head_b) and not hb[f:].any()
+    # the projection block: per order and block of 8 rows, c0 [8] then the
+    # rows' own columns of pn, transposed [count, 8]; rebuilt here into c0 and
+    # a dense pn, which must equal the views (so pn is zero elsewhere)
+    proj = pack.blob[pack.blob_offsets[2 * layers + 2]:].view(torch.float32)
+    c0, pn = torch.zeros(pack.n_rows), torch.zeros(pack.n_rows, f)
+    row = 0
+    for (first, count, start), taps in zip(pack.free_ranges, pack.taps.values()):
+        assert start % 8 == 0
+        for r in range(0, len(taps), 8):
+            n = min(8, len(taps) - r)
+            chunk = proj[start: start + 8 + 8 * count]
+            c0[row + r: row + r + n] = chunk[:n]
+            assert not chunk[n:8].any()
+            part = chunk[8:].view(count, 8)
+            pn[row + r: row + r + n, first: first + count] = part[:, :n].t()
+            assert not part[:, n:].any()
+            start += 8 + 8 * count
+        row += len(taps)
+    assert torch.equal(c0, pack.c0) and torch.equal(pn, pack.pn) and pn.any()
+    assert row == pack.n_rows
+
+
+@pytest.mark.parametrize("filters,layers,name,cons,size", PACK_CASES[:4])
+def test_channel_padding_leaves_plain_bit_equal(filters, layers, name, cons, size):
+    """Zero filters added to the state dict change nothing: the plain version
+    gives the same bits (a zero channel adds exact zeros to every float32
+    sum), and a model that is already as wide as the kernel's padded width
+    packs to the same kernel buffer, byte for byte."""
+    model, params = _torch_model(filters, layers, name, cons, size)
+    pack = _pack(model, params)
+    cp = pack.padded_channels
+    wide = {}
+    for key, v in params.items():
+        shape = list(v.shape)
+        if key.startswith("tower."):
+            shape[0] = cp
+            if v.dim() == 3 and not key.startswith("tower.0."):
+                shape[1] = cp
+        elif key.endswith(".weight"):  # heads [F_d, C, 1]
+            shape[1] = cp
+        wide[key] = fk._pad_to(v, *shape)
+    wide_pack = _pack(model, wide)
+    assert wide_pack.channels == cp == wide_pack.padded_channels
+    assert torch.equal(wide_pack.blob, pack.blob)
+    assert wide_pack.blob_offsets == pack.blob_offsets
+    u = torch.from_numpy(np.random.default_rng(5).standard_normal((4, NX)).astype(np.float32))
+    forcing = None
+    if model.equation.forced:
+        leaves = [torch.from_numpy(a) for a in _numpy_forcing(6, 4)]
+        forcing = fk.pack_forcing(teq.ForcingParams(*leaves), T0, model.equation, model.grid,
+                                  1e-3, 4)
+    got = fk.fused_learned_rk4_plain(u, wide_pack, 1e-3, 2, forcing)
+    want = fk.fused_learned_rk4_plain(u, pack, 1e-3, 2, forcing)
+    assert torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def geometry_packs():
+    return {filters: _pack(*_torch_model(filters)) for filters in (8, 16, 32)}
+
+
+@pytest.mark.parametrize("batch", [3, 256, 10240])
+@pytest.mark.parametrize("terms", [0, 20])
+@pytest.mark.parametrize("nx", [96, 128, 1024])
+@pytest.mark.parametrize("filters", [8, 16, 32])
+def test_learned_rk4_launch_geometry(geometry_packs, filters, nx, terms, batch):
+    """What Python decides before a launch, for a 3-layer tower with 8 free
+    dims: a shape is refused only when the weights and one trajectory exceed
+    the block's shared memory (here: nx = 1024 forced, 40 x 1024 floats of
+    phase state beside the activations) and the refusal says so; otherwise the block fits the limit and 512 threads,
+    every trajectory has a team, and the launch has at least 132 blocks
+    whenever the batch has 132 trajectories."""
+    pack = geometry_packs[filters]
+    refusal = fk.learned_rk4_refusal(pack, nx, terms)
+    launch = fk.learned_rk4_launch(pack, nx, terms, batch)
+    rows = -(-nx // 64) * 64
+    one = (2 * (pack.padded_channels // 8) * (rows + 5) * 16 + 16 * rows + 64 + 4 * 32 * 9 * 4
+           + (4 * rows + 16 + 16 * terms + 8 * terms * nx if terms else 0))
+    assert launch.team_bytes == -(-one // 128) * 128
+    if nx == 1024 and terms:
+        assert launch.teams == 0
+        assert refusal == (f"needs {pack.blob.numel() + launch.team_bytes} bytes of shared "
+                           "memory per block > the limit of 232448")
+        return
+    assert refusal is None
+    assert 1 <= launch.teams <= fk.MAX_TEAMS and launch.threads == 128 * launch.teams
+    assert launch.threads <= 512
+    assert launch.shared_bytes == pack.blob.numel() + launch.teams * launch.team_bytes <= 232448
+    assert launch.blocks * launch.teams >= batch > (launch.blocks - 1) * launch.teams
+    assert launch.blocks >= min(batch, 132)
+    if batch == 10240:  # a large batch shares the weights as far as the memory allows
+        fit = (232448 - pack.blob.numel()) // launch.team_bytes
+        assert launch.teams == min(fk.MAX_TEAMS, fit)
+
+
+def test_learned_rk4_refuses_wide_and_deep():
+    model, params = _torch_model(72, layers=1)
+    pack = _pack(model, params)
+    assert fk.learned_rk4_refusal(pack, NX) == "72 filters > kernel limit 64"
+    u = torch.zeros(2, NX)
+    assert fk.fused_learned_rk4(u, pack, 1e-3, 1).shape == u.shape  # the CPU's plain version
+    deep = dataclasses.replace(pack, num_layers=17)
+    assert "17 tower layers > kernel limit 16" == fk.learned_rk4_refusal(deep, NX)
+    wide = dataclasses.replace(_pack(*_torch_model(8, layers=1)), kernel_size=19)
+    assert fk.learned_rk4_refusal(wide, NX) == (
+        "conv kernel or stencil reaches 9 points > the halo of 8")
