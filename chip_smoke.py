@@ -8,10 +8,14 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
 
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   2. the kernels' build from ``pde_superresolution_torch/csrc`` (seconds,
-     ptxas registers and spills);
+     ptxas registers and spills); it fails if ptxas reports a stack frame or
+     a spill for any instantiation of ``fused_rk4`` or ``fused_rhs``, or if
+     their SASS holds local-memory loads or stores, or ``fused_rk4``'s a
+     barrier;
   3. ``fused_rhs`` against its plain version: at the flagship (KS-8x
-     checkpoint coefficients, B=256, nx=128) and in all six equation forms
-     at a ragged shape (B=3, nx=96, forced for Burgers);
+     checkpoint coefficients, B=256 and 4096, nx=128), in all six equation
+     forms at a ragged shape (B=3, nx=96, forced for Burgers), and at
+     nx=1024 (trajectories split into segments) against float64 sums;
   4. ``fused_learned_rk4`` against its plain version: one step of the KS-8x
      checkpoint from a standard-normal state (energy at every wavenumber,
      where the tower's output matters; kernel and plain version are also
@@ -25,7 +29,8 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      kernels' launch counts zeroed just before and read just after, checked
      against the plain path and against the port's float64 CPU path on a
      small batch;
-  6. times (CUDA events, warm median of 7) at B=256 and B=4096: each
+  6. the launch floor (an empty kernel's launch, queued) and times (CUDA
+     events, warm median of 7) at B=256 and B=4096: each
      kernel's device time and call time, its plain version, both routes,
      the ``rhs_fn`` route's device time (one RK4 step queued behind a
      device-side sleep, times 100) and its launches per RHS, and its device
@@ -38,18 +43,21 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      the ensemble's batch; the seeded state's limits must also catch three
      faults planted in the forcing (amplitudes zeroed, rotation angle
      halved, start time ignored); ``fused_rhs`` in the forced Burgers form
-     at the ensemble's batch;
+     at the ensemble's batch, checked and timed;
   8. ``fused_rk4`` (the fixed-stencil baseline) against its plain version
      and against ``integrate(PolynomialDifferentiator(...).rhs_fn())`` for KS
-     and KdV, conservative and direct, at B=256, nx=128 and at B=3, nx=96;
+     and KdV, conservative and direct, at B=256, nx=128, at B=3, nx=96, at
+     B=5, nx=1024 and at B=1037, nx=128 (the last block holds one warp);
   9. the ensemble path at full width, in-process through
      ``scripts.run_ensemble.main``: the Burgers-8x checkpoint, 10240
      trajectories, an exact-solver warm-up, 100 RK4 steps in 10 saves, by
      the fused route and by ``rhs_fn`` steps, then the KS-8x checkpoint by
      the fused route and a baseline leg of ``fused_rk4`` from the same
      warmed-up states; launch counts zeroed before and read after each;
- 10. times of the new kernels at B=256, 4096 and 10240 per 100 steps, of
-     the warm-up, and of both ensemble routes end to end;
+ 10. times of the fused RK4 kernels at B=256, 4096 and 10240 per 100
+     steps (``fused_rk4`` also at 4 and 8 warps per block, and per stage for
+     one trajectory alone), of the warm-up, and of both ensemble routes end
+     to end;
  11. one ``{"kernels": [...]}`` line, then the card's line, then the result.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -59,6 +67,7 @@ when no CUDA device is present.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import statistics
@@ -241,6 +250,27 @@ def tensor_core_line(library) -> str:
         return "tensor-core instructions: not read (no fused_learned_rk4 kernel in the SASS)"
     return "tensor-core instructions in SASS (HMMA = mma.sync, GMMA = wgmma, LDSM = ldmatrix): " + (
         "; ".join(f"{n}: {h} HMMA, {g} GMMA, {l} LDSM" for n, (h, g, l) in sorted(counts.items())))
+
+
+def check_stencil_builds(build) -> None:
+    """Raises if ptxas gave an instantiation of fused_rk4 or fused_rhs a
+    stack frame or a spill, or if their SASS holds local-memory loads or
+    stores (LDL, STL), or fused_rk4's a barrier (BAR)."""
+    from pde_superresolution_torch.scripts.probe_stencil_kernels import ptxas_lines, sass_counts
+
+    frames = [line for line in ptxas_lines(build) if "stack frame" in line]
+    if not frames:
+        log("    stack frames: not read (the library was built by an earlier process)")
+    bad = [line for line in frames if not line.endswith(
+        ": 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
+    sass = sass_counts(build.library)
+    log(f"    fused_rk4, fused_rhs: {len(frames)} instantiations read by ptxas, "
+        f"{len(bad)} with a stack frame or a spill; in the SASS of {len(sass)} kernels: "
+        + ", ".join(f"{op} {sum(row[op] for row in sass.values())}" for op in ("LDL", "STL"))
+        + f", BAR in fused_rk4 {sum(r['BAR'] for n, r in sass.items() if 'fused_rk4' in n)}")
+    if bad or any(row["LDL"] or row["STL"] or ("fused_rk4" in name and row["BAR"])
+                  for name, row in sass.items()):
+        raise AssertionError(f"stack frames, spills or barriers: {bad}, {sass}")
 
 
 def time_ms(fn, inner: int = 1, queued: bool = False, samples: int = 0) -> float:
@@ -429,6 +459,7 @@ def main() -> int:
             if "Used " in line or "spill" in line)
         for line in report:
             log(f"    {source}: {line}")
+    check_stencil_builds(build)
 
     model, params, config = convert.load_asset("ckpt_ks8", device=device)
     eq, grid = model.equation, model.grid
@@ -448,6 +479,13 @@ def main() -> int:
     rhs_args = (eq, grid, model.taps)
     rhs_err = check(f"flagship B={BATCH} nx={grid.size}", fk.fused_rhs(u0, coeffs, None, *rhs_args),
                     fk.fused_rhs_plain(u0, coeffs, None, *rhs_args), rhs_tol)
+    u_wide = eq.initial_conditions(torch.Generator().manual_seed(SEED + 2), grid,
+                                   (THROUGHPUT_BATCH,), device)
+    c_wide = model.coefficients(params, u_wide)
+    rhs_err = max(rhs_err, check(
+        f"flagship B={THROUGHPUT_BATCH} nx={grid.size}", fk.fused_rhs(u_wide, c_wide, None, *rhs_args),
+        fk.fused_rhs_plain(u_wide, c_wide, None, *rhs_args), rhs_tol))
+    del u_wide, c_wide
     for name, cons, size in [("burgers", True, 6), ("burgers", False, 5),
                              ("kdv", True, 6), ("kdv", False, 7),
                              ("ks", True, 6), ("ks", False, 7)]:
@@ -459,6 +497,23 @@ def main() -> int:
         rhs_err = max(rhs_err, check(f"{form} B=3 nx=96{' forced' if f is not None else ''}",
                                      fk.fused_rhs(u, c, f, *a),
                                      fk.fused_rhs_plain(u, c, f, *a), rhs_tol))
+    # nx=1024: each trajectory split into segments, each computing the face
+    # left of it. dx is 8x smaller and the dx^-3 terms cancel: the plain
+    # version itself is up to 1e-1 of max|u_t| away from float64 sums of the
+    # same inputs, so the kernel is held to no more than twice its distance
+    for name, cons, size in [("ks", True, 6), ("kdv", False, 7)]:
+        m, p, u = perturbed_model(name, cons, size, device, nx=1024, batch=5)
+        c = m.coefficients(p, u)
+        a = (m.equation, m.grid, m.taps)
+        got, want = fk.fused_rhs(u, c, None, *a), fk.fused_rhs_plain(u, c, None, *a)
+        exact = fk.fused_rhs_plain(u.double(), {d: v.double() for d, v in c.items()}, None, *a)
+        kernel_err, plain_err = (relative_error(x.double(), exact, False) for x in (got, want))
+        verdict = "ok" if kernel_err <= 2 * plain_err + 1e-6 else "FAIL"
+        log(f"  {name} {'conservative' if cons else 'direct'} B=5 nx=1024 "
+            f"({fk.rhs_launch(5, 1024, m.taps).parts} segments): from float64 sums, kernel "
+            f"{kernel_err:.3e}, plain {plain_err:.3e} of max|u_t| (limit twice the plain) {verdict}")
+        if verdict != "ok":
+            raise AssertionError(f"fused_rhs at nx=1024: {kernel_err} > 2 x {plain_err}")
 
     # ---- 4. fused_learned_rk4 against its plain version ---------------------
     # Both round the tower's inputs to bf16 at the same places and sum in
@@ -552,6 +607,14 @@ def main() -> int:
     log(f"    {tensor_cores}")
     if "not read" not in tensor_cores and " 0 HMMA, 0 GMMA" in tensor_cores:
         raise AssertionError("a fused_learned_rk4 kernel holds no tensor-core instruction")
+    # the floor under any kernel's time: an empty kernel's launch, queued
+    lib = _build.load_library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    code = lib.pde_empty_kernel(stream)
+    if code:
+        raise RuntimeError(f"empty kernel launch failed: {_build.error_string(code)}")
+    launch_floor_ms = time_ms(lambda: lib.pde_empty_kernel(stream), inner=100, queued=True)
+    log(f"    launch floor (an empty kernel, queued): {1e3 * launch_floor_ms:.3f} us per launch")
     times = {}
     for batch in (BATCH, THROUGHPUT_BATCH):
         u = u0 if batch == BATCH else eq.initial_conditions(gen, grid, (batch,), device)
@@ -681,6 +744,14 @@ def main() -> int:
         f"fused_rhs, forced Burgers form, B={ENSEMBLE} nx={bgrid.size}",
         fk.fused_rhs(eu0, ecoeffs, ef, *brhs_args),
         fk.fused_rhs_plain(eu0, ecoeffs, ef, *brhs_args), rhs_tol))
+    # its 400 launches on the Burgers ensemble's rhs_fn route have this shape
+    rhs_ensemble = {
+        "ms": time_ms(lambda: fk.fused_rhs(eu0, ecoeffs, ef, *brhs_args), inner=100, queued=True),
+        "bound_ms": rhs_bound_ms(eu0, ecoeffs, ef),
+    }
+    log(f"    fused_rhs, forced Burgers form, B={ENSEMBLE}: {1e3 * rhs_ensemble['ms']:.3f} us "
+        f"(bytes bound {1e3 * rhs_ensemble['bound_ms']:.3f} us, launch floor "
+        f"{1e3 * launch_floor_ms:.3f} us); {fk.rhs_launch(ENSEMBLE, bgrid.size, bmodel.taps)}")
     del ecoeffs, ef, epack
 
     # ---- 8. fused_rk4 against its plain version --------------------------------
@@ -692,7 +763,7 @@ def main() -> int:
     baseline_err = 0.0
     for name in ("ks", "kdv"):
         for cons in (True, False):
-            for batch, nx in ((BATCH, 128), (3, 96)):
+            for batch, nx in ((BATCH, 128), (3, 96), (5, 1024), (1037, 128)):
                 period = equations.from_name(name).period * nx / 128  # the same dx
                 e = equations.from_name(name, conservative=cons, period=period)
                 g = type(grid)(nx, period)
@@ -706,6 +777,7 @@ def main() -> int:
                 rhs = integrate.PolynomialDifferentiator(e, g, device=device).rhs_fn()
                 _, ref = integrate.integrate(rhs, u, step, STEPS, STEPS)
                 check(f"{form}, vs integrate", got, ref[-1], 1e-5)
+    log(f"    fused_rk4 against its plain version, largest reading: {baseline_err:.3e}")
 
     # ---- 9. the ensemble path at full width ---------------------------------
     def ensemble(checkpoint, route, step):
@@ -824,16 +896,23 @@ def main() -> int:
             "fused_rk4_bytes_bound_ms": bytes_ms,
             "fused_rk4_ops_bound_ms": ops_ms,
         }
+        if batch == ENSEMBLE:  # 4 and 8 warps per block (rk4_launch takes 8)
+            default = fk.RK4_MAX_WARPS
+            for warps in (4, 8):
+                fk.RK4_MAX_WARPS = warps
+                row[f"fused_rk4_{warps}_warps_ms"] = time_ms(
+                    lambda: base(ks_u), queued=True, samples=samples)
+            fk.RK4_MAX_WARPS = default
         new_times[batch] = row
         log(f"    B={batch}: " + json.dumps(row))
-    # the floor that binds fused_rk4: 4 x STEPS dependent stages, each closed
-    # by two block-wide barriers. One block alone (2 trajectories) shows the
-    # latency of one stage with nothing to hide it.
+    # the floor that binds fused_rk4 at small batch: 4 x STEPS dependent
+    # stages. One trajectory alone (one warp on the card) shows the latency of
+    # one stage with nothing to hide it.
     alone = fk.make_fused_rk4(eq, grid, ks_dt, 10 * STEPS)
-    alone_ms = time_ms(lambda: alone(warmed[:2].contiguous()), queued=True)
+    alone_ms = time_ms(lambda: alone(warmed[:1].contiguous()), queued=True)
     stage_us = 1e3 * alone_ms / (4 * 10 * STEPS)
     chain_ms = 4 * STEPS * stage_us / 1e3
-    log(f"    fused_rk4, one block alone: {stage_us:.3f} us per barrier-separated stage; "
+    log(f"    fused_rk4, one warp alone: {stage_us:.4f} us per stage; "
         f"{4 * STEPS} dependent stages: {chain_ms:.4f} ms per {STEPS} steps")
     warm_dt = 0.2 * bgrid.dx
     warm_steps = int(np.ceil(WARMUP_TIME / warm_dt))
@@ -874,6 +953,13 @@ def main() -> int:
             "bound_ms": flagship["fused_rhs_bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+            "ms_by_batch": {BATCH: flagship["fused_rhs_ms"],
+                            THROUGHPUT_BATCH: times[THROUGHPUT_BATCH]["fused_rhs_ms"],
+                            ENSEMBLE: rhs_ensemble["ms"]},
+            "bound_ms_by_batch": {BATCH: flagship["fused_rhs_bound_ms"],
+                                  THROUGHPUT_BATCH: times[THROUGHPUT_BATCH]["fused_rhs_bound_ms"],
+                                  ENSEMBLE: rhs_ensemble["bound_ms"]},
+            "launch_floor_ms": launch_floor_ms,
         },
         {
             "name": "fused_learned_rk4",
@@ -925,6 +1011,7 @@ def main() -> int:
                          > full["fused_rk4_ops_bound_ms"] else "operations"),
             "dependent_stage_chain_ms": chain_ms,
             "library_ms": None,
+            "ms_by_batch": {b: row["fused_rk4_ms"] for b, row in new_times.items()},
         },
     ]
     if any(k["launches"] == 0 or 0 in k["launches_by_path"].values() for k in kernels):

@@ -7,25 +7,29 @@
 // then the flux divergence (conservative form) or the equation of motion
 // (direct form). Unforced equations only (KdV, KS), as the TPU kernel. The
 // tap sums run in tap order with every product and sum rounded on its own
-// (_rn), so the plain version (fused_kernels.fused_rk4_plain) can round at
-// the same places.
+// (_rn, no contraction into FMAs), so the kernel equals its plain version
+// (fused_kernels.fused_rk4_plain) bit for bit.
 //
-// What bounds it on the H100: neither bytes nor operations. The state is
-// read once and written once (8 bytes per point) and one RHS costs a few
-// tens of flops per point, both microseconds at any batch the card holds;
-// what takes the time is the chain of 4 x num_steps dependent stages, each
-// closed by block-wide barriers, so the floor is the latency of one stage
-// times their number, hidden only as far as the blocks resident on an SM
-// overlap each other's stages.
+// What bounds it on the H100: instruction issue at large batch, and the
+// latency of the chain of 4 x num_steps dependent stages at small batch.
+// The state is read once and written once (8 bytes a point), microseconds at
+// any batch. A stage costs each point 12 multiplies and 9 adds for the
+// taps, each rounded on its own (KS conservative), a flux, an IEEE division
+// by dx and the stage combine: about 40 instructions.
 //
-// Design: one thread per grid point; a block holds `rows` whole
-// trajectories (rows x nx threads, about 256, so that an nx = 128 grid does
-// not leave an SM's threads mostly idle) and loops over all the steps. The
-// stage input u and the face fluxes live in shared memory, the RK4 state
-// (the step's start value and the running k1 + 2 k2 + 2 k3 + k4) in the
-// point's registers, and the coefficients arrive by value in the kernel's
-// parameters (constant memory). A periodic shift is modular indexing into
-// the row's shared-memory segment.
+// Design: a warp owns a trajectory, and lane l holds the P = nx / 32
+// consecutive points [l P, l P + P) in registers: the step's start value,
+// the running k1 + 2 k2 + 2 k3 + k4 and the stage input. A tap's neighbour
+// value beyond the lane's own points comes from lane l - 1 or l + 1 (or
+// further where the reach exceeds P) through __shfl_sync; lane 0's left
+// neighbour is lane 31, so the periodic wrap costs nothing. The left face of
+// the conservative divergence is one more shuffle of the flux. No shared
+// memory and no barrier: one stage follows the last through register data
+// dependence alone, and warps never wait for each other. The tap layout of
+// each classic scheme and P are template parameters, so every tap loop
+// unrolls and each coefficient is a constant-bank operand of its multiply
+// (the coefficients arrive by value in the kernel's parameters). Blocks are
+// just packages of warps, sized in Python (fused_kernels.rk4_launch).
 
 #include <cuda_runtime.h>
 
@@ -36,130 +40,197 @@ namespace {
 using pde::kMaxOrders;
 
 constexpr int kMaxTaps = 16;  // fused_kernels.MAX_TAPS
+constexpr int kMaxWarps = 8;  // fused_kernels.RK4_MAX_WARPS: warps per block
+constexpr unsigned kFullMask = 0xffffffffu;
 
-struct Scheme {
-  int nx, rows, n_orders;
-  int size[kMaxOrders], tap0[kMaxOrders];
-  float coef[kMaxOrders][kMaxTaps];
-  float dx, eta, half_dt, dt, dt_sixth;
-  int num_steps, batch;
+// The classic schemes of make_fused_rk4 (accuracy order 2), per equation
+// and form: per order (ascending) the first tap and the number of taps.
+struct Layout {
+  int orders;
+  int tap0[kMaxOrders];
+  int size[kMaxOrders];
+  __host__ __device__ constexpr int lo() const {
+    int m = 0;
+    for (int o = 0; o < orders; ++o) m = tap0[o] < m ? tap0[o] : m;
+    return m;
+  }
+  __host__ __device__ constexpr int hi() const {
+    int m = 0;
+    for (int o = 0; o < orders; ++o) m = tap0[o] + size[o] - 1 > m ? tap0[o] + size[o] - 1 : m;
+    return m;
+  }
 };
 
-template <int EQ, bool CONS>
-__global__ void __launch_bounds__(1024)
-    fused_rk4_kernel(const float* __restrict__ u_in, float* __restrict__ u_out, Scheme sc) {
-  extern __shared__ float smem[];
-  const int nx = sc.nx;
-  const int r = threadIdx.x / nx;  // the block's row (trajectory)
-  const int j = threadIdx.x % nx;
-  const long long b = (long long)blockIdx.x * sc.rows + r;
-  const bool live = b < sc.batch;  // the last block may hold fewer rows
-  float* s_u = smem + r * nx;                   // stage input [rows][nx]
-  float* s_flux = smem + (sc.rows + r) * nx;    // face fluxes [rows][nx]
-
-  float u0 = 0.f, ksum = 0.f;
-  if (live) u0 = u_in[b * nx + j];
-  s_u[j] = u0;
-  __syncthreads();
-
-  for (int step = 0; step < sc.num_steps; ++step) {
-    for (int stage = 0; stage < 4; ++stage) {
-      float v[kMaxOrders];
-#pragma unroll
-      for (int o = 0; o < kMaxOrders; ++o) {
-        if (o < sc.n_orders) {
-          int kk = pde::wrap(j + sc.tap0[o], nx);
-          float acc = 0.f;
-          for (int s = 0; s < sc.size[o]; ++s) {
-            const float term = __fmul_rn(sc.coef[o][s], s_u[kk]);
-            acc = s == 0 ? term : __fadd_rn(acc, term);
-            kk = kk + 1 == nx ? 0 : kk + 1;
-          }
-          v[o] = acc;
-        }
-      }
-      float k_val;
-      if (CONS) {
-        const float right = pde::flux<EQ>(v, sc.eta);
-        s_flux[j] = right;
-        __syncthreads();
-        k_val = pde::divergence(right, s_flux[j == 0 ? nx - 1 : j - 1], sc.dx);
-      } else {
-        k_val = pde::equation_of_motion<EQ>(s_u[j], v, sc.eta);
-        __syncthreads();  // every read of s_u for this stage done
-      }
-      float next;
-      if (stage == 0) {
-        ksum = k_val;
-        next = __fadd_rn(u0, __fmul_rn(sc.half_dt, k_val));
-      } else if (stage == 1) {
-        ksum = __fadd_rn(ksum, __fmul_rn(2.0f, k_val));
-        next = __fadd_rn(u0, __fmul_rn(sc.half_dt, k_val));
-      } else if (stage == 2) {
-        ksum = __fadd_rn(ksum, __fmul_rn(2.0f, k_val));
-        next = __fadd_rn(u0, __fmul_rn(sc.dt, k_val));
-      } else {
-        ksum = __fadd_rn(ksum, k_val);
-        u0 = __fadd_rn(u0, __fmul_rn(sc.dt_sixth, ksum));
-        next = u0;
-      }
-      // conservative: the barrier above also ended this stage's reads of
-      // s_u (they precede the flux store), so s_u may be overwritten; the
-      // next stage's flux stores come after the barrier below
-      s_u[j] = next;
-      __syncthreads();
-    }
-  }
-  if (live) u_out[b * nx + j] = u0;
+__host__ __device__ constexpr Layout layout(int eq, bool cons) {
+  // KdV (1): conservative orders 0, 2; direct 1, 3. KS (2): conservative
+  // 0, 1, 3; direct 1, 2, 4.
+  return eq == 1 ? (cons ? Layout{2, {0, -1, 0}, {2, 4, 0}} : Layout{2, {-1, -2, 0}, {3, 5, 0}})
+                 : (cons ? Layout{3, {0, -1, -2}, {2, 4, 6}} : Layout{3, {-1, -2, -3}, {3, 5, 7}});
 }
 
-template <int EQ, bool CONS>
-int launch(const float* u, float* out, const Scheme& sc, cudaStream_t stream) {
-  const int threads = sc.rows * sc.nx;
-  const int blocks = (sc.batch + sc.rows - 1) / sc.rows;
-  const int smem_bytes = (int)sizeof(float) * 2 * sc.rows * sc.nx;
-  fused_rk4_kernel<EQ, CONS><<<blocks, threads, smem_bytes, stream>>>(u, out, sc);
+__host__ __device__ constexpr int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+struct Scalars {
+  float coef[kMaxOrders][kMaxTaps];
+  float dx, eta, half_dt, dt, dt_sixth;
+};
+
+template <int EQ, bool CONS, int P>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    fused_rk4_kernel(const float* __restrict__ u_in, float* __restrict__ out, Scalars sc,
+                     int num_steps, int batch, int warps_per_block) {
+  constexpr Layout L = layout(EQ, CONS);
+  constexpr int lo = L.lo(), hi = L.hi();
+  constexpr int W = P + hi - lo;  // the window a lane's taps read
+  const int lane = threadIdx.x & 31;
+  const long long b = (long long)blockIdx.x * warps_per_block + (threadIdx.x >> 5);
+  if (b >= batch) return;  // a whole warp: no barrier or shuffle waits for it
+  const float* src = u_in + b * (32 * P) + lane * P;
+
+  float u0[P], ksum[P], s[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    u0[p] = src[p];
+    s[p] = u0[p];
+    ksum[p] = 0.f;
+  }
+
+  for (int step = 0; step < num_steps; ++step) {
+#pragma unroll
+    for (int stage = 0; stage < 4; ++stage) {
+      // w[i] is the stage input at lane-relative point lo + i
+      float w[W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        const int q = lo + i;
+        const int d = floor_div(q, P);
+        const int e = q - d * P;
+        w[i] = d == 0 ? s[e] : __shfl_sync(kFullMask, s[e], (lane + d) & 31);
+      }
+      float k[P];
+      if (CONS) {
+        float flux[P];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          float v[kMaxOrders];
+#pragma unroll
+          for (int o = 0; o < L.orders; ++o) {
+            float acc = __fmul_rn(sc.coef[o][0], w[p + L.tap0[o] - lo]);
+#pragma unroll
+            for (int t = 1; t < L.size[o]; ++t)
+              acc = __fadd_rn(acc, __fmul_rn(sc.coef[o][t], w[p + L.tap0[o] + t - lo]));
+            v[o] = acc;
+          }
+          flux[p] = pde::flux<EQ>(v, sc.eta);
+        }
+        const float left = __shfl_sync(kFullMask, flux[P - 1], (lane + 31) & 31);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          k[p] = pde::divergence(flux[p], p == 0 ? left : flux[p - 1], sc.dx);
+      } else {
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          float v[kMaxOrders];
+#pragma unroll
+          for (int o = 0; o < L.orders; ++o) {
+            float acc = __fmul_rn(sc.coef[o][0], w[p + L.tap0[o] - lo]);
+#pragma unroll
+            for (int t = 1; t < L.size[o]; ++t)
+              acc = __fadd_rn(acc, __fmul_rn(sc.coef[o][t], w[p + L.tap0[o] + t - lo]));
+            v[o] = acc;
+          }
+          k[p] = pde::equation_of_motion<EQ>(s[p], v, sc.eta);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (stage == 0) {
+          ksum[p] = k[p];
+          s[p] = __fadd_rn(u0[p], __fmul_rn(sc.half_dt, k[p]));
+        } else if (stage == 1) {
+          ksum[p] = __fadd_rn(ksum[p], __fmul_rn(2.0f, k[p]));
+          s[p] = __fadd_rn(u0[p], __fmul_rn(sc.half_dt, k[p]));
+        } else if (stage == 2) {
+          ksum[p] = __fadd_rn(ksum[p], __fmul_rn(2.0f, k[p]));
+          s[p] = __fadd_rn(u0[p], __fmul_rn(sc.dt, k[p]));
+        } else {
+          ksum[p] = __fadd_rn(ksum[p], k[p]);
+          u0[p] = __fadd_rn(u0[p], __fmul_rn(sc.dt_sixth, ksum[p]));
+          s[p] = u0[p];
+        }
+      }
+    }
+  }
+  float* dst = out + b * (32 * P) + lane * P;
+#pragma unroll
+  for (int p = 0; p < P; ++p) dst[p] = u0[p];
+}
+
+template <int EQ, bool CONS, int P>
+int launch(const float* u, float* out, const Scalars& sc, int batch, int num_steps,
+           int warps, cudaStream_t stream) {
+  const int blocks = (batch + warps - 1) / warps;
+  fused_rk4_kernel<EQ, CONS, P>
+      <<<blocks, warps * 32, 0, stream>>>(u, out, sc, num_steps, batch, warps);
   return (int)cudaGetLastError();
+}
+
+// Points per lane that the kernel is built for: nx = 32 P
+template <int EQ, bool CONS>
+int dispatch(int points_per_lane, const float* u, float* out, const Scalars& sc, int batch,
+             int num_steps, int warps, cudaStream_t s) {
+  switch (points_per_lane) {
+    case 2: return launch<EQ, CONS, 2>(u, out, sc, batch, num_steps, warps, s);
+    case 3: return launch<EQ, CONS, 3>(u, out, sc, batch, num_steps, warps, s);
+    case 4: return launch<EQ, CONS, 4>(u, out, sc, batch, num_steps, warps, s);
+    case 5: return launch<EQ, CONS, 5>(u, out, sc, batch, num_steps, warps, s);
+    case 8: return launch<EQ, CONS, 8>(u, out, sc, batch, num_steps, warps, s);
+    case 32: return launch<EQ, CONS, 32>(u, out, sc, batch, num_steps, warps, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// meta: equation code, conservative, nx, rows (trajectories per block),
-//       n_orders, size[3], tap0[3].
+// meta: equation code, conservative, nx, warps per block, n_orders,
+//       size[3], tap0[3] (checked against the compiled classic scheme).
 // coefs: [3][16] floats, the orders' coefficients in tap order.
 // scalars: dx, eta, dt/2, dt, dt/6.
-// Returns cudaGetLastError() after the launch. Burgers (code 0) is forced
-// and refused.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// a shape or scheme the kernel is not built for (fused_kernels.rk4_refusal
+// says why before any launch). Burgers (code 0) is forced and refused.
 extern "C" int pde_fused_rk4(const float* u, float* out, int batch, int num_steps,
                              const int* meta, const float* coefs, const float* scalars,
                              void* stream) {
   if (batch == 0) return 0;
-  Scheme sc;
-  sc.nx = meta[2];
-  sc.rows = meta[3];
-  sc.n_orders = meta[4];
+  const int eq = meta[0], nx = meta[2], warps = meta[3];
+  const bool cons = meta[1] != 0;
+  if (eq != 1 && eq != 2) return (int)cudaErrorInvalidValue;
+  const Layout want = layout(eq, cons);
+  if (meta[4] != want.orders) return (int)cudaErrorInvalidValue;
+  for (int o = 0; o < want.orders; ++o) {
+    if (meta[5 + o] != want.size[o] || meta[8 + o] != want.tap0[o]) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (nx % 32 != 0 || warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
+  Scalars sc;
   for (int o = 0; o < kMaxOrders; ++o) {
-    sc.size[o] = meta[5 + o];
-    sc.tap0[o] = meta[8 + o];
-    if (sc.size[o] > kMaxTaps) return (int)cudaErrorInvalidValue;
-    for (int s = 0; s < kMaxTaps; ++s) sc.coef[o][s] = coefs[o * kMaxTaps + s];
+    for (int t = 0; t < kMaxTaps; ++t) sc.coef[o][t] = coefs[o * kMaxTaps + t];
   }
   sc.dx = scalars[0];
   sc.eta = scalars[1];
   sc.half_dt = scalars[2];
   sc.dt = scalars[3];
   sc.dt_sixth = scalars[4];
-  sc.num_steps = num_steps;
-  sc.batch = batch;
-  if (sc.rows < 1 || sc.rows * sc.nx > 1024) return (int)cudaErrorInvalidValue;
-  const bool cons = meta[1] != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (meta[0]) {
-    case 1:
-      return cons ? launch<1, true>(u, out, sc, s) : launch<1, false>(u, out, sc, s);
-    case 2:
-      return cons ? launch<2, true>(u, out, sc, s) : launch<2, false>(u, out, sc, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  const int p = nx / 32;
+  if (eq == 1) {
+    return cons ? dispatch<1, true>(p, u, out, sc, batch, num_steps, warps, s)
+                : dispatch<1, false>(p, u, out, sc, batch, num_steps, warps, s);
   }
+  return cons ? dispatch<2, true>(p, u, out, sc, batch, num_steps, warps, s)
+              : dispatch<2, false>(p, u, out, sc, batch, num_steps, warps, s);
 }

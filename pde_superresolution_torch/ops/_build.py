@@ -100,7 +100,7 @@ def load_library() -> ctypes.CDLL:
     lib.pde_fused_rhs.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # u, c[0..2], f, out
         i32, i32,  # batch, nx
-        ctypes.POINTER(i32),  # eq, conservative, n_orders, size[3], tap0[3]
+        ctypes.POINTER(i32),  # meta: see fused_rhs.cu
         f32, f32,  # dx, eta
         ptr,  # stream
     ]
@@ -125,6 +125,8 @@ def load_library() -> ctypes.CDLL:
         ptr,  # stream
     ]
     lib.pde_fused_rk4.restype = i32
+    lib.pde_empty_kernel.argtypes = [ptr]  # stream
+    lib.pde_empty_kernel.restype = i32
     lib.pde_cuda_error_string.argtypes = [i32]
     lib.pde_cuda_error_string.restype = ctypes.c_char_p
     return lib

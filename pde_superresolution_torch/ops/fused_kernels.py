@@ -15,9 +15,11 @@ The counterpart of ``pde_superresolution_tpu/ops/pallas_kernels.py``:
     (Burgers) the sum-of-sinusoids forcing is evaluated in the kernel from a
     ``ForcingPack``: per-term (sin, cos) phase state advanced by a planar
     rotation per half step.
-  * ``make_fused_rk4`` (``csrc/fused_rk4.cu``, replaces ``make_fused_rk4``):
-    ``num_steps`` RK4 steps of the fixed classic-stencil baseline scheme,
-    coefficients passed by value, unforced equations only.
+  * ``fused_rk4`` (``csrc/fused_rk4.cu``, built by ``make_fused_rk4``,
+    replaces ``make_fused_rk4``): ``num_steps`` RK4 steps of the fixed
+    classic-stencil baseline scheme, unforced equations only; a warp owns a
+    trajectory and holds it in registers; the tap loops are unrolled, each
+    coefficient a kernel parameter read by its multiply.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else. It takes its plain PyTorch version (``*_plain``, in this
@@ -50,12 +52,28 @@ MAX_TEAMS_FORCED = 4  # the same for a forced equation (kMaxTeamsForced)
 TEAM_THREADS = 128  # one warp group owns a trajectory (kTeamThreads)
 U_HALO = 8  # periodic copies at both ends of the state in shared memory (kHalo)
 PADDED_CHANNELS = (16, 32, 64)
-MAX_THREADS = 1024
 MAX_SHARED_BYTES = 232448  # opt-in shared memory per block on sm_90
 NUM_SMS = 132  # H100: a launch should have at least this many blocks
-# fused_rk4.cu's compile-time limit (kMaxTaps) and its block size target
+# fused_rhs.cu's block: one thread per point, at most RHS_BLOCK_POINTS of
+# them unless one trajectory is longer, dynamic shared memory under the
+# 48 KB that needs no opt-in. On an H100 one trajectory of 128 points per
+# block was 10-14% faster than four for the KS-8x checkpoint's coefficients
+# at B=4096 and 10240, and 4-9% slower for the Burgers-8x checkpoint's.
+RHS_SHARED_BYTES = 49152
+RHS_BLOCK_POINTS = 128
+MAX_THREADS = 1024
+# fused_rk4.cu's compile-time limits (kMaxTaps, kMaxWarps), the points per
+# lane it is built for (nx = 32 P) and the classic schemes it is built for:
+# (equation, conservative) -> {order: (first tap, number of taps)}
 MAX_TAPS = 16
-RK4_BLOCK_THREADS = 256
+RK4_MAX_WARPS = 8
+RK4_POINTS_PER_LANE = (2, 3, 4, 5, 8, 32)
+RK4_LAYOUTS = {
+    ("kdv", True): {0: (0, 2), 2: (-1, 4)},
+    ("kdv", False): {1: (-1, 3), 3: (-2, 5)},
+    ("ks", True): {0: (0, 2), 1: (-1, 4), 3: (-2, 6)},
+    ("ks", False): {1: (-1, 3), 2: (-2, 5), 4: (-3, 7)},
+}
 
 
 def _check_forward_only(tensors) -> None:
@@ -115,6 +133,61 @@ def fused_rhs_plain(
     return u_t
 
 
+class RhsLaunch(NamedTuple):
+    """Geometry of one ``fused_rhs`` launch (``csrc/fused_rhs.cu``)."""
+
+    rows: int  # trajectories per block (1 when a trajectory is split)
+    seg: int  # points of a trajectory per block: nx, or a segment of it
+    parts: int  # blocks per trajectory
+    halo: int  # periodic points on each side of a row's u window
+    threads_x: int  # threads along the points (>= seg); rows along y
+    shared_bytes: int
+    blocks: int
+
+
+def _rhs_shared_bytes(rows: int, seg: int, halo: int, sizes: Sequence[int]) -> int:
+    """u windows [rows][seg + 2 halo] and fluxes [rows][1 + seg], then per
+    order the coefficients [rows seg][S] as they lie in device memory, each
+    block of floats starting on 16 bytes (fused_rhs.cu's layout)."""
+    return 4 * (_align4(rows * (seg + 2 * halo + seg + 1))
+                + sum(_align4(rows * seg * size) for size in sizes))
+
+
+def rhs_launch(batch: int, nx: int, taps: Mapping[int, Sequence[int]]) -> RhsLaunch:
+    """The launch of ``fused_rhs`` for ``batch`` trajectories of ``nx``
+    points and the orders' ``taps``. A block holds whole trajectories, one
+    thread per point: as many as keep the launch at ``NUM_SMS`` blocks or
+    more, up to ``RHS_BLOCK_POINTS`` points (at least one trajectory),
+    within ``MAX_THREADS`` threads and ``RHS_SHARED_BYTES``. Where one
+    trajectory does not fit, it is split into segments of a multiple of 32
+    points, one block each."""
+    sizes = [len(t) for t in taps.values()]
+    lo = min(t[0] for t in taps.values())
+    hi = max(t[-1] for t in taps.values())
+    halo = max(1 - lo, hi, 0)  # a segment also reads its left neighbour's taps
+
+    def fits(rows, seg):
+        return (rows * -(-seg // 32) * 32 <= MAX_THREADS
+                and _rhs_shared_bytes(rows, seg, halo, sizes) <= RHS_SHARED_BYTES)
+
+    if fits(1, nx):
+        seg = nx
+        rows = max(1, min(RHS_BLOCK_POINTS // nx, batch // NUM_SMS))
+        while not fits(rows, nx):
+            rows -= 1
+    else:
+        rows = 1
+        seg = MAX_THREADS
+        while seg > 32 and not fits(1, seg):
+            seg -= 32
+    parts = -(-nx // seg)
+    return RhsLaunch(
+        rows=rows, seg=seg, parts=parts, halo=halo, threads_x=-(-seg // 32) * 32,
+        shared_bytes=_rhs_shared_bytes(rows, seg, halo, sizes),
+        blocks=-(-batch // rows) * parts,
+    )
+
+
 def fused_rhs(
     u: torch.Tensor,
     coeffs: Mapping[int, torch.Tensor],
@@ -155,15 +228,18 @@ def fused_rhs(
 
     from pde_superresolution_torch.ops import _build
 
+    launch = rhs_launch(batch, nx, {d: taps[d] for d in orders})
     lib = _build.load_library()
     out = torch.empty_like(u)
     c_ptrs = [coeffs[d].data_ptr() for d in orders] + [0] * (MAX_ORDERS - len(orders))
-    meta = (ctypes.c_int * 9)(
+    meta = (ctypes.c_int * 16)(
         EQUATION_CODES[equation.name],
         int(equation.conservative),
         len(orders),
         *[len(taps[d]) for d in orders], *[0] * (MAX_ORDERS - len(orders)),
         *[taps[d][0] for d in orders], *[0] * (MAX_ORDERS - len(orders)),
+        launch.rows, launch.seg, launch.parts, launch.halo, launch.threads_x,
+        launch.blocks, launch.shared_bytes,
     )
     code = lib.pde_fused_rhs(
         u.data_ptr(), *c_ptrs, f.data_ptr() if f is not None else None,
@@ -776,10 +852,47 @@ def fused_rk4_plain(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
     return u
 
 
+class RK4Launch(NamedTuple):
+    """Geometry of one ``fused_rk4`` launch."""
+
+    warps: int  # trajectories per block, one warp each
+    threads: int  # per block
+    blocks: int
+
+
+def rk4_launch(batch: int) -> RK4Launch:
+    """The launch of ``fused_rk4`` for ``batch`` trajectories. A warp owns a
+    trajectory and warps never wait for each other, so a block is only a
+    package of warps: as many as leave the launch ``NUM_SMS`` blocks, at most
+    ``RK4_MAX_WARPS`` (8 timed 1-2% faster than 4 at B=10240 on an H100)."""
+    warps = min(RK4_MAX_WARPS, max(1, batch // NUM_SMS))
+    return RK4Launch(warps=warps, threads=32 * warps, blocks=-(-batch // warps))
+
+
+def rk4_refusal(scheme: BaselineRK4, nx: int) -> Optional[str]:
+    """Why the kernel cannot run ``scheme`` on ``nx`` points, or None if it
+    can. Each of a warp's 32 lanes holds nx / 32 points in registers, and
+    the tap layout is compiled in: the classic schemes of ``make_fused_rk4``
+    (accuracy order 2) at the points per lane in ``RK4_POINTS_PER_LANE``."""
+    if nx % 32:
+        return f"nx={nx} is not a multiple of 32: each of a warp's 32 lanes holds nx/32 points"
+    if nx // 32 not in RK4_POINTS_PER_LANE:
+        return (f"nx={nx} ({nx // 32} points per lane) has no instantiation; the kernel "
+                f"is built for nx in {[32 * p for p in RK4_POINTS_PER_LANE]}")
+    eq = scheme.equation
+    layout = {d: (t[0], len(t)) for d, t in scheme.taps.items()}
+    built = RK4_LAYOUTS.get((eq.name, eq.conservative))
+    if layout != built:
+        return (f"taps {layout} are not the classic scheme the kernel is built for "
+                f"({eq.name}, conservative={eq.conservative}: {built})")
+    return None
+
+
 def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
     """``scheme.num_steps`` RK4 steps of the baseline scheme from ``u [B, nx]``
     in one launch of ``csrc/fused_rk4.cu`` (its plain version for a CPU
-    tensor). One thread per grid point, so ``nx <= 1024``."""
+    tensor). On the card a warp owns a trajectory; ``rk4_refusal`` says
+    which shapes and schemes it takes."""
     if u.dim() != 2:
         raise ValueError(f"u must be [batch, nx], got shape {tuple(u.shape)}")
     batch, nx = u.shape
@@ -791,8 +904,10 @@ def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
         return fused_rk4_plain(u, scheme)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
-    if nx > MAX_THREADS:
-        raise ValueError(f"nx={nx} > {MAX_THREADS}: the kernel runs one thread per point")
+    refusal = rk4_refusal(scheme, nx)
+    if refusal:
+        raise ValueError(refusal)
+    launch = rk4_launch(batch)
 
     from pde_superresolution_torch.ops import _build
 
@@ -800,11 +915,10 @@ def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
     out = torch.empty_like(u)
     orders = sorted(scheme.taps)
     pad = [0] * (MAX_ORDERS - len(orders))
-    rows = max(1, RK4_BLOCK_THREADS // nx)  # trajectories per block
     meta = (ctypes.c_int * 11)(
         EQUATION_CODES[scheme.equation.name],
         int(scheme.equation.conservative),
-        nx, rows, len(orders),
+        nx, launch.warps, len(orders),
         *[len(scheme.taps[d]) for d in orders], *pad,
         *[scheme.taps[d][0] for d in orders], *pad,
     )

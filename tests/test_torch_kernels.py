@@ -579,3 +579,94 @@ def test_learned_rk4_refuses_wide_and_deep():
     wide = dataclasses.replace(_pack(*_torch_model(8, layers=1)), kernel_size=19)
     assert fk.learned_rk4_refusal(wide, NX) == (
         "conv kernel or stencil reaches 9 points > the halo of 8")
+
+
+@pytest.mark.parametrize("batch", [3, 256, 1037, 4096, 10240])
+def test_rk4_launch_geometry(batch):
+    """A warp per trajectory: the blocks' warps cover the batch with one
+    block at most partly empty, at most RK4_MAX_WARPS warps a block, and at
+    least 132 blocks whenever the batch has 132 trajectories."""
+    launch = fk.rk4_launch(batch)
+    assert launch.threads == 32 * launch.warps and 1 <= launch.warps <= fk.RK4_MAX_WARPS
+    assert launch.blocks * launch.warps >= batch > (launch.blocks - 1) * launch.warps
+    assert launch.blocks >= min(batch, fk.NUM_SMS)
+    assert launch.warps == {3: 1, 256: 1, 1037: 7, 4096: 8, 10240: 8}[batch]
+
+
+@pytest.mark.parametrize("nx", [32, 64, 96, 100, 128, 160, 256, 512, 1024])
+@pytest.mark.parametrize("name,cons", [("ks", True), ("ks", False), ("kdv", True),
+                                       ("kdv", False)])
+def test_rk4_refusal(name, cons, nx):
+    """The kernel takes the classic schemes at nx = 32 P for the points per
+    lane it is built for, and says why it takes nothing else; the CPU path
+    (the plain version) still takes every shape."""
+    period = teq.from_name(name).period * nx / 128
+    eq = teq.from_name(name, conservative=cons, period=period)
+    grid = TGrid(nx, period)
+    scheme = fk.make_fused_rk4(eq, grid, eq.stable_time_step(grid), 1).scheme
+    assert {d: (t[0], len(t)) for d, t in scheme.taps.items()} == fk.RK4_LAYOUTS[(name, cons)]
+    refusal = fk.rk4_refusal(scheme, nx)
+    if nx % 32:
+        assert refusal == (f"nx={nx} is not a multiple of 32: each of a warp's 32 lanes "
+                           f"holds nx/32 points")
+    elif nx // 32 not in fk.RK4_POINTS_PER_LANE:
+        assert refusal == (f"nx={nx} ({nx // 32} points per lane) has no instantiation; the "
+                           "kernel is built for nx in [64, 96, 128, 160, 256, 1024]")
+    else:
+        assert refusal is None
+    wide = fk.make_fused_rk4(eq, grid, eq.stable_time_step(grid), 1, accuracy_order=4).scheme
+    if refusal is None:
+        assert fk.rk4_refusal(wide, nx).startswith(
+            f"taps {({d: (t[0], len(t)) for d, t in wide.taps.items()})} are not the classic "
+            f"scheme the kernel is built for ({name}, conservative={cons}")
+    u = torch.zeros(2, nx)
+    assert fk.fused_rk4(u, scheme).shape == (2, nx)  # the CPU's plain version
+
+
+RHS_TAPS = {  # the KS-8x checkpoint's (3 orders of 6) and the Burgers-8x one's (2 of 8)
+    "ks8": {0: list(range(-2, 4)), 1: list(range(-2, 4)), 3: list(range(-2, 4))},
+    "burgers8": {0: list(range(-3, 5)), 1: list(range(-3, 5))},
+}
+
+
+@pytest.mark.parametrize("batch", [3, 256, 4096, 10240])
+@pytest.mark.parametrize("nx", [32, 96, 128, 1024, 4096])
+@pytest.mark.parametrize("model", sorted(RHS_TAPS))
+def test_rhs_launch_geometry(model, nx, batch):
+    """One thread per point: the blocks cover every point once (whole
+    trajectories, or one trajectory's segments of a multiple of 32 points
+    where a whole one does not fit), within 1024 threads and the 48 KB of
+    shared memory that need no opt-in (under the card's 227 KB), which hold
+    the u windows with a halo as wide as the taps reach (one more for a
+    segment's left face), the fluxes, and each order's coefficients as they
+    lie in device memory, every block of floats on 16 bytes; at least 132
+    blocks whenever the batch has 132 trajectories."""
+    taps = RHS_TAPS[model]
+    launch = fk.rhs_launch(batch, nx, taps)
+    assert launch.halo == max(1 - min(t[0] for t in taps.values()),
+                              max(t[-1] for t in taps.values()))
+    def align4(n):
+        return -(-n // 4) * 4
+
+    points = launch.rows * launch.seg
+    assert launch.shared_bytes == 4 * (
+        align4(launch.rows * (launch.seg + 2 * launch.halo) + launch.rows * (launch.seg + 1))
+        + sum(align4(points * len(t)) for t in taps.values()))
+    assert launch.shared_bytes <= fk.RHS_SHARED_BYTES < 232448
+    assert launch.seg <= launch.threads_x <= launch.seg + 31 and launch.threads_x % 32 == 0
+    assert launch.rows * launch.threads_x <= 1024
+    assert launch.parts * launch.seg >= nx > (launch.parts - 1) * launch.seg
+    groups = launch.blocks // launch.parts
+    assert launch.blocks == groups * launch.parts
+    assert groups * launch.rows >= batch > (groups - 1) * launch.rows
+    assert launch.blocks >= min(batch, fk.NUM_SMS)
+    if launch.parts == 1:
+        assert launch.seg == nx and launch.rows * nx <= max(nx, fk.RHS_BLOCK_POINTS)
+    else:
+        assert launch.rows == 1 and launch.seg % 32 == 0
+        assert launch.seg == fk.MAX_THREADS or fk._rhs_shared_bytes(1, launch.seg + 32, launch.halo, [len(t) for t in taps.values()]) \
+            > fk.RHS_SHARED_BYTES
+    if nx == 128:
+        assert launch.rows == 1 and launch.blocks == batch
+    if nx == 32:
+        assert launch.rows == max(1, min(4, batch // fk.NUM_SMS))
