@@ -58,11 +58,34 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      steps (``fused_rk4`` also at 4 and 8 warps per block, and per stage for
      one trajectory alone), of the warm-up, and of both ensemble routes end
      to end;
- 11. one ``{"kernels": [...]}`` line, then the card's line, then the result.
+ 12. training at the KS-8x flagship recipe (``assets/ckpt_ks8.json``: batch
+     128, unroll 8 snapshots of 0.05, 12 RK4 substeps each, 32 trajectories
+     x 256 times after a warm-up of 44), only the optimizer steps cut: the
+     dataset by ``generate_snapshots`` + ``build_training_data`` and the
+     loss norms, timed; from the trained params, the gradients of the
+     rollout's mean squared error by both routes (``fused_rhs`` forward and
+     its plain backward against ``use_kernel=False``), held tightly, with a
+     planted VJP scaled by 0.99 that must fail, the sign flips of the
+     mean absolute error counted, and one directional derivative against a
+     central difference; one train step's loss and gradients by
+     ``compute_loss(use_kernel=True)`` against ``use_kernel=False``, with a
+     planted gross backward fault; ``fused_rhs`` launches per step (384
+     forward + 384 recomputed by the rematerialized backward); times of
+     those train steps by route and of an eval step, the step's device-busy
+     share, peak memory beside what was allocated before the step,
+     ``fused_rhs`` at B=128 against its bound and the launch floor, and the
+     backward twin's share; ``training.loop.train`` for 4 steps (kernel
+     route, the recipe's three learning rates switching after steps 1 and
+     2, eval and checkpoint every 2) with its launch count, then a run
+     resumed from step 2 against it; ``train`` on 1024 trajectories of the
+     large-ensemble pipeline, device- and host-resident, one step each;
+     the phase's own seconds;
+ 13. one ``{"kernels": [...]}`` line, then the card's line, then the result.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
-when no CUDA device is present.
+when no CUDA device is present. ``training_phase`` can be called on its own
+once the kernels are built (``_build.build()``).
 """
 
 from __future__ import annotations
@@ -129,6 +152,49 @@ UNFORCED_ENSEMBLE_TOL = 8e-6
 # worst of 1.3 M points (read 1.8e-3) and in root mean square (read 1.3e-4).
 ROUTE_MAX_TOL = 2e-2
 ROUTE_RMS_TOL = 1.5e-3
+# Phase 12, training at the KS-8x flagship recipe (assets/ckpt_ks8.json:
+# batch 128, unroll 8, 12 RK4 substeps per snapshot): only the number of
+# optimizer steps is cut. The resumed run starts from the checkpoint at
+# TRAIN_EVERY.
+TRAIN_STEPS = 4
+TRAIN_EVERY = 2
+# The large-ensemble dataset of _train_on_trajectories: 624 MiB, large enough
+# that host- and device-resident layouts differ in what they move. Its
+# generation time is set by the recipe's warm-up (3520 serial ETDRK4 steps),
+# not by the count: 32 trajectories take 6.3 s, 1024 take 10.4 s on an H100.
+TRAJECTORIES = 1024
+TRAJECTORY_STEPS = 1
+# Kernel route against plain route from the trained params at B=128: the
+# forward differs by the kernel's tap order and FMAs, the backward is the
+# same plain VJP at those slightly different states.
+# The backward is held tightly on a smooth function of the rollout, its
+# states' mean squared error against the labels (reduced in float64): each
+# leaf's gradient, of max|leaf|. A VJP scaled by 0.99 must fail this limit.
+# The training loss itself is a mean absolute error, whose gradient
+# sign(pred - label) flips wherever a rounding moves a state across its
+# label: the script counts those flips between the two routes. The loss read
+# 1.9e-7 relative on an H100 and its gradients 1.9e-3 of a leaf's max, so
+# that limit only catches gross faults (a planted one must fail it).
+SMOOTH_GRAD_TOL = 1e-3
+TRAIN_LOSS_TOL = 2e-6
+TRAIN_GRAD_TOL = 2e-2
+# A central difference along a unit direction in parameter space (step
+# FD_STEP) against the kernel route's gradient projected on it, relative. The
+# function is the mean squared error of the rollout's states (reduced in
+# float64), smooth but for the tower's ReLUs: the loss itself is a mean
+# absolute error of small errors, so over any usable step it crosses many
+# kinks and its difference quotient reads another slope (on an H100: -0.86
+# against a gradient of -1.58 at a step of 1e-2). The mean squared error
+# read 1.4e-3 there.
+FD_STEP = 1e-2
+FD_TOL = 1e-2
+# A resumed run against the uninterrupted one, and the device-resident
+# against the host-resident trajectory dataset: the same batches and
+# updates, but cuDNN's weight gradients are not bitwise reproducible; Adam
+# turns a difference into at most about lr per step. Of max|param| per leaf
+# (on an H100, resumed at step 5 of 10: read 9.4e-5; after 3 steps of the
+# trajectory pipeline: 2.6e-4).
+RESUME_TOL = 1e-3
 SLEEP_CYCLES = 60_000_000  # about 30 ms of device-side sleep at H100 clocks
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -334,16 +400,19 @@ def launch_count(fn) -> tuple:
     return host, device
 
 
-def device_profile(fn, calls: int) -> dict:
+def device_profile(fn, calls: int, warm_up: bool = True) -> dict:
     """{kernel name: device microseconds per call} over ``calls`` calls,
-    from torch.profiler's CUDA activity (CUPTI), after one warm-up call."""
+    from torch.profiler's CUDA activity (CUPTI), after one warm-up call
+    unless ``warm_up`` is false. The host's operators are not recorded: at
+    a train step's tens of thousands of them that took a minute."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -426,6 +495,325 @@ def forcing_faults(forcing, fpack, pack_again) -> dict:
         "amplitudes zeroed": fpack._replace(amplitude=torch.zeros_like(fpack.amplitude)),
         "rotation angle halved": fpack._replace(rot_cos=halved.rot_cos, rot_sin=halved.rot_sin),
         "start time ignored": pack_again(0.0, 1.0),
+    }
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """{leaf: max|got - want| / max|want|} over a state dict; infinite where
+    either side is not finite."""
+    def rel(a, b):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        return err if err == err and err != float("inf") else float("inf")
+
+    return {k: rel(got[k], want[k]) for k in want}
+
+
+def training_phase(card: str, launch_floor_ms: float) -> dict:
+    """Phase 12: the training path at the KS-8x flagship recipe. Returns the
+    readings the report needs."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pde_superresolution_torch import convert
+    from pde_superresolution_torch.grids import Grid
+    from pde_superresolution_torch.ops import fused_kernels as fk
+    from pde_superresolution_torch.training import data as data_lib
+    from pde_superresolution_torch.training import loop, losses
+    from pde_superresolution_torch.training.config import TrainingConfig
+
+    phase_start = time.perf_counter()
+    device = torch.device("cuda")
+    model, params, stored = convert.load_asset("ckpt_ks8", device=device)
+    config = TrainingConfig.from_json(json.dumps(stored))
+    eq, grid = model.equation, model.grid
+    fine = Grid(config.fine_size, eq.period)
+    substeps = loop._substeps(config, model)
+    unroll = config.num_time_steps
+    rhs_per_step = 4 * substeps * unroll
+    log(f"[12] training, {stored['equation']} conservative={eq.conservative}, fine "
+        f"{config.fine_size} -> {grid.size}, batch {config.batch_size}, unroll {unroll} x "
+        f"{substeps} substeps ({rhs_per_step} RHS per loss), {config.num_trajectories} "
+        f"trajectories x {config.num_times} times, warm-up {config.warmup_time}; on {card}")
+
+    # -- data and norms, as train() builds them
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    snaps = data_lib.generate_snapshots(
+        eq, fine, torch.Generator().manual_seed(config.data_seed),
+        config.num_trajectories, config.num_times, config.time_delta,
+        warmup_time=config.warmup_time, ic_scale=config.ic_scale, device=device)
+    data = data_lib.build_training_data(eq, fine, snaps, config.resample_factor, unroll)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - start
+    if not all(torch.isfinite(t).all() for t in (data.inputs, data.rollout, data.time_deriv_label)):
+        raise AssertionError("training data are not finite")
+    train_idx, eval_idx = loop._split_train_eval(data, config.frac_training, config.seed)
+    train_set = loop._slice_batch(data, train_idx)
+    eval_set = loop._slice_batch(data, eval_idx)
+    start = time.perf_counter()
+    norms = losses.compute_loss_norms(model, train_set, unroll, config.time_delta, substeps)
+    torch.cuda.synchronize()
+    norms_s = time.perf_counter() - start
+    log(f"    data generation {data_s:.3f} s ({data.num_samples} samples; "
+        f"{int(np.ceil(config.warmup_time / (config.time_delta / 4)))} warm-up ETDRK4 steps); "
+        f"loss norms {norms_s:.3f} s (integrated {[round(x, 5) for x in norms.integrated]})")
+
+    idx = np.random.RandomState(config.seed * 100003).randint(
+        0, train_idx.size, size=config.batch_size)
+    batch = loop._slice_batch(train_set, idx)
+    labels = batch.rollout.transpose(0, 1).double()  # [K, B, nx], as the states
+    tx = loop.make_optimizer(config)
+    opt = tx.init(params)
+    real_vjp = fk.fused_rhs_vjp
+
+    def with_vjp(vjp, fn):
+        fk.fused_rhs_vjp = vjp
+        try:
+            return fn()
+        finally:
+            fk.fused_rhs_vjp = real_vjp
+
+    def timed(fn):
+        """(fn(), ms on CUDA events around the call, the host's part included)."""
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, begin.elapsed_time(end)
+
+    def train_step(use_kernel):
+        """One train step, the update discarded: (loss, gradients)."""
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss, _ = losses.compute_loss(model, leaves, batch, norms, config.loss_weights,
+                                      config.time_delta, unroll, substeps, use_kernel=use_kernel)
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        tx.update(grads, opt, params)
+        return loss.detach(), grads
+
+    def rollout_value(p, use_kernel):
+        states = losses.rollout_states(model.rhs_fn(p, use_kernel=use_kernel), batch.inputs,
+                                       batch.t, config.time_delta, substeps, unroll)
+        return 0.5 * (states.double() - labels).square().mean(), states.detach()
+
+    def smooth_grads(use_kernel):
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        value, states = rollout_value(leaves, use_kernel)
+        return dict(zip(leaves, torch.autograd.grad(value, list(leaves.values())))), states
+
+    # -- the backward held tightly, on a smooth function of the rollout
+    smooth_k, states_k = smooth_grads(True)
+    smooth_p, states_p = smooth_grads(False)
+    errs = leaf_errors(smooth_k, smooth_p)
+    smooth_err = max(errs.values())
+    flips = int(((states_k.double() - labels).sign() != (states_p.double() - labels).sign()).sum())
+    log(f"    rollout's mean squared error, kernel vs plain route, B={config.batch_size}: "
+        f"gradients, worst leaf of its max {smooth_err:.3e} (tolerance {SMOOTH_GRAD_TOL:.0e}): "
+        + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+    log(f"    states on the other side of their label between the routes: {flips} of "
+        f"{labels.numel()} (sign flips of the mean absolute error's gradient); states differ "
+        f"by {float((states_k - states_p).abs().max()):.3e} at most")
+    if not smooth_err <= SMOOTH_GRAD_TOL:
+        raise AssertionError(f"smooth gradients, kernel route against plain route: {errs}")
+    scaled = lambda static, inputs, g, needs=None: real_vjp(static, inputs, 0.99 * g, needs)
+    read = max(leaf_errors(with_vjp(scaled, lambda: smooth_grads(True)[0]), smooth_p).values())
+    log(f"  planted backward fault, fused_rhs VJP scaled by 0.99: worst leaf {read:.3e} "
+        f"(tolerance {SMOOTH_GRAD_TOL:.0e}) {'caught' if read > SMOOTH_GRAD_TOL else 'NOT CAUGHT'}")
+    if not read > SMOOTH_GRAD_TOL:
+        raise AssertionError(f"planted backward fault (VJP scaled by 0.99) passes: {read}")
+    # one directional derivative of the kernel route against a central difference
+    gen = torch.Generator().manual_seed(SEED)
+    direction = {k: torch.randn(v.shape, generator=gen).to(device) for k, v in params.items()}
+    norm = float(torch.sqrt(sum(d.square().sum() for d in direction.values())))
+    projected = float(sum((g * direction[k]).sum() for k, g in smooth_k.items())) / norm
+    with torch.no_grad():
+        shifted = [float(rollout_value({k: params[k] + s * FD_STEP / norm * direction[k]
+                                        for k in params}, True)[0]) for s in (1, -1)]
+    fd = (shifted[0] - shifted[1]) / (2 * FD_STEP)
+    fd_err = abs(fd - projected) / abs(projected)
+    log(f"    directional derivative of the rollout's mean squared error, kernel route: gradient "
+        f"{projected:.6g}, central difference (step {FD_STEP}) {fd:.6g}, rel {fd_err:.3e} "
+        f"(tolerance {FD_TOL:.0e})")
+    if not fd_err <= FD_TOL:
+        raise AssertionError(f"directional derivative {projected} vs {fd}")
+
+    # -- the training loss by both routes, timed, with launches and memory
+    peak = {}
+    fk.fused_rhs.launches = 0
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (loss_k, grads_k), ms_k = timed(lambda: train_step(True))
+    step_launches = fk.fused_rhs.launches
+    peak["kernel"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (loss_p, grads_p), ms_p = timed(lambda: train_step(False))
+    peak["plain"] = torch.cuda.max_memory_allocated()
+    step_ms = {"kernel": ms_k, "plain": ms_p}
+    log(f"    fused_rhs launches in one kernel-route train step: {step_launches} "
+        f"(predicted {2 * rhs_per_step}: {rhs_per_step} forward + {rhs_per_step} recomputed "
+        f"by the rematerialized backward)")
+    if step_launches != 2 * rhs_per_step:
+        raise AssertionError(f"fused_rhs launches per train step {step_launches}")
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    errs = leaf_errors(grads_k, grads_p)
+    worst = max(errs.values())
+    log(f"    training loss, kernel vs plain route: {float(loss_k):.7g} vs {float(loss_p):.7g}, "
+        f"rel {loss_err:.3e} (tolerance {TRAIN_LOSS_TOL:.0e}); gradients, worst leaf of its max "
+        f"{worst:.3e} (tolerance {TRAIN_GRAD_TOL:.0e}): "
+        + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+    if not (np.isfinite(float(loss_k)) and loss_err <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"kernel route against plain route: {loss_err}, {errs}")
+    dropped = lambda static, inputs, g, needs=None: (
+        *real_vjp(static, inputs, g, needs)[:-1], torch.zeros_like(inputs[-1]))
+    # a non-finite gradient fails the check as well as a large one
+    read = max(leaf_errors(with_vjp(dropped, lambda: train_step(True)[1]), grads_p).values())
+    caught = not read <= TRAIN_GRAD_TOL
+    log(f"  planted backward fault, gradient to the highest order's coefficients dropped: "
+        f"worst leaf {read:.3e} (tolerance {TRAIN_GRAD_TOL:.0e}) "
+        f"{'caught' if caught else 'NOT CAUGHT'}")
+    if not caught:
+        raise AssertionError(f"planted backward fault (highest order dropped) passes: {read}")
+
+    # -- times
+    def eval_step():
+        with torch.no_grad():
+            losses.compute_loss(model, params, eval_set, norms, config.loss_weights,
+                                config.time_delta, unroll, substeps, use_kernel=True)
+
+    eval_ms = time_ms(eval_step, samples=1)
+    start = time.perf_counter()
+    busy = sum(device_profile(lambda: train_step(True), 1, warm_up=False).values()) / 1e3
+    profile_s = time.perf_counter() - start
+    if not busy > 0:
+        raise AssertionError("torch.profiler recorded no device time in a train step")
+    u = batch.inputs.contiguous()
+    coeffs = {d: c.contiguous() for d, c in model.coefficients(params, u).items()}
+    with torch.no_grad():
+        rhs_ms = time_ms(lambda: fk.fused_rhs(u, coeffs, None, eq, grid, model.taps), inner=10,
+                         queued=True)
+        rhs_call_ms = time_ms(lambda: fk.fused_rhs(u, coeffs, None, eq, grid, model.taps),
+                              inner=10)
+        rhs_plain_ms = time_ms(lambda: fk.fused_rhs_plain(u, coeffs, None, eq, grid, model.taps),
+                               inner=10)
+    rhs_bound = rhs_bound_ms(u, coeffs, None)
+    static = (eq, grid, {d: model.taps[d] for d in sorted(model.taps)})
+    inputs = (u, None, *(coeffs[d] for d in sorted(coeffs)))
+    g_out = torch.randn(u.shape, generator=gen).to(device)
+    vjp_ms = time_ms(lambda: fk.fused_rhs_vjp(static, inputs, g_out), inner=10)
+    log(f"    train step (loss, gradients, Adam), B={config.batch_size}, one warm step each: "
+        f"kernel route {step_ms['kernel']:.1f} ms, plain route {step_ms['plain']:.1f} ms; eval "
+        f"step ({eval_set.num_samples} samples, kernel route, no grad) {eval_ms:.1f} ms")
+    log(f"    kernel-route step: device busy {busy:.1f} ms of {step_ms['kernel']:.1f} "
+        f"({100 * busy / step_ms['kernel']:.1f}%, torch.profiler, a lower bound; the profiled "
+        f"step took {profile_s:.1f} s)")
+    log(f"    peak memory of a step {peak['kernel'] / 2**20:.1f} MiB (plain route "
+        f"{peak['plain'] / 2**20:.1f} MiB): {resident / 2**20:.1f} MiB allocated before it "
+        f"(the dataset, its splits, the earlier phases' tensors), so the step's own "
+        f"{(peak['kernel'] - resident) / 2**20:.1f} MiB (plain {(peak['plain'] - resident) / 2**20:.1f})")
+    log(f"    fused_rhs at B={config.batch_size}: {1e3 * rhs_ms:.3f} us device (queued), "
+        f"{1e3 * rhs_call_ms:.2f} us per wrapper call, plain {1e3 * rhs_plain_ms:.2f} us; bytes "
+        f"bound {1e3 * rhs_bound:.3f} us, launch floor {1e3 * launch_floor_ms:.3f} us; "
+        f"{2 * rhs_per_step} launches = {2 * rhs_per_step * rhs_call_ms:.1f} ms of the step "
+        f"({100 * 2 * rhs_per_step * rhs_call_ms / step_ms['kernel']:.1f}%)")
+    log(f"    the backward twin (fused_rhs_vjp, plain autograd) at B={config.batch_size}: "
+        f"{1e3 * vjp_ms:.1f} us per call; {rhs_per_step} per step = "
+        f"{rhs_per_step * vjp_ms:.1f} ms ({100 * rhs_per_step * vjp_ms / step_ms['kernel']:.1f}% "
+        f"of the kernel-route step)")
+
+    # -- train(): the entry point, a checkpoint, and a resume from its middle
+    short = dataclasses.replace(
+        config, learning_stops=(TRAIN_STEPS // 4, TRAIN_STEPS // 2, TRAIN_STEPS),
+        eval_interval=TRAIN_EVERY, checkpoint_interval=TRAIN_EVERY)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        fk.fused_rhs.launches = 0
+        start = time.perf_counter()
+        _, trained, metrics = loop.train(short, dataset=data, checkpoint_dir=str(work / "a"),
+                                         metrics_path=str(work / "a.jsonl"), device=device,
+                                         use_kernel=True)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - start
+        train_launches = fk.fused_rhs.launches
+        evals = TRAIN_STEPS // TRAIN_EVERY
+        want_launches = TRAIN_STEPS * 2 * rhs_per_step + evals * rhs_per_step
+        saved = loop.checkpoint_steps(str(work / "a"))
+        log(f"    train(): {TRAIN_STEPS} steps in {train_s:.2f} s (norms, {evals} evals and "
+            f"{len(saved)} checkpoints included); eval_total {metrics['eval_total']:.6g}, "
+            f"train_total {metrics['train_total']:.6g}; fused_rhs launches {train_launches} "
+            f"(predicted {want_launches}); checkpoints at steps {saved}")
+        with open(work / "a.jsonl") as f:
+            walls = [json.loads(line)["wall_time"] for line in f]
+        log(f"    train(): seconds from the end of its set-up (data on the device, split, norms) "
+            f"to each eval's record: {walls}")
+        if not (np.isfinite(metrics["eval_total"]) and saved == [TRAIN_EVERY, TRAIN_STEPS]
+                and train_launches == want_launches):
+            raise AssertionError(f"train(): {metrics}, {saved}, {train_launches}")
+        _, loaded, _ = loop.load_model(str(work / "a"), device=device)
+        if any(not torch.equal(loaded[k], trained[k]) for k in trained):
+            raise AssertionError("load_model does not give the trained params back")
+        shutil.copytree(work / "a" / str(TRAIN_EVERY), work / "b" / str(TRAIN_EVERY))
+        start = time.perf_counter()
+        _, resumed, metrics_b = loop.train(short, dataset=data, checkpoint_dir=str(work / "b"),
+                                           device=device, use_kernel=True)
+        resume_launches = fk.fused_rhs.launches - train_launches
+        want_resume = ((TRAIN_STEPS - TRAIN_EVERY) * 2 * rhs_per_step
+                       + (evals - 1) * rhs_per_step)
+        train_launches += resume_launches
+        resume_err = max(leaf_errors(resumed, trained).values())
+        log(f"    resumed at step {TRAIN_EVERY} ({time.perf_counter() - start:.2f} s) against "
+            f"uninterrupted: worst leaf {resume_err:.3e} "
+            f"(tolerance {RESUME_TOL:.0e}); eval_total {metrics_b['eval_total']:.6g}; fused_rhs "
+            f"launches {resume_launches} (predicted {want_resume})")
+        if not (resume_err <= RESUME_TOL and resume_launches == want_resume):
+            raise AssertionError(f"resumed run differs: {resume_err}, {resume_launches}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # -- the large-ensemble path, device- and host-resident
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    trajectories = data_lib.build_trajectory_data(
+        eq, fine, config.data_seed, TRAJECTORIES, config.num_times, config.time_delta,
+        config.resample_factor, unroll, warmup_time=config.warmup_time,
+        ic_scale=config.ic_scale, device=device)
+    torch.cuda.synchronize()
+    traj_data_s = time.perf_counter() - start
+    host = data_lib.map_data(lambda a: a.cpu().numpy(), trajectories)
+    tconfig = dataclasses.replace(
+        config, num_trajectories=TRAJECTORIES, learning_rates=(config.learning_rates[0],),
+        learning_stops=(TRAJECTORY_STEPS,), eval_interval=TRAJECTORY_STEPS)
+    runs, traj_launches = {}, {}
+    for name, dataset in (("device", trajectories), ("host", host)):
+        fk.fused_rhs.launches = 0
+        start = time.perf_counter()
+        _, p, m = loop.train(tconfig, dataset=dataset, device=device, use_kernel=True)
+        torch.cuda.synchronize()
+        runs[name] = p
+        traj_launches[name] = fk.fused_rhs.launches
+        log(f"    trajectories, {name}-resident ({trajectories.nbytes() / 2**20:.0f} MiB): "
+            f"{TRAJECTORY_STEPS} step(s) in {time.perf_counter() - start:.2f} s, eval_total "
+            f"{m['eval_total']:.6g}, fused_rhs launches {fk.fused_rhs.launches}")
+        if not np.isfinite(m["eval_total"]):
+            raise AssertionError(f"trajectory training ({name}) not finite: {m}")
+    host_err = max(leaf_errors(runs["host"], runs["device"]).values())
+    log(f"    {TRAJECTORIES} trajectories generated in {traj_data_s:.2f} s; host-resident "
+        f"against device-resident params: worst leaf {host_err:.3e} (tolerance {RESUME_TOL:.0e})")
+    if not host_err <= RESUME_TOL:
+        raise AssertionError(f"host- and device-resident runs differ: {host_err}")
+    phase_s = time.perf_counter() - phase_start
+    log(f"    phase 12 took {phase_s:.1f} s")
+    return {
+        "step_launches": step_launches, "train_launches": train_launches,
+        "trajectory_launches": traj_launches["device"] + traj_launches["host"],
+        "loss_err": loss_err, "grad_err": worst, "rhs_ms": rhs_ms, "rhs_call_ms": rhs_call_ms,
+        "rhs_plain_ms": rhs_plain_ms, "rhs_bound_ms": rhs_bound, "step_ms": step_ms,
+        "eval_ms": eval_ms, "vjp_ms": vjp_ms, "busy_ms": busy, "peak_bytes": peak,
+        "data_s": data_s, "norms_s": norms_s, "smooth_grad_err": smooth_err, "phase_s": phase_s,
     }
 
 
@@ -933,7 +1321,10 @@ def main() -> int:
         ens[key + "_warm_ms"] = 1e3 * again["elapsed_s"]
     log(f"    baseline leg: {1e3 * base_elapsed:.1f} ms")
 
-    # ---- 11. report -----------------------------------------------------------
+    # ---- 12. training --------------------------------------------------------
+    training = training_phase(card, launch_floor_ms)
+
+    # ---- 13. report -----------------------------------------------------------
     flagship = times[BATCH]
     full = new_times[ENSEMBLE]
     kernels = [
@@ -942,9 +1333,16 @@ def main() -> int:
             "route": "cuda",
             "source": "pde_superresolution_torch/csrc/fused_rhs.cu",
             "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:135",
-            "launches": launches["fused_rhs"] + rhs_ensemble_launches,
+            "launches": (launches["fused_rhs"] + rhs_ensemble_launches
+                         + training["step_launches"] + training["train_launches"]
+                         + training["trajectory_launches"]),
             "launches_by_path": {"ks8 integrate(rhs_fn) B=256": launches["fused_rhs"],
-                                 "burgers8 ensemble --fused false": rhs_ensemble_launches},
+                                 "burgers8 ensemble --fused false": rhs_ensemble_launches,
+                                 "ks8 train step B=128 (kernel route)": training["step_launches"],
+                                 f"ks8 train() {TRAIN_STEPS} steps + resume, kernel route":
+                                     training["train_launches"],
+                                 f"ks8 train() on {TRAJECTORIES} trajectories, device and host":
+                                     training["trajectory_launches"]},
             "shape": f"B={BATCH} nx={grid.size}",
             "max_abs_err": rhs_err,
             "ms": flagship["fused_rhs_ms"],
@@ -960,6 +1358,15 @@ def main() -> int:
                                   THROUGHPUT_BATCH: times[THROUGHPUT_BATCH]["fused_rhs_bound_ms"],
                                   ENSEMBLE: rhs_ensemble["bound_ms"]},
             "launch_floor_ms": launch_floor_ms,
+            "training_b128": {"ms": training["rhs_ms"], "call_ms": training["rhs_call_ms"],
+                              "plain_ms": training["rhs_plain_ms"],
+                              "bound_ms": training["rhs_bound_ms"],
+                              "backward_plain_vjp_call_ms": training["vjp_ms"],
+                              "train_step_ms": training["step_ms"],
+                              "loss_rel_err": training["loss_err"],
+                              "grad_rel_err": training["grad_err"],
+                              "smooth_grad_rel_err": training["smooth_grad_err"],
+                              "phase_s": training["phase_s"]},
         },
         {
             "name": "fused_learned_rk4",

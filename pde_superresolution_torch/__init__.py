@@ -6,18 +6,25 @@ hand-written CUDA kernels for the hot loop. The port mirrors the JAX
 package's module names and public layouts (``[batch, nx]`` fields,
 ``{order: [batch, nx, stencil]}`` coefficients) and imports nothing of it.
 
-Layers, from the entry point down:
+Layers, from the entry points down:
   scripts/run_ensemble  the ensemble entry point (python -m ...)
+  scripts/run_training  the training entry point (python -m ...)
+  training/           config (TrainingConfig, --hparams), data (exact-solve
+                      snapshots, labels, TrajectoryData), losses (unrolled
+                      loss, norms), loop (Adam, checkpoints, resume)
+  utils/              JSONL metrics and TensorBoard scalar events
   models/stencil_net  StencilModel: rhs_fn, fused_rk4_fn
   models/conv_net     periodic conv tower (nn.Module, plain PyTorch)
   stencils            float64 constraint setup, projection, apply_stencil
   equations, grids    Burgers/KdV/KS, forcing, spectral form, periodic grids
   integrate           RK4/RK3 loops, integrate, integrate_fused; the exact
-                      ETDRK4 solver (SpectralETDRK4, integrate_spectral)
+                      ETDRK4 solver (SpectralETDRK4, integrate_spectral,
+                      exact_solve_sampled)
   ops/spectral        FFT derivatives and filters (torch.fft)
   ops/resample        block-mean and strided coarse-graining
   ops/fused_kernels   CUDA kernel wrappers with their plain twins:
-                      fused_rhs, fused_learned_rk4 (forced too), fused_rk4
+                      fused_rhs (differentiable: plain-VJP backward),
+                      fused_learned_rk4 (forced too), fused_rk4
   csrc/               the CUDA C++ sources (sm_90a), built on first use
   analysis            energy_spectrum
   convert             JAX checkpoint params -> this package's state dict;

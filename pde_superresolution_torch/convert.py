@@ -35,8 +35,7 @@ def params_from_jax(tree: Mapping, device=None) -> dict[str, torch.Tensor]:
     device = resolve_device(device)
 
     def conv(w):
-        w = np.asarray(w)
-        return torch.from_numpy(np.ascontiguousarray(np.transpose(w, (2, 1, 0))))
+        return torch.from_numpy(np.array(np.transpose(np.asarray(w), (2, 1, 0)), order="C"))
 
     state = {}
     for i, (w, b) in enumerate(tree["tower"]):
@@ -46,6 +45,20 @@ def params_from_jax(tree: Mapping, device=None) -> dict[str, torch.Tensor]:
         state[f"heads.{name}.weight"] = conv(w)
         state[f"heads.{name}.bias"] = torch.from_numpy(np.array(b))
     return {k: v.to(device) for k, v in state.items()}
+
+
+def npz_arrays_from_params(params: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The inverse of ``params_from_jax``, as the asset ``.npz`` keys
+    (``tower/<i>/w`` [K, Cin, Co], ``heads/<order>/b``, ...): float32 numpy
+    on the host, bit for bit the state dict's values."""
+    arrays = {}
+    for name, value in params.items():
+        kind, key, leaf = name.split(".")
+        value = value.detach().cpu().numpy()
+        if leaf == "weight":
+            value = np.ascontiguousarray(np.transpose(value, (2, 1, 0)))
+        arrays[f"{kind}/{key}/{'w' if leaf == 'weight' else 'b'}"] = value
+    return arrays
 
 
 def jax_tree_from_npz(path) -> dict:

@@ -5,8 +5,9 @@ differentiators and explicit integrators. Each ``lax.scan`` of the JAX
 package is a Python loop here; on the card the per-step work is kernels
 launched on the current stream. The exact reference solver is ETDRK4 in
 Fourier space (``SpectralETDRK4``, ``integrate_spectral``), a plain loop of
-``torch.fft`` calls; the resumable and sampled exact solves are not
-ported yet.
+``torch.fft`` calls; ``exact_solve_sampled`` samples it every
+``time_delta`` after an optional warm-up, for training data and warm-ups.
+The resumable solve (it needs HDF5) is not ported yet.
 """
 
 from __future__ import annotations
@@ -334,3 +335,59 @@ def integrate_spectral(
             saved.append(v)
         traj = torch.fft.irfft(torch.stack(saved), n=grid.size).to(u0.dtype)
     return _save_times(u0, dt, save_every, num_saves, t0), traj
+
+
+# Version stamp of the exact-solver numerics (ETDRK4 contour coefficients,
+# dealiasing rule, step selection), the JAX package's value: bump it on any
+# change that alters a bit of ``exact_solve_sampled``'s output.
+EXACT_SOLVER_VERSION = 1
+
+
+def exact_solve_sampled(
+    equation: Equation,
+    grid: Grid,
+    u0: torch.Tensor,
+    time_delta: float,
+    num_times: int,
+    warmup_time: float = 0.0,
+    forcing: Optional[ForcingParams] = None,
+    dt_cap: Optional[float] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """ETDRK4 exact solve sampled every ``time_delta``, with optional warm-up.
+
+    The internal step only resolves the nonlinear dynamics (the stiff linear
+    part is exact at any step): ``dt_cap`` defaults to ``0.2 * dx``, and
+    each ``time_delta`` is split into ``ceil(time_delta / dt_cap)`` equal
+    steps. Returns (times [num_times], traj [num_times, ..., nx]); the
+    warm-up segment is discarded and the times start at its end.
+    """
+    dt_cap = dt_cap or 0.2 * grid.dx
+    substeps = max(1, int(np.ceil(time_delta / dt_cap)))
+    dt = time_delta / substeps
+    t0 = 0.0
+    if warmup_time > 0:
+        warm_steps = int(np.ceil(warmup_time / dt))
+        _, warm = integrate_spectral(
+            equation, grid, u0, dt, warm_steps, save_every=warm_steps,
+            forcing=forcing,
+        )
+        u0 = warm[-1]
+        t0 = warm_steps * dt
+    return integrate_spectral(
+        equation, grid, u0, dt, (num_times - 1) * substeps,
+        save_every=substeps, t0=t0, forcing=forcing,
+    )
+
+
+def integrate_exact(
+    equation: Equation,
+    grid: Grid,
+    u0: torch.Tensor,
+    dt: float,
+    num_steps: int,
+    save_every: int = 1,
+    **kwargs,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact (spectral ETDRK4) solve, the ground-truth path: an alias of
+    ``integrate_spectral``."""
+    return integrate_spectral(equation, grid, u0, dt, num_steps, save_every, **kwargs)

@@ -260,7 +260,12 @@ class StencilModel:
             stencil apply, flux divergence and forcing add into one
             ``fused_kernels.fused_rhs`` launch (its plain version for CPU
             tensors). Default (None): True on a CUDA model. False runs
-            ``time_derivative`` (apply_stencil + Equation) instead.
+            ``time_derivative`` (apply_stencil + Equation) instead. Both
+            routes are differentiable (the kernel's backward is its plain
+            version's), and both take a per-sample time ``t [B]`` with
+            per-sample forcing (leaves ``[B, terms]``), as training does;
+            ``training.losses.compute_loss`` passes False unless asked, as
+            the JAX package's does.
         """
         if use_kernel is None:
             use_kernel = self.device.type == "cuda"

@@ -25,8 +25,15 @@ Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else. It takes its plain PyTorch version (``*_plain``, in this
 module) only for CPU tensors; for CUDA tensors it launches its kernel or
 raises. Each keeps a launch count, ``<wrapper>.launches``, a plain integer
-that grows by one per kernel launch. All are forward only: an input that
-requires grad raises.
+that grows by one per kernel launch (a forward re-run by activation
+checkpointing launches, and counts, again).
+
+``fused_rhs`` is differentiable, as the JAX package's ``custom_vjp`` makes
+its kernel: the forward is the kernel (or its plain version on the CPU), the
+backward the plain version's vector-Jacobian product at the same inputs
+(``fused_rhs_vjp``), so the unrolled training loss can run through it.
+``fused_learned_rk4`` and ``fused_rk4`` are forward only, as in JAX: an input
+that requires grad raises.
 """
 
 from __future__ import annotations
@@ -79,8 +86,9 @@ RK4_LAYOUTS = {
 def _check_forward_only(tensors) -> None:
     if any(t.requires_grad for t in tensors):
         raise ValueError(
-            "the fused kernels are forward only (the training slice adds "
-            "their autograd); pass tensors that do not require grad"
+            "fused_learned_rk4 and fused_rk4 are forward only, as in the JAX "
+            "package (only fused_rhs has a backward); pass tensors that do "
+            "not require grad"
         )
 
 
@@ -219,16 +227,30 @@ def fused_rhs(
         _check_f32(f"coeffs[{d}]", coeffs[d], (batch, nx, len(taps[d])), u.device)
     if f is not None:
         _check_f32("f", f, (batch, nx), u.device)
-    inputs = [u, *coeffs.values()] + ([f] if f is not None else [])
-    _check_forward_only(inputs)
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {u.device}")
+    static = (equation, grid, {d: taps[d] for d in orders})
+    tensors = (u, f, *(coeffs[d] for d in orders))
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        return _FusedRhs.apply(static, *tensors)
+    return _fused_rhs_forward(static, *tensors)
+
+
+fused_rhs.launches = 0
+
+
+def _fused_rhs_forward(static, u, f, *coeffs) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU ones;
+    ``coeffs`` in the sorted orders of ``static``'s taps."""
+    equation, grid, taps = static
+    orders = sorted(taps)
+    coeffs = dict(zip(orders, coeffs))
     if u.device.type == "cpu":
         return fused_rhs_plain(u, coeffs, f, equation, grid, taps)
-    if u.device.type != "cuda":
-        raise ValueError(f"unsupported device {u.device}")
-
     from pde_superresolution_torch.ops import _build
 
-    launch = rhs_launch(batch, nx, {d: taps[d] for d in orders})
+    batch, nx = u.shape
+    launch = rhs_launch(batch, nx, taps)
     lib = _build.load_library()
     out = torch.empty_like(u)
     c_ptrs = [coeffs[d].data_ptr() for d in orders] + [0] * (MAX_ORDERS - len(orders))
@@ -251,7 +273,42 @@ def fused_rhs(
     return out
 
 
-fused_rhs.launches = 0
+def fused_rhs_vjp(static, inputs, grad_out, needs=None):
+    """The backward of ``fused_rhs``: the vector-Jacobian product of
+    ``fused_rhs_plain`` at ``inputs = (u, f, *coeffs)`` (``f`` may be None,
+    ``coeffs`` in sorted order), as the JAX package's ``rhs_bwd`` linearises
+    the kernel's XLA twin at the same primal point. Returns the gradients in
+    that order, None where ``needs`` (default: every input given) is false.
+    Any float dtype."""
+    equation, grid, taps = static
+    if needs is None:
+        needs = [t is not None for t in inputs]
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(bool(need))
+                  for t, need in zip(inputs, needs)]
+        u, f, *coeffs = leaves
+        out = fused_rhs_plain(u, dict(zip(sorted(taps), coeffs)), f, equation, grid, taps)
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out) if wanted else ())
+    return tuple(next(grads) if t is not None and t.requires_grad else None
+                 for t in leaves)
+
+
+class _FusedRhs(torch.autograd.Function):
+    """``fused_rhs`` under autograd: the forward launches the kernel (its plain
+    version on the CPU) and saves its inputs; the backward is
+    ``fused_rhs_vjp`` at them, as the JAX package's ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, static, u, f, *coeffs):
+        ctx.static = static
+        ctx.save_for_backward(u, f, *coeffs)
+        return _fused_rhs_forward(static, u, f, *coeffs)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (None, *fused_rhs_vjp(ctx.static, ctx.saved_tensors, grad_out,
+                                     ctx.needs_input_grad[1:]))
 
 
 # ---------------------------------------------------------------------------

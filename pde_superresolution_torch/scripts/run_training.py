@@ -1,0 +1,129 @@
+"""Train a learned discretization model.
+
+The counterpart of ``pde_superresolution_tpu/scripts/run_training.py``:
+``--hparams`` comma-separated overrides on ``TrainingConfig`` ->
+``training.loop.train``. The snapshots are generated on the device from the
+config (exact ETDRK4 solves); ``--large_ensemble`` takes the
+trajectory-structured pipeline. The run is on ``cuda`` unless ``--device
+cpu`` is given.
+
+Example:
+  python -m pde_superresolution_torch.scripts.run_training \
+      --checkpoint_dir /tmp/ckpt \
+      --hparams equation=ks,resample_factor=8,num_time_steps=4
+
+Not ported yet: ``--input_path`` (HDF5 snapshots) and ``--data_parallel``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional
+
+from pde_superresolution_torch import equations
+from pde_superresolution_torch.device import resolve_device
+from pde_superresolution_torch.grids import Grid
+from pde_superresolution_torch.training import config as config_lib
+from pde_superresolution_torch.training import data as data_lib
+from pde_superresolution_torch.training import loop as loop_lib
+
+# auto --host_data threshold: leave room on the card for the fine generation
+# chunks, model/optimizer state and unrolled-loss activations
+_HOST_DATA_AUTO_BYTES = 6 * 1024**3
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--checkpoint_dir", required=True, help="checkpoint directory")
+    parser.add_argument("--metrics_path", default=None,
+                        help="JSONL metrics path (default: <checkpoint_dir>/metrics.jsonl)")
+    parser.add_argument("--tensorboard_dir", default=None,
+                        help="optional TensorBoard event-file dir (scalars mirrored "
+                        "from the JSONL stream)")
+    parser.add_argument("--hparams", default="",
+                        help="comma-separated key=value overrides "
+                        "(tuples use ';': learning_rates=1e-3;1e-4)")
+    parser.add_argument("--large_ensemble", action="store_true",
+                        help="use the trajectory-structured pipeline (chunked "
+                        "generation on the device, lazy rollout windows, "
+                        "by-trajectory eval split) for datasets of thousands "
+                        "of trajectories that the flat pipeline cannot hold")
+    parser.add_argument("--chunk_trajectories", type=int, default=1024,
+                        help="trajectories per generation chunk (large_ensemble)")
+    parser.add_argument("--host_data", choices=["auto", "true", "false"], default="auto",
+                        help="stage the large_ensemble dataset in host memory and "
+                        "move only each batch to the device (generation still "
+                        "runs on the device, chunk by chunk); auto = stage on "
+                        "the host when the estimated dataset exceeds 6 GB")
+    parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    return parser
+
+
+def _estimated_dataset_bytes(equation, config) -> int:
+    """float32 bytes of the TrajectoryData arrays the config will build."""
+    nx_c = config.fine_size // config.resample_factor
+    usable = config.num_times - config.num_time_steps
+    per_traj = nx_c * (
+        config.num_times + (len(equation.derivative_orders) + 1) * usable
+    )
+    return 4 * config.num_trajectories * per_traj
+
+
+def main(argv: Optional[list[str]] = None) -> dict:
+    """Run the training; returns the final metrics (``train_*``/``eval_*``)."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.host_data == "true" and not args.large_ensemble:
+        # silently ignoring the flag would let a bigger-than-memory run fail
+        # despite the explicit request for host staging
+        parser.error(
+            "--host_data=true applies to the --large_ensemble trajectory "
+            "pipeline only (the flat pipeline materializes rollouts and "
+            "is not host-stageable); add --large_ensemble"
+        )
+    device = resolve_device(args.device)
+    config = config_lib.parse_hparams(args.hparams)
+    dataset = None
+    if args.large_ensemble:
+        equation = equations.from_name(
+            config.equation, conservative=config.conservative, **config.equation_params,
+        )
+        fine = Grid(config.fine_size, equation.period)
+        if args.host_data == "auto":
+            est = _estimated_dataset_bytes(equation, config)
+            host_resident = est > _HOST_DATA_AUTO_BYTES
+            if host_resident:
+                print(f"host_data=auto: estimated dataset {est / 1024**3:.1f} GB > "
+                      f"{_HOST_DATA_AUTO_BYTES / 1024**3:.0f} GB: staging on the host "
+                      "(per-batch device transfer)")
+        else:
+            host_resident = args.host_data == "true"
+        dataset = data_lib.build_trajectory_data(
+            equation, fine, config.data_seed,
+            num_trajectories=config.num_trajectories,
+            num_times=config.num_times,
+            time_delta=config.time_delta,
+            resample_factor=config.resample_factor,
+            unroll_steps=config.num_time_steps,
+            warmup_time=config.warmup_time,
+            ic_scale=config.ic_scale,
+            chunk_trajectories=args.chunk_trajectories,
+            host_resident=host_resident,
+            device=device,
+        )
+    metrics_path = args.metrics_path or f"{args.checkpoint_dir}/metrics.jsonl"
+    _, _, metrics = loop_lib.train(
+        config,
+        dataset=dataset,
+        checkpoint_dir=args.checkpoint_dir,
+        metrics_path=metrics_path,
+        tensorboard_dir=args.tensorboard_dir,
+        device=device,
+    )
+    print({k: round(v, 4) for k, v in metrics.items() if k.startswith("eval")})
+    return metrics
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

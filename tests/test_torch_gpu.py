@@ -296,3 +296,85 @@ def test_run_ensemble_routes_on_card(cuda):
     assert fused["finite"] == steps["finite"] == 64
     torch.testing.assert_close(fused["final"], steps["final"], rtol=0,
                                atol=2e-3 * float(steps["final"].abs().max()))
+
+
+# The fused_rhs Function on the card: the forward is the kernel, the
+# backward the plain VJP at the kernel's inputs, so gradients differ from the
+# plain route only through the forward's tap order and FMAs (1e-6 of max|u_t|
+# per RHS). Of each leaf's largest value: after one RHS; after a short
+# rematerialized rollout, of its states' mean squared error (smooth); and of
+# the training loss, a mean absolute error whose sign(pred - label) flips
+# where a rounding moves a state across its label (read 2.6e-3 on an H100).
+RHS_GRAD_TOL = 1e-4
+ROLLOUT_GRAD_TOL = 3e-3
+LOSS_GRAD_TOL = 2e-2
+
+
+@pytest.mark.parametrize("name,cons,size", [("ks", True, 6), ("burgers", True, 6),
+                                            ("kdv", False, 7), ("ks", False, 7)])
+def test_fused_rhs_gradients_match_plain_route(cuda, name, cons, size):
+    """Gradients of a weighted sum of one RHS with respect to the params and
+    u, kernel route against plain route (per-sample times and forcing for
+    Burgers); the backward launches nothing."""
+    model, params, u = _model(name, cons, size, cuda, nx=128, batch=64)
+    gen = torch.Generator().manual_seed(1)
+    forcing = model.equation.sample_forcing(gen, (64,), cuda)
+    t = torch.rand(64, generator=gen).to(cuda)
+    w = torch.randn(u.shape, generator=gen).to(cuda)
+    grads = {}
+    for use_kernel in (True, False):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        x = u.clone().requires_grad_()
+        out = model.rhs_fn(leaves, forcing, use_kernel=use_kernel)(x, t)
+        before = fk.fused_rhs.launches
+        g = torch.autograd.grad((w * out).sum(), [x, *leaves.values()])
+        assert fk.fused_rhs.launches == before
+        grads[use_kernel] = dict(zip(["u", *leaves], g))
+    worst = max(float((grads[True][k] - grads[False][k]).abs().max())
+                / float(grads[False][k].abs().max()) for k in grads[False])
+    print(f"one RHS, worst gradient leaf of its max: {worst:.3e}")
+    assert worst <= RHS_GRAD_TOL
+
+
+def test_training_loss_routes_agree_on_card(cuda):
+    """compute_loss at B=128 with a 2-snapshot rollout of 12 substeps (the
+    recipe's: fewer are beyond the model's stable step) from the KS-8x
+    checkpoint: the kernel route's loss and gradients against the plain
+    route's, and 2 x 96 fused_rhs launches (forward and recompute); the
+    gradients of the rollout's mean squared error by both routes."""
+    from pde_superresolution_torch.training import data as tdata
+    from pde_superresolution_torch.training import losses as tlosses
+
+    model, params, _ = convert.load_asset("ckpt_ks8", device=cuda)
+    eq = model.equation
+    fine = Grid(1024, eq.period)
+    snaps = tdata.generate_snapshots(eq, fine, torch.Generator().manual_seed(0), 16, 10, 0.05,
+                                     warmup_time=10.0, ic_scale=0.1, device=cuda)
+    data = tdata.build_training_data(eq, fine, snaps, 8, unroll_steps=2)
+    norms = tlosses.compute_loss_norms(model, data, 2, 0.05, substeps=12)
+    results = {}
+    for use_kernel in (True, False):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        before = fk.fused_rhs.launches
+        loss, _ = tlosses.compute_loss(model, leaves, data, norms, tlosses.LossWeights(), 0.05,
+                                       2, 12, use_kernel=use_kernel)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        results[use_kernel] = (float(loss), dict(zip(leaves, grads)),
+                               fk.fused_rhs.launches - before)
+    assert results[True][2] == 2 * 2 * 12 * 4 and results[False][2] == 0
+    loss_err = abs(results[True][0] - results[False][0]) / abs(results[False][0])
+    worst = max(float((results[True][1][k] - results[False][1][k]).abs().max())
+                / float(results[False][1][k].abs().max()) for k in params)
+    labels = data.rollout.transpose(0, 1).double()
+    smooth = {}
+    for use_kernel in (True, False):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        states = tlosses.rollout_states(model.rhs_fn(leaves, use_kernel=use_kernel), data.inputs,
+                                        data.t, 0.05, 12, 2)
+        value = 0.5 * (states.double() - labels).square().mean()
+        smooth[use_kernel] = dict(zip(leaves, torch.autograd.grad(value, list(leaves.values()))))
+    smooth_worst = max(float((smooth[True][k] - smooth[False][k]).abs().max())
+                       / float(smooth[False][k].abs().max()) for k in params)
+    print(f"loss rel {loss_err:.3e}, worst gradient leaf of its max {worst:.3e}; "
+          f"rollout's mean squared error, worst gradient leaf {smooth_worst:.3e}")
+    assert loss_err <= 1e-5 and worst <= LOSS_GRAD_TOL and smooth_worst <= ROLLOUT_GRAD_TOL

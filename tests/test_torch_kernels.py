@@ -151,8 +151,9 @@ def test_fused_rhs_wrapper_checks():
     with pytest.raises(ValueError, match="needs orders"):
         fk.fused_rhs(u, {d: coeffs[d] for d in (0, 1)}, None, model.equation,
                      model.grid, {d: model.taps[d] for d in (0, 1)})
-    with pytest.raises(ValueError, match="forward only"):
-        fk.fused_rhs(u.clone().requires_grad_(), coeffs, None, *args)
+    # differentiable (the training slice): the backward is the plain VJP
+    assert fk.fused_rhs(u.clone().requires_grad_(), coeffs, None, *args).grad_fn is not None
+    assert fk.fused_rhs(u, coeffs, None, *args).grad_fn is None
     with pytest.raises(ValueError, match="shape"):
         fk.fused_rhs(u, coeffs, torch.zeros(3, NX), *args)
 
