@@ -80,12 +80,35 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      resumed from step 2 against it; ``train`` on 1024 trajectories of the
      large-ensemble pipeline, device- and host-resident, one step each;
      the phase's own seconds;
- 13. one ``{"kernels": [...]}`` line, then the card's line, then the result.
+ 13. evaluation at full width through ``scripts.run_evaluation``: the KS-8x
+     checkpoint at its recipe's data protocol (32 members, ``ic_scale`` 0.1,
+     warm-up 44, samples every 0.1 to a horizon of 10; the model and the
+     matched-width baseline; no reference cache) with its ``fused_rhs``
+     launches zeroed before and counted after (9200 predicted), then the
+     Burgers-8x checkpoint (32 members, forced, horizon 3, eval keys 0 and
+     1; model, 8-tap baseline and WENO) through ``main`` with an HDF5 output
+     when ``h5py`` imports, else through ``evaluate_checkpoint``; each held,
+     on the first 4 members of the same draw, against the port's CPU path
+     (exact, trajectories, MAE, survival times with their flips counted),
+     with a planted fault that must fail (KS: the order-1 head zeroed;
+     Burgers: the forcing dropped from the model scheme); every model
+     member finite and the KS model's survival median the horizon; times by
+     layer (fine solve, each scheme, the model leg's host share), the whole
+     evaluation, and ``fused_rhs`` at B=32 against its bound and the launch
+     floor;
+ 14. seed selection through ``scripts.run_select`` at the KS-8x recipe (2
+     seeds cut to 2 optimizer steps, 4 selection and 8 final members,
+     horizon 1, warm-up 44), its winner's-curse fields and
+     ``selection.json`` checked, and ``scripts.run_sweep`` (Burgers, factor
+     8, 2 steps, 4 members, horizon 1), both with predicted ``fused_rhs``
+     launches and their seconds;
+ 15. one ``{"kernels": [...]}`` line, then the card's line, then the result.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
-when no CUDA device is present. ``training_phase`` can be called on its own
-once the kernels are built (``_build.build()``).
+when no CUDA device is present. ``training_phase``, ``evaluation_phase``
+and ``selection_phase`` can be called on their own once the kernels are
+built (``_build.build()``).
 """
 
 from __future__ import annotations
@@ -195,6 +218,32 @@ FD_TOL = 1e-2
 # (on an H100, resumed at step 5 of 10: read 9.4e-5; after 3 steps of the
 # trajectory pipeline: 2.6e-4).
 RESUME_TOL = 1e-3
+# Phase 13, evaluation. KS-8x at its recipe's data protocol
+# (assets/ckpt_ks8.json: ic_scale 0.1, warm-up 44), sampled every 0.1; the
+# zoo's horizon of 50 is cut to 10 to bound the script's time. Burgers-8x,
+# forced, at run_evaluation's defaults (time_delta 0.1) to a horizon of 3,
+# with two eval keys.
+EVAL_MEMBERS = 32
+KS_HORIZON = 10.0
+BURGERS_HORIZON = 3.0
+EVAL_DELTA = 0.1
+COMPARE_MEMBERS = 4  # the card against the port's CPU path on the first members
+# The card against the CPU path on the same members, of max|exact|: the
+# fine solve (cuFFT against pocketfft, float32) and every scheme's
+# trajectories and MAE. Each limit near 10x its reading on an H100. KS-8x:
+# 44 time units of warm-up and 10 of chaos amplify float32 differences, so
+# exact read 2.10e-4, model and baseline 1.88e-4; the planted faults read
+# 3.9e-3 (order-1 head zeroed) and 3.9e-2 (order-3 head zeroed). Burgers-8x
+# at horizon 3: exact 7.4e-6, model 5.2e-6, baseline 7.1e-6, WENO 3.6e-6;
+# the forcing dropped from the model scheme read 0.87.
+EVAL_TOLS = {
+    "ks8": {"exact": 2e-3, "model": 1.5e-3, "baseline": 1.5e-3},
+    "burgers8": {"exact": 7e-5, "model": 5e-5, "baseline": 7e-5, "weno": 3.5e-5},
+}
+# Phase 14: run_select at the KS-8x recipe and run_sweep, each cut to a few
+# optimizer steps.
+SELECT_STEPS = 2
+SELECT_HORIZON = 1.0
 SLEEP_CYCLES = 60_000_000  # about 30 ms of device-side sleep at H100 clocks
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -817,6 +866,402 @@ def training_phase(card: str, launch_floor_ms: float) -> dict:
     }
 
 
+def _keep_first(draw, count: int):
+    """``evaluate._draw`` that keeps the first ``count`` members of the draw
+    it makes (the card's run and the CPU's then hold the same members)."""
+    def first(*args):
+        u0, forcing = draw(*args)
+        if forcing is not None:
+            forcing = type(forcing)(*(leaf[:count].contiguous() for leaf in forcing))
+        return u0[:count].contiguous(), forcing
+
+    return first
+
+
+class LayerTimes:
+    """Host seconds (after a synchronize) of each exact fine solve and each
+    scheme's integration inside ``evaluate``, recorded while it is entered:
+    ``integrate.exact_solve_sampled`` and ``integrate.integrate`` are
+    wrapped for that time (evaluate runs the schemes in their dict's
+    order)."""
+
+    def __init__(self):
+        self.records = []
+
+    def __enter__(self):
+        import torch
+
+        from pde_superresolution_torch import integrate
+
+        self._real = (integrate.exact_solve_sampled, integrate.integrate)
+
+        def timed(fn, kind):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.records.append((kind, time.perf_counter() - start))
+                return out
+            return run
+
+        integrate.exact_solve_sampled = timed(self._real[0], "exact")
+        integrate.integrate = timed(self._real[1], "scheme")
+        return self
+
+    def __exit__(self, *exc):
+        from pde_superresolution_torch import integrate
+
+        integrate.exact_solve_sampled, integrate.integrate = self._real
+
+    def by_layer(self, schemes) -> dict:
+        """{layer: seconds summed over the eval keys}; the scheme records are
+        matched to ``schemes`` in order."""
+        out = {"exact": sum(t for kind, t in self.records if kind == "exact")}
+        legs = [t for kind, t in self.records if kind == "scheme"]
+        for i, name in enumerate(schemes):
+            out[name] = sum(legs[i::len(schemes)])
+        return out
+
+
+def eval_schedule(model, time_delta: float) -> tuple:
+    """(inner RK4 steps per save, coarse dt) as ``run_evaluation`` and
+    ``evaluate`` choose them: the model's stable step only where it is
+    tighter than the equation's."""
+    import numpy as np
+
+    eq_dt = model.equation.stable_time_step(model.grid, u_scale=3.0)
+    model_dt = model.stable_time_step(u_scale=3.0)
+    if model_dt < eq_dt:
+        inner = max(1, int(np.ceil(time_delta / model_dt - 1e-9)))
+    else:
+        inner = max(1, int(np.ceil(time_delta / eq_dt)))
+    return inner, time_delta / inner
+
+
+def compare_evaluations(label: str, card, cpu, tols: dict, threshold: float = 0.8) -> dict:
+    """Hold the card's evaluation (its first members) against the CPU path's
+    on the same members: the times, ``exact``, and each scheme's
+    trajectories and MAE, of max|exact|; survival times equal but for flips
+    explained by the two sides' correlations (the distance of the CPU's
+    correlation to the threshold at most the card's difference from it).
+    Returns the readings and the flip counts."""
+    import torch
+
+    n = cpu.exact.shape[0]
+    want_exact = cpu.exact.double()
+    scale = float(want_exact.abs().max())
+
+    def rel(got, want):
+        got, want = got[:n].cpu().double(), want.cpu().double()
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            return float("inf")
+        return float((got - want).abs().max()) / scale
+
+    if not torch.allclose(card.times.cpu(), cpu.times, rtol=1e-6, atol=0):
+        raise AssertionError(f"{label}: times differ {card.times} {cpu.times}")
+    readings = {"exact": rel(card.exact, cpu.exact)}
+    flips = {}
+    for name in cpu.trajectories:
+        readings[name] = max(rel(card.trajectories[name], cpu.trajectories[name]),
+                             rel(card.mae[name], cpu.mae[name]))
+        got_c = card.correlation[name][:n].cpu().double()
+        want_c = cpu.correlation[name].double()
+        differ = card.survival_time[name][:n].cpu() != cpu.survival_time[name]
+        explained = (want_c - threshold).abs().amin(-1) <= (got_c - want_c).abs().amax(-1)
+        flips[name] = int(differ.sum())
+        if (differ & ~explained).any():
+            raise AssertionError(f"{label} {name}: survival flips not explained by the "
+                                 f"correlations: {card.survival_time[name][:n]} vs "
+                                 f"{cpu.survival_time[name]}")
+    for key, value in readings.items():
+        tol = tols[key]
+        log(f"  {label}, card vs CPU, first {n} members, {key}"
+            f"{'' if key == 'exact' else ' trajectories and MAE'}: rel {value:.3e} of max|exact| "
+            f"{scale:.4g} (tolerance {tol:.0e}) {'ok' if value <= tol else 'FAIL'}")
+    log(f"    survival times: flips (each explained by the correlations) {flips}")
+    bad = {k: v for k, v in readings.items() if not v <= tols[k]}
+    if bad:
+        raise AssertionError(f"{label}: card against CPU path beyond the limits: {bad}")
+    return {"readings": readings, "flips": flips}
+
+
+def evaluation_phase(card: str, launch_floor_ms: float) -> dict:
+    """Phase 13: evaluation at the KS-8x and Burgers-8x protocols. Returns
+    the readings the report needs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pde_superresolution_torch import convert, equations
+    from pde_superresolution_torch import evaluate as eval_lib
+    from pde_superresolution_torch import integrate
+    from pde_superresolution_torch.ops import fused_kernels as fk
+    from pde_superresolution_torch.scripts import run_evaluation
+
+    phase_start = time.perf_counter()
+    device = torch.device("cuda")
+    log(f"[13] evaluation through scripts.run_evaluation, {EVAL_MEMBERS} members; on {card}")
+    protocols = {
+        "ks8": ["--checkpoint_dir", "ckpt_ks8", "--num_samples", str(EVAL_MEMBERS),
+                "--ic_scale", "0.1", "--warmup_time", "44", "--time_delta", str(EVAL_DELTA),
+                "--time_max", str(KS_HORIZON), "--reference_cache_dir", ""],
+        "burgers8": ["--checkpoint_dir", "ckpt_burgers8", "--num_samples", str(EVAL_MEMBERS),
+                     "--time_delta", str(EVAL_DELTA), "--time_max", str(BURGERS_HORIZON),
+                     "--seeds", "0,1", "--reference_cache_dir", ""],
+    }
+    try:
+        import h5py  # noqa: F401
+        has_h5py = True
+    except ImportError:
+        has_h5py = False
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_"))
+    out = {}
+    try:
+        for label, flags in protocols.items():
+            model, params, config = convert.load_checkpoint(flags[1], device=device)
+            inner, dt = eval_schedule(model, EVAL_DELTA)
+            horizon = KS_HORIZON if label == "ks8" else BURGERS_HORIZON
+            saves = int(round(horizon / EVAL_DELTA))
+            keys = 1 if label == "ks8" else 2
+            predicted = keys * saves * inner * 4
+            schemes = ["model", "baseline"] + (["weno"] if model.equation.name == "burgers" else [])
+            log(f"  {label}: {config.equation}, fine {config.fine_size} -> {model.grid.size}, "
+                f"stencil {model.config.stencil_size}; {saves} saves x {inner} RK4 steps of "
+                f"{dt:.9g}; schemes {schemes}; predicted fused_rhs launches {keys} keys x "
+                f"{saves} x {inner} x 4 = {predicted}")
+            argv = flags + ["--output_path", str(work / f"{label}.h5")]
+            fk.fused_rhs.launches = 0
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            with LayerTimes() as layers:
+                if label == "burgers8" and has_h5py:
+                    route = "run_evaluation.main, HDF5 written"
+                    result = run_evaluation.main(argv)
+                else:
+                    route = ("run_evaluation.evaluate_checkpoint, no file" if label == "burgers8"
+                             else "run_evaluation.evaluate_checkpoint")
+                    result = run_evaluation.evaluate_checkpoint(
+                        run_evaluation.build_parser().parse_args(argv))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            launches = fk.fused_rhs.launches
+            times = layers.by_layer(schemes)
+            log(f"    {route}{' (h5py is not installed)' if label == 'burgers8' and not has_h5py else ''}"
+                f": {seconds:.2f} s; fused_rhs launches {launches} (predicted {predicted})")
+            if launches != predicted:
+                raise AssertionError(f"{label}: fused_rhs launches {launches} != {predicted}")
+            if label == "burgers8" and has_h5py:
+                written = sorted(p.name for p in work.iterdir())
+                loaded = eval_lib.load_eval_h5(str(work / "burgers8.key0.h5"))
+                if written != ["burgers8.key0.h5", "burgers8.key1.h5"] or not torch.equal(
+                        loaded.exact, result["results"][0].exact.cpu()):
+                    raise AssertionError(f"HDF5 output: {written}")
+            first = result["results"][result["seeds"][0]]
+            for seed, res in result["results"].items():
+                if res.exact.shape != (EVAL_MEMBERS, saves + 1, model.grid.size) or not all(
+                        torch.isfinite(res.trajectories[s]).all() for s in ("model",)):
+                    raise AssertionError(f"{label} key {seed}: shape {res.exact.shape} or a "
+                                         "model member is not finite")
+            log(f"    layers (s, summed over keys): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in times.items())
+                + f"; the rest (loading, draw, metrics) {seconds - sum(times.values()):.3f}")
+            log(f"    statistics: {json.dumps(result['per_key'])}")
+            if label == "ks8":
+                median = result["per_key"][result["seeds"][0]]["model"]["survival_median"]
+                log(f"    KS-8x model survival median {median} of horizon {KS_HORIZON}")
+                if abs(median - KS_HORIZON) > 1e-3:
+                    raise AssertionError(f"KS-8x model survival median {median} != horizon")
+
+            # -- the card against the CPU path, on the first members of the draw
+            real_draw = eval_lib._draw
+            eval_lib._draw = _keep_first(real_draw, COMPARE_MEMBERS)
+            try:
+                cpu_args = run_evaluation.build_parser().parse_args(argv + ["--device", "cpu"])
+                cpu_args.seeds, cpu_args.seed = "", result["seeds"][0]
+                start = time.perf_counter()
+                cpu = run_evaluation.evaluate_checkpoint(cpu_args)["results"][cpu_args.seed]
+                cpu_s = time.perf_counter() - start
+            finally:
+                eval_lib._draw = real_draw
+            compared = compare_evaluations(label, first, cpu, EVAL_TOLS[label])
+            log(f"    the CPU path on {COMPARE_MEMBERS} members took {cpu_s:.1f} s")
+            # -- planted faults in the model scheme, run on the card from the
+            # same coarse start; each must fail the model's limit
+            u_start = first.exact[:COMPARE_MEMBERS, 0].contiguous()
+            t0 = float(first.times[0])
+            if label == "ks8":
+                faults = {f"order-{d} head zeroed": model.rhs_fn(
+                    {k: torch.zeros_like(v) if k.startswith(f"heads.{d}.") else v
+                     for k, v in params.items()}) for d in (1, 3)}
+            else:
+                faults = {"forcing dropped from the model scheme": model.rhs_fn(params, None)}
+            fault_reads = {}
+            tol = EVAL_TOLS[label]["model"]
+            for fault, rhs in faults.items():
+                with torch.no_grad():
+                    _, bad_traj = integrate.integrate(rhs, u_start, dt, saves * inner, inner,
+                                                      t0=t0)
+                read = fault_reads[fault] = float(
+                    (bad_traj.transpose(0, 1).cpu().double()
+                     - cpu.trajectories["model"].double()).abs().max()
+                ) / float(cpu.exact.double().abs().max())
+                log(f"  planted fault, {label}, {fault}: model trajectories rel {read:.3e} "
+                    f"(tolerance {tol:.0e}) {'caught' if read > tol else 'NOT CAUGHT'}")
+            if not all(read > tol for read in fault_reads.values()):
+                raise AssertionError(f"a planted fault passes the {label} limit: {fault_reads}")
+
+            # -- where the model leg's time goes: device time of one save
+            # interval (torch.profiler, device activity only) against the leg's
+            # host clock; fused_rhs at this batch against its bound
+            u = first.exact[:, 0].contiguous()
+            with torch.no_grad():
+                busy = sum(device_profile(
+                    lambda: integrate.integrate(model.rhs_fn(params), u, dt, inner, inner,
+                                                t0=t0), 1).values()) / 1e3
+                coeffs = {d: c.contiguous() for d, c in model.coefficients(params, u).items()}
+                f = None
+                if model.equation.forced:
+                    # the forcing of the first key's draw, drawn again
+                    gen = torch.Generator().manual_seed(result["seeds"][0])
+                    fine = type(model.grid)(config.fine_size, model.equation.period)
+                    _, forcing = real_draw(model.equation, fine, gen, EVAL_MEMBERS, 1.0, device)
+                    x = torch.as_tensor(model.grid.x, dtype=torch.float32, device=device)
+                    f = equations.forcing_term(forcing, x, t0, model.equation.period,
+                                               model.grid.dx).contiguous()
+                rhs_args = (u, coeffs, f, model.equation, model.grid, model.taps)
+                rhs_ms = time_ms(lambda: fk.fused_rhs(*rhs_args), inner=100, queued=True)
+                rhs_call_ms = time_ms(lambda: fk.fused_rhs(*rhs_args), inner=100)
+                rhs_plain_ms = time_ms(lambda: fk.fused_rhs_plain(*rhs_args), inner=10)
+            leg_busy_s = keys * saves * busy / 1e3
+            host_share = 1 - leg_busy_s / times["model"]
+            bound = rhs_bound_ms(u, coeffs, f)
+            log(f"    model leg: {times['model']:.3f} s on the host clock, device busy "
+                f"{leg_busy_s:.3f} s ({busy:.3f} ms per save interval of {4 * inner} RHS, "
+                f"torch.profiler): host's share {100 * host_share:.1f}%; per RHS "
+                f"{1e6 * times['model'] / (keys * saves * inner * 4):.1f} us")
+            log(f"    fused_rhs at B={EVAL_MEMBERS}{' forced' if f is not None else ''}: "
+                f"{1e3 * rhs_ms:.3f} us device (queued), {1e3 * rhs_call_ms:.2f} us per wrapper "
+                f"call, plain {1e3 * rhs_plain_ms:.2f} us; bytes bound {1e3 * bound:.3f} us, "
+                f"launch floor {1e3 * launch_floor_ms:.3f} us")
+            out[label] = {
+                "launches": launches, "seconds": seconds, "layers_s": times,
+                "route": route, "host_share": host_share, "fault_reads": fault_reads,
+                "rhs_ms": rhs_ms, "rhs_call_ms": rhs_call_ms, "rhs_plain_ms": rhs_plain_ms,
+                "rhs_bound_ms": bound, **compared,
+            }
+            del result, first, cpu
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - phase_start
+    log(f"    phase 13 took {out['phase_s']:.1f} s")
+    return out
+
+
+def selection_phase(card: str) -> dict:
+    """Phase 14: run_select at the KS-8x recipe and run_sweep, cut to a few
+    optimizer steps. Returns the launch counts and seconds."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pde_superresolution_torch import convert
+    from pde_superresolution_torch.ops import fused_kernels as fk
+    from pde_superresolution_torch.scripts import run_select, run_sweep
+    from pde_superresolution_torch.training import config as config_lib
+    from pde_superresolution_torch.training import loop
+
+    phase_start = time.perf_counter()
+    device = torch.device("cuda")
+    recipe = json.loads((convert.ASSET_DIR / "ckpt_ks8.json").read_text())
+    fields = {k: recipe[k] for k in ("equation", "conservative", "resample_factor", "fine_size",
+                                     "num_trajectories", "num_times", "time_delta",
+                                     "warmup_time", "ic_scale", "num_time_steps",
+                                     "batch_size")}
+    fields.update(recipe["model"])
+    fields.update(learning_rates=recipe["learning_rates"][0], learning_stops=SELECT_STEPS,
+                  eval_interval=SELECT_STEPS, checkpoint_interval=SELECT_STEPS)
+    hparams = ",".join(f"{k}={v}" for k, v in fields.items())
+    try:
+        import h5py  # noqa: F401
+        cache = "refs"
+    except ImportError:
+        cache = ""
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_select_"))
+    try:
+        # predicted launches: the model scheme of three protocol evals
+        # (two seeds' selection evals, the winner's final one)
+        _, _, model = loop._model_for(config_lib.parse_hparams(hparams), device)
+        inner, _ = eval_schedule(model, recipe["time_delta"])
+        saves = int(round(SELECT_HORIZON / recipe["time_delta"]))
+        predicted = 3 * saves * inner * 4
+        log(f"[14] run_select at the KS-8x recipe, 2 seeds x {SELECT_STEPS} steps, 4 + 8 members, "
+            f"horizon {SELECT_HORIZON}, warm-up 44, reference cache "
+            f"{'in a temporary directory' if cache else 'off (no h5py)'}; predicted fused_rhs "
+            f"launches 3 evals x {saves} saves x {inner} x 4 = {predicted}; on {card}")
+        fk.fused_rhs.launches = 0
+        start = time.perf_counter()
+        summary = run_select.main([
+            "--output_dir", str(work / "sel"), "--num_seeds", "2", "--hparams", hparams,
+            "--select_samples", "4", "--final_samples", "8", "--eval_time_max",
+            str(SELECT_HORIZON), "--eval_warmup", "44", "--reference_cache_dir",
+            str(work / cache) if cache else ""])
+        torch.cuda.synchronize()
+        select_s = time.perf_counter() - start
+        select_launches = fk.fused_rhs.launches
+        with open(work / "sel" / "selection.json") as f:
+            written = json.load(f)
+        rows = written["rows"]
+        log(f"    run_select: {select_s:.1f} s; fused_rhs launches {select_launches} (predicted "
+            f"{predicted}); winner seed {summary['winner_seed']}, selection survival "
+            f"{summary['selection_survival']}, final {summary['final_survival']}, bias "
+            f"{written['selection_bias']}")
+        sel, final = written["selection_score"], written["final_score"]
+        if not (select_launches == predicted
+                and sorted(written) == ["final_score", "rows", "selection_bias",
+                                        "selection_score", "winner_checkpoint", "winner_seed"]
+                and [r["seed"] for r in rows] == [0, 1]
+                and summary["winner_seed"] == written["winner_seed"] in (0, 1)
+                and sel["eval_seed"] == 12345 and final["eval_seed"] == 54321
+                and sel["num_samples"] == 4 and final["num_samples"] == 8
+                and written["selection_bias"] == (sel["model_survival_median"]
+                                                  - final["model_survival_median"])
+                and all(np.isfinite(r["eval_total"]) for r in rows)
+                and loop.checkpoint_steps(written["winner_checkpoint"]) == [SELECT_STEPS]):
+            raise AssertionError(f"run_select: {select_launches} launches, {written}")
+
+        sweep_hparams = (f"learning_rates=1e-3,learning_stops={SELECT_STEPS},"
+                         f"eval_interval={SELECT_STEPS}")
+        _, _, model = loop._model_for(config_lib.parse_hparams(
+            "equation=burgers,resample_factor=8", config_lib.parse_hparams(sweep_hparams)), device)
+        inner, _ = eval_schedule(model, 0.1)
+        predicted_sweep = int(round(SELECT_HORIZON / 0.1)) * inner * 4
+        fk.fused_rhs.launches = 0
+        start = time.perf_counter()
+        records = run_sweep.main([
+            "--equation", "burgers", "--factors", "8", "--hparams", sweep_hparams,
+            "--num_eval_samples", "4", "--eval_time_max", str(SELECT_HORIZON),
+            "--reference_cache_dir", ""])
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - start
+        sweep_launches = fk.fused_rhs.launches
+        log(f"    run_sweep: {sweep_s:.1f} s; fused_rhs launches {sweep_launches} (predicted "
+            f"{predicted_sweep}); {json.dumps(records)}")
+        if not (sweep_launches == predicted_sweep and len(records) == 1
+                and records[0]["factor"] == 8 and np.isfinite(records[0]["eval_total"])
+                and records[0]["model_diverged"] == 0):
+            raise AssertionError(f"run_sweep: {sweep_launches} launches, {records}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - phase_start
+    log(f"    phase 14 took {phase_s:.1f} s")
+    return {"select_launches": select_launches, "sweep_launches": sweep_launches,
+            "select_s": select_s, "sweep_s": sweep_s, "phase_s": phase_s}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1324,7 +1769,11 @@ def main() -> int:
     # ---- 12. training --------------------------------------------------------
     training = training_phase(card, launch_floor_ms)
 
-    # ---- 13. report -----------------------------------------------------------
+    # ---- 13. evaluation; 14. selection and the sweep ------------------------------
+    evaluation = evaluation_phase(card, launch_floor_ms)
+    selection = selection_phase(card)
+
+    # ---- 15. report -----------------------------------------------------------
     flagship = times[BATCH]
     full = new_times[ENSEMBLE]
     kernels = [
@@ -1335,14 +1784,22 @@ def main() -> int:
             "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:135",
             "launches": (launches["fused_rhs"] + rhs_ensemble_launches
                          + training["step_launches"] + training["train_launches"]
-                         + training["trajectory_launches"]),
+                         + training["trajectory_launches"] + evaluation["ks8"]["launches"]
+                         + evaluation["burgers8"]["launches"] + selection["select_launches"]
+                         + selection["sweep_launches"]),
             "launches_by_path": {"ks8 integrate(rhs_fn) B=256": launches["fused_rhs"],
                                  "burgers8 ensemble --fused false": rhs_ensemble_launches,
                                  "ks8 train step B=128 (kernel route)": training["step_launches"],
                                  f"ks8 train() {TRAIN_STEPS} steps + resume, kernel route":
                                      training["train_launches"],
                                  f"ks8 train() on {TRAJECTORIES} trajectories, device and host":
-                                     training["trajectory_launches"]},
+                                     training["trajectory_launches"],
+                                 f"ks8 evaluation, {EVAL_MEMBERS} members, horizon {KS_HORIZON}":
+                                     evaluation["ks8"]["launches"],
+                                 f"burgers8 evaluation, 2 keys x {EVAL_MEMBERS} members":
+                                     evaluation["burgers8"]["launches"],
+                                 "ks8 run_select, 2 seeds": selection["select_launches"],
+                                 "burgers8 run_sweep": selection["sweep_launches"]},
             "shape": f"B={BATCH} nx={grid.size}",
             "max_abs_err": rhs_err,
             "ms": flagship["fused_rhs_ms"],
@@ -1367,6 +1824,14 @@ def main() -> int:
                               "grad_rel_err": training["grad_err"],
                               "smooth_grad_rel_err": training["smooth_grad_err"],
                               "phase_s": training["phase_s"]},
+            "evaluation_b32": {
+                label: {"ms": e["rhs_ms"], "call_ms": e["rhs_call_ms"],
+                        "plain_ms": e["rhs_plain_ms"], "bound_ms": e["rhs_bound_ms"],
+                        "evaluation_s": e["seconds"], "layers_s": e["layers_s"],
+                        "model_leg_host_share": e["host_share"],
+                        "card_vs_cpu": e["readings"], "survival_flips": e["flips"]}
+                for label, e in evaluation.items() if label != "phase_s"},
+            "selection_s": selection["select_s"], "sweep_s": selection["sweep_s"],
         },
         {
             "name": "fused_learned_rk4",

@@ -9,9 +9,14 @@ package's module names and public layouts (``[batch, nx]`` fields,
 Layers, from the entry points down:
   scripts/run_ensemble  the ensemble entry point (python -m ...)
   scripts/run_training  the training entry point (python -m ...)
+  scripts/run_evaluation, run_select, run_sweep  evaluation, seed selection
+                      and the resample-factor sweep (python -m ...)
+  evaluate            EvalResult, survival times, the exact-reference cache
+  weno                the WENO5 Burgers baseline
   training/           config (TrainingConfig, --hparams), data (exact-solve
                       snapshots, labels, TrajectoryData), losses (unrolled
-                      loss, norms), loop (Adam, checkpoints, resume)
+                      loss, norms), loop (Adam, checkpoints, resume),
+                      selection (train N seeds, keep the protocol winner)
   utils/              JSONL metrics and TensorBoard scalar events
   models/stencil_net  StencilModel: rhs_fn, fused_rk4_fn
   models/conv_net     periodic conv tower (nn.Module, plain PyTorch)
@@ -26,9 +31,10 @@ Layers, from the entry points down:
                       fused_rhs (differentiable: plain-VJP backward),
                       fused_learned_rk4 (forced too), fused_rk4
   csrc/               the CUDA C++ sources (sm_90a), built on first use
-  analysis            energy_spectrum
+  analysis            MAE curves, survival statistics, report, energy_spectrum
   convert             JAX checkpoint params -> this package's state dict;
-                      the committed assets (ckpt_ks8, ckpt_burgers8, ckpt_kdv8)
+                      the committed assets (ckpt_ks8, ckpt_burgers8, ckpt_kdv8);
+                      load_checkpoint, the entry points' one loader
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -7,6 +7,8 @@ and imports no JAX. The committed assets under ``assets/`` hold a trained
 checkpoint's tree as ``.npz`` (keys ``tower/<i>/w``, ``heads/<order>/b``, ...)
 beside its config in the JSON layout of a checkpoint's ``config/metadata``;
 ``tools/export_jax_checkpoint.py`` writes them from an orbax checkpoint.
+``load_checkpoint`` is the one loader of the entry points: a training
+checkpoint directory written by ``training.loop`` or an asset.
 """
 
 from __future__ import annotations
@@ -114,3 +116,22 @@ def load_asset(name: str = "ckpt_ks8", device=None):
     model = model_from_config(config, device=device)
     params = params_from_jax(jax_tree_from_npz(stem.with_suffix(".npz")), device)
     return model, params, config
+
+
+def load_checkpoint(path, device=None):
+    """(model, params, ``TrainingConfig``) from ``path``, for every entry point.
+
+    ``path`` is a training checkpoint directory (step subdirectories written
+    by ``training.loop``; the latest step is loaded by ``loop.load_model``)
+    or what ``load_asset`` takes: a committed asset's name or the path stem
+    of an exported ``.npz``/``.json`` pair, whose JSON is a stored
+    ``TrainingConfig``.
+    """
+    # imported here: training.loop imports this module
+    from pde_superresolution_torch.training import loop
+    from pde_superresolution_torch.training.config import TrainingConfig
+
+    if loop.checkpoint_steps(str(path)):
+        return loop.load_model(str(path), device=device)
+    model, params, config = load_asset(str(path), device=device)
+    return model, params, TrainingConfig.from_json(json.dumps(config))

@@ -10,10 +10,11 @@ Example:
       --checkpoint_dir ckpt_burgers8 --num_trajectories 10240 \
       --time_max 10 --warmup_time 1
 
-``--checkpoint_dir`` names a committed asset (``ckpt_ks8``,
-``ckpt_burgers8``, ``ckpt_kdv8``) or the path stem of a ``.npz``/``.json``
-pair written by ``tools/export_jax_checkpoint.py``. The run is on ``cuda``
-unless ``--device cpu`` is given.
+``--checkpoint_dir`` is a training checkpoint directory written by
+``run_training``, a committed asset (``ckpt_ks8``, ``ckpt_burgers8``,
+``ckpt_kdv8``) or the path stem of a ``.npz``/``.json`` pair written by
+``tools/export_jax_checkpoint.py`` (``convert.load_checkpoint``). The run
+is on ``cuda`` unless ``--device cpu`` is given.
 
 Routes between snapshots: the fused kernel (``StencilModel.fused_rk4_fn``:
 one launch per save interval, forcing evaluated in the kernel) or single
@@ -44,7 +45,8 @@ from pde_superresolution_torch.ops import fused_kernels
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--checkpoint_dir", required=True,
-                        help="asset name or path stem of a trained model")
+                        help="training checkpoint directory, asset name or path "
+                        "stem of a trained model")
     parser.add_argument("--num_trajectories", type=int, default=10240,
                         help="ensemble size")
     parser.add_argument("--time_max", type=float, default=10.0,
@@ -86,7 +88,7 @@ def setup(args: argparse.Namespace) -> Ensemble:
     """Load the model, widen the domain if asked, and draw the ensemble's
     initial conditions and forcing from ``--seed``."""
     device = resolve_device(args.device)
-    model, params, config = convert.load_asset(args.checkpoint_dir, device=device)
+    model, params, config = convert.load_checkpoint(args.checkpoint_dir, device=device)
     equation, coarse = model.equation, model.grid
     if args.domain_factor > 1:
         # the same physics in an N-times larger box at the same dx: the
@@ -102,8 +104,8 @@ def setup(args: argparse.Namespace) -> Ensemble:
             ic_k_min=nf * equation.ic_k_min,
             ic_k_max=nf * equation.ic_k_max,
         )
-        coarse = Grid(nf * config["fine_size"], equation.period).resample(
-            config["resample_factor"], conservative=equation.conservative
+        coarse = Grid(nf * config.fine_size, equation.period).resample(
+            config.resample_factor, conservative=equation.conservative
         )
         model = StencilModel(equation, coarse, model.config, device=device)
     generator = torch.Generator().manual_seed(args.seed)

@@ -1,7 +1,8 @@
 """Training subsystem: data generation, losses, training loop, config.
 
 The JAX package's exports, without its HDF5 interchange
-(``save_snapshots_h5``/``load_snapshots_h5``) and checkpoint selection.
+(``save_snapshots_h5``/``load_snapshots_h5``). Seed selection is the
+``selection`` submodule, as in the JAX package.
 """
 
 from pde_superresolution_torch.training.config import (  # noqa: F401

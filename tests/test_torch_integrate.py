@@ -118,9 +118,10 @@ def test_integrate_fused_matches_integrate(flagship):
 
 
 def test_import_needs_no_jax_and_no_nvcc(tmp_path):
-    """Importing the package and every submodule (the training modules and
-    scripts included) loads neither jax, the JAX package, optax, orbax nor
-    h5py, and builds nothing: no nvcc on PATH, no CUDA_HOME."""
+    """Importing the package and every submodule (the training, evaluation
+    and selection modules and the scripts included) loads neither jax, the
+    JAX package, optax, orbax nor h5py, and builds nothing: no nvcc on PATH,
+    no CUDA_HOME."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import pde_superresolution_torch as p\n"
@@ -134,7 +135,9 @@ def test_import_needs_no_jax_and_no_nvcc(tmp_path):
         "assert _build.build.cache_info().currsize == 0\n"
         "for n in ('scripts.run_ensemble', 'ops.spectral', 'ops.resample', 'analysis',\n"
         "          'training.loop', 'training.data', 'training.losses', 'training.config',\n"
-        "          'utils.metrics', 'utils.tb_events', 'scripts.run_training'):\n"
+        "          'utils.metrics', 'utils.tb_events', 'scripts.run_training', 'evaluate',\n"
+        "          'weno', 'scripts.run_evaluation', 'training.selection',\n"
+        "          'scripts.run_select', 'scripts.run_sweep'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "print(len(names))\n"
     )
@@ -144,4 +147,4 @@ def test_import_needs_no_jax_and_no_nvcc(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 26
+    assert int(out.stdout.strip()) >= 34
