@@ -102,13 +102,27 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      ``selection.json`` checked, and ``scripts.run_sweep`` (Burgers, factor
      8, 2 steps, 4 members, horizon 1), both with predicted ``fused_rhs``
      launches and their seconds;
- 15. one ``{"kernels": [...]}`` line, then the card's line, then the result.
+ 15. the serving export: ``scripts.run_export`` of the KS-8x checkpoint
+     (``--num_steps`` 16, the CLI in a process of its own, meanwhile) and
+     of the Burgers-8x one (4), with the export, save and load timed apart; each artifact loaded on the card and held at
+     B=10240 against the live model's ``fused_rhs`` route and its plain
+     route (RHS), and its advance against ``integrate`` of the plain route,
+     with a planted fault (heads zeroed before the export) and TF32 left on,
+     both of which must fail; no kernel of the port launched by a served
+     call; ``run_ensemble --exported_dir`` on the Burgers-8x ensemble (10240
+     trajectories, warm-up 1, 100 steps in 10 saves) against the live
+     ``rhs_fn`` route, timed; ``run_evaluation --exported_dir`` at the
+     Burgers-8x protocol (key 0, 32 members, horizon 3) against the live
+     checkpoint's evaluation of the same draw; where ``h5py`` imports,
+     ``run_ensemble --output_path`` at B=10240, cut at half and resumed, bit
+     for bit the uninterrupted run (else one line says why it was skipped);
+ 16. one ``{"kernels": [...]}`` line, then the card's line, then the result.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
-when no CUDA device is present. ``training_phase``, ``evaluation_phase``
-and ``selection_phase`` can be called on their own once the kernels are
-built (``_build.build()``).
+when no CUDA device is present. ``training_phase``, ``evaluation_phase``,
+``selection_phase`` and ``serving_phase`` can be called on their own once
+the kernels are built (``_build.build()``).
 """
 
 from __future__ import annotations
@@ -245,6 +259,26 @@ EVAL_TOLS = {
 SELECT_STEPS = 2
 SELECT_HORIZON = 1.0
 SLEEP_CYCLES = 60_000_000  # about 30 ms of device-side sleep at H100 clocks
+# Phase 15, the serving export. The artifact is the plain route, traced on the
+# CPU and moved to the card; it runs cuDNN's float32 convolutions with TF32
+# off. Of max|ref| at B=10240, on an H100. Against the live plain route (the
+# ops it traced) the RHS and the advance read 0 (the limit is about one
+# float32 ulp of the maximum); against the fused_rhs route the KS-8x RHS
+# read 3.0e-5 (Burgers 3.8e-6), the kernel's tap order, held at phase 3's
+# limit between the kernel and its plain version. TF32 left on and a planted fault (heads zeroed: 1.2e-4 for
+# KS-8x, 2.1e-3 for Burgers-8x) must fail the plain check.
+# (asset, run_export --num_steps): the first is exported in a process of its
+# own while the second is exported, checked and served here
+SERVE_EXPORTS = (("ckpt_ks8", 16), ("ckpt_burgers8", 4))
+SERVE_RHS_TOL = 1e-4  # the served RHS against the live fused_rhs route
+SERVE_PLAIN_TOL = 1e-7  # ... against the live plain route
+SERVE_STEP_TOL = 1e-7  # served.advance against integrate of the live plain route
+# the --exported_dir Burgers-8x ensemble's final state against the live rhs_fn
+# route (read 4.8e-6 of max|u| after 100 steps), and run_evaluation
+# --exported_dir's model trajectories against the live checkpoint's (read
+# 2.8e-6 of max|exact|; the same survival statistics)
+SERVE_ENSEMBLE_TOL = 5e-5
+SERVE_EVAL_TOL = 3e-5
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -1262,6 +1296,289 @@ def selection_phase(card: str) -> dict:
             "select_s": select_s, "sweep_s": sweep_s, "phase_s": phase_s}
 
 
+class _Cut(Exception):
+    """Raised by a patched ``h5py.File.flush``: a run that dies mid-way."""
+
+
+def serving_phase(card: str) -> dict:
+    """Phase 15: the serving export. ``run_export`` at full width for the
+    KS-8x and Burgers-8x checkpoints; each artifact on the card against the
+    live model at B=ENSEMBLE, with planted faults; the ``--exported_dir``
+    ensemble and evaluation against the live routes; the resumable HDF5
+    route where ``h5py`` imports. Returns the readings the report needs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pde_superresolution_torch import convert, export, integrate
+    from pde_superresolution_torch.device import resolve_device
+    from pde_superresolution_torch.ops import fused_kernels as fk
+    from pde_superresolution_torch.scripts import run_ensemble, run_evaluation, run_export
+
+    phase_start = time.perf_counter()
+    device = resolve_device()  # cuda, as every entry point's default
+    kernels = (fk.fused_rhs, fk.fused_learned_rk4, fk.fused_rk4)
+
+    def zero_counts():
+        for kernel in kernels:
+            kernel.launches = 0
+
+    def counts() -> dict:
+        return {kernel.__name__: kernel.launches for kernel in kernels}
+
+    log(f"[15] serving export through scripts.run_export (plain route traced on the CPU, "
+        f"moved to cuda), B={ENSEMBLE}; on {card}")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    out = {"exports": {}}
+
+    def check_artifact(name: str, steps: int, exported: dict, served) -> None:
+        """The artifact on the card at B=ENSEMBLE against the live model,
+        with its planted faults, and its times."""
+        path = work / name
+        sizes = {p.name: p.stat().st_size for p in sorted(path.iterdir())}
+        log(f"  {name}, --num_steps {steps}: export {exported['export_s']:.2f} s, save "
+            f"{exported['save_s']:.2f} s, load on cuda {exported['load_s']:.2f} s; bytes "
+            f"{sizes}; run_export's own check (4 members against the live fused_rhs "
+            f"route) {exported['kernel_rel_err']:.3e} of max|u_t| (limit "
+            f"{run_export.KERNEL_REL_ERR:.0e}), against the plain route "
+            f"{exported['max_abs_err']:.3e} (limit {run_export.MAX_ABS_ERR:.0e})")
+        model, params, _ = convert.load_checkpoint(name, device=device)
+        gen = torch.Generator().manual_seed(SEED)
+        u = model.equation.initial_conditions(gen, model.grid, (ENSEMBLE,), device)
+        forcing = model.equation.sample_forcing(gen, (ENSEMBLE,), device)
+        t0 = 0.37
+        t = torch.tensor(t0, device=device)
+        with torch.no_grad():
+            zero_counts()
+            frozen = served.rhs_fn(forcing)(u, t)
+            torch.cuda.synchronize()
+            if any(counts().values()):
+                raise AssertionError(f"the served RHS launched a kernel: {counts()}")
+            live = model.rhs_fn(params, forcing)(u, t)  # the fused_rhs route
+            plain = model.rhs_fn(params, forcing, use_kernel=False)(u, t)
+        rhs_err = check(f"{name} served RHS vs the live fused_rhs route", frozen, live,
+                        SERVE_RHS_TOL)
+        plain_err = check(f"{name} served RHS vs the live plain route", frozen, plain,
+                          SERVE_PLAIN_TOL)
+        zeroed = {k: torch.zeros_like(v) if k.startswith("heads.") else v
+                  for k, v in params.items()}
+        export.export_and_save(model, zeroed, str(work / f"{name}_fault"))
+        faulty = export.load_served_model(str(work / f"{name}_fault"))
+        with torch.no_grad():
+            bad = faulty.rhs_fn(forcing)(u, t)
+            check_catches(f"{name}, heads zeroed before the export, vs the plain route",
+                          bad, plain, SERVE_PLAIN_TOL)
+            # the trained KS-8x heads move max|u_t| by about 1e-4 only, the
+            # size of the kernel route's own difference: logged, no limit
+            log(f"    heads zeroed, against the fused_rhs route: rel "
+                f"{relative_error(bad, live, False):.3e} (no limit)")
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = served.rhs_fn(forcing)(u, t)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+            check_catches(f"{name}, TF32 left on (cudnn.allow_tf32 = True), vs the plain "
+                          "route", tf32, plain, SERVE_PLAIN_TOL)
+            log(f"    with TF32 on, against the fused_rhs route: rel "
+                f"{relative_error(tf32, live, False):.3e} (no limit)")
+            dt = served.meta["dt"]
+            advanced, t_next = served.advance(u, t0, forcing)
+            _, traj = integrate.integrate(model.rhs_fn(params, forcing, use_kernel=False),
+                                          u, dt, steps, steps, t0=t0)
+        step_err = check(f"{name} served advance ({steps} RK4 steps) vs integrate of the "
+                         "live plain route", advanced, traj[-1], SERVE_STEP_TOL)
+        if abs(t_next - (t0 + dt * steps)) > 1e-12:
+            raise AssertionError(f"advance returned t = {t_next}")
+        with torch.no_grad():
+            timed = {
+                "served_rhs_ms": lambda: served.rhs_fn(forcing)(u, t),
+                "live_fused_rhs_route_ms": lambda: model.rhs_fn(params, forcing)(u, t),
+                "live_plain_route_ms": lambda: model.rhs_fn(
+                    params, forcing, use_kernel=False)(u, t),
+                "served_advance_ms": lambda: served.advance(u, t0, forcing),
+                "live_fused_rhs_route_steps_ms": lambda: integrate.integrate(
+                    model.rhs_fn(params, forcing), u, dt, steps, steps, t0=t0),
+            }
+            times = {key: time_ms(fn, samples=LONG_SAMPLES) for key, fn in timed.items()}
+        log(f"    times at B={ENSEMBLE} (CUDA events, host in the loop, median of "
+            f"{LONG_SAMPLES}; {steps} steps for the advance rows): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+        out["exports"][name] = {
+            "num_steps": steps, "bytes": sizes, "rhs_err": rhs_err, "plain_err": plain_err,
+            "step_err": step_err, "check_err": exported["kernel_rel_err"],
+            **{k: exported[k] for k in ("export_s", "save_s", "load_s")}, **times}
+        del u, forcing, frozen, live, plain, bad, tf32, advanced, traj, served, faulty
+
+    # Tracing is single-threaded host work, and the KS-8x advance of 16 steps
+    # takes a minute or two on the card machine's CPU: that export runs in a
+    # process of its own (the same CLI) while the Burgers-8x artifact is
+    # exported and checked here and serves the ensemble and the evaluation.
+    (side_name, side_steps), (name, steps) = SERVE_EXPORTS
+    side = subprocess.Popen(
+        [sys.executable, "-m", "pde_superresolution_torch.scripts.run_export",
+         "--checkpoint_dir", side_name, "--output_dir", str(work / side_name),
+         "--num_steps", str(side_steps)],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        exported = run_export.main(["--checkpoint_dir", name, "--output_dir", str(work / name),
+                                    "--num_steps", str(steps)])
+        check_artifact(name, steps, exported, exported.pop("served"))
+
+        # -- run_ensemble --exported_dir, the Burgers-8x ensemble
+        bpath = str(work / name)
+        with open(Path(bpath) / "meta.json") as f:
+            bdt = json.load(f)["stable_dt"]
+        common = ["--num_trajectories", str(ENSEMBLE), "--warmup_time", str(WARMUP_TIME),
+                  "--time_max", str((STEPS - 0.5) * bdt), "--num_saves", str(ENSEMBLE_SAVES),
+                  "--seed", str(SEED)]
+        runs = []
+        for _ in range(2):  # the second run is warm
+            zero_counts()
+            runs.append(run_ensemble.main(["--exported_dir", bpath, *common]))
+            torch.cuda.synchronize()
+            if any(counts().values()):
+                raise AssertionError(f"the served ensemble launched a kernel: {counts()}")
+        served_run = runs[-1]
+        zero_counts()
+        live_run = run_ensemble.main(["--checkpoint_dir", "ckpt_burgers8", "--fused", "false",
+                                      *common])
+        torch.cuda.synchronize()
+        if counts()["fused_rhs"] != 4 * STEPS:
+            raise AssertionError(f"the live rhs_fn route's launches: {counts()}")
+        if not (served_run["path"] == "frozen artifact, rhs_fn steps"
+                and served_run["num_steps"] == STEPS and served_run["finite"] == ENSEMBLE
+                and torch.equal(served_run["initial"], live_run["initial"])):
+            raise AssertionError(f"served ensemble: {served_run['path']}, "
+                                 f"{served_run['num_steps']} steps, {served_run['finite']} finite")
+        ens_err = check("--exported_dir ensemble vs the live rhs_fn route, final state",
+                        served_run["final"], live_run["final"], SERVE_ENSEMBLE_TOL)
+        log(f"    --exported_dir ensemble, {ENSEMBLE} x {STEPS} steps: first run "
+            f"{1e3 * runs[0]['elapsed_s']:.1f} ms, second {1e3 * served_run['elapsed_s']:.1f} ms "
+            f"({served_run['traj_steps_per_s']:,.0f} traj-steps/s); the live rhs_fn route in "
+            f"this run {1e3 * live_run['elapsed_s']:.1f} ms ({live_run['traj_steps_per_s']:,.0f}"
+            f" traj-steps/s); PERF.md section 5, same card: fused 65.5-65.9 ms, rhs_fn 1625-1632 ms")
+        out["ensemble"] = {"first_ms": 1e3 * runs[0]["elapsed_s"],
+                           "ms": 1e3 * served_run["elapsed_s"],
+                           "traj_steps_per_s": served_run["traj_steps_per_s"],
+                           "live_rhs_fn_ms": 1e3 * live_run["elapsed_s"], "err": ens_err}
+
+        # -- run_evaluation --exported_dir at the Burgers-8x protocol, key 0
+        flags = ["--num_samples", str(EVAL_MEMBERS), "--time_delta", str(EVAL_DELTA),
+                 "--time_max", str(BURGERS_HORIZON), "--seed", "0", "--reference_cache_dir", "",
+                 "--output_path", str(work / "unused.h5")]
+        parser = run_evaluation.build_parser()
+        zero_counts()
+        start = time.perf_counter()
+        served_eval = run_evaluation.evaluate_checkpoint(
+            parser.parse_args(["--exported_dir", bpath, *flags]))
+        torch.cuda.synchronize()
+        served_eval_s = time.perf_counter() - start
+        if any(counts().values()):
+            raise AssertionError(f"the served evaluation launched a kernel: {counts()}")
+        start = time.perf_counter()
+        live_eval = run_evaluation.evaluate_checkpoint(
+            parser.parse_args(["--checkpoint_dir", "ckpt_burgers8", *flags]))
+        torch.cuda.synchronize()
+        live_eval_s = time.perf_counter() - start
+        got, want = served_eval["results"][0], live_eval["results"][0]
+        if not (torch.equal(got.exact, want.exact)
+                and all(torch.equal(got.trajectories[s], want.trajectories[s])
+                        for s in ("baseline", "weno"))):
+            raise AssertionError("the served evaluation's exact or classic legs differ")
+        scale = float(want.exact.abs().max())
+        eval_err = float((got.trajectories["model"] - want.trajectories["model"]).abs().max())
+        flips = int((got.survival_time["model"] != want.survival_time["model"]).sum())
+        log(f"    run_evaluation --exported_dir, {EVAL_MEMBERS} members, horizon "
+            f"{BURGERS_HORIZON}: {served_eval_s:.2f} s (the live checkpoint's "
+            f"{live_eval_s:.2f} s); model trajectories vs the live fused_rhs route: rel "
+            f"{eval_err / scale:.3e} of max|exact| (tolerance {SERVE_EVAL_TOL:.0e}); survival "
+            f"flips {flips}; served {json.dumps(served_eval['per_key'][0]['model'])}, live "
+            f"{json.dumps(live_eval['per_key'][0]['model'])}")
+        def survival(evaluation):  # the printed statistics but the MAE
+            return {scheme: {k: v for k, v in stats.items() if not k.startswith("mae_")}
+                    for scheme, stats in evaluation["per_key"][0].items()}
+
+        if eval_err / scale > SERVE_EVAL_TOL or flips or survival(served_eval) != survival(
+                live_eval):
+            raise AssertionError(f"served evaluation: {eval_err / scale}, {flips} flips, "
+                                 f"{served_eval['per_key']} against {live_eval['per_key']}")
+        out["evaluation"] = {"served_s": served_eval_s, "live_s": live_eval_s,
+                             "err": eval_err / scale, "flips": flips}
+        del served_eval, live_eval, got, want
+
+        # -- the KS-8x artifact, exported meanwhile in its own process
+        text, _ = side.communicate(timeout=900)
+        lines = [line for line in text.splitlines() if line.startswith("{")]
+        if side.returncode or not lines:
+            raise AssertionError(f"run_export {side_name} in its own process: exit code "
+                                 f"{side.returncode}\n{text[-4000:]}")
+        start = time.perf_counter()
+        served = export.load_served_model(str(work / side_name))
+        log(f"  {side_name}: exported by run_export in its own process; loaded here on cuda "
+            f"in {time.perf_counter() - start:.2f} s")
+        check_artifact(side_name, side_steps, json.loads(lines[-1]), served)
+        del served
+
+        # -- run_ensemble --output_path: the resumable route, cut at half
+        try:
+            import h5py
+        except ImportError:
+            h5py = None
+            log("    HDF5 leg skipped: h5py is not installed on this machine (an optional "
+                "dependency of both packages; run_ensemble --output_path needs it)")
+        out["resumable_launches"] = 0
+        if h5py is not None:
+            zero_counts()
+            full = run_ensemble.main(["--checkpoint_dir", "ckpt_burgers8", "--output_path",
+                                      str(work / "full.h5"), *common])
+            torch.cuda.synchronize()
+            out["resumable_launches"] = counts()["fused_rhs"]
+            real_flush, flushes = h5py.File.flush, []
+
+            def flush(self):
+                real_flush(self)
+                flushes.append(1)
+                if len(flushes) == ENSEMBLE_SAVES // 2:
+                    raise _Cut
+
+            h5py.File.flush = flush
+            try:
+                run_ensemble.main(["--checkpoint_dir", "ckpt_burgers8", "--output_path",
+                                   str(work / "cut.h5"), *common])
+                raise AssertionError("the cut run was not cut")
+            except _Cut:
+                pass
+            finally:
+                h5py.File.flush = real_flush
+            resumed = run_ensemble.main(["--checkpoint_dir", "ckpt_burgers8", "--output_path",
+                                         str(work / "cut.h5"), *common])
+            with h5py.File(work / "full.h5", "r") as a, h5py.File(work / "cut.h5", "r") as b:
+                same_store = np.array_equal(a["u"][...], b["u"][...])
+            log(f"    run_ensemble --output_path: {full['path']}, {1e3 * full['elapsed_s']:.1f} "
+                f"ms, fused_rhs launches {out['resumable_launches']} (predicted {4 * STEPS}); "
+                f"cut after {ENSEMBLE_SAVES // 2} saves and resumed in "
+                f"{1e3 * resumed['elapsed_s']:.1f} ms; resumed equal to uninterrupted: "
+                f"{torch.equal(resumed['final'], full['final']) and same_store}; equal to the "
+                f"live rhs_fn route: {torch.equal(full['final'], live_run['final'])}")
+            if not (out["resumable_launches"] == 4 * STEPS and same_store
+                    and full["path"] == "resumable rhs_fn steps"
+                    and torch.equal(resumed["final"], full["final"])
+                    and torch.equal(full["final"], live_run["final"])):
+                raise AssertionError("the resumable route")
+    finally:
+        if side.poll() is None:
+            side.kill()
+            side.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - phase_start
+    log(f"    phase 15 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1773,7 +2090,10 @@ def main() -> int:
     evaluation = evaluation_phase(card, launch_floor_ms)
     selection = selection_phase(card)
 
-    # ---- 15. report -----------------------------------------------------------
+    # ---- 15. the serving export -------------------------------------------------
+    serving = serving_phase(card)
+
+    # ---- 16. report -----------------------------------------------------------
     flagship = times[BATCH]
     full = new_times[ENSEMBLE]
     kernels = [
@@ -1786,7 +2106,7 @@ def main() -> int:
                          + training["step_launches"] + training["train_launches"]
                          + training["trajectory_launches"] + evaluation["ks8"]["launches"]
                          + evaluation["burgers8"]["launches"] + selection["select_launches"]
-                         + selection["sweep_launches"]),
+                         + selection["sweep_launches"] + serving["resumable_launches"]),
             "launches_by_path": {"ks8 integrate(rhs_fn) B=256": launches["fused_rhs"],
                                  "burgers8 ensemble --fused false": rhs_ensemble_launches,
                                  "ks8 train step B=128 (kernel route)": training["step_launches"],
@@ -1799,7 +2119,11 @@ def main() -> int:
                                  f"burgers8 evaluation, 2 keys x {EVAL_MEMBERS} members":
                                      evaluation["burgers8"]["launches"],
                                  "ks8 run_select, 2 seeds": selection["select_launches"],
-                                 "burgers8 run_sweep": selection["sweep_launches"]},
+                                 "burgers8 run_sweep": selection["sweep_launches"],
+                                 # only where h5py imports (the HDF5 leg)
+                                 **({"burgers8 ensemble --output_path (resumable)":
+                                     serving["resumable_launches"]}
+                                    if serving["resumable_launches"] else {})},
             "shape": f"B={BATCH} nx={grid.size}",
             "max_abs_err": rhs_err,
             "ms": flagship["fused_rhs_ms"],
@@ -1832,6 +2156,9 @@ def main() -> int:
                         "card_vs_cpu": e["readings"], "survival_flips": e["flips"]}
                 for label, e in evaluation.items() if label != "phase_s"},
             "selection_s": selection["select_s"], "sweep_s": selection["sweep_s"],
+            # the served route launches no kernel: the artifact is the plain
+            # route, held here against this kernel's route at B=ENSEMBLE
+            "serving": {k: v for k, v in serving.items() if k != "resumable_launches"},
         },
         {
             "name": "fused_learned_rk4",

@@ -11,10 +11,15 @@ Layers, from the entry points down:
   scripts/run_training  the training entry point (python -m ...)
   scripts/run_evaluation, run_select, run_sweep  evaluation, seed selection
                       and the resample-factor sweep (python -m ...)
+  scripts/create_training_data, run_export, run_analysis  HDF5 snapshots,
+                      the serving artifact, the figures (python -m ...)
+  export              torch.export artifacts of the plain route: ServedModel,
+                      science_context
   evaluate            EvalResult, survival times, the exact-reference cache
   weno                the WENO5 Burgers baseline
   training/           config (TrainingConfig, --hparams), data (exact-solve
-                      snapshots, labels, TrajectoryData), losses (unrolled
+                      snapshots, labels, TrajectoryData, HDF5 snapshot
+                      files in the JAX layout), losses (unrolled
                       loss, norms), loop (Adam, checkpoints, resume),
                       selection (train N seeds, keep the protocol winner)
   utils/              JSONL metrics and TensorBoard scalar events
@@ -22,8 +27,9 @@ Layers, from the entry points down:
   models/conv_net     periodic conv tower (nn.Module, plain PyTorch)
   stencils            float64 constraint setup, projection, apply_stencil
   equations, grids    Burgers/KdV/KS, forcing, spectral form, periodic grids
-  integrate           RK4/RK3 loops, integrate, integrate_fused; the exact
-                      ETDRK4 solver (SpectralETDRK4, integrate_spectral,
+  integrate           RK4/RK3 loops, integrate, integrate_fused,
+                      integrate_resumable (HDF5 store); the exact ETDRK4
+                      solver (SpectralETDRK4, integrate_spectral,
                       exact_solve_sampled)
   ops/spectral        FFT derivatives and filters (torch.fft)
   ops/resample        block-mean and strided coarse-graining

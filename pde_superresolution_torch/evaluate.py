@@ -255,14 +255,15 @@ def _cached_exact_solve(
 _CALLER = 4
 
 
-def model_coarse_dt(model) -> Optional[float]:
+def model_coarse_dt(model_dt: Optional[float], equation: Equation,
+                    grid: Grid) -> Optional[float]:
     """The model-aware coarse step for ``evaluate(coarse_dt=...)``: the
-    model's stable RK4 step where it is tighter than the equation's (wide
-    stencils), else None, so protocols with stencils up to 8 taps keep their
-    exact step counts. The baseline and WENO integrate at the same step,
-    which only ever tightens for them."""
-    model_dt = model.stable_time_step(u_scale=3.0)
-    if model_dt < model.equation.stable_time_step(model.grid, u_scale=3.0):
+    model's stable RK4 step (``StencilModel.stable_time_step(u_scale=3)``,
+    or a frozen artifact's ``stable_dt``) where it is tighter than the
+    equation's on ``grid`` (wide stencils), else None, so protocols with
+    stencils up to 8 taps keep their exact step counts. The baseline and
+    WENO integrate at the same step, which only ever tightens for them."""
+    if model_dt and model_dt < equation.stable_time_step(grid, u_scale=3.0):
         return model_dt
     return None
 

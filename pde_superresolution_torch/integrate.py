@@ -7,7 +7,9 @@ launched on the current stream. The exact reference solver is ETDRK4 in
 Fourier space (``SpectralETDRK4``, ``integrate_spectral``), a plain loop of
 ``torch.fft`` calls; ``exact_solve_sampled`` samples it every
 ``time_delta`` after an optional warm-up, for training data and warm-ups.
-The resumable solve (it needs HDF5) is not ported yet.
+``integrate_resumable`` keeps a long integration's saves and carry in an
+HDF5 store (the JAX package's layout; ``h5py`` is imported inside it), so a
+run that dies resumes from its last completed save.
 """
 
 from __future__ import annotations
@@ -210,6 +212,90 @@ def integrate_fused(
         t = t + dt * save_every
         traj.append(u)
     return _save_times(u0, dt, save_every, num_saves, t0), torch.stack(traj)
+
+
+def integrate_resumable(
+    rhs: RHSFn,
+    u0: torch.Tensor,
+    dt: float,
+    num_steps: int,
+    save_every: int,
+    store_path: str,
+    t0: float = 0.0,
+    method: str = "rk4",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``integrate`` with crash-resumable progress in an HDF5 store.
+
+    The store holds the saves ``u`` [num_saves + 1, *u0.shape], the carry
+    ``carry_u`` and the attrs ``next`` (the next save to write),
+    ``carry_t``, ``dt``, ``t0`` and ``method``. Each save interval of
+    ``save_every`` steps runs on ``u0``'s device and is written, carry
+    included, before the next begins; calling again with the same
+    arguments resumes from the last completed interval. The carry is kept
+    exactly (float32 state and time), so a resumed run equals an
+    uninterrupted one, and ``integrate``, bit for bit.
+
+    Returns the same (times, trajectory) as ``integrate``, the trajectory
+    read back from the store onto ``u0``'s device.
+    """
+    import h5py
+
+    if num_steps % save_every:
+        raise ValueError(f"{num_steps=} not divisible by {save_every=}")
+    num_saves = num_steps // save_every
+    step = STEP_FUNCS[method]
+    shape = (num_saves + 1,) + tuple(u0.shape)
+    with h5py.File(store_path, "a") as f:
+        if "u" not in f:
+            f.create_dataset("u", shape=shape, dtype="float32")
+            f.create_dataset("carry_u", shape=tuple(u0.shape), dtype="float32")
+            f.attrs["next"] = 0
+            f.attrs["carry_t"] = float(t0)
+            f.attrs["dt"] = float(dt)
+            f.attrs["t0"] = float(t0)
+            f.attrs["method"] = method
+        elif tuple(f["u"].shape) != shape:
+            raise ValueError(
+                f"existing store {store_path} has shape {f['u'].shape}, "
+                f"expected {shape}; delete it to start fresh"
+            )
+        else:
+            # resuming: the parameters must match what wrote the stored
+            # saves, or the result would mix two integrations with
+            # mislabeled times
+            for name, val in (("dt", float(dt)), ("t0", float(t0))):
+                stored = float(f.attrs.get(name, val))
+                if abs(stored - val) > 1e-12 * max(abs(val), 1.0):
+                    raise ValueError(
+                        f"store {store_path} was written with {name}="
+                        f"{stored}, called with {val}; delete it to restart"
+                    )
+            if f.attrs.get("method", method) != method:
+                raise ValueError(
+                    f"store {store_path} was written with method="
+                    f"{f.attrs['method']!r}, called with {method!r}"
+                )
+        start = int(f.attrs["next"])
+        with torch.no_grad():
+            if start == 0:
+                f["u"][0] = u0.detach().cpu().numpy()
+                f["carry_u"][...] = u0.detach().cpu().numpy()
+                f.attrs["next"] = 1
+                start = 1
+            u = torch.from_numpy(np.asarray(f["carry_u"][...])).to(u0.device, u0.dtype)
+            t = torch.as_tensor(float(f.attrs["carry_t"]), dtype=u0.dtype, device=u0.device)
+            for i in range(start, num_saves + 1):
+                for _ in range(save_every):
+                    u = step(rhs, u, t, dt)
+                    t = t + dt
+                saved = u.cpu().numpy()
+                f["u"][i] = saved
+                f["carry_u"][...] = saved
+                f.attrs["carry_t"] = float(t)
+                f.attrs["next"] = i + 1
+                f.flush()
+        traj = torch.from_numpy(np.asarray(f["u"][...])).to(u0.device)
+    return _save_times(u0, dt, save_every, num_saves, t0), traj
 
 
 # ---------------------------------------------------------------------------

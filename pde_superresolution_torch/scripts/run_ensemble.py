@@ -3,7 +3,9 @@
 Integrates an ensemble of trajectories (default 10240) with the learned
 scheme on the coarse grid, batched on one device, and reports throughput
 and ensemble statistics (finite members, final rms, energy-spectrum peak).
-The counterpart of ``pde_superresolution_tpu/scripts/run_ensemble.py``.
+Optionally writes the snapshots to HDF5 through the crash-resumable
+integrator (``--output_path``; needs ``h5py``). The counterpart of
+``pde_superresolution_tpu/scripts/run_ensemble.py``.
 
 Example:
   python -m pde_superresolution_torch.scripts.run_ensemble \
@@ -13,14 +15,19 @@ Example:
 ``--checkpoint_dir`` is a training checkpoint directory written by
 ``run_training``, a committed asset (``ckpt_ks8``, ``ckpt_burgers8``,
 ``ckpt_kdv8``) or the path stem of a ``.npz``/``.json`` pair written by
-``tools/export_jax_checkpoint.py`` (``convert.load_checkpoint``). The run
-is on ``cuda`` unless ``--device cpu`` is given.
+``tools/export_jax_checkpoint.py`` (``convert.load_checkpoint``).
+``--exported_dir`` serves a frozen ``run_export`` artifact instead (no
+model code or checkpoint; its RHS steps). Exactly one of the two is given.
+The run is on ``cuda`` unless ``--device cpu`` is given.
 
 Routes between snapshots: the fused kernel (``StencilModel.fused_rk4_fn``:
 one launch per save interval, forcing evaluated in the kernel) or single
-RK4 steps of ``StencilModel.rhs_fn``. ``--fused auto`` decides from the
-device and the shapes alone, before anything is launched, and prints its
-choice; a kernel that then fails to build or launch raises.
+RK4 steps of ``StencilModel.rhs_fn`` (on the card a ``fused_rhs`` launch
+per RHS), or of a frozen artifact's RHS. ``--output_path`` and
+``--exported_dir`` take RHS steps; ``--fused true`` with either is refused.
+``--fused auto`` decides from the device and the shapes alone, before
+anything is launched, and prints its choice; a kernel that then fails to
+build or launch raises.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from pde_superresolution_torch import analysis, convert, integrate
+from pde_superresolution_torch import export as export_lib
 from pde_superresolution_torch.device import resolve_device
 from pde_superresolution_torch.equations import Equation, ForcingParams
 from pde_superresolution_torch.grids import Grid
@@ -44,9 +52,15 @@ from pde_superresolution_torch.ops import fused_kernels
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--checkpoint_dir", required=True,
+    parser.add_argument("--checkpoint_dir", default=None,
                         help="training checkpoint directory, asset name or path "
-                        "stem of a trained model")
+                        "stem of a trained model (or use --exported_dir)")
+    parser.add_argument("--exported_dir", default=None,
+                        help="serving artifact from run_export: integrates the ensemble "
+                        "with the frozen graph's RHS (no model code or checkpoint)")
+    parser.add_argument("--output_path", default=None,
+                        help="optional HDF5 store of the snapshots (resumable across "
+                        "restarts)")
     parser.add_argument("--num_trajectories", type=int, default=10240,
                         help="ensemble size")
     parser.add_argument("--time_max", type=float, default=10.0,
@@ -66,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="integrate on a domain this many times larger "
                         "than the checkpoint was trained on (same dx; the "
                         "forcing and initial-condition wavenumber bands "
-                        "scale with it, so the physical wavelengths match)")
+                        "scale with it, so the physical wavelengths match); "
+                        "checkpoints only: a frozen artifact's grid is baked in")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
     return parser
@@ -74,22 +89,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 @dataclasses.dataclass
 class Ensemble:
-    """What a run integrates: the model, its grid, and the seeded members."""
+    """What a run integrates: the model (or a frozen artifact), its grid, and
+    the seeded members."""
 
-    model: StencilModel
-    params: dict
+    model: Optional[StencilModel]  # None when serving a frozen artifact
+    params: Optional[dict]
     equation: Equation
     coarse: Grid
     u0: torch.Tensor  # [n, nx], before any warm-up
     forcing: Optional[ForcingParams]
+    served: Optional[export_lib.ServedModel] = None
 
 
 def setup(args: argparse.Namespace) -> Ensemble:
-    """Load the model, widen the domain if asked, and draw the ensemble's
-    initial conditions and forcing from ``--seed``."""
+    """Load the model or the artifact, widen the domain if asked, and draw
+    the ensemble's initial conditions and forcing from ``--seed``."""
     device = resolve_device(args.device)
-    model, params, config = convert.load_checkpoint(args.checkpoint_dir, device=device)
-    equation, coarse = model.equation, model.grid
+    model = params = served = None
+    if args.exported_dir:
+        served = export_lib.load_served_model(args.exported_dir, device=device)
+        equation, _, coarse = export_lib.science_context(served.meta)
+    else:
+        model, params, config = convert.load_checkpoint(args.checkpoint_dir, device=device)
+        equation, coarse = model.equation, model.grid
     if args.domain_factor > 1:
         # the same physics in an N-times larger box at the same dx: the
         # parameters apply unchanged (a translation-invariant tower, a
@@ -112,13 +134,15 @@ def setup(args: argparse.Namespace) -> Ensemble:
     n = args.num_trajectories
     u0 = args.ic_scale * equation.initial_conditions(generator, coarse, (n,), device)
     forcing = equation.sample_forcing(generator, (n,), device)  # None if unforced
-    return Ensemble(model, params, equation, coarse, u0, forcing)
+    return Ensemble(model, params, equation, coarse, u0, forcing, served)
 
 
-def choose_route(fused: str, ensemble: Ensemble, pack) -> tuple[bool, str]:
+def choose_route(fused: str, ensemble: Ensemble, pack,
+                 resumable: bool = False) -> tuple[bool, str]:
     """(take the fused route, why), from the device and the shapes alone.
-    ``pack`` is the fused kernel's packed weights; ``--fused false`` does
-    not read it.
+    ``pack`` is the fused kernel's packed weights; ``--fused false``, a
+    frozen artifact and a resumable run (``--output_path``) do not read it:
+    they take RHS steps.
 
     The kernel takes a shape when the tower has at most 64 filters and the
     weights plus one trajectory's shared memory fit the card's opt-in limit
@@ -128,6 +152,10 @@ def choose_route(fused: str, ensemble: Ensemble, pack) -> tuple[bool, str]:
     """
     if fused == "false":
         return False, "--fused false"
+    if ensemble.served is not None:
+        return False, "auto: a frozen artifact has no live parameters for the fused kernel"
+    if resumable:
+        return False, "auto: --output_path, the resumable integrator drives single RK4 steps"
     device = ensemble.model.device
     limit = fused_kernels.MAX_SHARED_BYTES
     if device.type == "cuda":
@@ -154,12 +182,28 @@ def main(argv=None) -> dict:
     """Run the ensemble; print the report and return it as a dict (with the
     warmed-up start state, the final state and the save times as tensors
     under ``initial``, ``final`` and ``times``)."""
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if bool(args.checkpoint_dir) == bool(args.exported_dir):
+        parser.error("pass exactly one of --checkpoint_dir / --exported_dir")
+    if args.exported_dir and args.fused == "true":
+        raise ValueError(
+            "--fused true needs live model parameters (the fused kernel is built "
+            "from them); a frozen artifact serves by RHS steps: pass "
+            "--checkpoint_dir or drop --fused")
+    if args.exported_dir and args.domain_factor > 1:
+        raise ValueError(
+            "--domain_factor needs a live checkpoint: a frozen artifact's grid "
+            "size (nx) is baked into the exported graph")
+    if args.fused == "true" and args.output_path:
+        raise ValueError(
+            "--fused true conflicts with --output_path: the resumable HDF5 "
+            "integrator drives single RK4 steps (drop one of the two flags)")
     ensemble = setup(args)
     model, params, equation, coarse = (
         ensemble.model, ensemble.params, ensemble.equation, ensemble.coarse)
-    forcing, u0 = ensemble.forcing, ensemble.u0
-    device = model.device
+    forcing, u0, served = ensemble.forcing, ensemble.u0, ensemble.served
+    device = u0.device
     n = args.num_trajectories
 
     t0 = 0.0
@@ -178,8 +222,19 @@ def main(argv=None) -> dict:
         warmup_s = time.perf_counter() - start
         t0 = steps_w * dt_w  # the forcing's phase continues: it is not reset to 0
 
-    # model-aware CFL: wide stencils need a tighter dt than the equation's
-    dt = model.stable_time_step(u_scale=3.0)
+    # model-aware CFL: wide stencils need a tighter dt than the equation's.
+    # A frozen artifact carries it in meta["stable_dt"] (the live model is
+    # gone at serve time); one without it runs at the equation's bound.
+    if served is None:
+        dt = model.stable_time_step(u_scale=3.0)
+    else:
+        dt = served.meta.get("stable_dt")
+        if dt is None:
+            dt = equation.stable_time_step(coarse, u_scale=3.0)
+        elif not dt > 0:  # a silent fallback could integrate a wide stencil unstably
+            raise ValueError(
+                f"exported artifact carries invalid stable_dt={dt!r} (expected a "
+                "positive float); re-export with run_export")
     num_steps = int(np.ceil(args.time_max / dt))
     save_every = max(1, num_steps // args.num_saves)
     num_steps = save_every * args.num_saves
@@ -188,12 +243,13 @@ def main(argv=None) -> dict:
     # kernels' build on first use
     start = time.perf_counter()
     advance = None
-    if args.fused == "false":
-        fused, reason = choose_route(args.fused, ensemble, None)
+    resumable = bool(args.output_path)
+    if args.fused == "false" or served is not None or resumable:
+        fused, reason = choose_route(args.fused, ensemble, None, resumable)
     else:
         advance = model.fused_rk4_fn(params, dt, save_every, forcing=forcing, t0=t0)
         fused, reason = choose_route(args.fused, ensemble, advance.pack)
-    if device.type == "cuda":
+    if device.type == "cuda" and served is None:
         from pde_superresolution_torch.ops import _build
 
         _build.load_library()
@@ -201,7 +257,9 @@ def main(argv=None) -> dict:
     if fused:
         path = "fused kernel" if device.type == "cuda" else "fused kernel's plain version"
     else:
-        path = "rhs_fn steps"
+        path = "resumable rhs_fn steps" if resumable else "rhs_fn steps"
+    if served is not None:
+        path = "frozen artifact, " + path
     print(f"route: {path} ({reason})", flush=True)
 
     # t0 is the physical start time (the warm-up's end); the wall clock has
@@ -212,8 +270,13 @@ def main(argv=None) -> dict:
             times, traj = integrate.integrate_fused(
                 advance, u0, dt, num_steps, save_every, t0=t0)
         else:
-            times, traj = integrate.integrate(
-                model.rhs_fn(params, forcing), u0, dt, num_steps, save_every, t0=t0)
+            rhs = (served.rhs_fn(forcing) if served is not None
+                   else model.rhs_fn(params, forcing))
+            if resumable:
+                times, traj = integrate.integrate_resumable(
+                    rhs, u0, dt, num_steps, save_every, args.output_path, t0=t0)
+            else:
+                times, traj = integrate.integrate(rhs, u0, dt, num_steps, save_every, t0=t0)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - wall_start

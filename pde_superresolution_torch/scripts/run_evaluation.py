@@ -15,8 +15,12 @@ Example:
 ``run_training``, a committed asset (``ckpt_ks8``, ...) or an exported
 path stem (``convert.load_checkpoint``). The run is on ``cuda`` unless
 ``--device cpu`` is given; on the card the model's RHS is the ``fused_rhs``
-kernel. Writing ``--output_path`` needs ``h5py``; ``evaluate_checkpoint``
-runs everything before the write. Not ported yet: ``--exported_dir``.
+kernel. ``--exported_dir`` evaluates a frozen ``run_export`` artifact
+instead: its RHS is the model leg, ``export.science_context`` rebuilds the
+equation and both grids, and its ``stable_dt`` sets the coarse step where
+it is tighter than the equation's. Exactly one of the two is given.
+Writing ``--output_path`` needs ``h5py``; ``evaluate_checkpoint`` runs
+everything before the write.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 
 from pde_superresolution_torch import convert, integrate, weno
 from pde_superresolution_torch import evaluate as eval_lib
+from pde_superresolution_torch import export as export_lib
 from pde_superresolution_torch.device import resolve_device
 from pde_superresolution_torch.grids import Grid
 from pde_superresolution_torch.models import StencilModel
@@ -39,8 +44,12 @@ from pde_superresolution_torch.models import StencilModel
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--checkpoint_dir", required=True,
-                        help="training checkpoint directory, asset name or path stem")
+    parser.add_argument("--checkpoint_dir", default=None,
+                        help="training checkpoint directory, asset name or path stem "
+                        "(or use --exported_dir)")
+    parser.add_argument("--exported_dir", default=None,
+                        help="serving artifact from run_export; evaluates the frozen "
+                        "graph (no model code or checkpoint needed)")
     parser.add_argument("--output_path", required=True, help="HDF5 output path")
     parser.add_argument("--num_samples", type=int, default=16,
                         help="ensemble size (matched ICs)")
@@ -76,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--domain_factor", type=int, default=1,
                         help="evaluate the checkpoint on a domain this many times "
                         "LARGER than it was trained on (same dx); integer "
-                        "forcing/IC wavenumber bands scale with the factor")
+                        "forcing/IC wavenumber bands scale with the factor. "
+                        "Checkpoints only: a frozen artifact's grid is baked in")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     return parser
 
@@ -104,32 +114,46 @@ def evaluate_checkpoint(
     """
     seeds = _seeds(args)
     device = resolve_device(args.device)
-    model, params, config = convert.load_checkpoint(args.checkpoint_dir, device=device)
-    equation = model.equation
-    resample_factor = config.resample_factor
-    fine = Grid(config.fine_size, equation.period)
-    coarse = model.grid
-    if args.domain_factor > 1:
-        # same physics in an N-times larger box, same dx: the trained
-        # parameters apply unchanged (translation-invariant conv tower,
-        # nx-independent constraint layer); the integer wavenumber bands
-        # scale so physical forcing/IC wavelengths are unchanged
-        n = args.domain_factor
-        equation = dataclasses.replace(
-            equation,
-            period=n * equation.period,
-            forcing_k_min=n * equation.forcing_k_min,
-            forcing_k_max=n * equation.forcing_k_max,
-            ic_k_min=n * equation.ic_k_min,
-            ic_k_max=n * equation.ic_k_max,
-        )
-        fine = Grid(n * config.fine_size, equation.period)
-        coarse = fine.resample(resample_factor, conservative=equation.conservative)
-        model = StencilModel(equation, coarse, model.config, device=device)
+    if args.exported_dir:
+        served = export_lib.load_served_model(args.exported_dir, device=device)
+        equation, fine, coarse = export_lib.science_context(served.meta)
+        resample_factor = served.meta["resample_factor"]
+        model_rhs = served.rhs_fn
+        model_stencil_size = served.meta.get("stencil_size", 0)
+        model_dt = served.meta.get("stable_dt")
+    else:
+        model, params, config = convert.load_checkpoint(args.checkpoint_dir, device=device)
+        equation = model.equation
+        resample_factor = config.resample_factor
+        fine = Grid(config.fine_size, equation.period)
+        coarse = model.grid
+        if args.domain_factor > 1:
+            # same physics in an N-times larger box, same dx: the trained
+            # parameters apply unchanged (translation-invariant conv tower,
+            # nx-independent constraint layer); the integer wavenumber bands
+            # scale so physical forcing/IC wavelengths are unchanged
+            n = args.domain_factor
+            equation = dataclasses.replace(
+                equation,
+                period=n * equation.period,
+                forcing_k_min=n * equation.forcing_k_min,
+                forcing_k_max=n * equation.forcing_k_max,
+                ic_k_min=n * equation.ic_k_min,
+                ic_k_max=n * equation.ic_k_max,
+            )
+            fine = Grid(n * config.fine_size, equation.period)
+            coarse = fine.resample(resample_factor, conservative=equation.conservative)
+            model = StencilModel(equation, coarse, model.config, device=device)
 
-    baseline_size = args.baseline_stencil_size or model.config.stencil_size
+        def model_rhs(forcing):
+            return model.rhs_fn(params, forcing)
+
+        model_stencil_size = model.config.stencil_size
+        model_dt = model.stable_time_step(u_scale=3.0)
+
+    baseline_size = args.baseline_stencil_size or model_stencil_size
     schemes = {
-        "model": lambda forcing: model.rhs_fn(params, forcing),
+        "model": model_rhs,
         "baseline": lambda forcing: integrate.PolynomialDifferentiator(
             equation, coarse, stencil_size=baseline_size, device=device
         ).rhs_fn(forcing),
@@ -139,7 +163,7 @@ def evaluate_checkpoint(
             equation, coarse, device=device
         ).rhs_fn(forcing)
 
-    coarse_dt = eval_lib.model_coarse_dt(model)
+    coarse_dt = eval_lib.model_coarse_dt(model_dt, equation, coarse)
     cache_dir = eval_lib.resolve_reference_cache_dir(args.reference_cache_dir)
     multi = len(seeds) > 1
     # per-member statistics pooled across eval keys: the pooled MEDIAN over
@@ -250,6 +274,11 @@ def main(argv=None) -> dict:
     """Parse, evaluate and write each key's ``EvalResult`` (HDF5)."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    if bool(args.checkpoint_dir) == bool(args.exported_dir):
+        parser.error("pass exactly one of --checkpoint_dir / --exported_dir")
+    if args.domain_factor > 1 and args.exported_dir:
+        parser.error("--domain_factor needs a live checkpoint: a frozen artifact's "
+                     "grid size (nx) is baked into the exported graph")
     try:
         _seeds(args)
     except ValueError as e:

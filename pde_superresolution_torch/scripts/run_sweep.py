@@ -89,7 +89,8 @@ def main(argv=None) -> list[dict]:
             time_delta=config.time_delta,
             warmup_time=args.eval_warmup,
             ic_scale=config.ic_scale,
-            coarse_dt=eval_lib.model_coarse_dt(model),
+            coarse_dt=eval_lib.model_coarse_dt(
+                model.stable_time_step(u_scale=3.0), model.equation, model.grid),
             reference_cache_dir=cache_dir,
             device=device,
         )

@@ -2,22 +2,26 @@
 
 The counterpart of ``pde_superresolution_tpu/scripts/run_training.py``:
 ``--hparams`` comma-separated overrides on ``TrainingConfig`` ->
-``training.loop.train``. The snapshots are generated on the device from the
-config (exact ETDRK4 solves); ``--large_ensemble`` takes the
-trajectory-structured pipeline. The run is on ``cuda`` unless ``--device
-cpu`` is given.
+``training.loop.train``. Without ``--input_path`` the snapshots are
+generated on the device from the config (exact ETDRK4 solves);
+``--large_ensemble`` takes the trajectory-structured pipeline. With
+``--input_path`` they are read from an HDF5 file in the JAX package's layout
+(``create_training_data`` of either package writes one; needs ``h5py``),
+whose equation, physics, fine grid and snapshot spacing replace the
+config's. The run is on ``cuda`` unless ``--device cpu`` is given.
 
 Example:
   python -m pde_superresolution_torch.scripts.run_training \
       --checkpoint_dir /tmp/ckpt \
       --hparams equation=ks,resample_factor=8,num_time_steps=4
 
-Not ported yet: ``--input_path`` (HDF5 snapshots) and ``--data_parallel``.
+Not ported yet: ``--data_parallel``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 from typing import Optional
 
@@ -35,6 +39,12 @@ _HOST_DATA_AUTO_BYTES = 6 * 1024**3
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--input_path", default=None,
+                        help="HDF5 snapshots (optional; default: generate on the device)")
+    parser.add_argument("--input_num_trajectories", type=int, default=0,
+                        help="trajectory count for a 2-D [samples, x] --input_path "
+                        "matrix (0 = the file's num_trajectories attr, or treat the "
+                        "matrix as one contiguous trajectory)")
     parser.add_argument("--checkpoint_dir", required=True, help="checkpoint directory")
     parser.add_argument("--metrics_path", default=None,
                         help="JSONL metrics path (default: <checkpoint_dir>/metrics.jsonl)")
@@ -82,6 +92,8 @@ def main(argv: Optional[list[str]] = None) -> dict:
             "pipeline only (the flat pipeline materializes rollouts and "
             "is not host-stageable); add --large_ensemble"
         )
+    if args.large_ensemble and args.input_path:
+        parser.error("--large_ensemble generates on the device; drop --input_path")
     device = resolve_device(args.device)
     config = config_lib.parse_hparams(args.hparams)
     dataset = None
@@ -111,6 +123,26 @@ def main(argv: Optional[list[str]] = None) -> dict:
             chunk_trajectories=args.chunk_trajectories,
             host_resident=host_resident,
             device=device,
+        )
+    if args.input_path:
+        snapshots, equation, fine = data_lib.load_snapshots_h5(
+            args.input_path, num_trajectories=args.input_num_trajectories or None)
+        times = snapshots.times
+        time_delta = (float(times[1] - times[0]) if times.shape[0] > 1
+                      else config.time_delta)
+        config = dataclasses.replace(
+            config,
+            equation=equation.name,
+            equation_params=equations.params_dict(equation),  # custom physics
+            conservative=equation.conservative,
+            fine_size=fine.size,
+            # the unrolled loss must use the file's snapshot spacing
+            time_delta=time_delta,
+        )
+        dataset = data_lib.build_training_data(
+            equation, fine, data_lib.map_data(lambda a: a.to(device), snapshots),
+            config.resample_factor,
+            unroll_steps=config.num_time_steps,
         )
     metrics_path = args.metrics_path or f"{args.checkpoint_dir}/metrics.jsonl"
     _, _, metrics = loop_lib.train(

@@ -154,18 +154,26 @@ def classic_stencil(
 
 class _ConstantCache:
     """Per-(dtype, device) tensor copies of a layer's numpy constants, so a
-    CUDA forward pass copies them to the card once rather than per call."""
+    CUDA forward pass copies them to the card once rather than per call.
+
+    A tensor made while tracing (``torch.export``, ``torch.compile``: a
+    fake or functional tensor under a dispatch mode) is returned but never
+    stored, so a model whose first call is traced still works when called
+    eagerly afterwards.
+    """
 
     def __init__(self):
         self._tensors: dict = {}
 
     def get(self, name: str, array: np.ndarray, like: torch.Tensor) -> torch.Tensor:
         key = (name, like.dtype, like.device)
-        if key not in self._tensors:
-            self._tensors[key] = torch.as_tensor(
-                array, dtype=like.dtype, device=like.device
-            )
-        return self._tensors[key]
+        cached = self._tensors.get(key)
+        if cached is not None:
+            return cached
+        tensor = torch.as_tensor(array, dtype=like.dtype, device=like.device)
+        if type(tensor) is torch.Tensor and not torch.compiler.is_compiling():
+            self._tensors[key] = tensor
+        return tensor
 
 
 @dataclasses.dataclass(frozen=True)

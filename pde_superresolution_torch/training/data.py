@@ -1,8 +1,11 @@
 """Training data generation and coarse-grained label construction.
 
-The PyTorch counterpart of the JAX package's ``training/data.py``, without
-its HDF5 interchange: ETDRK4 exact solves (``integrate.exact_solve_sampled``),
-spectral labels and coarse-graining all run on the tensors' device.
+The PyTorch counterpart of the JAX package's ``training/data.py``: ETDRK4
+exact solves (``integrate.exact_solve_sampled``), spectral labels and
+coarse-graining all run on the tensors' device. Snapshots go to and come
+from HDF5 in the JAX package's layout (``save_snapshots_h5``,
+``load_snapshots_h5``; ``h5py`` is imported inside them), so each package
+reads the other's files.
 
 Label conventions:
   * non-conservative (finite differences): coarse-graining = subsample;
@@ -22,7 +25,9 @@ package folds ``c`` into its key.
 
 from __future__ import annotations
 
+import json
 import typing
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -30,7 +35,7 @@ import torch
 
 from pde_superresolution_torch import integrate
 from pde_superresolution_torch.device import resolve_device
-from pde_superresolution_torch.equations import Equation, ForcingParams
+from pde_superresolution_torch.equations import Equation, ForcingParams, from_name, params_dict
 from pde_superresolution_torch.grids import Grid
 from pde_superresolution_torch.ops import resample, spectral
 
@@ -65,8 +70,8 @@ class TrainingData(typing.NamedTuple):
 
 
 def map_data(fn, data):
-    """``data`` (TrainingData or TrajectoryData) with ``fn`` applied to every
-    array leaf, forcing and label dicts included."""
+    """``data`` (Snapshots, TrainingData or TrajectoryData) with ``fn``
+    applied to every array leaf, forcing and label dicts included."""
     out = {}
     for name, value in data._asdict().items():
         if isinstance(value, dict):
@@ -363,4 +368,126 @@ def sample_training_batch(
         time_deriv_label=data.time_deriv_label[traj_idx, time_idx],
         rollout=data.series[traj_idx[:, None], window],  # [B, K, nx]
         traj_ids=ids,
+    )
+
+
+# ---------------------------------------------------------------------------
+# HDF5 interchange: dataset 'v' of snapshots, the JAX package's layout.
+# ---------------------------------------------------------------------------
+
+
+def save_snapshots_h5(
+    path: str, snapshots: Snapshots, equation: Equation, fine_grid: Grid
+) -> None:
+    """Write snapshots to HDF5: dataset ``v`` [traj, times, nx], ``times``,
+    the forcing group, and the attrs ``equation``, ``conservative``,
+    ``period``, ``fine_size`` and ``equation_params`` (JSON, every field
+    but ``conservative``, so non-default physics round-trips)."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        f.create_dataset("v", data=snapshots.u.detach().cpu().numpy())
+        f.create_dataset("times", data=snapshots.times.detach().cpu().numpy())
+        f.attrs["equation"] = equation.name
+        f.attrs["conservative"] = equation.conservative
+        f.attrs["period"] = equation.period
+        f.attrs["fine_size"] = fine_grid.size
+        f.attrs["equation_params"] = json.dumps(params_dict(equation))
+        if snapshots.forcing is not None:
+            g = f.create_group("forcing")
+            for name, leaf in snapshots.forcing._asdict().items():
+                g.create_dataset(name, data=leaf.detach().cpu().numpy())
+
+
+def load_snapshots_h5(
+    path: str, num_trajectories: Optional[int] = None
+) -> tuple[Snapshots, Equation, Grid]:
+    """Load snapshots (CPU tensors), the equation and the fine grid. Both
+    layouts are accepted:
+
+      * 3-D ``v`` [trajectory, time, x] + ``times`` [time];
+      * 2-D ``v`` [samples, x]: the sample axis is split into
+        ``num_trajectories`` equal trajectories (the argument, or the
+        file's ``num_trajectories`` attr); with neither it is ONE
+        contiguous trajectory, with a warning, since rollout windows would
+        silently span any hidden trajectory boundaries.
+
+    Flat ``times`` of length trajectories x times must share one window
+    (warning when only the start times differ). Without a ``times``
+    dataset the times are synthesized as arange and the snapshots are
+    marked ``synthetic_times``; ``build_training_data`` then refuses
+    unrolled-loss training (the spacing is unknown).
+    """
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        u = torch.from_numpy(np.asarray(f["v"][...]))
+        synthetic = False
+        if u.ndim == 2:
+            count = num_trajectories or int(f.attrs.get("num_trajectories", 0))
+            if count:
+                if u.shape[0] % count:
+                    raise ValueError(
+                        f"2-D snapshot matrix with {u.shape[0]} samples does "
+                        f"not divide into num_trajectories={count}"
+                    )
+                u = u.reshape(count, u.shape[0] // count, u.shape[1])
+            else:
+                warnings.warn(
+                    f"{path}: 2-D snapshot matrix with no trajectory count "
+                    "(num_trajectories attr or argument): treating all "
+                    f"{u.shape[0]} samples as ONE contiguous trajectory. If "
+                    "the rows are independent snapshots or concatenated "
+                    "trajectories, declare the count.",
+                    stacklevel=2,
+                )
+                u = u[None]
+        if "times" in f:
+            times = torch.from_numpy(np.asarray(f["times"][...]))
+            k, nt = u.shape[0], u.shape[1]
+            if times.shape[0] == k * nt and times.shape[0] != nt:
+                # flat times beside a reshaped 2-D matrix: every trajectory
+                # must share ONE time window (the loader keeps one [T] axis)
+                per_traj = times.numpy().reshape(k, nt)
+                rel = per_traj - per_traj[:, :1]
+                if not np.allclose(rel, rel[0], rtol=1e-6, atol=1e-8):
+                    raise ValueError(
+                        f"{path}: flat 'times' of length {k * nt} does not "
+                        f"split into {k} trajectories with a shared time "
+                        "window (rows have differing spacings); store times "
+                        "as one [num_times] axis or fix num_trajectories"
+                    )
+                if not np.allclose(per_traj[:, 0], per_traj[0, 0]):
+                    # segments of one long run: only time differences enter
+                    # training for unforced equations; forced labels need t
+                    warnings.warn(
+                        f"{path}: trajectories have differing start times; "
+                        "using trajectory 0's window for all (forced-"
+                        "equation labels would be wrong for the rest)",
+                        stacklevel=2,
+                    )
+                times = times[:nt]
+            elif times.shape[0] != nt:
+                raise ValueError(
+                    f"{path}: 'times' has length {times.shape[0]}, expected "
+                    f"{nt} (per-trajectory) or {k * nt} (flat)"
+                )
+        else:
+            times = torch.arange(u.shape[1], dtype=torch.float32)
+            synthetic = True
+        forcing = None
+        if "forcing" in f:
+            forcing = ForcingParams(
+                **{k: torch.from_numpy(np.asarray(v[...])) for k, v in f["forcing"].items()}
+            )
+        params = json.loads(f.attrs.get("equation_params", "{}"))
+        params.setdefault("period", float(f.attrs["period"]))
+        equation = from_name(
+            f.attrs["equation"], conservative=bool(f.attrs["conservative"]), **params
+        )
+        grid = Grid(int(f.attrs["fine_size"]), float(f.attrs["period"]))
+    return (
+        Snapshots(u=u, times=times, forcing=forcing, synthetic_times=synthetic),
+        equation,
+        grid,
     )

@@ -77,7 +77,8 @@ def protocol_score(
         time_delta=config.time_delta,
         warmup_time=warmup_time,
         ic_scale=config.ic_scale,
-        coarse_dt=eval_lib.model_coarse_dt(model),
+        coarse_dt=eval_lib.model_coarse_dt(
+            model.stable_time_step(u_scale=3.0), model.equation, model.grid),
         reference_cache_dir=reference_cache_dir,
         device=device,
     )

@@ -119,10 +119,11 @@ def test_defaults_match_the_jax_script():
     assert (args.num_trajectories, args.time_max, args.warmup_time, args.seed,
             args.ic_scale, args.num_saves, args.fused, args.domain_factor, args.device) == (
         10240, 10.0, 0.0, 0, 1.0, 10, "auto", 1, None)
-    with pytest.raises(SystemExit):
-        run_ensemble.build_parser().parse_args(["--checkpoint_dir", "x", "--output_path", "y"])
-    with pytest.raises(SystemExit):
-        run_ensemble.build_parser().parse_args([])
+    assert (args.output_path, args.exported_dir) == (None, None)
+    args = run_ensemble.build_parser().parse_args(["--exported_dir", "x", "--output_path", "y"])
+    assert (args.checkpoint_dir, args.exported_dir, args.output_path) == (None, "x", "y")
+    with pytest.raises(SystemExit):  # exactly one of --checkpoint_dir / --exported_dir
+        run_ensemble.main([])
 
 
 def test_domain_factor_builds_larger_grid():

@@ -378,3 +378,111 @@ def test_training_loss_routes_agree_on_card(cuda):
     print(f"loss rel {loss_err:.3e}, worst gradient leaf of its max {worst:.3e}; "
           f"rollout's mean squared error, worst gradient leaf {smooth_worst:.3e}")
     assert loss_err <= 1e-5 and worst <= LOSS_GRAD_TOL and smooth_worst <= ROLLOUT_GRAD_TOL
+
+
+# -- the serving export and the HDF5 route on the card ----------------------------------
+
+
+@pytest.mark.parametrize("name", ["ks", "burgers"])
+def test_served_model_matches_live_on_card(cuda, tmp_path, name):
+    """An artifact traced on the CPU and loaded on the card: the TF32 pins
+    of a live model are set, no kernel of the port is launched, the RHS
+    equals the live plain route to 1e-7 of max|u_t| (read 0 on an H100) and
+    the fused_rhs route to 1e-4 (read 3.4e-5 for KS, 3.5e-6 for Burgers:
+    the kernel's tap order, phase 3's limit), and the advance equals
+    integrate of the plain route to 1e-7 of max|u| (read 0; ``pytest -rP``
+    prints the readings)."""
+    from pde_superresolution_torch import export, integrate
+
+    model, params, _ = _model(name, True, 6, cuda, nx=128, batch=3)
+    export.export_and_save(model, params, str(tmp_path / "a"), num_steps=2)
+    torch.backends.cudnn.allow_tf32 = True
+    served = export.load_served_model(str(tmp_path / "a"))
+    assert served.device.type == "cuda" and not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator().manual_seed(1)
+    u = model.equation.initial_conditions(gen, model.grid, (256,), cuda)
+    f = model.equation.sample_forcing(gen, (256,), cuda)
+    t = torch.tensor(0.3, device=cuda)
+    before = (fk.fused_rhs.launches, fk.fused_learned_rk4.launches, fk.fused_rk4.launches)
+    with torch.no_grad():
+        got = served.rhs_fn(f)(u, t)
+        adv, _ = served.advance(u, 0.3, f)
+        assert (fk.fused_rhs.launches, fk.fused_learned_rk4.launches,
+                fk.fused_rk4.launches) == before
+        plain = model.rhs_fn(params, f, use_kernel=False)(u, t)
+        kernel = model.rhs_fn(params, f)(u, t)
+        _, traj = integrate.integrate(model.rhs_fn(params, f, use_kernel=False), u,
+                                      served.meta["dt"], 2, 2, t0=0.3)
+    reads = [float((got - ref).abs().max() / ref.abs().max()) for ref in (plain, kernel)]
+    step = float((adv - traj[-1]).abs().max() / traj[-1].abs().max())
+    print(f"{name}: served vs plain {reads[0]:.3e}, vs fused_rhs {reads[1]:.3e}, advance {step:.3e}")
+    assert reads[0] <= 1e-7 and reads[1] <= 1e-4 and step <= 1e-7
+
+
+def test_exported_dir_through_both_clis_on_card(cuda, tmp_path):
+    """run_export on the card, then --exported_dir through run_ensemble and
+    run_evaluation: no kernel launched, and the results within float32
+    rounding of the live checkpoint's (the fused_rhs route): ensemble final
+    states within 5e-6 of max|u| (read 3.6e-7 on an H100), evaluation model
+    trajectories within 2e-5 of max|exact| (read 1.9e-6), the same survival
+    statistics."""
+    from pde_superresolution_torch.scripts import run_ensemble, run_evaluation, run_export
+
+    path = str(tmp_path / "b8")
+    out = run_export.main(["--checkpoint_dir", "ckpt_burgers8", "--output_dir", path,
+                           "--num_steps", "0"])
+    assert out["max_abs_err"] <= run_export.MAX_ABS_ERR
+    assert out["kernel_rel_err"] <= run_export.KERNEL_REL_ERR
+    args = ["--num_trajectories", "64", "--time_max", "0.1", "--warmup_time", "0.2",
+            "--num_saves", "3"]
+    fk.fused_rhs.launches = 0
+    served = run_ensemble.main(["--exported_dir", path, *args])
+    assert served["path"] == "frozen artifact, rhs_fn steps" and fk.fused_rhs.launches == 0
+    live = run_ensemble.main(["--checkpoint_dir", "ckpt_burgers8", "--fused", "false", *args])
+    ens = float((served["final"] - live["final"]).abs().max() / live["final"].abs().max())
+    flags = ["--num_samples", "8", "--time_max", "0.5", "--reference_cache_dir", "",
+             "--output_path", str(tmp_path / "e.h5")]
+    parser = run_evaluation.build_parser()
+    got = run_evaluation.evaluate_checkpoint(parser.parse_args(["--exported_dir", path, *flags]))
+    want = run_evaluation.evaluate_checkpoint(
+        parser.parse_args(["--checkpoint_dir", "ckpt_burgers8", *flags]))
+    g, w = got["results"][0], want["results"][0]
+    ev = float((g.trajectories["model"] - w.trajectories["model"]).abs().max()
+               / w.exact.abs().max())
+    print(f"ensemble {ens:.3e}, evaluation {ev:.3e}")
+    assert ens <= 5e-6 and ev <= 2e-5
+    assert got["per_key"][0]["model"]["survival_median"] == \
+        want["per_key"][0]["model"]["survival_median"]
+
+
+def test_resumable_route_on_card(cuda, tmp_path):
+    """run_ensemble --output_path on the card (h5py needed): the rhs_fn
+    route with a fused_rhs launch per RHS, and a run cut after its first
+    save resumes bit for bit to the uninterrupted result."""
+    h5py = pytest.importorskip("h5py")
+    from pde_superresolution_torch.scripts import run_ensemble
+
+    args = ["--checkpoint_dir", "ckpt_burgers8", "--num_trajectories", "256", "--time_max",
+            "0.1", "--warmup_time", "0.2", "--num_saves", "3"]
+    fk.fused_rhs.launches = 0
+    full = run_ensemble.main([*args, "--output_path", str(tmp_path / "full.h5")])
+    assert full["path"] == "resumable rhs_fn steps"
+    assert fk.fused_rhs.launches == 4 * full["num_steps"]
+    real_flush = h5py.File.flush
+
+    class Cut(Exception):
+        pass
+
+    def flush(self):
+        real_flush(self)
+        raise Cut
+
+    h5py.File.flush = flush
+    try:
+        with pytest.raises(Cut):
+            run_ensemble.main([*args, "--output_path", str(tmp_path / "cut.h5")])
+    finally:
+        h5py.File.flush = real_flush
+    resumed = run_ensemble.main([*args, "--output_path", str(tmp_path / "cut.h5")])
+    assert torch.equal(resumed["final"], full["final"])

@@ -118,10 +118,10 @@ def test_integrate_fused_matches_integrate(flagship):
 
 
 def test_import_needs_no_jax_and_no_nvcc(tmp_path):
-    """Importing the package and every submodule (the training, evaluation
-    and selection modules and the scripts included) loads neither jax, the
-    JAX package, optax, orbax nor h5py, and builds nothing: no nvcc on PATH,
-    no CUDA_HOME."""
+    """Importing the package and every submodule (the training, evaluation,
+    selection and export modules and the scripts included) loads neither
+    jax, the JAX package, optax, orbax, h5py nor matplotlib, and builds
+    nothing: no nvcc on PATH, no CUDA_HOME."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import pde_superresolution_torch as p\n"
@@ -129,7 +129,7 @@ def test_import_needs_no_jax_and_no_nvcc(tmp_path):
         "for n in names: importlib.import_module(n)\n"
         "from pde_superresolution_torch.ops import _build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'pde_superresolution_tpu', 'h5py', 'optax', 'orbax')]\n"
+        "('jax', 'jaxlib', 'pde_superresolution_tpu', 'h5py', 'optax', 'orbax', 'matplotlib')]\n"
         "assert not bad, bad\n"
         "assert _build.load_library.cache_info().currsize == 0\n"
         "assert _build.build.cache_info().currsize == 0\n"
@@ -137,7 +137,8 @@ def test_import_needs_no_jax_and_no_nvcc(tmp_path):
         "          'training.loop', 'training.data', 'training.losses', 'training.config',\n"
         "          'utils.metrics', 'utils.tb_events', 'scripts.run_training', 'evaluate',\n"
         "          'weno', 'scripts.run_evaluation', 'training.selection',\n"
-        "          'scripts.run_select', 'scripts.run_sweep'):\n"
+        "          'scripts.run_select', 'scripts.run_sweep', 'export', 'scripts.run_export',\n"
+        "          'scripts.create_training_data', 'scripts.run_analysis'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "print(len(names))\n"
     )
@@ -147,4 +148,4 @@ def test_import_needs_no_jax_and_no_nvcc(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 34
+    assert int(out.stdout.strip()) >= 38
