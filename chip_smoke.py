@@ -116,13 +116,29 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      checkpoint's evaluation of the same draw; where ``h5py`` imports,
      ``run_ensemble --output_path`` at B=10240, cut at half and resumed, bit
      for bit the uninterrupted run (else one line says why it was skipped);
- 16. one ``{"kernels": [...]}`` line, then the card's line, then the result.
+ 16. the parallel layer at world size 1 over NCCL (``initialize_multihost``
+     with no launcher, ``make_mesh()`` = {data: 1, space: 1}):
+     ``fused_rk4_fn(mesh=)`` for the KS-8x checkpoint and the forced
+     Burgers-8x one (from phase 9's warmed-up states and t0) at B=10240,
+     100 steps, against the meshless advance, bit for bit; ``run_ensemble
+     --data_parallel 1`` on the Burgers-8x ensemble by both routes, bit for
+     bit phase 9's runs; ``sharded_model_rhs`` at KS-8x full width against
+     both ``rhs_fn`` routes and ``sharded_baseline_rhs`` against the
+     baseline's, with a planted swapped halo that must fail, and their ms
+     per call; ``train(mesh=)`` at the KS-8x recipe cut to 2 steps (kernel
+     route) against ``train()``; ``run_training --data_parallel 1`` for 2
+     steps, whose checkpoint ``run_ensemble --data_parallel 1`` serves; each
+     with its launch counts. The process group is destroyed at the phase's
+     end. What world size 1 cannot show (the ring exchange, the average of
+     gradients over ranks) the CPU tests hold over gloo;
+ 17. one ``{"kernels": [...]}`` line, then the card's line, then the result.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
 when no CUDA device is present. ``training_phase``, ``evaluation_phase``,
 ``selection_phase`` and ``serving_phase`` can be called on their own once
-the kernels are built (``_build.build()``).
+the kernels are built (``_build.build()``); ``parallel_phase`` needs phase
+9's results.
 """
 
 from __future__ import annotations
@@ -279,6 +295,18 @@ SERVE_STEP_TOL = 1e-7  # served.advance against integrate of the live plain rout
 # 2.8e-6 of max|exact|; the same survival statistics)
 SERVE_ENSEMBLE_TOL = 5e-5
 SERVE_EVAL_TOL = 3e-5
+# Phase 16 (parallelism at world size 1). The sharded model RHS runs the
+# tower VALID on a halo-padded block where the unsharded plain route pads
+# each layer: the same values, though cuDNN may pick another algorithm for
+# the longer input. Both RHS read 0 against their unsharded routes at
+# KS-8x, B=10240 on an H100; the limits, of max|u_t|, leave a rounding.
+SHARDED_PLAIN_TOL = 1e-6
+SHARDED_BASE_TOL = 1e-6
+PARALLEL_TRAIN_STEPS = 2
+# train(mesh=) against train(), of a leaf's max, both with PyTorch's
+# deterministic algorithms: without them two runs of train() alone differ
+# (the weight gradients summed in another order; 9.4e-6 read after 2 steps)
+PARALLEL_TRAIN_TOL = 1e-6
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -1579,6 +1607,223 @@ def serving_phase(card: str) -> dict:
     return out
 
 
+def parallel_phase(card: str, ens: dict, burgers_dt: float, ks_dt: float) -> dict:
+    """Phase 16: the parallel layer on the card, at world size 1 over NCCL.
+    ``ens`` holds phase 9's ensemble results (its warmed-up states and final
+    states, from the same seed). Returns the launch counts and readings the
+    report needs."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pde_superresolution_torch import convert, integrate, parallel
+    from pde_superresolution_torch.grids import Grid
+    from pde_superresolution_torch.ops import fused_kernels as fk
+    from pde_superresolution_torch.parallel import halo as halo_lib
+    from pde_superresolution_torch.scripts import run_ensemble, run_training
+    from pde_superresolution_torch.training import data as data_lib
+    from pde_superresolution_torch.training import loop
+    from pde_superresolution_torch.training.config import TrainingConfig
+
+    phase_start = time.perf_counter()
+    device = torch.device("cuda")
+    kernels = (fk.fused_rhs, fk.fused_learned_rk4, fk.fused_rk4)
+
+    def zero_counts():
+        for kernel in kernels:
+            kernel.launches = 0
+
+    def counts() -> dict:
+        torch.cuda.synchronize()
+        return {kernel.__name__: kernel.launches for kernel in kernels}
+
+    out = {}
+    parallel.initialize_multihost()  # cuda: NCCL; no launcher: world size 1
+    try:
+        mesh = parallel.make_mesh()
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        log(f"[16] parallelism: backend {dist.get_backend()}, world size "
+            f"{dist.get_world_size()}, mesh {shape}; on {card}")
+        if dist.get_backend() != "nccl" or shape != {"data": 1, "space": 1}:
+            raise AssertionError(f"process group {dist.get_backend()}, mesh {shape}")
+
+        # -- fused_rk4_fn(mesh=): the same kernel on the same batch, limit 0
+        model, params, stored = convert.load_asset("ckpt_ks8", device=device)
+        eq, grid = model.equation, model.grid
+        warmed = ens["ks_fused"]["initial"]
+        want = model.fused_rk4_fn(params, ks_dt, STEPS)(warmed)
+        zero_counts()
+        got = model.fused_rk4_fn(params, ks_dt, STEPS, mesh=mesh)(warmed)
+        out["ks_mesh_launches"] = counts()["fused_learned_rk4"]
+        check(f"ckpt_ks8 fused_rk4_fn(mesh=) B={ENSEMBLE}, {STEPS} steps vs meshless", got,
+              want, 0.0)
+        args = ["--checkpoint_dir", "ckpt_burgers8", "--num_trajectories", str(ENSEMBLE),
+                "--warmup_time", str(WARMUP_TIME), "--time_max", str((STEPS - 0.5) * burgers_dt),
+                "--num_saves", str(ENSEMBLE_SAVES), "--seed", str(SEED)]
+        members = run_ensemble.setup(run_ensemble.build_parser().parse_args(args))
+        bstart, bt0 = ens["burgers_fused"]["initial"], ens["burgers_fused"]["t0"]
+        want = members.model.fused_rk4_fn(members.params, burgers_dt, STEPS,
+                                          forcing=members.forcing, t0=bt0)(bstart)
+        zero_counts()
+        got = members.model.fused_rk4_fn(members.params, burgers_dt, STEPS,
+                                         forcing=members.forcing, t0=bt0, mesh=mesh)(bstart)
+        out["forced_mesh_launches"] = counts()["fused_learned_rk4"]
+        check(f"ckpt_burgers8 forced fused_rk4_fn(mesh=) from t0={bt0:.4f}, B={ENSEMBLE}, "
+              f"{STEPS} steps vs meshless", got, want, 0.0)
+        log(f"    launches: ks8 {out['ks_mesh_launches']}, burgers8 {out['forced_mesh_launches']}")
+        if out["ks_mesh_launches"] != 1 or out["forced_mesh_launches"] != 1:
+            raise AssertionError("fused_rk4_fn(mesh=) did not launch its kernel once")
+        del members
+
+        # -- run_ensemble --data_parallel 1, both routes, against phase 9's runs
+        for route, key, kernel, launches in (("true", "burgers_fused", "fused_learned_rk4",
+                                              ENSEMBLE_SAVES),
+                                             ("false", "burgers_rhs", "fused_rhs", 4 * STEPS)):
+            zero_counts()
+            result = run_ensemble.main(args + ["--fused", route, "--data_parallel", "1"])
+            seen = counts()
+            out[f"ensemble_{route}_launches"] = seen[kernel]
+            out[f"ensemble_{route}_s"] = result["elapsed_s"]
+            out[f"ensemble_{route}_rate"] = result["traj_steps_per_s"]
+            log(f"    launches: {seen} (predicted {launches} {kernel}); {result['path']}; "
+                f"{1e3 * result['elapsed_s']:.1f} ms, {result['traj_steps_per_s']:,.0f} "
+                f"traj-steps/s (phase 9: {1e3 * ens[key]['elapsed_s']:.1f} ms)")
+            check(f"burgers8 ensemble --fused {route} --data_parallel 1 vs phase 9", result["final"],
+                  ens[key]["final"], 0.0)
+            if seen[kernel] != launches or not result["path"].endswith(", dp=1"):
+                raise AssertionError(f"--data_parallel 1 --fused {route}: {seen}, {result['path']}")
+
+        # -- the sharded RHS at KS-8x full width, against both rhs_fn routes
+        sharded = parallel.sharded_model_rhs(model, params, mesh)
+        plain = model.rhs_fn(params, use_kernel=False)
+        kernel_route = model.rhs_fn(params, use_kernel=True)
+        base_sharded = parallel.sharded_baseline_rhs(eq, grid, mesh)
+        base = integrate.PolynomialDifferentiator(eq, grid, device=device).rhs_fn()
+        with torch.no_grad():
+            got, want_plain, want_kernel = (f(warmed, 0.0) for f in (sharded, plain, kernel_route))
+            out["sharded_plain_err"] = relative_error(got, want_plain, False)
+            check(f"ckpt_ks8 sharded_model_rhs B={ENSEMBLE} vs plain rhs_fn", got, want_plain,
+                  SHARDED_PLAIN_TOL)
+            out["sharded_kernel_err"] = relative_error(got, want_kernel, False)
+            check(f"ckpt_ks8 sharded_model_rhs B={ENSEMBLE} vs the fused_rhs route", got,
+                  want_kernel, 1e-4)
+            base_want = base(warmed, 0.0)
+            out["sharded_base_err"] = relative_error(base_sharded(warmed, 0.0), base_want, False)
+            check(f"sharded_baseline_rhs B={ENSEMBLE} vs PolynomialDifferentiator.rhs_fn",
+                  base_sharded(warmed, 0.0), base_want, SHARDED_BASE_TOL)
+            real_exchange = halo_lib.halo_exchange
+            halo_lib.halo_exchange = lambda u, h, mesh: torch.cat([u[..., :h], u, u[..., -h:]], -1)
+            try:
+                swapped = sharded(warmed, 0.0)
+            finally:
+                halo_lib.halo_exchange = real_exchange
+            check_catches("the halo's edges swapped", swapped, want_plain, SHARDED_PLAIN_TOL)
+            for name, fn in (("sharded_model_rhs", sharded), ("rhs_fn plain", plain),
+                             ("rhs_fn fused_rhs", kernel_route)):
+                out[f"{name} ms"] = time_ms(lambda: fn(warmed, 0.0), samples=LONG_SAMPLES)
+        log(f"    ms per RHS at B={ENSEMBLE} (CUDA events, host included, median of "
+            f"{LONG_SAMPLES}): " + ", ".join(f"{k} {v:.3f}" for k, v in out.items()
+                                               if k.endswith(" ms")))
+
+        # -- training: train(mesh=) against train(), then the CLI
+        config = TrainingConfig.from_json(json.dumps(stored))
+        short = dataclasses.replace(
+            config, learning_rates=config.learning_rates[:1],
+            learning_stops=(PARALLEL_TRAIN_STEPS,), eval_interval=PARALLEL_TRAIN_STEPS,
+            checkpoint_interval=PARALLEL_TRAIN_STEPS)
+        fine = Grid(config.fine_size, eq.period)
+        start = time.perf_counter()
+        snaps = data_lib.generate_snapshots(
+            eq, fine, torch.Generator().manual_seed(config.data_seed), config.num_trajectories,
+            config.num_times, config.time_delta, warmup_time=config.warmup_time,
+            ic_scale=config.ic_scale, device=device)
+        data = data_lib.build_training_data(eq, fine, snaps, config.resample_factor,
+                                            config.num_time_steps)
+        del snaps
+        torch.cuda.synchronize()
+        data_s = time.perf_counter() - start
+        trained_model = loop._model_for(short, device)[2]  # the model train() builds
+        rhs_per_step = 4 * loop._substeps(short, trained_model) * config.num_time_steps
+        want_launches = (2 * PARALLEL_TRAIN_STEPS + 1) * rhs_per_step
+        runs = {}
+        for name, kwargs, deterministic in (("mesh", {"mesh": mesh}, True),
+                                            ("single", {}, True), ("again", {}, False)):
+            zero_counts()
+            start = time.perf_counter()
+            torch.use_deterministic_algorithms(deterministic, warn_only=True)
+            try:
+                _, trained, metrics = loop.train(short, dataset=data, device=device,
+                                                 use_kernel=True, **kwargs)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            seen = counts()
+            runs[name] = (trained, metrics, time.perf_counter() - start, seen["fused_rhs"])
+        out["train_launches"] = runs["mesh"][3]
+        out["train_err"] = max(leaf_errors(runs["mesh"][0], runs["single"][0]).values())
+        out["train_rerun_spread"] = max(leaf_errors(runs["again"][0], runs["single"][0]).values())
+        log(f"    train(mesh=) and train(), KS-8x recipe cut to {PARALLEL_TRAIN_STEPS} steps, "
+            f"kernel route, deterministic algorithms (data {data_s:.2f} s): {runs['mesh'][2]:.2f} s / "
+            f"{runs['single'][2]:.2f} s; fused_rhs launches {runs['mesh'][3]} / "
+            f"{runs['single'][3]} (predicted {want_launches}); eval_total "
+            f"{runs['mesh'][1]['eval_total']:.6g} / {runs['single'][1]['eval_total']:.6g}; "
+            f"worst leaf {out['train_err']:.3e} (tolerance {PARALLEL_TRAIN_TOL:.0e}); train() "
+            f"again with the default algorithms ({runs['again'][2]:.2f} s): worst leaf "
+            f"{out['train_rerun_spread']:.3e} from the first (no limit)")
+        if not (out["train_err"] <= PARALLEL_TRAIN_TOL and runs["mesh"][3] == want_launches
+                and np.isfinite(runs["mesh"][1]["eval_total"])):
+            raise AssertionError("train(mesh=) against train()")
+        del data, runs
+        work = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+        try:
+            hparams = ",".join([
+                f"equation={config.equation}", f"conservative={config.conservative}",
+                f"resample_factor={config.resample_factor}", f"fine_size={config.fine_size}",
+                f"num_trajectories={config.num_trajectories}", f"num_times={config.num_times}",
+                f"time_delta={config.time_delta}", f"warmup_time={config.warmup_time}",
+                f"ic_scale={config.ic_scale}", f"num_time_steps={config.num_time_steps}",
+                f"batch_size={config.batch_size}", f"frac_training={config.frac_training}",
+                f"num_layers={config.model.num_layers}", f"filters={config.model.filters}",
+                f"kernel_size={config.model.kernel_size}",
+                f"stencil_size={config.model.stencil_size}",
+                f"learning_rates={config.learning_rates[0]}",
+                f"learning_stops={PARALLEL_TRAIN_STEPS}",
+                f"eval_interval={PARALLEL_TRAIN_STEPS}",
+                f"checkpoint_interval={PARALLEL_TRAIN_STEPS}"])
+            start = time.perf_counter()
+            metrics = run_training.main(["--checkpoint_dir", str(work / "ckpt"), "--hparams",
+                                         hparams, "--data_parallel", "1"])
+            cli_s = time.perf_counter() - start
+            zero_counts()
+            served = run_ensemble.main([
+                "--checkpoint_dir", str(work / "ckpt"), "--num_trajectories", str(ENSEMBLE),
+                "--warmup_time", str(WARMUP_TIME),
+                "--time_max", str((STEPS - 0.5) * trained_model.stable_time_step(u_scale=3.0)),
+                "--num_saves", str(ENSEMBLE_SAVES), "--seed", str(SEED), "--fused", "true",
+                "--data_parallel", "1"])
+            out["trained_served_launches"] = counts()["fused_learned_rk4"]
+            log(f"    run_training --data_parallel 1, {PARALLEL_TRAIN_STEPS} steps: {cli_s:.2f} s, "
+                f"eval_total {metrics['eval_total']:.6g}, checkpoints "
+                f"{loop.checkpoint_steps(str(work / 'ckpt'))}; run_ensemble --data_parallel 1 "
+                f"on it: {served['path']}, {served['finite']}/{ENSEMBLE} finite, "
+                f"fused_learned_rk4 launches {out['trained_served_launches']}")
+            if not (np.isfinite(metrics["eval_total"])
+                    and loop.checkpoint_steps(str(work / "ckpt")) == [PARALLEL_TRAIN_STEPS]
+                    and served["finite"] == ENSEMBLE and served["num_steps"] == STEPS
+                    and out["trained_served_launches"] == ENSEMBLE_SAVES):
+                raise AssertionError("run_training --data_parallel 1 and its ensemble")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - phase_start
+    log(f"    phase 16 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2093,7 +2338,10 @@ def main() -> int:
     # ---- 15. the serving export -------------------------------------------------
     serving = serving_phase(card)
 
-    # ---- 16. report -----------------------------------------------------------
+    # ---- 16. parallelism at world size 1 -------------------------------------------
+    parallel = parallel_phase(card, ens, bdt, ks_dt)
+
+    # ---- 17. report -----------------------------------------------------------
     flagship = times[BATCH]
     full = new_times[ENSEMBLE]
     kernels = [
@@ -2106,7 +2354,8 @@ def main() -> int:
                          + training["step_launches"] + training["train_launches"]
                          + training["trajectory_launches"] + evaluation["ks8"]["launches"]
                          + evaluation["burgers8"]["launches"] + selection["select_launches"]
-                         + selection["sweep_launches"] + serving["resumable_launches"]),
+                         + selection["sweep_launches"] + serving["resumable_launches"]
+                         + parallel["ensemble_false_launches"] + parallel["train_launches"]),
             "launches_by_path": {"ks8 integrate(rhs_fn) B=256": launches["fused_rhs"],
                                  "burgers8 ensemble --fused false": rhs_ensemble_launches,
                                  "ks8 train step B=128 (kernel route)": training["step_launches"],
@@ -2123,7 +2372,11 @@ def main() -> int:
                                  # only where h5py imports (the HDF5 leg)
                                  **({"burgers8 ensemble --output_path (resumable)":
                                      serving["resumable_launches"]}
-                                    if serving["resumable_launches"] else {})},
+                                    if serving["resumable_launches"] else {}),
+                                 "burgers8 ensemble --fused false --data_parallel 1":
+                                     parallel["ensemble_false_launches"],
+                                 f"ks8 train(mesh=) {PARALLEL_TRAIN_STEPS} steps, kernel route":
+                                     parallel["train_launches"]},
             "shape": f"B={BATCH} nx={grid.size}",
             "max_abs_err": rhs_err,
             "ms": flagship["fused_rhs_ms"],
@@ -2159,15 +2412,20 @@ def main() -> int:
             # the served route launches no kernel: the artifact is the plain
             # route, held here against this kernel's route at B=ENSEMBLE
             "serving": {k: v for k, v in serving.items() if k != "resumable_launches"},
+            "parallel": {k: v for k, v in parallel.items() if not k.endswith("launches")},
         },
         {
             "name": "fused_learned_rk4",
             "route": "cuda",
             "source": "pde_superresolution_torch/csrc/fused_learned_rk4.cu",
             "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:390",
-            "launches": launches["fused_learned_rk4"] + unforced_ensemble_launches,
+            "launches": (launches["fused_learned_rk4"] + unforced_ensemble_launches
+                         + parallel["ks_mesh_launches"] + parallel["trained_served_launches"]),
             "launches_by_path": {"ks8 integrate_fused B=256": launches["fused_learned_rk4"],
-                                 "ks8 ensemble --fused true": unforced_ensemble_launches},
+                                 "ks8 ensemble --fused true": unforced_ensemble_launches,
+                                 "ks8 fused_rk4_fn(mesh=) B=10240": parallel["ks_mesh_launches"],
+                                 "run_training --data_parallel 1 checkpoint, run_ensemble "
+                                 "--data_parallel 1": parallel["trained_served_launches"]},
             "shape": f"B={BATCH} nx={grid.size}, {STEPS} steps",
             "max_abs_err": rk4_err,
             "ms": flagship["fused_learned_rk4_ms"],
@@ -2182,8 +2440,13 @@ def main() -> int:
             "route": "cuda",
             "source": "pde_superresolution_torch/csrc/fused_learned_rk4.cu",
             "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:595",
-            "launches": forced_launches,
-            "launches_by_path": {"burgers8 ensemble --fused true": forced_launches},
+            "launches": (forced_launches + parallel["forced_mesh_launches"]
+                         + parallel["ensemble_true_launches"]),
+            "launches_by_path": {"burgers8 ensemble --fused true": forced_launches,
+                                 "burgers8 fused_rk4_fn(mesh=) B=10240":
+                                     parallel["forced_mesh_launches"],
+                                 "burgers8 ensemble --fused true --data_parallel 1":
+                                     parallel["ensemble_true_launches"]},
             "shape": f"B={ENSEMBLE} nx={bgrid.size}, {STEPS} steps, {terms} terms",
             "max_abs_err": forced_err,
             "ms": full["forced_rk4_ms"],

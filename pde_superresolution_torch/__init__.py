@@ -7,8 +7,9 @@ package's module names and public layouts (``[batch, nx]`` fields,
 ``{order: [batch, nx, stencil]}`` coefficients) and imports nothing of it.
 
 Layers, from the entry points down:
-  scripts/run_ensemble  the ensemble entry point (python -m ...)
-  scripts/run_training  the training entry point (python -m ...)
+  scripts/run_ensemble  the ensemble entry point (python -m ..., or torchrun
+                      ... --data_parallel N)
+  scripts/run_training  the training entry point (the same)
   scripts/run_evaluation, run_select, run_sweep  evaluation, seed selection
                       and the resample-factor sweep (python -m ...)
   scripts/create_training_data, run_export, run_analysis  HDF5 snapshots,
@@ -23,6 +24,10 @@ Layers, from the entry points down:
                       loss, norms), loop (Adam, checkpoints, resume),
                       selection (train N seeds, keep the protocol winner)
   utils/              JSONL metrics and TensorBoard scalar events
+  parallel/           torch.distributed: initialize_multihost, make_mesh
+                      ("data" x "space" DeviceMesh), the ring halo exchange
+                      (differentiable), the spatially sharded RHS; used by
+                      fused_rk4_fn(mesh=), train(mesh=) and --data_parallel
   models/stencil_net  StencilModel: rhs_fn, fused_rk4_fn
   models/conv_net     periodic conv tower (nn.Module, plain PyTorch)
   stencils            float64 constraint setup, projection, apply_stencil

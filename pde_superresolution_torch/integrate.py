@@ -223,6 +223,7 @@ def integrate_resumable(
     store_path: str,
     t0: float = 0.0,
     method: str = "rk4",
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``integrate`` with crash-resumable progress in an HDF5 store.
 
@@ -237,44 +238,25 @@ def integrate_resumable(
 
     Returns the same (times, trajectory) as ``integrate``, the trajectory
     read back from the store onto ``u0``'s device.
-    """
-    import h5py
 
+    With ``mesh`` (a ``DeviceMesh`` whose ``"data"`` axis splits the batch)
+    ``u0`` is this rank's rows: each rank integrates its own, rank 0 of the
+    data axis writes the gathered global batch after each interval (the
+    store a single process writes), and every rank resumes from the carry
+    rank 0 reads. The trajectory returned is the rank's rows.
+    """
     if num_steps % save_every:
         raise ValueError(f"{num_steps=} not divisible by {save_every=}")
+    if mesh is not None:
+        return _integrate_resumable_dp(rhs, u0, dt, num_steps, save_every, store_path, t0,
+                                       method, mesh)
+    import h5py
+
     num_saves = num_steps // save_every
     step = STEP_FUNCS[method]
     shape = (num_saves + 1,) + tuple(u0.shape)
     with h5py.File(store_path, "a") as f:
-        if "u" not in f:
-            f.create_dataset("u", shape=shape, dtype="float32")
-            f.create_dataset("carry_u", shape=tuple(u0.shape), dtype="float32")
-            f.attrs["next"] = 0
-            f.attrs["carry_t"] = float(t0)
-            f.attrs["dt"] = float(dt)
-            f.attrs["t0"] = float(t0)
-            f.attrs["method"] = method
-        elif tuple(f["u"].shape) != shape:
-            raise ValueError(
-                f"existing store {store_path} has shape {f['u'].shape}, "
-                f"expected {shape}; delete it to start fresh"
-            )
-        else:
-            # resuming: the parameters must match what wrote the stored
-            # saves, or the result would mix two integrations with
-            # mislabeled times
-            for name, val in (("dt", float(dt)), ("t0", float(t0))):
-                stored = float(f.attrs.get(name, val))
-                if abs(stored - val) > 1e-12 * max(abs(val), 1.0):
-                    raise ValueError(
-                        f"store {store_path} was written with {name}="
-                        f"{stored}, called with {val}; delete it to restart"
-                    )
-            if f.attrs.get("method", method) != method:
-                raise ValueError(
-                    f"store {store_path} was written with method="
-                    f"{f.attrs['method']!r}, called with {method!r}"
-                )
+        _open_store(f, store_path, shape, dt, t0, method)
         start = int(f.attrs["next"])
         with torch.no_grad():
             if start == 0:
@@ -288,14 +270,128 @@ def integrate_resumable(
                 for _ in range(save_every):
                     u = step(rhs, u, t, dt)
                     t = t + dt
-                saved = u.cpu().numpy()
-                f["u"][i] = saved
-                f["carry_u"][...] = saved
-                f.attrs["carry_t"] = float(t)
-                f.attrs["next"] = i + 1
-                f.flush()
+                _write_save(f, i, u.cpu().numpy(), t)
         traj = torch.from_numpy(np.asarray(f["u"][...])).to(u0.device)
     return _save_times(u0, dt, save_every, num_saves, t0), traj
+
+
+def _open_store(f, store_path: str, shape: tuple, dt: float, t0: float, method: str) -> None:
+    """Create the store's datasets and attrs, or check that an existing
+    store was written by the same integration."""
+    if "u" not in f:
+        f.create_dataset("u", shape=shape, dtype="float32")
+        f.create_dataset("carry_u", shape=shape[1:], dtype="float32")
+        f.attrs["next"] = 0
+        f.attrs["carry_t"] = float(t0)
+        f.attrs["dt"] = float(dt)
+        f.attrs["t0"] = float(t0)
+        f.attrs["method"] = method
+    elif tuple(f["u"].shape) != shape:
+        raise ValueError(
+            f"existing store {store_path} has shape {f['u'].shape}, "
+            f"expected {shape}; delete it to start fresh"
+        )
+    else:
+        # resuming: the parameters must match what wrote the stored saves,
+        # or the result would mix two integrations with mislabeled times
+        for name, val in (("dt", float(dt)), ("t0", float(t0))):
+            stored = float(f.attrs.get(name, val))
+            if abs(stored - val) > 1e-12 * max(abs(val), 1.0):
+                raise ValueError(
+                    f"store {store_path} was written with {name}="
+                    f"{stored}, called with {val}; delete it to restart"
+                )
+        if f.attrs.get("method", method) != method:
+            raise ValueError(
+                f"store {store_path} was written with method="
+                f"{f.attrs['method']!r}, called with {method!r}"
+            )
+
+
+def _write_save(f, i: int, saved: np.ndarray, t: torch.Tensor) -> None:
+    """Save ``i`` and the carry, then mark the interval done."""
+    f["u"][i] = saved
+    f["carry_u"][...] = saved
+    f.attrs["carry_t"] = float(t)
+    f.attrs["next"] = i + 1
+    f.flush()
+
+
+def _integrate_resumable_dp(rhs, u0, dt, num_steps, save_every, store_path, t0, method, mesh):
+    """``integrate_resumable`` over the ``"data"`` ranks of ``mesh``: only
+    rank 0 of the axis opens the store; the carry, or any error met opening
+    it, reaches the other ranks by broadcast, and each save by a gather."""
+    import h5py  # on every rank, before the first collective
+    import torch.distributed as dist
+
+    from pde_superresolution_torch.parallel.mesh import DATA_AXIS
+
+    group = mesh.get_group(DATA_AXIS)
+    size, me = dist.get_world_size(group), dist.get_rank(group)
+    root = dist.get_global_rank(group, 0)
+    rows = u0.shape[0]
+    num_saves = num_steps // save_every
+    step = STEP_FUNCS[method]
+    shape = (num_saves + 1, rows * size) + tuple(u0.shape[1:])
+
+    def gather(u):
+        parts = [torch.empty_like(u) for _ in range(size)]
+        dist.all_gather(parts, u.contiguous(), group=group)
+        return torch.cat(parts).cpu().numpy()
+
+    def from_root(array, like):
+        """Rank 0's global array, broadcast; this rank's rows of it."""
+        whole = (torch.from_numpy(array).to(like.device, like.dtype) if me == 0
+                 else torch.empty((rows * size,) + tuple(like.shape[1:]), dtype=like.dtype,
+                                  device=like.device))
+        dist.broadcast(whole, src=root, group=group)
+        return whole[me * rows:(me + 1) * rows]
+
+    f = None
+    with torch.no_grad():
+        first = gather(u0)
+        state = [None]  # {"start", "carry_t"}, or the error rank 0 met
+        error = None
+        if me == 0:
+            try:
+                f = h5py.File(store_path, "a")
+                _open_store(f, store_path, shape, dt, t0, method)
+                if int(f.attrs["next"]) == 0:
+                    f["u"][0] = first
+                    f["carry_u"][...] = first
+                    f.attrs["next"] = 1
+                state = [{"start": int(f.attrs["next"]), "carry_t": float(f.attrs["carry_t"])}]
+            except Exception as e:  # the other ranks wait at the broadcast
+                if f is not None:
+                    f.close()
+                    f = None
+                error, state = e, [{"error": type(e).__name__, "message": str(e)}]
+        dist.broadcast_object_list(state, src=root, group=group)
+        if error is not None:
+            raise error
+        if "error" in state[0]:
+            # a refusal stays a ValueError on every rank
+            if state[0]["error"] == "ValueError":
+                raise ValueError(state[0]["message"])
+            raise RuntimeError(f"rank 0 could not open the store {store_path}: "
+                               f"{state[0]['error']}: {state[0]['message']}")
+        start, carry_t = state[0]["start"], state[0]["carry_t"]
+        try:
+            u = from_root(np.asarray(f["carry_u"][...]) if me == 0 else None, u0)
+            t = torch.as_tensor(carry_t, dtype=u0.dtype, device=u0.device)
+            for i in range(start, num_saves + 1):
+                for _ in range(save_every):
+                    u = step(rhs, u, t, dt)
+                    t = t + dt
+                saved = gather(u)
+                if me == 0:
+                    _write_save(f, i, saved, t)
+            traj = [from_root(np.asarray(f["u"][i]) if me == 0 else None, u0)
+                    for i in range(num_saves + 1)]
+        finally:
+            if f is not None:
+                f.close()
+    return _save_times(u0, dt, save_every, num_saves, t0), torch.stack(traj)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,11 @@ compute cross-correlation (``convert.params_from_jax`` transposes).
 
 Heads are zero-initialized, so a fresh model reproduces the classic
 baseline stencils exactly.
+
+``periodic=False`` (the spatially sharded path, ``parallel/sharded.py``)
+skips the wrap pad: each convolution is VALID, so the output is
+``2 * receptive_radius`` points shorter than an input that its caller has
+already padded with its neighbours' halos.
 """
 
 from __future__ import annotations
@@ -33,6 +38,11 @@ class ConvTowerConfig:
     kernel_size: int = 5
 
 
+def receptive_radius(config: ConvTowerConfig) -> int:
+    """Half-width of the tower's receptive field (odd kernels)."""
+    return config.num_layers * ((config.kernel_size - 1) // 2)
+
+
 def periodic_pad(h: torch.Tensor, kernel_size: int) -> torch.Tensor:
     """Wrap-pad the last (spatial) axis of ``h`` [N, C, nx] for a VALID conv."""
     left = (kernel_size - 1) // 2
@@ -41,7 +51,8 @@ def periodic_pad(h: torch.Tensor, kernel_size: int) -> torch.Tensor:
 
 
 class ConvTower(nn.Module):
-    """``u [..., nx]`` -> ``{head: [..., nx, dims]}``.
+    """``u [..., nx]`` -> ``{head: [..., nx, dims]}`` (``nx - 2 *
+    receptive_radius`` points with ``periodic=False``).
 
     ``dtype`` (e.g. ``torch.bfloat16``) sets the activation compute dtype:
     the field and the float32 master parameters are cast on entry and the
@@ -89,13 +100,15 @@ class ConvTower(nn.Module):
             head.weight.zero_()
             head.bias.zero_()
 
-    def forward(self, u: torch.Tensor, dtype: torch.dtype | None = None) -> dict:
+    def forward(self, u: torch.Tensor, dtype: torch.dtype | None = None,
+                periodic: bool = True) -> dict:
         batch_shape = u.shape[:-1]
         h = u.reshape(-1, 1, u.shape[-1])
         cast = (lambda x: x.to(dtype)) if dtype is not None else (lambda x: x)
         h = cast(h)
         for conv in self.tower:
-            h = periodic_pad(h, self.kernel_size)
+            if periodic:
+                h = periodic_pad(h, self.kernel_size)
             h = F.relu(F.conv1d(h, cast(conv.weight), cast(conv.bias)))
         out = {}
         for name, head in self.heads.items():

@@ -149,16 +149,22 @@ class StencilModel:
 
     # -- forward --------------------------------------------------------------
     def coefficients(
-        self, params: Mapping[str, torch.Tensor], u: torch.Tensor
+        self, params: Mapping[str, torch.Tensor], u: torch.Tensor,
+        periodic: bool = True,
     ) -> dict[int, torch.Tensor]:
-        """Predicted constrained coefficients, ``{order: [..., nx, stencil]}``."""
+        """Predicted constrained coefficients, ``{order: [..., nx, stencil]}``.
+
+        ``periodic=False`` runs the tower VALID on a halo-padded ``u``
+        (``parallel/sharded.py``): ``2 * receptive_radius`` fewer points.
+        The tower computes in ``config.tower_dtype`` either way."""
         dtype = (
             None
             if self.config.tower_dtype == "float32"
             else getattr(torch, self.config.tower_dtype)
         )
         zs = functional_call(
-            self._tower, dict(params), (u,), {"dtype": dtype}, strict=True
+            self._tower, dict(params), (u,), {"dtype": dtype, "periodic": periodic},
+            strict=True,
         )
         return {
             d: layer(zs[str(d)]) for d, layer in self.constraint_layers.items()
@@ -307,6 +313,7 @@ class StencilModel:
         num_steps: int,
         forcing: Optional[ForcingParams] = None,
         t0: float = 0.0,
+        mesh=None,
     ):
         """``num_steps`` RK4 steps of the learned model in one
         ``fused_kernels.fused_learned_rk4`` launch: conv tower, constraint
@@ -323,11 +330,23 @@ class StencilModel:
         Returns ``advance(u [batch, nx], t=None) -> u``: ``t`` is the start
         time of the call (default ``t0``), so ``integrate_fused`` can hand
         each save interval its own.
+
+        ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with a ``"data"``
+        axis) composes the kernel with data parallelism: each rank passes
+        its own rows of the batch, ``[batch / data, nx]``, and launches the
+        kernel on them with the params replicated and its rows of the global
+        ``forcing``; nothing is communicated. Any other mesh axis must have
+        size 1: the kernel needs the whole grid.
         """
         if self.equation.forced and forcing is None:
             raise ValueError(
                 f"{self.equation.name} is forced: pass forcing params"
             )
+        if mesh is not None:
+            from pde_superresolution_torch.parallel.sharded import Shard
+
+            self._check_data_mesh(mesh)
+            forcing = Shard(mesh, self.grid.size).forcing_rows(forcing)
         pack = fused_kernels.pack_learned_rk4(
             params,
             self.equation,
@@ -348,3 +367,19 @@ class StencilModel:
 
         advance.pack = pack
         return advance
+
+    @staticmethod
+    def _check_data_mesh(mesh) -> None:
+        """Refuse a mesh the fused kernel cannot shard over."""
+        from pde_superresolution_torch.parallel.mesh import DATA_AXIS
+
+        names = tuple(mesh.mesh_dim_names or ())
+        if DATA_AXIS not in names:
+            raise ValueError(f"mesh axes {names} lack a '{DATA_AXIS}' axis")
+        other = {ax: mesh.size(i) for i, ax in enumerate(names)
+                 if ax != DATA_AXIS and mesh.size(i) > 1}
+        if other:
+            raise ValueError(
+                "fused-kernel DP shards the trajectory batch only; mesh "
+                f"axes {other} must have size 1 (the kernel needs the whole "
+                "grid in one shard)")

@@ -66,10 +66,12 @@ def build() -> Build:
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     start = time.perf_counter()
+    # object files of this process alone: ranks that start together (torchrun)
+    # each build, and the last atomic rename below wins
+    objects = {src: out_dir / f"{src.stem}.{os.getpid()}.o" for src in sources}
     procs = {
         src: subprocess.Popen(
-            [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src),
-             "-o", str(out_dir / (src.stem + ".o"))],
+            [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src), "-o", str(objects[src])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for src in sources
@@ -82,12 +84,13 @@ def build() -> Build:
         )
     tmp = out_dir / f"{LIBRARY_NAME}.{os.getpid()}.tmp"
     link = subprocess.run(
-        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
-         *[str(out_dir / (src.stem + ".o")) for src in sources]],
+        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects.values())],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    for obj in objects.values():
+        obj.unlink()
     os.replace(tmp, library)  # atomic: a concurrent loader sees all or nothing
     return Build(library, time.perf_counter() - start, logs)
 

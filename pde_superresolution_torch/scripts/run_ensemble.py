@@ -28,6 +28,17 @@ per RHS), or of a frozen artifact's RHS. ``--output_path`` and
 ``--fused auto`` decides from the device and the shapes alone, before
 anything is launched, and prints its choice; a kernel that then fails to
 build or launch raises.
+
+``--data_parallel N`` splits the ensemble over N ranks, one process per
+device: ``torchrun --standalone --nproc_per_node N -m
+pde_superresolution_torch.scripts.run_ensemble ... --data_parallel N``
+(NCCL on ``cuda``, gloo with ``--device cpu``); N=1 runs without torchrun.
+Every rank draws the global members from ``--seed`` and keeps its rows, so
+member i is the same member as without the flag; the warm-up, the route and
+the integration run per rank, with no communication; the statistics come
+from the final state gathered over the ranks, and rank 0 prints them.
+With ``--output_path`` rank 0 writes the gathered global batch, in the
+layout a single process writes, and every rank resumes from it.
 """
 
 from __future__ import annotations
@@ -82,6 +93,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "forcing and initial-condition wavenumber bands "
                         "scale with it, so the physical wavelengths match); "
                         "checkpoints only: a frozen artifact's grid is baked in")
+    parser.add_argument("--data_parallel", type=int, default=0,
+                        help="split the ensemble (warm-up and integration) over this "
+                        "many ranks of a ('data',) mesh, one process per device "
+                        "(torchrun --nproc_per_node N; N=1 runs without it); 0 = one "
+                        "process. Composes with --fused: each rank launches the "
+                        "kernel on its own rows")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
     return parser
@@ -178,14 +195,50 @@ def choose_route(fused: str, ensemble: Ensemble, pack,
                   "per block fit")
 
 
+def _gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch from each rank's rows (all ranks get it)."""
+    import torch.distributed as dist
+
+    from pde_superresolution_torch.parallel import DATA_AXIS
+
+    parts = [torch.empty_like(x) for _ in range(mesh.size(0))]
+    dist.all_gather(parts, x.contiguous(), group=mesh.get_group(DATA_AXIS))
+    return torch.cat(parts)
+
+
 def main(argv=None) -> dict:
     """Run the ensemble; print the report and return it as a dict (with the
     warmed-up start state, the final state and the save times as tensors
-    under ``initial``, ``final`` and ``times``)."""
+    under ``initial``, ``final`` and ``times``; under ``--data_parallel`` the
+    states of the whole ensemble, on every rank)."""
+    import torch.distributed as dist
+
     parser = build_parser()
     args = parser.parse_args(argv)
     if bool(args.checkpoint_dir) == bool(args.exported_dir):
         parser.error("pass exactly one of --checkpoint_dir / --exported_dir")
+    if args.data_parallel < 0:
+        parser.error("--data_parallel must be >= 0")
+    if args.data_parallel and args.num_trajectories % args.data_parallel:
+        raise ValueError(
+            f"num_trajectories={args.num_trajectories} not divisible by "
+            f"data_parallel={args.data_parallel}")
+    if not args.data_parallel:
+        return _run(args, None)
+    from pde_superresolution_torch import parallel
+
+    own_group = not dist.is_initialized()
+    parallel.initialize_multihost(device=args.device)
+    try:
+        return _run(args, parallel.make_mesh(data=args.data_parallel, device=args.device))
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _run(args, mesh) -> dict:
+    """``main`` after the process group: ``mesh`` is None without
+    ``--data_parallel``."""
     if args.exported_dir and args.fused == "true":
         raise ValueError(
             "--fused true needs live model parameters (the fused kernel is built "
@@ -200,11 +253,24 @@ def main(argv=None) -> dict:
             "--fused true conflicts with --output_path: the resumable HDF5 "
             "integrator drives single RK4 steps (drop one of the two flags)")
     ensemble = setup(args)
+    global_forcing = ensemble.forcing
+    rank, dp = 0, ""
+    if mesh is not None:
+        # every rank drew the global members; it keeps its rows
+        from pde_superresolution_torch.parallel.sharded import Shard
+
+        rank = torch.distributed.get_rank()
+        shard = Shard(mesh, ensemble.coarse.size)
+        ensemble = dataclasses.replace(
+            ensemble, u0=ensemble.u0[shard.rows(args.num_trajectories)].contiguous(),
+            forcing=shard.forcing_rows(global_forcing))
+        dp = f", dp={args.data_parallel}"
     model, params, equation, coarse = (
         ensemble.model, ensemble.params, ensemble.equation, ensemble.coarse)
     forcing, u0, served = ensemble.forcing, ensemble.u0, ensemble.served
     device = u0.device
     n = args.num_trajectories
+    say = print if rank == 0 else (lambda *a, **k: None)
 
     t0 = 0.0
     warmup_s = 0.0
@@ -247,7 +313,8 @@ def main(argv=None) -> dict:
     if args.fused == "false" or served is not None or resumable:
         fused, reason = choose_route(args.fused, ensemble, None, resumable)
     else:
-        advance = model.fused_rk4_fn(params, dt, save_every, forcing=forcing, t0=t0)
+        advance = model.fused_rk4_fn(params, dt, save_every, forcing=global_forcing,
+                                     t0=t0, mesh=mesh)
         fused, reason = choose_route(args.fused, ensemble, advance.pack)
     if device.type == "cuda" and served is None:
         from pde_superresolution_torch.ops import _build
@@ -260,7 +327,8 @@ def main(argv=None) -> dict:
         path = "resumable rhs_fn steps" if resumable else "rhs_fn steps"
     if served is not None:
         path = "frozen artifact, " + path
-    print(f"route: {path} ({reason})", flush=True)
+    path += dp
+    say(f"route: {path} ({reason})", flush=True)
 
     # t0 is the physical start time (the warm-up's end); the wall clock has
     # its own variable
@@ -270,11 +338,16 @@ def main(argv=None) -> dict:
             times, traj = integrate.integrate_fused(
                 advance, u0, dt, num_steps, save_every, t0=t0)
         else:
+            # under --data_parallel the per-step route keeps fused_rhs: each
+            # rank launches it on its own rows. (The JAX package turns its
+            # Pallas RHS off there only because GSPMD cannot partition a
+            # Mosaic call; per-rank execution has no such limit.)
             rhs = (served.rhs_fn(forcing) if served is not None
                    else model.rhs_fn(params, forcing))
             if resumable:
                 times, traj = integrate.integrate_resumable(
-                    rhs, u0, dt, num_steps, save_every, args.output_path, t0=t0)
+                    rhs, u0, dt, num_steps, save_every, args.output_path, t0=t0,
+                    mesh=mesh)
             else:
                 times, traj = integrate.integrate(rhs, u0, dt, num_steps, save_every, t0=t0)
     if device.type == "cuda":
@@ -282,6 +355,11 @@ def main(argv=None) -> dict:
     elapsed = time.perf_counter() - wall_start
 
     final = traj[-1]
+    if mesh is not None:
+        final, u0 = _gather_rows(final, mesh), _gather_rows(u0, mesh)
+        slowest = torch.tensor([elapsed], dtype=torch.float64, device=device)
+        torch.distributed.all_reduce(slowest, op=torch.distributed.ReduceOp.MAX)
+        elapsed = float(slowest)
     final_np = final.cpu().numpy()
     finite = np.isfinite(final_np).all(axis=-1)
     k, spectrum = analysis.energy_spectrum(final_np[finite], equation.period)
@@ -308,16 +386,16 @@ def main(argv=None) -> dict:
         "final": final,
         "times": times,
     }
-    print(
+    say(
         f"{n} trajectories x {num_steps} RK4 steps (nx={coarse.size}) in "
         f"{elapsed:.3f}s = {result['traj_steps_per_s']:,.0f} traj-steps/s on "
         f"{device} [{path}, set-up {setup_s:.1f}s, warm-up {warmup_s:.3f}s]"
     )
-    print(
+    say(
         f"physical time window t=[{result['t_start']:.6f}, "
         f"{result['t_end']:.6f}] (warmup handoff at t0={t0:.6f})"
     )
-    print(
+    say(
         f"finite: {result['finite']}/{n} | final rms {result['final_rms']:.3f} "
         f"| spectrum peak k={result['spectrum_peak_k']:.3f}",
         flush=True,

@@ -15,7 +15,12 @@ Example:
       --checkpoint_dir /tmp/ckpt \
       --hparams equation=ks,resample_factor=8,num_time_steps=4
 
-Not ported yet: ``--data_parallel``.
+``--data_parallel N`` trains one replica per rank, one process per device
+(``torchrun --standalone --nproc_per_node N -m
+pde_superresolution_torch.scripts.run_training ... --data_parallel N``; N=1
+runs without torchrun): each rank builds the same data, takes its rows of
+every batch, and the gradients are averaged (``training.loop.train(mesh=)``).
+Only rank 0 writes the checkpoints, metrics and events, and prints.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import argparse
 import dataclasses
 import sys
 from typing import Optional
+
+import torch
 
 from pde_superresolution_torch import equations
 from pde_superresolution_torch.device import resolve_device
@@ -66,6 +73,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "move only each batch to the device (generation still "
                         "runs on the device, chunk by chunk); auto = stage on "
                         "the host when the estimated dataset exceeds 6 GB")
+    parser.add_argument("--data_parallel", type=int, default=0,
+                        help="train over this many ranks of a ('data',) mesh, one "
+                        "process per device (torchrun --nproc_per_node N; N=1 runs "
+                        "without it); 0 = one process")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     return parser
 
@@ -94,6 +105,26 @@ def main(argv: Optional[list[str]] = None) -> dict:
         )
     if args.large_ensemble and args.input_path:
         parser.error("--large_ensemble generates on the device; drop --input_path")
+    if args.data_parallel < 0:
+        parser.error("--data_parallel must be >= 0")
+    if not args.data_parallel:
+        return _run(args, None)
+    import torch.distributed as dist
+
+    from pde_superresolution_torch import parallel
+
+    own_group = not dist.is_initialized()
+    parallel.initialize_multihost(device=args.device)
+    try:
+        return _run(args, parallel.make_mesh(data=args.data_parallel, device=args.device))
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _run(args: argparse.Namespace, mesh) -> dict:
+    """``main`` after the process group: ``mesh`` is None without
+    ``--data_parallel``."""
     device = resolve_device(args.device)
     config = config_lib.parse_hparams(args.hparams)
     dataset = None
@@ -152,8 +183,10 @@ def main(argv: Optional[list[str]] = None) -> dict:
         metrics_path=metrics_path,
         tensorboard_dir=args.tensorboard_dir,
         device=device,
+        mesh=mesh,
     )
-    print({k: round(v, 4) for k, v in metrics.items() if k.startswith("eval")})
+    if mesh is None or torch.distributed.get_rank() == 0:
+        print({k: round(v, 4) for k, v in metrics.items() if k.startswith("eval")})
     return metrics
 
 

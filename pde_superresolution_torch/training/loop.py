@@ -268,6 +268,53 @@ def _slice_batch(dataset: data_lib.TrainingData, idx: torch.Tensor) -> data_lib.
     return data_lib.map_data(lambda leaf: leaf.index_select(0, idx), dataset)
 
 
+def _block(batch: data_lib.TrainingData, shard) -> data_lib.TrainingData:
+    """This rank's block of a global batch: its rows and, of the fields, its
+    points of the grid (``parallel.sharded.Shard``)."""
+    rows, cols = shard.rows(batch.num_samples), shard.cols()
+
+    def field(leaf):
+        return leaf[rows][..., cols]
+
+    return data_lib.TrainingData(
+        inputs=field(batch.inputs),
+        t=batch.t[rows],
+        forcing=shard.forcing_rows(batch.forcing),
+        deriv_labels={d: field(v) for d, v in batch.deriv_labels.items()},
+        time_deriv_label=field(batch.time_deriv_label),
+        rollout=field(batch.rollout),
+        traj_ids=None if batch.traj_ids is None else batch.traj_ids[rows],
+    )
+
+
+def _world_mean(tensors: list) -> list:
+    """Each tensor averaged over every rank of the process group, in one
+    all-reduce; every rank gets the same values."""
+    import torch.distributed as dist
+
+    flat = torch.cat([x.reshape(-1) for x in tensors])
+    dist.all_reduce(flat)
+    flat = flat / dist.get_world_size()
+    return [piece.reshape(x.shape) for piece, x in
+            zip(torch.split(flat, [x.numel() for x in tensors]), tensors)]
+
+
+def _shard(config: TrainingConfig, model: StencilModel, mesh):
+    """The rank's ``parallel.sharded.Shard`` of ``mesh`` (None without one);
+    refuses a batch the data axis does not divide."""
+    if mesh is None:
+        return None
+    from pde_superresolution_torch.parallel.sharded import Shard
+
+    shard = Shard(mesh, model.grid.size)
+    if config.batch_size % shard.n_data:
+        raise ValueError(
+            f"batch_size {config.batch_size} must be divisible by the "
+            f"mesh data axis ({shard.n_data})"
+        )
+    return shard
+
+
 def _split_train_eval(
     dataset: data_lib.TrainingData, frac_training: float, seed: int
 ) -> tuple[np.ndarray, np.ndarray]:
@@ -326,9 +373,18 @@ def _substeps(config: TrainingConfig, model: StencilModel) -> int:
 
 
 def _step_functions(config: TrainingConfig, model: StencilModel, tx: Optimizer,
-                    full_norms: loss_lib.LossNorms, substeps: int, use_kernel: bool):
+                    full_norms: loss_lib.LossNorms, substeps: int, use_kernel: bool,
+                    shard=None):
     """``make_steps(unroll_k) -> (train_step, eval_step)`` for one curriculum
-    phase, the integrated-target norms restricted to its width."""
+    phase, the integrated-target norms restricted to its width.
+
+    With a ``shard`` each rank's loss covers its block of the batch; the
+    gradients are averaged over every rank before the update (so the clip
+    sees the global gradient, and every rank applies the same update), and
+    so are the logged parts. The average over the whole world is the
+    global batch's: the ranks of one ``"space"`` ring each hold the global
+    grid mean (``SpaceShardedLoss``), whose differentiable all-reduce gives
+    each of them the whole gradient of its block's share."""
 
     def make_steps(unroll_k: int):
         norms = loss_lib.truncate_norms(full_norms, unroll_k)
@@ -338,22 +394,31 @@ def _step_functions(config: TrainingConfig, model: StencilModel, tx: Optimizer,
                 model, params, batch, norms, config.loss_weights, dt=config.time_delta,
                 unroll_steps=unroll_k, substeps=substeps, use_kernel=use_kernel,
                 rollout_noise=config.rollout_noise, noise_generator=noise_generator,
+                shard=shard,
             )
+
+        def averaged(parts):
+            parts = {k: v.detach() for k, v in parts.items()}
+            if shard is None:
+                return parts
+            return dict(zip(parts, _world_mean(list(parts.values()))))
 
         def train_step(state: TrainState, batch):
             params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
             noise = (_noise_generator(config, state.step)
                      if config.rollout_noise > 0 else None)
             loss, parts = loss_fn(params, batch, noise)
-            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-            new_params, opt_state = tx.update(grads, state.opt_state, state.params)
-            parts = {k: v.detach() for k, v in parts.items()}
-            return TrainState(new_params, opt_state, state.step + 1), parts
+            grads = torch.autograd.grad(loss, list(params.values()))
+            if shard is not None:
+                grads = _world_mean(list(grads))
+            new_params, opt_state = tx.update(dict(zip(params, grads)), state.opt_state,
+                                              state.params)
+            return TrainState(new_params, opt_state, state.step + 1), averaged(parts)
 
         @torch.no_grad()
         def eval_step(params, batch):
             # eval is always clean: no rollout noise
-            return loss_fn(params, batch)[1]
+            return averaged(loss_fn(params, batch)[1])
 
         return train_step, eval_step
 
@@ -361,13 +426,19 @@ def _step_functions(config: TrainingConfig, model: StencilModel, tx: Optimizer,
 
 
 def _run_phases(config, state, make_steps, next_batch, eval_batch, checkpoint_dir,
-                metrics_path, tensorboard_dir):
+                metrics_path, tensorboard_dir, shard=None):
     """The step loop shared by both dataset layouts: per curriculum phase,
     train steps on ``next_batch(step)``, evals every ``eval_interval`` and
     at each phase's end, checkpoints every ``checkpoint_interval`` and at
-    each phase's end."""
+    each phase's end. Every rank restores; with a ``shard`` only rank 0
+    writes checkpoints, metrics and events, and the ranks meet at the end."""
+    import torch.distributed as dist
+
+    writer = shard is None or dist.get_rank() == 0
     if checkpoint_dir:
         state = _restore_state(checkpoint_dir, state, config)
+    if not writer:
+        checkpoint_dir = metrics_path = tensorboard_dir = None
     logger = MetricsLogger(metrics_path, tensorboard_dir)
     metrics = {}
     for unroll_k, phase_end in config.curriculum_phases():
@@ -388,6 +459,8 @@ def _run_phases(config, state, make_steps, next_batch, eval_batch, checkpoint_di
             ):
                 save_checkpoint(checkpoint_dir, state, config)
     logger.close()
+    if shard is not None:
+        dist.barrier()
     return state, metrics
 
 
@@ -415,6 +488,7 @@ def train(
     tensorboard_dir: Optional[str] = None,
     device=None,
     use_kernel: bool = False,
+    mesh=None,
 ) -> tuple[StencilModel, dict, dict]:
     """Train a learned discretization end to end on ``device`` (default
     ``cuda``).
@@ -424,12 +498,23 @@ def train(
     ``TrajectoryData`` takes the large-ensemble path. ``use_kernel`` is the
     unrolled loss's RHS route (``compute_loss``); False, the default, is the
     JAX package's training route. Returns (model, params, final_metrics).
+
+    ``mesh`` (a ``torch.distributed`` ``DeviceMesh``, ``parallel.make_mesh``)
+    trains one replica per rank, as the JAX package's GSPMD split does:
+    every rank builds the same dataset and norms and draws the same global
+    batch, keeps its rows ``[r * b / N, (r + 1) * b / N)`` (and, where the
+    mesh's ``"space"`` axis is larger than 1, its points of the grid, the
+    rollout through ``parallel.sharded_model_rhs``), and the gradients are
+    averaged before the update. The eval split is trimmed to a multiple of
+    the data axis and its metrics averaged. Only rank 0 writes. With a
+    space axis larger than 1, ``use_kernel=True`` is refused.
     """
     device = resolve_device(device)
     equation, fine, model = _model_for(config, device)
+    shard = _shard(config, model, mesh)
     if isinstance(dataset, data_lib.TrajectoryData):
         return _train_on_trajectories(config, model, dataset, checkpoint_dir,
-                                      metrics_path, tensorboard_dir, use_kernel)
+                                      metrics_path, tensorboard_dir, use_kernel, shard)
 
     if dataset is None:
         snapshots = data_lib.generate_snapshots(
@@ -453,17 +538,24 @@ def train(
     n_train = train_idx.size
     train_set = _slice_batch(dataset, train_idx)
     eval_set = _slice_batch(dataset, eval_idx)
+    if shard is not None:
+        # trim the eval split to a multiple of the data axis
+        n_eval = (eval_set.num_samples // shard.n_data) * shard.n_data
+        if n_eval == 0:
+            raise ValueError("eval split smaller than the mesh data axis")
+        eval_set = _block(_slice_batch(eval_set, np.arange(n_eval)), shard)
     substeps = _substeps(config, model)
     phases = config.curriculum_phases()
 
     tx = make_optimizer(config)
     state = _initial_state(config, model, tx)
-    # norms once, at the final curriculum width; each phase takes the prefix
+    # norms once, at the final curriculum width, on the whole train set (on
+    # every rank); each phase takes the prefix
     full_norms = loss_lib.compute_loss_norms(
         model, train_set, phases[-1][0], config.time_delta, substeps,
         floor_quantile=config.loss_weights.error_floor_quantile,
     )
-    make_steps = _step_functions(config, model, tx, full_norms, substeps, use_kernel)
+    make_steps = _step_functions(config, model, tx, full_norms, substeps, use_kernel, shard)
 
     def next_batch(step):
         # batch indices are a pure function of (seed, step), so that a
@@ -471,10 +563,11 @@ def train(
         idx = np.random.RandomState(config.seed * 100003 + step).randint(
             0, n_train, size=config.batch_size
         )
-        return _slice_batch(train_set, idx)
+        batch = _slice_batch(train_set, idx)
+        return batch if shard is None else _block(batch, shard)
 
     state, metrics = _run_phases(config, state, make_steps, next_batch, eval_set,
-                                 checkpoint_dir, metrics_path, tensorboard_dir)
+                                 checkpoint_dir, metrics_path, tensorboard_dir, shard)
     return model, state.params, metrics
 
 
@@ -486,13 +579,15 @@ def _train_on_trajectories(
     metrics_path: Optional[str],
     tensorboard_dir: Optional[str] = None,
     use_kernel: bool = False,
+    shard=None,
 ) -> tuple[StencilModel, dict, dict]:
     """Training over a TrajectoryData ensemble.
 
     The train/eval split is by trajectory, batches are (trajectory, time)
     index pairs gathered by ``sample_training_batch`` (rollout windows
     sliced on the fly; on the host for a host-resident dataset, then moved),
-    and the eval set is one fixed sampled batch.
+    and the eval set is one fixed sampled batch. With a ``shard`` each rank
+    draws the global indices and gathers its block of them.
     """
     if config.num_time_steps != data.unroll_steps:
         raise ValueError(
@@ -516,10 +611,13 @@ def _train_on_trajectories(
         as_idx = lambda a: torch.as_tensor(a, device=index_device)
         to_device = lambda b: data_lib.map_data(lambda leaf: leaf.to(device), b)
 
-    def draw(rng, traj_pool, size):
+    def draw(rng, traj_pool, size, sharded=True):
         ti = as_idx(rng.choice(traj_pool, size=size))
         si = as_idx(rng.randint(0, usable, size=size))
-        return to_device(data_lib.sample_training_batch(data, ti, si, data.unroll_steps))
+        batch = data_lib.sample_training_batch(data, ti, si, data.unroll_steps)
+        if shard is not None and sharded:
+            batch = _block(batch, shard)
+        return to_device(batch)
 
     if eval_traj.size == 0:
         raise ValueError(
@@ -529,7 +627,8 @@ def _train_on_trajectories(
         )
     eval_batch = draw(np.random.RandomState(config.seed + 7), eval_traj,
                       min(1024, config.batch_size * 8))
-    norm_batch = draw(np.random.RandomState(config.seed + 11), perm[:n_train], 1024)
+    norm_batch = draw(np.random.RandomState(config.seed + 11), perm[:n_train], 1024,
+                      sharded=False)
     phases = config.curriculum_phases()
 
     tx = make_optimizer(config)
@@ -538,7 +637,7 @@ def _train_on_trajectories(
         model, norm_batch, phases[-1][0], config.time_delta, substeps,
         floor_quantile=config.loss_weights.error_floor_quantile,
     )
-    make_steps = _step_functions(config, model, tx, full_norms, substeps, use_kernel)
+    make_steps = _step_functions(config, model, tx, full_norms, substeps, use_kernel, shard)
     train_pool = perm[:n_train]
 
     def next_batch(step):
@@ -546,7 +645,7 @@ def _train_on_trajectories(
                     config.batch_size)
 
     state, metrics = _run_phases(config, state, make_steps, next_batch, eval_batch,
-                                 checkpoint_dir, metrics_path, tensorboard_dir)
+                                 checkpoint_dir, metrics_path, tensorboard_dir, shard)
     return model, state.params, metrics
 
 

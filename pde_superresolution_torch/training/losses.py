@@ -138,10 +138,6 @@ class LossNorms(typing.NamedTuple):
     integrated_floors: tuple = ()
 
 
-def _mae(pred, label):
-    return torch.mean(torch.abs(pred - label))
-
-
 @torch.no_grad()
 def compute_loss_norms(
     model: StencilModel,
@@ -219,6 +215,48 @@ def truncate_norms(norms: LossNorms, unroll_steps: int) -> LossNorms:
     )
 
 
+class _WholeGrid:
+    """What ``compute_loss`` asks of the model when a rank holds whole
+    rows of the grid (``parallel.sharded.SpaceShardedLoss`` is the same for
+    a block of it). ``params=None`` means the baseline's (classic)
+    coefficients."""
+
+    mean = staticmethod(torch.mean)
+
+    def __init__(self, model: StencilModel, forcing, use_kernel: bool):
+        self.model, self.forcing, self.use_kernel = model, forcing, use_kernel
+
+    def derivatives(self, params, u):
+        if params is None:
+            return self.model.baseline_derivatives(u)
+        return self.model.derivatives(params, u)
+
+    @staticmethod
+    def on_block(derivs):
+        return derivs
+
+    def time_derivative(self, u, derivs, t):
+        return self.model.equation.time_derivative(u, derivs, self.model.grid, t,
+                                                   self.forcing)
+
+    def rhs(self, params):
+        if params is not None:
+            return self.model.rhs_fn(params, self.forcing, use_kernel=self.use_kernel)
+
+        def base_rhs(u, t):
+            return self.time_derivative(u, self.derivatives(None, u), t)
+
+        return base_rhs
+
+    @staticmethod
+    def rms(u):
+        return torch.sqrt(torch.mean(u * u, dim=-1, keepdim=True))
+
+    @staticmethod
+    def all_points(mask):
+        return mask.all(dim=-1)
+
+
 def compute_loss(
     model: StencilModel,
     params,
@@ -231,6 +269,7 @@ def compute_loss(
     use_kernel: bool = False,
     rollout_noise: float = 0.0,
     noise_generator: Optional[torch.Generator] = None,
+    shard=None,
 ) -> tuple[torch.Tensor, dict]:
     """Total weighted loss + per-target breakdown (0-d tensors) for logging.
 
@@ -246,19 +285,44 @@ def compute_loss(
     ``noise_generator`` draws the rollout noise (``rollout_noise > 0``); the
     noise is drawn on the CPU and moved, so a seed gives the same noise on
     any device.
+
+    ``shard`` (``parallel.sharded.Shard``) says that ``batch`` is this
+    rank's block of a global batch: its rows over the mesh's ``"data"``
+    axis and, where ``"space"`` is larger than 1, its points of the grid.
+    The rollout noise is drawn at the global batch's shape and the block
+    taken from it, so every rank adds the noise a single process would.
+    With a space axis the model's functions run through the halo exchange
+    and the means over the grid are taken over the space group
+    (``SpaceShardedLoss`` in place of ``_WholeGrid``); the means over the
+    rows stay the rank's, for the caller to average with the gradients.
+    ``use_kernel`` is refused there: ``fused_rhs`` needs the whole periodic
+    grid.
     """
     u, t, forcing = batch.inputs, batch.t, batch.forcing
-    derivs = model.derivatives(params, u)
+    if shard is not None and shard.n_space > 1:
+        if use_kernel:
+            raise ValueError(
+                f"use_kernel=True needs the whole grid on each rank; the mesh splits it "
+                f"over space={shard.n_space} (the halo-exchange RHS is plain PyTorch)")
+        from pde_superresolution_torch.parallel.sharded import SpaceShardedLoss
+
+        grid = SpaceShardedLoss(model, shard.mesh, forcing)
+    else:
+        grid = _WholeGrid(model, forcing, use_kernel)
+    derivs_ext = grid.derivatives(params, u)
+    derivs = grid.on_block(derivs_ext)
 
     w_abs, w_rel = weights.absolute_error, weights.relative_error
     use_rel = w_rel > 0
-    base_derivs = model.baseline_derivatives(u) if use_rel else None
+    if use_rel:
+        base_ext = grid.derivatives(None, u)
+        base_derivs = grid.on_block(base_ext)
 
     def mix(pred, label, norm, base_pred, rel_floor):
-        part = w_abs * (_mae(pred, label) / norm)
+        part = w_abs * (grid.mean(torch.abs(pred - label)) / norm)
         if use_rel:
             scale = torch.clamp(torch.abs(base_pred - label), min=rel_floor)
-            part = part + w_rel * torch.mean(torch.abs(pred - label) / scale)
+            part = part + w_rel * grid.mean(torch.abs(pred - label) / scale)
         return part
 
     parts = {}
@@ -275,43 +339,37 @@ def compute_loss(
         parts[f"deriv_{d}"] = part
         loss = loss + weights.space_derivatives * part / num_orders
 
-    ut = model.equation.time_derivative(u, derivs, model.grid, t, forcing)
-    ut_base = (
-        model.equation.time_derivative(u, base_derivs, model.grid, t, forcing)
-        if use_rel
-        else None
-    )
+    ut = grid.time_derivative(u, derivs_ext, t)
+    ut_base = grid.time_derivative(u, base_ext, t) if use_rel else None
     part = mix(ut, batch.time_deriv_label, norms.time_deriv, ut_base, norms.time_floor)
     parts["time_deriv"] = part
     loss = loss + weights.time_derivative * part
 
     if unroll_steps > 0 and weights.integrated_solution > 0:
-        rhs = model.rhs_fn(params, forcing, use_kernel=use_kernel)
+        rhs = grid.rhs(params)
         # Rollout-noise injection (train-time): perturb the rollout's initial
         # state with Gaussian noise of std rollout_noise * rms(u) per sample,
         # keeping the clean snapshots as targets.
         u0 = u
         if rollout_noise > 0.0 and noise_generator is not None:
-            rms = torch.sqrt(torch.mean(u * u, dim=-1, keepdim=True))
-            noise = torch.randn(u.shape, generator=noise_generator, dtype=u.dtype)
-            u0 = u + rollout_noise * rms * noise.to(u.device)
+            if shard is None:
+                noise = torch.randn(u.shape, generator=noise_generator, dtype=u.dtype)
+            else:
+                rows = u.shape[0] * shard.n_data
+                noise = torch.randn((rows, shard.nx), generator=noise_generator,
+                                    dtype=u.dtype)[shard.rows(rows), shard.cols()]
+            u0 = u + rollout_noise * grid.rms(u) * noise.to(u.device)
         states = rollout_states(rhs, u0, t, dt, substeps, unroll_steps)
         # diagnostic (never part of the loss): the fraction of batch members
         # whose rollout stayed strictly inside the divergence clip
-        inside = (torch.abs(states) < ROLLOUT_CLIP).all(dim=-1).all(dim=0)
+        inside = grid.all_points(torch.abs(states) < ROLLOUT_CLIP).all(dim=0)
         parts["rollout_finite_frac"] = torch.mean(inside.to(torch.float32)).detach()
         base_states = None
         if use_rel:
-
-            def base_rhs(ut_, t_):
-                return model.equation.time_derivative(
-                    ut_, model.baseline_derivatives(ut_), model.grid, t_, forcing
-                )
-
             # the relative form's normalizer starts from the same perturbed
             # state
             with torch.no_grad():
-                base_states = rollout_states(base_rhs, u0.detach(), t, dt, substeps,
+                base_states = rollout_states(grid.rhs(None), u0.detach(), t, dt, substeps,
                                              unroll_steps)
         int_loss = 0.0
         for k in range(unroll_steps):

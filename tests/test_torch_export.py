@@ -3,8 +3,8 @@
 A frozen ``torch.export`` artifact is held bit for bit against the live
 model's plain route (the route it traces) on the CPU, and against the JAX
 package's artifact of the same parameters on the same numpy inputs. The
-cases are those of ``tests/test_export.py``; its ``TestParallel`` waits for
-the port's parallelism slice. Also: the constant cache is never filled
+cases are those of ``tests/test_export.py``; its ``TestParallel`` is
+``tests/test_torch_parallel.py::TestServedDP``. Also: the constant cache is never filled
 while tracing, the metadata matches JAX's, and both CLIs serve an artifact.
 """
 

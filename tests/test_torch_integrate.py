@@ -119,9 +119,9 @@ def test_integrate_fused_matches_integrate(flagship):
 
 def test_import_needs_no_jax_and_no_nvcc(tmp_path):
     """Importing the package and every submodule (the training, evaluation,
-    selection and export modules and the scripts included) loads neither
-    jax, the JAX package, optax, orbax, h5py nor matplotlib, and builds
-    nothing: no nvcc on PATH, no CUDA_HOME."""
+    selection, export and parallel modules and the scripts included) loads
+    neither jax, the JAX package, optax, orbax, h5py nor matplotlib, builds
+    nothing (no nvcc on PATH, no CUDA_HOME) and starts no process group."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import pde_superresolution_torch as p\n"
@@ -133,12 +133,15 @@ def test_import_needs_no_jax_and_no_nvcc(tmp_path):
         "assert not bad, bad\n"
         "assert _build.load_library.cache_info().currsize == 0\n"
         "assert _build.build.cache_info().currsize == 0\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "for n in ('scripts.run_ensemble', 'ops.spectral', 'ops.resample', 'analysis',\n"
         "          'training.loop', 'training.data', 'training.losses', 'training.config',\n"
         "          'utils.metrics', 'utils.tb_events', 'scripts.run_training', 'evaluate',\n"
         "          'weno', 'scripts.run_evaluation', 'training.selection',\n"
         "          'scripts.run_select', 'scripts.run_sweep', 'export', 'scripts.run_export',\n"
-        "          'scripts.create_training_data', 'scripts.run_analysis'):\n"
+        "          'scripts.create_training_data', 'scripts.run_analysis',\n"
+        "          'parallel.mesh', 'parallel.halo', 'parallel.sharded'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "print(len(names))\n"
     )
