@@ -131,20 +131,35 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      with its launch counts. The process group is destroyed at the phase's
      end. What world size 1 cannot show (the ring exchange, the average of
      gradients over ranks) the CPU tests hold over gloo;
- 17. one ``{"kernels": [...]}`` line, then the card's line, then the result.
+ 17. the port's bench, ``pde_superresolution_torch.bench.measure``, at
+     reduced samples (3 blocks a card leg, 2 on the CPU, the train leg 3
+     blocks of 2 steps a route), its JSON line printed: every number finite
+     and positive, launches per call 1 ``fused_learned_rk4`` (fused legs)
+     and 400 ``fused_rhs`` (``rhs_fn`` leg), 768 ``fused_rhs`` per
+     kernel-route train step, every state finite; ``utils.profiling.trace``
+     of one fused and one ``rhs_fn`` block, whose trace files must name
+     ``fused_learned_rk4``, ``fused_rhs`` and cuDNN's convolutions;
+     ``utils.debugging.checked`` on the fused route, the ``rhs_fn`` route
+     and the ``fused_rk4`` baseline, each bit for bit the unchecked call
+     and each catching a NaN planted in ``u0`` (naming ``fused_learned_rk4``
+     and ``fused_rk4``), and on ``fused_rhs`` with a NaN in ``u`` only;
+     ``debug_nans`` around one ``rhs_fn`` RK4 step and its backward, clean
+     and with a planted NaN; the phase's own seconds;
+ 18. one ``{"kernels": [...]}`` line, then the card's line, then the result.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
 when no CUDA device is present. ``training_phase``, ``evaluation_phase``,
-``selection_phase`` and ``serving_phase`` can be called on their own once
-the kernels are built (``_build.build()``); ``parallel_phase`` needs phase
-9's results.
+``selection_phase``, ``serving_phase`` and ``bench_phase`` can be called on
+their own once the kernels are built (``_build.build()``);
+``parallel_phase`` needs phase 9's results.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -307,6 +322,14 @@ PARALLEL_TRAIN_STEPS = 2
 # deterministic algorithms: without them two runs of train() alone differ
 # (the weight gradients summed in another order; 9.4e-6 read after 2 steps)
 PARALLEL_TRAIN_TOL = 1e-6
+# Phase 17, the port's bench at reduced samples (the bench's defaults: 5
+# blocks a leg, train 5 x 3 steps a route)
+BENCH_SAMPLES = 3
+BENCH_CPU_SAMPLES = 2
+BENCH_TRAIN_BLOCKS = 3
+BENCH_TRAIN_STEPS = 2
+# words in the names of cuDNN's convolution kernels, as a trace shows them
+CONV_KERNEL_WORDS = ("conv", "cudnn", "fprop", "implicit")
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -1824,6 +1847,211 @@ def parallel_phase(card: str, ens: dict, burgers_dt: float, ks_dt: float) -> dic
     return out
 
 
+def _numbers(tree, path: str = ""):
+    """(path, number) of every int or float in a JSON-like tree (bools and
+    the train leg's echo of its overrides excluded)."""
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            yield from _numbers(value, f"{path}.{key}")
+    elif isinstance(tree, list):
+        for i, value in enumerate(tree):
+            yield from _numbers(value, f"{path}[{i}]")
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        yield path, tree
+
+
+def bench_phase(card: str) -> dict:
+    """Phase 17: the port's bench (``pde_superresolution_torch.bench``) at
+    reduced samples, ``utils.profiling.trace`` of a fused and an ``rhs_fn``
+    block, and ``utils.debugging`` (``checked`` on the three kernel routes,
+    ``debug_nans`` on an RK4 step and its backward), each with a planted
+    fault that must be caught. Returns the launch counts and the bench's
+    line."""
+    import math
+    import tempfile
+
+    import torch
+
+    from pde_superresolution_torch import bench, convert, integrate
+    from pde_superresolution_torch.ops import fused_kernels as fk
+    from pde_superresolution_torch.utils import debugging, profiling
+
+    phase_start = time.perf_counter()
+    device = torch.device("cuda")
+    kernels = (fk.fused_rhs, fk.fused_learned_rk4, fk.fused_rk4)
+
+    def zero_counts():
+        for kernel in kernels:
+            kernel.launches = 0
+
+    def counts() -> dict:
+        torch.cuda.synchronize()
+        return {kernel.__name__: kernel.launches for kernel in kernels}
+
+    log(f"[17] the port's bench ({BENCH_SAMPLES} blocks a card leg, {BENCH_CPU_SAMPLES} on the "
+        f"CPU, train {BENCH_TRAIN_BLOCKS} x {BENCH_TRAIN_STEPS} steps a route), "
+        f"profiling.trace, debugging; on {card}")
+    out = {}
+    # -- the bench, through its own functions
+    zero_counts()
+    result = bench.measure(device, samples=BENCH_SAMPLES, cpu_samples=BENCH_CPU_SAMPLES,
+                           train_blocks=BENCH_TRAIN_BLOCKS, train_steps=BENCH_TRAIN_STEPS)
+    out["launches"] = counts()
+    out["bench"] = result
+    log(json.dumps(result))
+    detail = result["detail"]
+    train = detail["train"]
+    bad = [(k, v) for k, v in _numbers(result) if not (math.isfinite(v) and v >= 0)]
+    bad += [(k, v) for k, v in _numbers({k: result[k] for k in ("value", "vs_baseline")})
+            if not v > 0]
+    for leg in ("rhs_fn", "fused", f"throughput_fused_b{bench.THROUGHPUT_BATCH}", "cpu"):
+        bad += [(f"{leg}.{k}", v) for k, v in _numbers(
+            {k: detail[leg][k] for k in ("median", "samples", "block_s")}) if not v > 0]
+    for route in ("plain_route", "kernel_route"):
+        bad += [(f"train.{route}.{k}", v) for k, v in _numbers(
+            {k: train[route][k] for k in ("median", "samples")}) if not v > 0]
+        share = train[route]["device_busy_share"]
+        if not 0 < share <= 1:
+            bad.append((f"train.{route}.device_busy_share", share))
+    rhs_per_step = 2 * 4 * train["substeps"] * train["unroll"]  # forward + rematerialized
+    want = {"rhs_fn": {"fused_rhs": 4.0 * bench.INNER_STEPS},
+            "fused": {"fused_learned_rk4": 1.0},
+            f"throughput_fused_b{bench.THROUGHPUT_BATCH}": {"fused_learned_rk4": 1.0},
+            "cpu": {}}
+    got = {leg: detail[leg]["launches_per_call"] for leg in want}
+    want["train kernel route, per step"] = {"fused_rhs": float(rhs_per_step)}
+    want["train plain route, per step"] = {}
+    got["train kernel route, per step"] = train["kernel_route"]["launches_per_step"]
+    got["train plain route, per step"] = train["plain_route"]["launches_per_step"]
+    finite = [leg for leg in ("rhs_fn", "fused", f"throughput_fused_b{bench.THROUGHPUT_BATCH}",
+                              "cpu") if not detail[leg]["finite"]]
+    finite += [route for route in ("plain_route", "kernel_route") if not train[route]["finite"]]
+    log(f"    launches per call {got} (predicted {want}); phase launches {out['launches']}; "
+        f"non-finite legs {finite}; non-positive or non-finite numbers {bad}")
+    if bad or got != want or finite:
+        raise AssertionError("the bench's legs")
+
+    # -- profiling.trace sees the kernels launched through ctypes
+    traced = {}
+    for route in ("fused", "rhs_fn"):
+        fn, u = bench.build(fused=route == "fused", device=device)
+        u = fn(u)
+        torch.cuda.synchronize()
+        repeats = detail[route]["repeats_per_block"]
+        with tempfile.TemporaryDirectory() as logdir:
+            start = time.perf_counter()
+            with profiling.trace(logdir):
+                for _ in range(repeats):
+                    u = fn(u)
+                torch.cuda.synchronize()
+            wall_s = time.perf_counter() - start
+            files = [n for n in os.listdir(logdir) if n.endswith(".pt.trace.json")]
+            events = bench.device_events(logdir)
+        names = {}
+        for name, _, _ in events:
+            names[name] = names.get(name, 0) + 1
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
+        kernel = {"fused": "fused_learned_rk4", "rhs_fn": "fused_rhs"}[route]
+        traced[route] = {
+            "files": len(files), "wall_s": wall_s, "device_events": len(events),
+            kernel: sum(n for name, n in names.items() if kernel in name),
+            "convolutions": sum(n for name, n in names.items()
+                                if any(w in name.lower() for w in CONV_KERNEL_WORDS)),
+        }
+        log(f"    trace of one {route} block ({repeats} calls): {json.dumps(traced[route])}; "
+            f"most frequent {top}")
+    if not (traced["fused"]["files"] == traced["rhs_fn"]["files"] == 1
+            and traced["fused"]["fused_learned_rk4"] > 0 and traced["rhs_fn"]["fused_rhs"] > 0
+            and traced["rhs_fn"]["convolutions"] > 0):
+        raise AssertionError(f"the traces lack the port's kernels: {traced}")
+    out["traced"] = traced
+
+    # -- debugging.checked on the three kernel routes: bit for bit when clean,
+    # a planted NaN caught (by the kernel that first outputs it, where the
+    # route starts with one)
+    model, params, _ = convert.load_asset("ckpt_ks8", device=device)
+    dt = model.equation.stable_time_step(model.grid, u_scale=3.0)
+    fused_fn, u0 = bench.build(fused=True, device=device, params=params)
+    routes = {
+        "fused": (fused_fn, "fused_learned_rk4"),
+        "rhs_fn": (bench.build(device=device, params=params)[0], None),
+        "baseline fused_rk4": (fk.make_fused_rk4(model.equation, model.grid, dt, STEPS),
+                               "fused_rk4"),
+    }
+    poisoned = u0.clone()
+    poisoned[3, 17] = float("nan")
+    zero_counts()
+    checked = {}
+    for label, (fn, kernel) in routes.items():
+        want_u = fn(u0)
+        start = time.perf_counter()
+        got_u = debugging.checked(fn)(u0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        try:
+            debugging.checked(fn)(poisoned)
+            caught = None
+        except FloatingPointError as e:
+            caught = str(e)
+        checked[label] = {"bit_equal": torch.equal(got_u, want_u), "checked_s": seconds,
+                          "planted_nan": caught}
+        log(f"    checked {label}: bit for bit the unchecked call {checked[label]['bit_equal']} "
+            f"({seconds:.3f} s checked); NaN planted in u0: {caught or 'NOT CAUGHT'}")
+        named = caught is not None and (kernel is None or caught.endswith(f": {kernel}."))
+        if not (checked[label]["bit_equal"] and named):
+            raise AssertionError(f"checked on the {label} route: {checked[label]}")
+    out["checked_launches"] = counts()
+    coeffs = model.coefficients(params, u0)  # clean coefficients, a NaN in u only
+    try:
+        debugging.checked(fk.fused_rhs)(poisoned, coeffs, None, model.equation, model.grid,
+                                        model.taps)
+        caught = None
+    except FloatingPointError as e:
+        caught = str(e)
+    log(f"    checked fused_rhs (clean coefficients, NaN in u): {caught or 'NOT CAUGHT'}")
+    if caught != "nan generated by primitive: fused_rhs.":
+        raise AssertionError(f"checked fused_rhs: {caught}")
+    out["checked"] = checked
+
+    # -- the wrappers' hook with no check in force: its host cost per launch
+    nan = torch.full((1,), float("nan"), device=device)
+    calls = 100_000
+    start = time.perf_counter()
+    for _ in range(calls):
+        debugging.check_output("fused_rhs", nan)
+    out["hook_inactive_us"] = 1e6 * (time.perf_counter() - start) / calls
+    log(f"    debugging.check_output with no check in force: {out['hook_inactive_us']:.4f} us "
+        f"per call (host)")
+
+    # -- debug_nans around one rhs_fn RK4 step and its backward (autograd's
+    # device thread runs the backward)
+    rhs = model.rhs_fn(params)
+    t0 = torch.zeros((), device=device)
+    outcomes = {}
+    for label, state, cotangent in (("clean step", u0, None), ("NaN in u", poisoned, None),
+                                    ("clean backward", u0, torch.ones_like(u0)),
+                                    ("NaN cotangent", u0, torch.full_like(u0, float("nan")))):
+        leaves = {k: v.detach().requires_grad_(cotangent is not None) for k, v in params.items()}
+        step_rhs = model.rhs_fn(leaves) if cotangent is not None else rhs
+        try:
+            with debugging.debug_nans():
+                stepped = integrate.rk4_step(step_rhs, state, t0, dt)
+                if cotangent is not None:
+                    stepped.backward(cotangent)
+                torch.cuda.synchronize()
+            outcomes[label] = None
+        except FloatingPointError as e:
+            outcomes[label] = str(e)
+    log(f"    debug_nans: {json.dumps(outcomes)}")
+    if (outcomes["clean step"] or outcomes["clean backward"] or not outcomes["NaN in u"]
+            or not outcomes["NaN cotangent"]):
+        raise AssertionError(f"debug_nans: {outcomes}")
+    out["debug_nans"] = outcomes
+    out["phase_s"] = time.perf_counter() - phase_start
+    log(f"    phase 17 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2142,10 +2370,12 @@ def main() -> int:
     # its 400 launches on the Burgers ensemble's rhs_fn route have this shape
     rhs_ensemble = {
         "ms": time_ms(lambda: fk.fused_rhs(eu0, ecoeffs, ef, *brhs_args), inner=100, queued=True),
+        "plain_ms": time_ms(lambda: fk.fused_rhs_plain(eu0, ecoeffs, ef, *brhs_args), inner=10),
         "bound_ms": rhs_bound_ms(eu0, ecoeffs, ef),
     }
     log(f"    fused_rhs, forced Burgers form, B={ENSEMBLE}: {1e3 * rhs_ensemble['ms']:.3f} us "
-        f"(bytes bound {1e3 * rhs_ensemble['bound_ms']:.3f} us, launch floor "
+        f"(plain version {rhs_ensemble['plain_ms']:.3f} ms; "
+        f"bytes bound {1e3 * rhs_ensemble['bound_ms']:.3f} us, launch floor "
         f"{1e3 * launch_floor_ms:.3f} us); {fk.rhs_launch(ENSEMBLE, bgrid.size, bmodel.taps)}")
     del ecoeffs, ef, epack
 
@@ -2292,6 +2522,8 @@ def main() -> int:
             "fused_rk4_ops_bound_ms": ops_ms,
         }
         if batch == ENSEMBLE:  # 4 and 8 warps per block (rk4_launch takes 8)
+            row["unforced_rk4_plain_ms"] = time_ms(
+                lambda: fk.fused_learned_rk4_plain(ks_u, pack, ks_dt, STEPS), samples=LONG_SAMPLES)
             default = fk.RK4_MAX_WARPS
             for warps in (4, 8):
                 fk.RK4_MAX_WARPS = warps
@@ -2341,7 +2573,10 @@ def main() -> int:
     # ---- 16. parallelism at world size 1 -------------------------------------------
     parallel = parallel_phase(card, ens, bdt, ks_dt)
 
-    # ---- 17. report -----------------------------------------------------------
+    # ---- 17. the bench, profiling and debugging -------------------------------------
+    tools = bench_phase(card)
+
+    # ---- 18. report -----------------------------------------------------------
     flagship = times[BATCH]
     full = new_times[ENSEMBLE]
     kernels = [
@@ -2355,7 +2590,8 @@ def main() -> int:
                          + training["trajectory_launches"] + evaluation["ks8"]["launches"]
                          + evaluation["burgers8"]["launches"] + selection["select_launches"]
                          + selection["sweep_launches"] + serving["resumable_launches"]
-                         + parallel["ensemble_false_launches"] + parallel["train_launches"]),
+                         + parallel["ensemble_false_launches"] + parallel["train_launches"]
+                         + tools["launches"]["fused_rhs"]),
             "launches_by_path": {"ks8 integrate(rhs_fn) B=256": launches["fused_rhs"],
                                  "burgers8 ensemble --fused false": rhs_ensemble_launches,
                                  "ks8 train step B=128 (kernel route)": training["step_launches"],
@@ -2376,7 +2612,9 @@ def main() -> int:
                                  "burgers8 ensemble --fused false --data_parallel 1":
                                      parallel["ensemble_false_launches"],
                                  f"ks8 train(mesh=) {PARALLEL_TRAIN_STEPS} steps, kernel route":
-                                     parallel["train_launches"]},
+                                     parallel["train_launches"],
+                                 "bench: rhs_fn leg B=256, train leg kernel route B=128":
+                                     tools["launches"]["fused_rhs"]},
             "shape": f"B={BATCH} nx={grid.size}",
             "max_abs_err": rhs_err,
             "ms": flagship["fused_rhs_ms"],
@@ -2388,6 +2626,9 @@ def main() -> int:
             "ms_by_batch": {BATCH: flagship["fused_rhs_ms"],
                             THROUGHPUT_BATCH: times[THROUGHPUT_BATCH]["fused_rhs_ms"],
                             ENSEMBLE: rhs_ensemble["ms"]},
+            "plain_ms_by_batch": {BATCH: flagship["fused_rhs_plain_ms"],
+                                  THROUGHPUT_BATCH: times[THROUGHPUT_BATCH]["fused_rhs_plain_ms"],
+                                  ENSEMBLE: rhs_ensemble["plain_ms"]},
             "bound_ms_by_batch": {BATCH: flagship["fused_rhs_bound_ms"],
                                   THROUGHPUT_BATCH: times[THROUGHPUT_BATCH]["fused_rhs_bound_ms"],
                                   ENSEMBLE: rhs_ensemble["bound_ms"]},
@@ -2420,12 +2661,15 @@ def main() -> int:
             "source": "pde_superresolution_torch/csrc/fused_learned_rk4.cu",
             "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:390",
             "launches": (launches["fused_learned_rk4"] + unforced_ensemble_launches
-                         + parallel["ks_mesh_launches"] + parallel["trained_served_launches"]),
+                         + parallel["ks_mesh_launches"] + parallel["trained_served_launches"]
+                         + tools["launches"]["fused_learned_rk4"]),
             "launches_by_path": {"ks8 integrate_fused B=256": launches["fused_learned_rk4"],
                                  "ks8 ensemble --fused true": unforced_ensemble_launches,
                                  "ks8 fused_rk4_fn(mesh=) B=10240": parallel["ks_mesh_launches"],
                                  "run_training --data_parallel 1 checkpoint, run_ensemble "
-                                 "--data_parallel 1": parallel["trained_served_launches"]},
+                                 "--data_parallel 1": parallel["trained_served_launches"],
+                                 "bench: fused legs B=256 and B=4096":
+                                     tools["launches"]["fused_learned_rk4"]},
             "shape": f"B={BATCH} nx={grid.size}, {STEPS} steps",
             "max_abs_err": rk4_err,
             "ms": flagship["fused_learned_rk4_ms"],
@@ -2434,6 +2678,14 @@ def main() -> int:
             "bound_ms": flagship["fused_learned_rk4_bound_ms"],
             "bound_by": "operations",
             "library_ms": None,
+            "ms_by_batch": {BATCH: flagship["fused_learned_rk4_ms"],
+                            THROUGHPUT_BATCH: times[THROUGHPUT_BATCH]["fused_learned_rk4_ms"],
+                            ENSEMBLE: full["unforced_rk4_ms"]},
+            "plain_ms_by_batch": {BATCH: flagship["fused_learned_rk4_plain_ms"],
+                                  THROUGHPUT_BATCH: times[THROUGHPUT_BATCH][
+                                      "fused_learned_rk4_plain_ms"],
+                                  ENSEMBLE: full["unforced_rk4_plain_ms"]},
+            "bench_fused_b256_steps_per_s": tools["bench"]["detail"]["fused"]["median"],
         },
         {
             "name": "fused_learned_rk4_forced",
@@ -2461,8 +2713,10 @@ def main() -> int:
             "route": "cuda",
             "source": "pde_superresolution_torch/csrc/fused_rk4.cu",
             "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:304",
-            "launches": baseline_launches,
-            "launches_by_path": {"ks8 ensemble baseline leg": baseline_launches},
+            "launches": baseline_launches + tools["checked_launches"]["fused_rk4"],
+            "launches_by_path": {"ks8 ensemble baseline leg": baseline_launches,
+                                 "debugging.checked baseline B=256":
+                                     tools["checked_launches"]["fused_rk4"]},
             "shape": f"B={ENSEMBLE} nx={grid.size}, {STEPS} steps",
             "max_abs_err": baseline_err,
             "ms": full["fused_rk4_ms"],

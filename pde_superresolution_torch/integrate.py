@@ -129,6 +129,11 @@ class PolynomialDifferentiator(Differentiator):
         }
 
 
+# the JAX package's integrate re-exports it; it lives with the rest of the
+# stencil geometry in stencils.py
+baseline_stencil_size = stencils.baseline_stencil_size
+
+
 def rk4_step(rhs: RHSFn, u: torch.Tensor, t, dt: float) -> torch.Tensor:
     """One classic RK4 step."""
     k1 = rhs(u, t)

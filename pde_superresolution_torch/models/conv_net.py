@@ -15,6 +15,13 @@ compute cross-correlation (``convert.params_from_jax`` transposes).
 Heads are zero-initialized, so a fresh model reproduces the classic
 baseline stencils exactly.
 
+The JAX package's pure functions map onto the module: ``conv_tower_init(key,
+config, head_dims)`` is ``ConvTower(config, head_dims)`` with
+``reset_parameters(generator)`` (its ``state_dict()`` the params), and
+``conv_tower_apply(params, u, periodic, dtype)`` is ``forward(u,
+periodic=..., dtype=...)``, applied to a params dict with
+``torch.func.functional_call`` (``StencilModel.coefficients``).
+
 ``periodic=False`` (the spatially sharded path, ``parallel/sharded.py``)
 skips the wrap pad: each convolution is VALID, so the output is
 ``2 * receptive_radius`` points shorter than an input that its caller has

@@ -26,7 +26,9 @@ anything else. It takes its plain PyTorch version (``*_plain``, in this
 module) only for CPU tensors; for CUDA tensors it launches its kernel or
 raises. Each keeps a launch count, ``<wrapper>.launches``, a plain integer
 that grows by one per kernel launch (a forward re-run by activation
-checkpointing launches, and counts, again).
+checkpointing launches, and counts, again). Each hands its kernel's output
+to ``utils.debugging.check_output``, so ``debugging.checked`` and
+``debug_nans`` see the kernels, which no dispatch mode does.
 
 ``fused_rhs`` is differentiable, as the JAX package's ``custom_vjp`` makes
 its kernel: the forward is the kernel (or its plain version on the CPU), the
@@ -48,6 +50,7 @@ import torch
 from pde_superresolution_torch import stencils
 from pde_superresolution_torch.equations import Equation, ForcingParams
 from pde_superresolution_torch.grids import Grid
+from pde_superresolution_torch.utils import debugging
 
 EQUATION_CODES = {"burgers": 0, "kdv": 1, "ks": 2}
 MAX_ORDERS = 3
@@ -270,6 +273,7 @@ def _fused_rhs_forward(static, u, f, *coeffs) -> torch.Tensor:
     )
     _raise_on_cuda_error(code, "fused_rhs launch")
     fused_rhs.launches += 1
+    debugging.check_output("fused_rhs", out)
     return out
 
 
@@ -859,6 +863,7 @@ def fused_learned_rk4(
     )
     _raise_on_cuda_error(code, "fused_learned_rk4 launch")
     fused_learned_rk4.launches += 1
+    debugging.check_output("fused_learned_rk4", out)
     return out
 
 
@@ -994,6 +999,7 @@ def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
     )
     _raise_on_cuda_error(code, "fused_rk4 launch")
     fused_rk4.launches += 1
+    debugging.check_output("fused_rk4", out)
     return out
 
 

@@ -311,6 +311,12 @@ class FixedCoefficients:
         return self._cache.get("c0", self.c0, z) + self.scale * z
 
 
+# The reference's bias-only coefficient layer, as the JAX package reads it:
+# coefficients = classic-stencil bias + the raw (unconstrained) network
+# output, no null-space projection; selected by
+# ModelConfig(polynomial_accuracy_order=0).
+PolynomialBias = FixedCoefficients
+
 
 def int_taps(offsets: Sequence[float], shift: float = 0.0) -> tuple[int, ...]:
     """Integer input taps ``offset - shift`` of a stencil; raises if any

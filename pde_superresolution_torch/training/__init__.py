@@ -1,9 +1,5 @@
-"""Training subsystem: data generation, losses, training loop, config.
-
-The JAX package's exports, without its HDF5 interchange
-(``save_snapshots_h5``/``load_snapshots_h5``). Seed selection is the
-``selection`` submodule, as in the JAX package.
-"""
+"""Training subsystem: data generation, losses, training loop, config,
+seed selection; the JAX package's exports."""
 
 from pde_superresolution_torch.training.config import (  # noqa: F401
     TrainingConfig,
@@ -16,7 +12,9 @@ from pde_superresolution_torch.training.data import (  # noqa: F401
     build_training_data,
     build_trajectory_data,
     generate_snapshots,
+    load_snapshots_h5,
     sample_training_batch,
+    save_snapshots_h5,
 )
 from pde_superresolution_torch.training.losses import (  # noqa: F401
     LossNorms,
@@ -25,3 +23,8 @@ from pde_superresolution_torch.training.losses import (  # noqa: F401
     compute_loss_norms,
 )
 from pde_superresolution_torch.training.loop import TrainState, train  # noqa: F401
+from pde_superresolution_torch.training.selection import (  # noqa: F401
+    SelectionResult,
+    protocol_score,
+    select_checkpoint,
+)

@@ -480,42 +480,25 @@ def _initial_state(config: TrainingConfig, model: StencilModel, tx: Optimizer) -
     return TrainState(params, tx.init(params), 0)
 
 
-def train(
-    config: TrainingConfig,
-    dataset=None,
-    checkpoint_dir: Optional[str] = None,
-    metrics_path: Optional[str] = None,
-    tensorboard_dir: Optional[str] = None,
-    device=None,
-    use_kernel: bool = False,
-    mesh=None,
-) -> tuple[StencilModel, dict, dict]:
-    """Train a learned discretization end to end on ``device`` (default
-    ``cuda``).
+class PreparedRun(typing.NamedTuple):
+    """What ``train`` builds before its first step on a snapshot dataset."""
 
-    If ``dataset`` is None, snapshots are generated on the device from the
-    config (exact ETDRK4 solves, generator seeded ``data_seed``); a
-    ``TrajectoryData`` takes the large-ensemble path. ``use_kernel`` is the
-    unrolled loss's RHS route (``compute_loss``); False, the default, is the
-    JAX package's training route. Returns (model, params, final_metrics).
+    state: TrainState  # the initial params and optimizer state, step 0
+    tx: Optimizer
+    norms: loss_lib.LossNorms  # at the final curriculum width
+    substeps: int  # RK4 steps per snapshot interval
+    next_batch: typing.Callable  # step -> this rank's batch
+    eval_set: data_lib.TrainingData
 
-    ``mesh`` (a ``torch.distributed`` ``DeviceMesh``, ``parallel.make_mesh``)
-    trains one replica per rank, as the JAX package's GSPMD split does:
-    every rank builds the same dataset and norms and draws the same global
-    batch, keeps its rows ``[r * b / N, (r + 1) * b / N)`` (and, where the
-    mesh's ``"space"`` axis is larger than 1, its points of the grid, the
-    rollout through ``parallel.sharded_model_rhs``), and the gradients are
-    averaged before the update. The eval split is trimmed to a multiple of
-    the data axis and its metrics averaged. Only rank 0 writes. With a
-    space axis larger than 1, ``use_kernel=True`` is refused.
-    """
-    device = resolve_device(device)
-    equation, fine, model = _model_for(config, device)
-    shard = _shard(config, model, mesh)
-    if isinstance(dataset, data_lib.TrajectoryData):
-        return _train_on_trajectories(config, model, dataset, checkpoint_dir,
-                                      metrics_path, tensorboard_dir, use_kernel, shard)
 
+def prepare_run(config: TrainingConfig, equation, fine: Grid, model: StencilModel,
+                dataset: Optional[data_lib.TrainingData] = None, shard=None) -> PreparedRun:
+    """The set-up of ``train`` on snapshots, on ``model``'s device: the
+    dataset (generated from the config when None), the by-trajectory split,
+    the initial state, the loss norms and the batch stream. Train steps come
+    from ``_step_functions(config, model, run.tx, run.norms, run.substeps,
+    use_kernel)``; the bench times them on this set-up."""
+    device = model.device
     if dataset is None:
         snapshots = data_lib.generate_snapshots(
             equation,
@@ -555,7 +538,6 @@ def train(
         model, train_set, phases[-1][0], config.time_delta, substeps,
         floor_quantile=config.loss_weights.error_floor_quantile,
     )
-    make_steps = _step_functions(config, model, tx, full_norms, substeps, use_kernel, shard)
 
     def next_batch(step):
         # batch indices are a pure function of (seed, step), so that a
@@ -566,7 +548,49 @@ def train(
         batch = _slice_batch(train_set, idx)
         return batch if shard is None else _block(batch, shard)
 
-    state, metrics = _run_phases(config, state, make_steps, next_batch, eval_set,
+    return PreparedRun(state, tx, full_norms, substeps, next_batch, eval_set)
+
+
+def train(
+    config: TrainingConfig,
+    dataset=None,
+    checkpoint_dir: Optional[str] = None,
+    metrics_path: Optional[str] = None,
+    tensorboard_dir: Optional[str] = None,
+    device=None,
+    use_kernel: bool = False,
+    mesh=None,
+) -> tuple[StencilModel, dict, dict]:
+    """Train a learned discretization end to end on ``device`` (default
+    ``cuda``).
+
+    If ``dataset`` is None, snapshots are generated on the device from the
+    config (exact ETDRK4 solves, generator seeded ``data_seed``); a
+    ``TrajectoryData`` takes the large-ensemble path. ``use_kernel`` is the
+    unrolled loss's RHS route (``compute_loss``); False, the default, is the
+    JAX package's training route. Returns (model, params, final_metrics).
+
+    ``mesh`` (a ``torch.distributed`` ``DeviceMesh``, ``parallel.make_mesh``)
+    trains one replica per rank, as the JAX package's GSPMD split does:
+    every rank builds the same dataset and norms and draws the same global
+    batch, keeps its rows ``[r * b / N, (r + 1) * b / N)`` (and, where the
+    mesh's ``"space"`` axis is larger than 1, its points of the grid, the
+    rollout through ``parallel.sharded_model_rhs``), and the gradients are
+    averaged before the update. The eval split is trimmed to a multiple of
+    the data axis and its metrics averaged. Only rank 0 writes. With a
+    space axis larger than 1, ``use_kernel=True`` is refused.
+    """
+    device = resolve_device(device)
+    equation, fine, model = _model_for(config, device)
+    shard = _shard(config, model, mesh)
+    if isinstance(dataset, data_lib.TrajectoryData):
+        return _train_on_trajectories(config, model, dataset, checkpoint_dir,
+                                      metrics_path, tensorboard_dir, use_kernel, shard)
+
+    run = prepare_run(config, equation, fine, model, dataset, shard)
+    make_steps = _step_functions(config, model, run.tx, run.norms, run.substeps, use_kernel,
+                                 shard)
+    state, metrics = _run_phases(config, run.state, make_steps, run.next_batch, run.eval_set,
                                  checkpoint_dir, metrics_path, tensorboard_dir, shard)
     return model, state.params, metrics
 

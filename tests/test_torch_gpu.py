@@ -486,3 +486,45 @@ def test_resumable_route_on_card(cuda, tmp_path):
         h5py.File.flush = real_flush
     resumed = run_ensemble.main([*args, "--output_path", str(tmp_path / "cut.h5")])
     assert torch.equal(resumed["final"], full["final"])
+
+
+@pytest.mark.parametrize("kernel", ["fused_rhs", "fused_learned_rk4", "fused_rk4"])
+def test_checked_sees_each_kernel_on_card(cuda, kernel):
+    """``debugging.checked`` on a kernel launched through ctypes (no dispatch
+    mode sees it): a clean call bit for bit the unchecked one, and a NaN in
+    ``u`` caught by the kernel's own output check, which names it."""
+    from pde_superresolution_torch.utils import debugging
+
+    model, params, u = _model("ks", True, 6, cuda, nx=128, batch=8)
+    if kernel == "fused_rhs":
+        coeffs = model.coefficients(params, u)
+        fn = lambda v: fk.fused_rhs(v, coeffs, None, model.equation, model.grid, model.taps)
+    elif kernel == "fused_learned_rk4":
+        fn = model.fused_rk4_fn(params, 1e-3, 4)
+    else:
+        fn = fk.make_fused_rk4(model.equation, model.grid, 1e-3, 4)
+    assert torch.equal(debugging.checked(fn)(u), fn(u))
+    bad = u.clone()
+    bad[2, 7] = float("nan")
+    with pytest.raises(FloatingPointError, match=rf"^nan generated by primitive: {kernel}\.$"):
+        debugging.checked(fn)(bad)
+
+
+def test_trace_and_debug_nans_on_card(cuda, tmp_path):
+    """``profiling.trace`` records the kernels launched through ctypes, and
+    ``debug_nans`` reaches a backward that autograd runs on its device
+    thread."""
+    from pde_superresolution_torch import bench
+    from pde_superresolution_torch.utils import debugging, profiling
+
+    model, params, u = _model("ks", True, 6, cuda, nx=128, batch=8)
+    with profiling.trace(str(tmp_path)):
+        model.fused_rk4_fn(params, 1e-3, 2)(u)
+        model.rhs_fn(params)(u, 0.0)
+        torch.cuda.synchronize()
+    names = " ".join(name for name, _, _ in bench.device_events(str(tmp_path)))
+    assert "fused_learned_rk4" in names and "fused_rhs" in names
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    out = model.rhs_fn(leaves)(u, 0.0)
+    with debugging.debug_nans(), pytest.raises(FloatingPointError, match="encountered in"):
+        out.backward(torch.full_like(out, float("nan")))
