@@ -92,7 +92,7 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      (exact, trajectories, MAE, survival times with their flips counted),
      with a planted fault that must fail (KS: the order-1 head zeroed;
      Burgers: the forcing dropped from the model scheme); every model
-     member finite and the KS model's survival median the horizon; times by
+     member finite and each model's survival median the horizon; times by
      layer (fine solve, each scheme, the model leg's host share), the whole
      evaluation, and ``fused_rhs`` at B=32 against its bound and the launch
      floor;
@@ -145,13 +145,34 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      and ``fused_rk4``), and on ``fused_rhs`` with a NaN in ``u`` only;
      ``debug_nans`` around one ``rhs_fn`` RK4 step and its backward, clean
      and with a planted NaN; the phase's own seconds;
- 18. one ``{"kernels": [...]}`` line, then the card's line, then the result.
+ 18. the committed model zoo at its own shapes (``convert.asset_names()``:
+     coarse grids of 128 down to 16 points, 8 and 10 taps, 32 and 64
+     filters): ``fused_rhs`` against its plain version and float64 sums with
+     the trained coefficients of ``ckpt_ks8_u16s8``, ``ckpt_ks16``,
+     ``ckpt_ks32``, ``ckpt_kdv8``, ``ckpt_kdv16``, ``ckpt_kdv16_f64``,
+     ``kdv16_select_seed7`` and ``ckpt_burgers64`` on their members as an
+     evaluation starts them (KS after a warm-up of 44) at B=32 and
+     B=10240, timed; ``fused_learned_rk4`` for the seven of them with nx >=
+     32 at B=256 and 10240, one step from a standard-normal state and 100
+     steps from those members (the run held to RUN_TOL or to
+     RUN_CONDITIONING times the plain version's own distance from float64
+     sums, per member at the 90% quantile), with phase 4's planted weight
+     faults at
+     KS-32x, timed; ``scripts.run_ensemble.main`` for KS-32x, KdV-16x (64
+     filters) and Burgers-64x (10240 members, 100 steps in 10 saves: the
+     fused route for the first two, ``rhs_fn`` steps for the 16-point
+     Burgers grid, whose ``--fused true`` is refused with the kernel's
+     reason), launch counts as predicted, traj-steps/s; and evaluation at
+     the zoo's protocols (KS-32x with a warm-up of 44, the selected KdV-16x
+     seed at ic_scale 0.5, Burgers-64x; 32 members, horizons 10, 10 and 3)
+     through ``evaluate_protocol``, as phase 13, with planted faults;
+ 19. one ``{"kernels": [...]}`` line, then the card's line, then the result.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
 when no CUDA device is present. ``training_phase``, ``evaluation_phase``,
-``selection_phase``, ``serving_phase`` and ``bench_phase`` can be called on
-their own once the kernels are built (``_build.build()``);
+``selection_phase``, ``serving_phase``, ``bench_phase`` and ``zoo_phase``
+can be called on their own once the kernels are built (``_build.build()``);
 ``parallel_phase`` needs phase 9's results.
 """
 
@@ -328,6 +349,75 @@ BENCH_SAMPLES = 3
 BENCH_CPU_SAMPLES = 2
 BENCH_TRAIN_BLOCKS = 3
 BENCH_TRAIN_STEPS = 2
+# fused_rhs against its plain version (phase 3): float32 on both sides, tap
+# sums in other orders and with FMAs, then a face difference over dx that
+# cancels most of the sum: of max|u_t|
+RHS_TOL = 1e-4
+# Phase 18, the committed model zoo (convert.asset_names()) at its own shapes:
+# coarse grids of 128 down to 16 points, 8 and 10 taps, towers of 32 and 64
+# filters, Burgers at 64x with accuracy order 3. fused_rhs with each model's
+# trained coefficients at the evaluation's batch and the ensemble's;
+# fused_learned_rk4 for each model of nx >= 32 (the kernel refuses fewer) at
+# BATCH and ENSEMBLE.
+ZOO_RHS = ("ckpt_ks8_u16s8", "ckpt_ks16", "ckpt_ks32", "ckpt_kdv8", "ckpt_kdv16",
+           "ckpt_kdv16_f64", "kdv16_select_seed7", "ckpt_burgers64")
+ZOO_LEARNED = ZOO_RHS[:-1]
+# fused_learned_rk4 against its plain version, tests/test_torch_gpu.py's
+# limits: one step from N(0,1), of the plain increment's max, in root mean
+# square and at the worst point; after a run, of max|u|, in root mean square
+# (a fault is not sparse, see STEP_TOL).
+STEP_RMS_TOL = 3e-5
+STEP_MAX_TOL = 1.5e-3
+RUN_TOL = 2e-5
+# 100 steps from a warmed state of a trained zoo model near its stability
+# edge amplify single flipped bf16 roundings: on the CPU the plain version
+# with float32 sums against the same with float64 sums read, in root mean
+# square of max|u| after 100 steps, 5e-4 for KS-32x and the KdV-16x family
+# (3e-7 for KS-16x, 6e-8 for KS-8x). So the run is held to RUN_TOL or to
+# RUN_CONDITIONING times the plain version's own distance from float64 sums
+# in this run, whichever is larger; the planted faults must fail that. The
+# distance is each member's largest difference, of max|u|, at the
+# RUN_QUANTILE over the members: a fault is not sparse (the one-step checks
+# see every point), while the root mean square follows the few members on
+# their way to blowing up (on an H100 KdV-16x at B=10240 read 4.6e-4 for
+# the plain version and 2.0e-3 for the kernel from float64 sums in one run,
+# 1.0e-3 and 1.1e-3 from other members in another).
+RUN_CONDITIONING = 4
+RUN_QUANTILE = 0.9
+# A member of a run "blows up" when it leaves float32 or grows past BLOWUP
+# times the largest value of the start (of the exact solution, in an
+# evaluation). Such members are left out of a comparison; near the stability
+# edge of the 16x and 32x models a member may blow up on one side of a pair
+# of runs and not yet on the other (KdV-16x from the evaluation's start, 100
+# steps at B=10240): the two counts may differ by DIVERGED_SLACK of the
+# larger, at least 2.
+BLOWUP = 10.0
+DIVERGED_SLACK = 0.05
+# run_ensemble --fused auto at the ensemble's size: (asset, --ic_scale,
+# --warmup_time). KS-32x's exact-solver warm-up runs on its 32-point coarse
+# grid, where KS grows without bound after about 10 time units (JAX's solver
+# too): 1.0 as phase 9. KdV-16x at its checkpoint's ic_scale without a
+# warm-up: after one of 1.0, 2 of 1024 members diverge within 100 steps.
+ZOO_ENSEMBLES = (("ckpt_ks32", "1.0", WARMUP_TIME), ("ckpt_kdv16_f64", "0.5", 0.0),
+                 ("ckpt_burgers64", "1.0", WARMUP_TIME))
+# evaluate at the zoo's protocols (RESULTS.md), 32 members, key 0, the
+# horizons cut: (label, asset, flags, horizon)
+ZOO_PROTOCOLS = (
+    ("ks32", "ckpt_ks32", ["--warmup_time", "44"], 10.0),
+    ("kdv16_seed7", "kdv16_select_seed7", ["--ic_scale", "0.5"], 10.0),
+    ("burgers64", "ckpt_burgers64", [], 3.0),
+)
+# The card against the CPU path on the first 4 members, of max|exact|, each
+# limit near 10x its reading on an H100 (the classic baselines blow up at
+# 16x and more: the model's limit). KS-32x (ic_scale 1, 44 time units of
+# warm-up and 10 of chaos): exact read 9.0e-4, model 9.2e-4; the planted
+# faults 1.07 and inf. KdV-16x (seed 7): exact 5.0e-5, model 2.7e-5, the
+# fault inf. Burgers-64x: exact 1.2e-6, model 6.3e-6, WENO 1.3e-6.
+ZOO_EVAL_TOLS = {
+    "ks32": {"exact": 1e-2, "model": 1e-2, "baseline": 1e-2},
+    "kdv16_seed7": {"exact": 5e-4, "model": 3e-4, "baseline": 3e-4},
+    "burgers64": {"exact": 1.2e-5, "model": 6e-5, "baseline": 6e-5, "weno": 1.3e-5},
+}
 # words in the names of cuDNN's convolution kernels, as a trace shows them
 CONV_KERNEL_WORDS = ("conv", "cudnn", "fprop", "implicit")
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -963,52 +1053,6 @@ def _keep_first(draw, count: int):
     return first
 
 
-class LayerTimes:
-    """Host seconds (after a synchronize) of each exact fine solve and each
-    scheme's integration inside ``evaluate``, recorded while it is entered:
-    ``integrate.exact_solve_sampled`` and ``integrate.integrate`` are
-    wrapped for that time (evaluate runs the schemes in their dict's
-    order)."""
-
-    def __init__(self):
-        self.records = []
-
-    def __enter__(self):
-        import torch
-
-        from pde_superresolution_torch import integrate
-
-        self._real = (integrate.exact_solve_sampled, integrate.integrate)
-
-        def timed(fn, kind):
-            def run(*args, **kwargs):
-                torch.cuda.synchronize()
-                start = time.perf_counter()
-                out = fn(*args, **kwargs)
-                torch.cuda.synchronize()
-                self.records.append((kind, time.perf_counter() - start))
-                return out
-            return run
-
-        integrate.exact_solve_sampled = timed(self._real[0], "exact")
-        integrate.integrate = timed(self._real[1], "scheme")
-        return self
-
-    def __exit__(self, *exc):
-        from pde_superresolution_torch import integrate
-
-        integrate.exact_solve_sampled, integrate.integrate = self._real
-
-    def by_layer(self, schemes) -> dict:
-        """{layer: seconds summed over the eval keys}; the scheme records are
-        matched to ``schemes`` in order."""
-        out = {"exact": sum(t for kind, t in self.records if kind == "exact")}
-        legs = [t for kind, t in self.records if kind == "scheme"]
-        for i, name in enumerate(schemes):
-            out[name] = sum(legs[i::len(schemes)])
-        return out
-
-
 def eval_schedule(model, time_delta: float) -> tuple:
     """(inner RK4 steps per save, coarse dt) as ``run_evaluation`` and
     ``evaluate`` choose them: the model's stable step only where it is
@@ -1030,29 +1074,43 @@ def compare_evaluations(label: str, card, cpu, tols: dict, threshold: float = 0.
     trajectories and MAE, of max|exact|; survival times equal but for flips
     explained by the two sides' correlations (the distance of the CPU's
     correlation to the threshold at most the card's difference from it).
-    Returns the readings and the flip counts."""
+    A scheme's member that blew up (a value not finite or past BLOWUP times
+    max|exact|: the classic stencils at 16x and more) must have blown up on
+    both sides; it is left out of the comparison. Returns the readings, the
+    flip counts and the blown-up members' counts."""
     import torch
 
     n = cpu.exact.shape[0]
     want_exact = cpu.exact.double()
     scale = float(want_exact.abs().max())
 
-    def rel(got, want):
+    def rel(got, want, members=None):
         got, want = got[:n].cpu().double(), want.cpu().double()
+        if members is not None:
+            got, want = got[members], want[members]
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
             return float("inf")
-        return float((got - want).abs().max()) / scale
+        return float((got - want).abs().max()) / scale if got.numel() else 0.0
+
+    def alive(traj):
+        flat = traj.reshape(traj.shape[0], -1).double()
+        return torch.isfinite(flat).all(-1) & (flat.abs().amax(-1) <= BLOWUP * scale)
 
     if not torch.allclose(card.times.cpu(), cpu.times, rtol=1e-6, atol=0):
         raise AssertionError(f"{label}: times differ {card.times} {cpu.times}")
     readings = {"exact": rel(card.exact, cpu.exact)}
-    flips = {}
+    flips, blown = {}, {}
     for name in cpu.trajectories:
-        readings[name] = max(rel(card.trajectories[name], cpu.trajectories[name]),
-                             rel(card.mae[name], cpu.mae[name]))
-        got_c = card.correlation[name][:n].cpu().double()
-        want_c = cpu.correlation[name].double()
-        differ = card.survival_time[name][:n].cpu() != cpu.survival_time[name]
+        live = alive(cpu.trajectories[name])
+        if not torch.equal(alive(card.trajectories[name][:n].cpu()), live):
+            raise AssertionError(f"{label} {name}: members blew up on one side only: card "
+                                 f"{alive(card.trajectories[name][:n].cpu())}, CPU {live}")
+        blown[name] = int((~live).sum())
+        readings[name] = max(rel(card.trajectories[name], cpu.trajectories[name], live),
+                             rel(card.mae[name], cpu.mae[name], live))
+        got_c = card.correlation[name][:n].cpu().double()[live]
+        want_c = cpu.correlation[name].double()[live]
+        differ = (card.survival_time[name][:n].cpu() != cpu.survival_time[name])[live]
         explained = (want_c - threshold).abs().amin(-1) <= (got_c - want_c).abs().amax(-1)
         flips[name] = int(differ.sum())
         if (differ & ~explained).any():
@@ -1064,11 +1122,185 @@ def compare_evaluations(label: str, card, cpu, tols: dict, threshold: float = 0.
         log(f"  {label}, card vs CPU, first {n} members, {key}"
             f"{'' if key == 'exact' else ' trajectories and MAE'}: rel {value:.3e} of max|exact| "
             f"{scale:.4g} (tolerance {tol:.0e}) {'ok' if value <= tol else 'FAIL'}")
-    log(f"    survival times: flips (each explained by the correlations) {flips}")
+    log(f"    survival times: flips (each explained by the correlations) {flips}; "
+        f"members blown up on both sides {blown}")
     bad = {k: v for k, v in readings.items() if not v <= tols[k]}
     if bad:
         raise AssertionError(f"{label}: card against CPU path beyond the limits: {bad}")
-    return {"readings": readings, "flips": flips}
+    return {"readings": readings, "flips": flips, "blown_up": blown}
+
+
+def evaluate_protocol(label: str, flags: list, horizon: float, faults, tols: dict,
+                      launch_floor_ms: float, work: Path, write_h5: bool = False,
+                      full_horizon: bool = True) -> dict:
+    """One evaluation protocol on the card, through ``scripts.run_evaluation``
+    (``main`` with an HDF5 output where ``write_h5``, else
+    ``evaluate_checkpoint``): the ``fused_rhs`` launches zeroed before and
+    counted against the prediction after; with ``full_horizon`` every model
+    member finite and the model's survival median the horizon (else the
+    diverged members counted); times by
+    layer; the first ``COMPARE_MEMBERS`` members against the port's CPU path
+    on the same draw (``tols``, survival flips counted); each planted fault
+    of ``faults(model, params)`` ({name: rhs}) caught by the model's limit;
+    the model leg's host share and ``fused_rhs`` at this batch against its
+    bound and the launch floor. Returns the readings."""
+    import torch
+
+    from pde_superresolution_torch import convert, equations
+    from pde_superresolution_torch import evaluate as eval_lib
+    from pde_superresolution_torch import integrate
+    from pde_superresolution_torch.ops import fused_kernels as fk
+    from pde_superresolution_torch.scripts import run_evaluation
+    from pde_superresolution_torch.scripts.probe_zoo import LayerTimes
+
+    device = torch.device("cuda")
+    model, params, config = convert.load_checkpoint(flags[1], device=device)
+    inner, dt = eval_schedule(model, EVAL_DELTA)
+    saves = int(round(horizon / EVAL_DELTA))
+    seeds = flags[flags.index("--seeds") + 1].split(",") if "--seeds" in flags else ["0"]
+    keys = len(seeds)
+    predicted = keys * saves * inner * 4
+    schemes = ["model", "baseline"] + (["weno"] if model.equation.name == "burgers" else [])
+    log(f"  {label}: {config.equation}, fine {config.fine_size} -> {model.grid.size}, "
+        f"stencil {model.config.stencil_size}, {model.config.filters} filters; {saves} saves x "
+        f"{inner} RK4 steps of {dt:.9g}; schemes {schemes}; predicted fused_rhs launches "
+        f"{keys} keys x {saves} x {inner} x 4 = {predicted}")
+    argv = flags + ["--output_path", str(work / f"{label}.h5")]
+    fk.fused_rhs.launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with LayerTimes() as layers:
+        if write_h5:
+            route = "run_evaluation.main, HDF5 written"
+            result = run_evaluation.main(argv)
+        else:
+            route = "run_evaluation.evaluate_checkpoint"
+            result = run_evaluation.evaluate_checkpoint(
+                run_evaluation.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = fk.fused_rhs.launches
+    times = layers.by_layer(schemes)
+    log(f"    {route}: {seconds:.2f} s; fused_rhs launches {launches} (predicted {predicted})")
+    if launches != predicted:
+        raise AssertionError(f"{label}: fused_rhs launches {launches} != {predicted}")
+    if write_h5:
+        written = sorted(p.name for p in work.iterdir() if p.name.startswith(f"{label}."))
+        loaded = eval_lib.load_eval_h5(str(work / f"{label}.key{seeds[0]}.h5"))
+        if written != [f"{label}.key{seed}.h5" for seed in sorted(seeds)] or not torch.equal(
+                loaded.exact, result["results"][int(seeds[0])].exact.cpu()):
+            raise AssertionError(f"HDF5 output: {written}")
+    first = result["results"][result["seeds"][0]]
+    for seed, res in result["results"].items():
+        finite = torch.isfinite(res.trajectories["model"]).reshape(EVAL_MEMBERS, -1).all(-1)
+        if res.exact.shape != (EVAL_MEMBERS, saves + 1, model.grid.size) or (
+                full_horizon and not finite.all()):
+            raise AssertionError(f"{label} key {seed}: shape {res.exact.shape} or a "
+                                 "model member is not finite")
+        if not finite.all():
+            log(f"    key {seed}: {int((~finite).sum())} of {EVAL_MEMBERS} model members "
+                "diverged")
+    log(f"    layers (s, summed over keys): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times.items())
+        + f"; the rest (loading, draw, metrics) {seconds - sum(times.values()):.3f}")
+    log(f"    statistics: {json.dumps(result['per_key'])}")
+    if full_horizon:
+        median = result["per_key"][result["seeds"][0]]["model"]["survival_median"]
+        log(f"    {label} model survival median {median} of horizon {horizon}")
+        if abs(median - horizon) > 1e-3:
+            raise AssertionError(f"{label} model survival median {median} != horizon")
+
+    # -- the card against the CPU path, on the first members of the draw
+    real_draw = eval_lib._draw
+    eval_lib._draw = _keep_first(real_draw, COMPARE_MEMBERS)
+    try:
+        cpu_args = run_evaluation.build_parser().parse_args(argv + ["--device", "cpu"])
+        cpu_args.seeds, cpu_args.seed = "", result["seeds"][0]
+        start = time.perf_counter()
+        cpu = run_evaluation.evaluate_checkpoint(cpu_args)["results"][cpu_args.seed]
+        cpu_s = time.perf_counter() - start
+    finally:
+        eval_lib._draw = real_draw
+    compared = compare_evaluations(label, first, cpu, tols)
+    log(f"    the CPU path on {COMPARE_MEMBERS} members took {cpu_s:.1f} s")
+    # -- planted faults in the model scheme, run on the card from the same
+    # coarse start; each must fail the model's limit
+    u_start = first.exact[:COMPARE_MEMBERS, 0].contiguous()
+    t0 = float(first.times[0])
+    fault_reads = {}
+    tol = tols["model"]
+    want = cpu.trajectories["model"].double()
+    live = torch.isfinite(want).reshape(want.shape[0], -1).all(-1)
+    for fault, rhs in faults(model, params).items():
+        with torch.no_grad():
+            _, bad_traj = integrate.integrate(rhs, u_start, dt, saves * inner, inner, t0=t0)
+        bad_traj = bad_traj.transpose(0, 1).cpu().double()[live]
+        read = fault_reads[fault] = (
+            float((bad_traj - want[live]).abs().max()) if torch.isfinite(bad_traj).all()
+            else float("inf")) / float(cpu.exact.double().abs().max())
+        log(f"  planted fault, {label}, {fault}: model trajectories rel {read:.3e} "
+            f"(tolerance {tol:.0e}) {'caught' if read > tol else 'NOT CAUGHT'}")
+    if not all(read > tol for read in fault_reads.values()):
+        raise AssertionError(f"a planted fault passes the {label} limit: {fault_reads}")
+
+    # -- where the model leg's time goes: device time of one save interval
+    # (torch.profiler, device activity only) against the leg's host clock;
+    # fused_rhs at this batch against its bound
+    u = first.exact[:, 0].contiguous()
+    with torch.no_grad():
+        busy = sum(device_profile(
+            lambda: integrate.integrate(model.rhs_fn(params), u, dt, inner, inner, t0=t0),
+            1).values()) / 1e3
+        coeffs = {d: c.contiguous() for d, c in model.coefficients(params, u).items()}
+        f = None
+        if model.equation.forced:
+            # the forcing of the first key's draw, drawn again
+            gen = torch.Generator().manual_seed(result["seeds"][0])
+            fine = type(model.grid)(config.fine_size, model.equation.period)
+            _, forcing = real_draw(model.equation, fine, gen, EVAL_MEMBERS, 1.0, device)
+            x = torch.as_tensor(model.grid.x, dtype=torch.float32, device=device)
+            f = equations.forcing_term(forcing, x, t0, model.equation.period,
+                                       model.grid.dx).contiguous()
+        rhs_args = (u, coeffs, f, model.equation, model.grid, model.taps)
+        rhs_ms = time_ms(lambda: fk.fused_rhs(*rhs_args), inner=100, queued=True)
+        rhs_call_ms = time_ms(lambda: fk.fused_rhs(*rhs_args), inner=100)
+        rhs_plain_ms = time_ms(lambda: fk.fused_rhs_plain(*rhs_args), inner=10)
+    leg_busy_s = keys * saves * busy / 1e3
+    host_share = 1 - leg_busy_s / times["model"]
+    bound = rhs_bound_ms(u, coeffs, f)
+    log(f"    model leg: {times['model']:.3f} s on the host clock, device busy "
+        f"{leg_busy_s:.3f} s ({busy:.3f} ms per save interval of {4 * inner} RHS, "
+        f"torch.profiler): host's share {100 * host_share:.1f}%; per RHS "
+        f"{1e6 * times['model'] / (keys * saves * inner * 4):.1f} us")
+    log(f"    fused_rhs at B={EVAL_MEMBERS}{' forced' if f is not None else ''}: "
+        f"{1e3 * rhs_ms:.3f} us device (queued), {1e3 * rhs_call_ms:.2f} us per wrapper "
+        f"call, plain {1e3 * rhs_plain_ms:.2f} us; bytes bound {1e3 * bound:.3f} us, "
+        f"launch floor {1e3 * launch_floor_ms:.3f} us")
+    return {
+        "launches": launches, "seconds": seconds, "layers_s": times,
+        "route": route, "host_share": host_share, "fault_reads": fault_reads,
+        "rhs_ms": rhs_ms, "rhs_call_ms": rhs_call_ms, "rhs_plain_ms": rhs_plain_ms,
+        "rhs_bound_ms": bound, "per_key": result["per_key"], **compared,
+    }
+
+
+def heads_zeroed(*orders):
+    """``faults`` for ``evaluate_protocol``: the model scheme with the heads
+    of each of ``orders`` zeroed, one fault each."""
+    import torch
+
+    def faults(model, params):
+        return {f"order-{d} head zeroed": model.rhs_fn(
+            {k: torch.zeros_like(v) if k.startswith(f"heads.{d}.") else v
+             for k, v in params.items()}) for d in orders}
+
+    return faults
+
+
+def forcing_dropped(model, params):
+    """``faults`` for ``evaluate_protocol``: the model scheme without its
+    forcing."""
+    return {"forcing dropped from the model scheme": model.rhs_fn(params, None)}
 
 
 def evaluation_phase(card: str, launch_floor_ms: float) -> dict:
@@ -1077,166 +1309,29 @@ def evaluation_phase(card: str, launch_floor_ms: float) -> dict:
     import shutil
     import tempfile
 
-    import torch
-
-    from pde_superresolution_torch import convert, equations
-    from pde_superresolution_torch import evaluate as eval_lib
-    from pde_superresolution_torch import integrate
-    from pde_superresolution_torch.ops import fused_kernels as fk
-    from pde_superresolution_torch.scripts import run_evaluation
-
     phase_start = time.perf_counter()
-    device = torch.device("cuda")
     log(f"[13] evaluation through scripts.run_evaluation, {EVAL_MEMBERS} members; on {card}")
-    protocols = {
-        "ks8": ["--checkpoint_dir", "ckpt_ks8", "--num_samples", str(EVAL_MEMBERS),
-                "--ic_scale", "0.1", "--warmup_time", "44", "--time_delta", str(EVAL_DELTA),
-                "--time_max", str(KS_HORIZON), "--reference_cache_dir", ""],
-        "burgers8": ["--checkpoint_dir", "ckpt_burgers8", "--num_samples", str(EVAL_MEMBERS),
-                     "--time_delta", str(EVAL_DELTA), "--time_max", str(BURGERS_HORIZON),
-                     "--seeds", "0,1", "--reference_cache_dir", ""],
-    }
     try:
         import h5py  # noqa: F401
         has_h5py = True
     except ImportError:
         has_h5py = False
+        log("    h5py is not installed: the Burgers-8x protocol runs "
+            "run_evaluation.evaluate_checkpoint, no file")
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_"))
     out = {}
     try:
-        for label, flags in protocols.items():
-            model, params, config = convert.load_checkpoint(flags[1], device=device)
-            inner, dt = eval_schedule(model, EVAL_DELTA)
-            horizon = KS_HORIZON if label == "ks8" else BURGERS_HORIZON
-            saves = int(round(horizon / EVAL_DELTA))
-            keys = 1 if label == "ks8" else 2
-            predicted = keys * saves * inner * 4
-            schemes = ["model", "baseline"] + (["weno"] if model.equation.name == "burgers" else [])
-            log(f"  {label}: {config.equation}, fine {config.fine_size} -> {model.grid.size}, "
-                f"stencil {model.config.stencil_size}; {saves} saves x {inner} RK4 steps of "
-                f"{dt:.9g}; schemes {schemes}; predicted fused_rhs launches {keys} keys x "
-                f"{saves} x {inner} x 4 = {predicted}")
-            argv = flags + ["--output_path", str(work / f"{label}.h5")]
-            fk.fused_rhs.launches = 0
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            with LayerTimes() as layers:
-                if label == "burgers8" and has_h5py:
-                    route = "run_evaluation.main, HDF5 written"
-                    result = run_evaluation.main(argv)
-                else:
-                    route = ("run_evaluation.evaluate_checkpoint, no file" if label == "burgers8"
-                             else "run_evaluation.evaluate_checkpoint")
-                    result = run_evaluation.evaluate_checkpoint(
-                        run_evaluation.build_parser().parse_args(argv))
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - start
-            launches = fk.fused_rhs.launches
-            times = layers.by_layer(schemes)
-            log(f"    {route}{' (h5py is not installed)' if label == 'burgers8' and not has_h5py else ''}"
-                f": {seconds:.2f} s; fused_rhs launches {launches} (predicted {predicted})")
-            if launches != predicted:
-                raise AssertionError(f"{label}: fused_rhs launches {launches} != {predicted}")
-            if label == "burgers8" and has_h5py:
-                written = sorted(p.name for p in work.iterdir())
-                loaded = eval_lib.load_eval_h5(str(work / "burgers8.key0.h5"))
-                if written != ["burgers8.key0.h5", "burgers8.key1.h5"] or not torch.equal(
-                        loaded.exact, result["results"][0].exact.cpu()):
-                    raise AssertionError(f"HDF5 output: {written}")
-            first = result["results"][result["seeds"][0]]
-            for seed, res in result["results"].items():
-                if res.exact.shape != (EVAL_MEMBERS, saves + 1, model.grid.size) or not all(
-                        torch.isfinite(res.trajectories[s]).all() for s in ("model",)):
-                    raise AssertionError(f"{label} key {seed}: shape {res.exact.shape} or a "
-                                         "model member is not finite")
-            log(f"    layers (s, summed over keys): " + ", ".join(
-                f"{k} {v:.3f}" for k, v in times.items())
-                + f"; the rest (loading, draw, metrics) {seconds - sum(times.values()):.3f}")
-            log(f"    statistics: {json.dumps(result['per_key'])}")
-            if label == "ks8":
-                median = result["per_key"][result["seeds"][0]]["model"]["survival_median"]
-                log(f"    KS-8x model survival median {median} of horizon {KS_HORIZON}")
-                if abs(median - KS_HORIZON) > 1e-3:
-                    raise AssertionError(f"KS-8x model survival median {median} != horizon")
-
-            # -- the card against the CPU path, on the first members of the draw
-            real_draw = eval_lib._draw
-            eval_lib._draw = _keep_first(real_draw, COMPARE_MEMBERS)
-            try:
-                cpu_args = run_evaluation.build_parser().parse_args(argv + ["--device", "cpu"])
-                cpu_args.seeds, cpu_args.seed = "", result["seeds"][0]
-                start = time.perf_counter()
-                cpu = run_evaluation.evaluate_checkpoint(cpu_args)["results"][cpu_args.seed]
-                cpu_s = time.perf_counter() - start
-            finally:
-                eval_lib._draw = real_draw
-            compared = compare_evaluations(label, first, cpu, EVAL_TOLS[label])
-            log(f"    the CPU path on {COMPARE_MEMBERS} members took {cpu_s:.1f} s")
-            # -- planted faults in the model scheme, run on the card from the
-            # same coarse start; each must fail the model's limit
-            u_start = first.exact[:COMPARE_MEMBERS, 0].contiguous()
-            t0 = float(first.times[0])
-            if label == "ks8":
-                faults = {f"order-{d} head zeroed": model.rhs_fn(
-                    {k: torch.zeros_like(v) if k.startswith(f"heads.{d}.") else v
-                     for k, v in params.items()}) for d in (1, 3)}
-            else:
-                faults = {"forcing dropped from the model scheme": model.rhs_fn(params, None)}
-            fault_reads = {}
-            tol = EVAL_TOLS[label]["model"]
-            for fault, rhs in faults.items():
-                with torch.no_grad():
-                    _, bad_traj = integrate.integrate(rhs, u_start, dt, saves * inner, inner,
-                                                      t0=t0)
-                read = fault_reads[fault] = float(
-                    (bad_traj.transpose(0, 1).cpu().double()
-                     - cpu.trajectories["model"].double()).abs().max()
-                ) / float(cpu.exact.double().abs().max())
-                log(f"  planted fault, {label}, {fault}: model trajectories rel {read:.3e} "
-                    f"(tolerance {tol:.0e}) {'caught' if read > tol else 'NOT CAUGHT'}")
-            if not all(read > tol for read in fault_reads.values()):
-                raise AssertionError(f"a planted fault passes the {label} limit: {fault_reads}")
-
-            # -- where the model leg's time goes: device time of one save
-            # interval (torch.profiler, device activity only) against the leg's
-            # host clock; fused_rhs at this batch against its bound
-            u = first.exact[:, 0].contiguous()
-            with torch.no_grad():
-                busy = sum(device_profile(
-                    lambda: integrate.integrate(model.rhs_fn(params), u, dt, inner, inner,
-                                                t0=t0), 1).values()) / 1e3
-                coeffs = {d: c.contiguous() for d, c in model.coefficients(params, u).items()}
-                f = None
-                if model.equation.forced:
-                    # the forcing of the first key's draw, drawn again
-                    gen = torch.Generator().manual_seed(result["seeds"][0])
-                    fine = type(model.grid)(config.fine_size, model.equation.period)
-                    _, forcing = real_draw(model.equation, fine, gen, EVAL_MEMBERS, 1.0, device)
-                    x = torch.as_tensor(model.grid.x, dtype=torch.float32, device=device)
-                    f = equations.forcing_term(forcing, x, t0, model.equation.period,
-                                               model.grid.dx).contiguous()
-                rhs_args = (u, coeffs, f, model.equation, model.grid, model.taps)
-                rhs_ms = time_ms(lambda: fk.fused_rhs(*rhs_args), inner=100, queued=True)
-                rhs_call_ms = time_ms(lambda: fk.fused_rhs(*rhs_args), inner=100)
-                rhs_plain_ms = time_ms(lambda: fk.fused_rhs_plain(*rhs_args), inner=10)
-            leg_busy_s = keys * saves * busy / 1e3
-            host_share = 1 - leg_busy_s / times["model"]
-            bound = rhs_bound_ms(u, coeffs, f)
-            log(f"    model leg: {times['model']:.3f} s on the host clock, device busy "
-                f"{leg_busy_s:.3f} s ({busy:.3f} ms per save interval of {4 * inner} RHS, "
-                f"torch.profiler): host's share {100 * host_share:.1f}%; per RHS "
-                f"{1e6 * times['model'] / (keys * saves * inner * 4):.1f} us")
-            log(f"    fused_rhs at B={EVAL_MEMBERS}{' forced' if f is not None else ''}: "
-                f"{1e3 * rhs_ms:.3f} us device (queued), {1e3 * rhs_call_ms:.2f} us per wrapper "
-                f"call, plain {1e3 * rhs_plain_ms:.2f} us; bytes bound {1e3 * bound:.3f} us, "
-                f"launch floor {1e3 * launch_floor_ms:.3f} us")
-            out[label] = {
-                "launches": launches, "seconds": seconds, "layers_s": times,
-                "route": route, "host_share": host_share, "fault_reads": fault_reads,
-                "rhs_ms": rhs_ms, "rhs_call_ms": rhs_call_ms, "rhs_plain_ms": rhs_plain_ms,
-                "rhs_bound_ms": bound, **compared,
-            }
-            del result, first, cpu
+        out["ks8"] = evaluate_protocol(
+            "ks8", ["--checkpoint_dir", "ckpt_ks8", "--num_samples", str(EVAL_MEMBERS),
+                    "--ic_scale", "0.1", "--warmup_time", "44", "--time_delta", str(EVAL_DELTA),
+                    "--time_max", str(KS_HORIZON), "--reference_cache_dir", ""],
+            KS_HORIZON, heads_zeroed(1, 3), EVAL_TOLS["ks8"], launch_floor_ms, work)
+        out["burgers8"] = evaluate_protocol(
+            "burgers8", ["--checkpoint_dir", "ckpt_burgers8", "--num_samples",
+                         str(EVAL_MEMBERS), "--time_delta", str(EVAL_DELTA), "--time_max",
+                         str(BURGERS_HORIZON), "--seeds", "0,1", "--reference_cache_dir", ""],
+            BURGERS_HORIZON, forcing_dropped, EVAL_TOLS["burgers8"], launch_floor_ms, work,
+            write_h5=has_h5py)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - phase_start
@@ -2052,6 +2147,324 @@ def bench_phase(card: str) -> dict:
     return out
 
 
+def zoo_warmed_state(model, config, batch: int, seed: int, device, cache: dict):
+    """(u [batch, nx], forcing or None, t): the checkpoint's own members as
+    its evaluation starts them: drawn on the fine grid at its ic_scale from
+    ``seed``, the exact solver run for its recipe's warm-up (KS: 44; none
+    for KdV and Burgers), then block means onto the coarse grid. ``t`` is
+    the time the state is at. The fine solve is kept in ``cache`` for the
+    models that share it (the KS zoo: one fine grid, ic_scale and warm-up)."""
+    import torch
+
+    from pde_superresolution_torch import integrate
+    from pde_superresolution_torch.ops import resample
+
+    key = (config.equation, json.dumps(config.equation_params, sort_keys=True),
+           config.fine_size, config.ic_scale, config.warmup_time, batch, seed)
+    if key not in cache:
+        eq = model.equation
+        fine = type(model.grid)(config.fine_size, eq.period)
+        gen = torch.Generator().manual_seed(seed)
+        u = config.ic_scale * eq.initial_conditions(gen, fine, (batch,), device)
+        forcing = eq.sample_forcing(gen, (batch,), device)
+        times, traj = integrate.exact_solve_sampled(
+            eq, fine, u, 1.0, 1, warmup_time=config.warmup_time, forcing=forcing)
+        cache[key] = (traj[-1], forcing, float(times[-1]))
+    fine_u, forcing, t = cache[key]
+    return resample.resample_mean(fine_u, config.resample_factor).contiguous(), forcing, t
+
+
+def zoo_rhs_checks(device, launch_floor_ms: float, warmed: dict) -> dict:
+    """``fused_rhs`` against its plain version with each zoo model's trained
+    coefficients from its warmed members, at the evaluation's batch and the
+    ensemble's: within RHS_TOL of max|u_t|, and no further from float64
+    sums of the same inputs than twice the plain version (phase 3); timed
+    beside its bytes bound and the launch floor. Returns {(asset, batch):
+    readings}."""
+    import torch
+
+    from pde_superresolution_torch import convert, equations
+    from pde_superresolution_torch.ops import fused_kernels as fk
+
+    out = {}
+    for name in ZOO_RHS:
+        model, params, config = convert.load_checkpoint(name, device=device)
+        eq, grid = model.equation, model.grid
+        args = (eq, grid, model.taps)
+        for batch in (EVAL_MEMBERS, ENSEMBLE):
+            u, forcing, t = zoo_warmed_state(model, config, batch, SEED, device, warmed)
+            with torch.no_grad():
+                coeffs = {d: c.contiguous() for d, c in model.coefficients(params, u).items()}
+            f = None
+            if forcing is not None:
+                x = torch.as_tensor(grid.x, dtype=torch.float32, device=device)
+                f = equations.forcing_term(forcing, x, t, eq.period, grid.dx).contiguous()
+            launch = fk.rhs_launch(batch, grid.size, model.taps)
+            label = (f"{name} B={batch} nx={grid.size}, {len(model.taps)} x "
+                     f"{model.config.stencil_size} taps{' forced' if f is not None else ''}")
+            got = fk.fused_rhs(u, coeffs, f, *args)
+            want = fk.fused_rhs_plain(u, coeffs, f, *args)
+            err = check(label, got, want, RHS_TOL)
+            exact = fk.fused_rhs_plain(u.double(), {d: c.double() for d, c in coeffs.items()},
+                                       None if f is None else f.double(), *args)
+            kernel_err, plain_err = (relative_error(x.double(), exact, False)
+                                     for x in (got, want))
+            verdict = "ok" if kernel_err <= 2 * plain_err + 1e-6 else "FAIL"
+            row = {
+                "max_abs_err": err, "kernel_vs_float64": kernel_err,
+                "plain_vs_float64": plain_err,
+                "ms": time_ms(lambda: fk.fused_rhs(u, coeffs, f, *args), inner=100, queued=True),
+                "plain_ms": time_ms(lambda: fk.fused_rhs_plain(u, coeffs, f, *args), inner=10),
+                "bound_ms": rhs_bound_ms(u, coeffs, f),
+                "launch": launch._asdict(),
+            }
+            log(f"    from float64 sums: kernel {kernel_err:.3e}, plain {plain_err:.3e} of "
+                f"max|u_t| (limit twice the plain) {verdict}; {1e3 * row['ms']:.3f} us "
+                f"(plain {1e3 * row['plain_ms']:.2f} us, bytes bound "
+                f"{1e3 * row['bound_ms']:.3f} us, launch floor {1e3 * launch_floor_ms:.3f} us); "
+                f"{launch}")
+            if verdict != "ok":
+                raise AssertionError(f"fused_rhs {label}: {kernel_err} > 2 x {plain_err}")
+            out[(name, batch)] = row
+    return out
+
+
+def hold_run(label: str, got, want, exact, start) -> dict:
+    """A run of ``fused_learned_rk4`` (or the ``fused_rhs`` route) against
+    its plain version, both from ``start``: members that blew up (BLOWUP)
+    on either side are left out, their counts on the two sides within
+    DIVERGED_SLACK; of the rest, each member's largest difference, of
+    max|plain|, at the RUN_QUANTILE over the members, within RUN_TOL or
+    RUN_CONDITIONING times the plain version's own distance from float64
+    sums (``exact``) in the same statistic, whichever is larger. Returns the
+    readings (``limit`` included)."""
+    import torch
+
+    bound = BLOWUP * float(start.abs().max())
+
+    def blown(x):
+        return ~torch.isfinite(x).all(-1) | (x.abs().amax(-1) > bound)
+
+    blown_got, blown_want = blown(got), blown(want)
+    counts = (int(blown_got.sum()), int(blown_want.sum()))
+    if abs(counts[0] - counts[1]) > max(2, DIVERGED_SLACK * max(counts)):
+        raise AssertionError(f"{label}: members blown up, kernel {counts[0]} against "
+                             f"plain {counts[1]}")
+    live = ~(blown_got | blown_want)
+    got, want, exact = got[live].double(), want[live].double(), exact[live]
+    scale = float(want.abs().max())
+
+    def distance(a, b):
+        return float(torch.quantile((a - b).abs().amax(-1), RUN_QUANTILE)) / scale
+
+    plain_cond, kernel_cond = distance(want, exact), distance(got, exact)
+    quantile = distance(got, want)
+    rms = float((got - want).square().mean().sqrt()) / scale
+    worst = float((got - want).abs().max()) / scale
+    limit = max(RUN_TOL, RUN_CONDITIONING * plain_cond)
+    verdict = "ok" if quantile <= limit else "FAIL"
+    log(f"  {label}: {RUN_QUANTILE:.0%} of members within rel {quantile:.3e} (limit "
+        f"{limit:.3e}: plain vs float64 sums {plain_cond:.3e}, kernel vs float64 sums "
+        f"{kernel_cond:.3e}); rel rms {rms:.3e}, rel max {worst:.3e}, no limit; members "
+        f"blown up, kernel {counts[0]}, plain {counts[1]} {verdict}")
+    if verdict != "ok":
+        raise AssertionError(f"{label}: relative distance {quantile} > {limit}")
+    return {"quantile": quantile, "rms": rms, "max": worst, "limit": limit,
+            "plain_vs_float64": plain_cond, "kernel_vs_float64": kernel_cond,
+            "blown_up": counts}
+
+
+def zoo_learned_checks(device, warmed: dict) -> dict:
+    """``fused_learned_rk4`` against its plain version for each zoo model of
+    nx >= 32 at BATCH and ENSEMBLE: one step from a standard-normal state
+    (the increment within STEP_RMS_TOL and STEP_MAX_TOL), STEPS steps from
+    its warmed members (``hold_run``); at KS-32x phase 4's three planted
+    weight faults must fail both; per STEPS steps timed beside the
+    operations bound and the plain version. Returns {(asset, batch):
+    readings}."""
+    import numpy as np
+    import torch
+
+    from pde_superresolution_torch import convert
+    from pde_superresolution_torch.ops import fused_kernels as fk
+
+    out = {}
+    for name in ZOO_LEARNED:
+        model, params, config = convert.load_checkpoint(name, device=device)
+        eq, grid = model.equation, model.grid
+        pack = fk.pack_learned_rk4(params, eq, grid, model.config.kernel_size,
+                                   model.constraint_layers, model.taps)
+        dt = model.stable_time_step(u_scale=3.0)
+        faults = {}
+        if name == "ckpt_ks32":
+            faults = {fault: fk.pack_learned_rk4(p, eq, grid, model.config.kernel_size,
+                                                 model.constraint_layers, model.taps)
+                      for fault, p in planted_faults(params).items()}
+        for batch in (BATCH, ENSEMBLE):
+            launch = fk.learned_rk4_launch(pack, grid.size, 0, batch)
+            log(f"  {name} B={batch} nx={grid.size}, {model.config.filters} filters, stencil "
+                f"{model.config.stencil_size}, dt={dt:.6g}: {launch}")
+            rng = np.random.default_rng(SEED)
+            rough = torch.from_numpy(
+                rng.standard_normal((batch, grid.size)).astype(np.float32)).to(device)
+            want_inc = fk.fused_learned_rk4_plain(rough, pack, dt, 1) - rough
+            got_inc = fk.fused_learned_rk4(rough, pack, dt, 1) - rough
+            row = {"step_rms": check(f"{name} B={batch} one step from N(0,1), increment",
+                                     got_inc, want_inc, STEP_RMS_TOL, rms=True),
+                   "step_max": check(f"{name} B={batch} one step from N(0,1), increment, "
+                                     "worst point", got_inc, want_inc, STEP_MAX_TOL)}
+            u, _, _ = zoo_warmed_state(model, config, batch, SEED, device, warmed)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            want = fk.fused_learned_rk4_plain(u, pack, dt, STEPS)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - start)
+            exact = learned_rk4_float64(u, pack, dt, STEPS)
+            row["run"] = hold_run(f"{name} B={batch} {STEPS} steps from warmed members",
+                                  fk.fused_learned_rk4(u, pack, dt, STEPS), want, exact, u)
+            for fault, bad in faults.items():
+                check_catches(f"{name} B={batch} {fault}, one step",
+                              fk.fused_learned_rk4(rough, bad, dt, 1) - rough, want_inc,
+                              STEP_RMS_TOL, rms=True)
+                try:
+                    hold_run(f"planted fault {fault}, {STEPS} steps",
+                             fk.fused_learned_rk4(u, bad, dt, STEPS), want, exact, u)
+                    caught = False
+                except AssertionError:
+                    caught = True
+                log(f"  planted fault, {name} B={batch} {fault}, {STEPS} steps: "
+                    f"{'caught' if caught else 'NOT CAUGHT'}")
+                if not caught:
+                    raise AssertionError(f"planted fault {fault} passes the run check")
+            samples = SAMPLES if batch == BATCH else LONG_SAMPLES
+            row.update({
+                "ms": time_ms(lambda: fk.fused_learned_rk4(u, pack, dt, STEPS), queued=True,
+                              samples=samples),
+                "plain_ms": plain_ms,  # the checked run's, host clock to a synchronize
+                "bound_ms": learned_rk4_bound_ms(pack, batch, STEPS),
+                "launch": launch._asdict(),
+            })
+            log(f"    {name} B={batch}: {row['ms']:.3f} ms per {STEPS} steps (plain "
+                f"{row['plain_ms']:.1f} ms, operations bound {row['bound_ms']:.3f} ms)")
+            out[(name, batch)] = row
+    return out
+
+
+def zoo_ensembles(device) -> dict:
+    """``scripts.run_ensemble.main`` for ZOO_ENSEMBLES at ENSEMBLE members,
+    STEPS RK4 steps in ENSEMBLE_SAVES saves,
+    with the launch counts zeroed before each run and held to the route's
+    prediction after (Burgers-64x's 16 points: ``--fused true`` refused with
+    the kernel's reason, ``auto`` takes rhs_fn steps); the fused routes'
+    final states held to the plain version from the entry point's warmed
+    members (``hold_run``), the rhs_fn route's to the plain route. Returns
+    {asset: readings}."""
+    import torch
+
+    from pde_superresolution_torch import convert, integrate
+    from pde_superresolution_torch.ops import fused_kernels as fk
+    from pde_superresolution_torch.scripts import run_ensemble
+
+    kernels = (fk.fused_rhs, fk.fused_learned_rk4, fk.fused_rk4)
+    out = {}
+    for name, ic_scale, warmup in ZOO_ENSEMBLES:
+        model, params, _ = convert.load_checkpoint(name, device=device)
+        dt = model.stable_time_step(u_scale=3.0)
+        argv = ["--checkpoint_dir", name, "--num_trajectories", str(ENSEMBLE),
+                "--warmup_time", str(warmup), "--time_max", str((STEPS - 0.5) * dt),
+                "--num_saves", str(ENSEMBLE_SAVES), "--seed", str(SEED),
+                "--ic_scale", ic_scale]
+        refused = None
+        for kernel in kernels:
+            kernel.launches = 0
+        if model.grid.size < 32:
+            try:
+                run_ensemble.main(argv + ["--fused", "true"])
+            except ValueError as e:
+                refused = str(e)
+            log(f"    {name} --fused true: {refused or 'NOT REFUSED'}")
+            if refused != "--fused true, but the kernel cannot take this shape: nx=16 < 32":
+                raise AssertionError(f"{name} --fused true: {refused}")
+        result = run_ensemble.main(argv)
+        torch.cuda.synchronize()
+        counts = {kernel.__name__: kernel.launches for kernel in kernels}
+        fused = result["path"].startswith("fused kernel")
+        predicted = {"fused_rhs": 0 if fused else 4 * STEPS,
+                     "fused_learned_rk4": ENSEMBLE_SAVES if fused else 0, "fused_rk4": 0}
+        log(f"    {name}: route {result['path']} ({result['reason']}); launches {counts} "
+            f"(predicted {predicted}); {result['traj_steps_per_s']:,.0f} traj-steps/s; "
+            f"finite {result['finite']}/{ENSEMBLE}")
+        if counts != predicted or result["num_steps"] != STEPS or fused != (model.grid.size >= 32):
+            raise AssertionError(f"{name} ensemble: {result['path']}, {counts}")
+        row = {"path": result["path"], "reason": result["reason"], "launches": counts,
+               "traj_steps_per_s": result["traj_steps_per_s"], "elapsed_s": result["elapsed_s"],
+               "warmup_s": result["warmup_s"], "finite": result["finite"], "refused": refused}
+        warmed = result["initial"]
+        if fused:
+            pack = fk.pack_learned_rk4(params, model.equation, model.grid,
+                                       model.config.kernel_size, model.constraint_layers,
+                                       model.taps)
+            want = fk.fused_learned_rk4_plain(warmed, pack, dt, STEPS)
+            exact = learned_rk4_float64(warmed, pack, dt, STEPS)
+        else:
+            # the plain route from the same warmed members, with the forcing
+            # the entry point drew, in float32 and in float64
+            forcing = run_ensemble.setup(run_ensemble.build_parser().parse_args(argv)).forcing
+            wide = {k: v.double() for k, v in params.items()}
+            runs = []
+            for p, f, u in ((params, forcing, warmed),
+                            (wide, forcing and type(forcing)(*(x.double() for x in forcing)),
+                             warmed.double())):
+                with torch.no_grad():
+                    _, traj = integrate.integrate(model.rhs_fn(p, f, use_kernel=False), u, dt,
+                                                  STEPS, STEPS, t0=result["t0"])
+                runs.append(traj[-1])
+            want, exact = runs
+        row["run"] = hold_run(f"{name} ensemble's final state vs plain, {STEPS} steps",
+                              result["final"], want, exact, warmed)
+        out[name] = row
+    return out
+
+
+def zoo_phase(card: str, launch_floor_ms: float) -> dict:
+    """Phase 18: the committed model zoo at its own shapes (ZOO_*): both
+    on-path kernels against their plain versions with each model's trained
+    weights, the ensemble entry point and the evaluation at the zoo's
+    protocols. Returns the readings and the main paths' launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    phase_start = time.perf_counter()
+    device = torch.device("cuda")
+    log(f"[18] the model zoo: fused_rhs at B={EVAL_MEMBERS} and {ENSEMBLE} for {len(ZOO_RHS)} "
+        f"models, fused_learned_rk4 at B={BATCH} and {ENSEMBLE} for {len(ZOO_LEARNED)}, "
+        f"run_ensemble, run_evaluation; on {card}")
+    warmed = {}  # zoo_warmed_state's fine solves, shared by the two kernels' checks
+    out = {"rhs": zoo_rhs_checks(device, launch_floor_ms, warmed)}
+    out["learned"] = zoo_learned_checks(device, warmed)
+    warmed.clear()
+    out["ensembles"] = zoo_ensembles(device)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_zoo_"))
+    faults = {"ks32": heads_zeroed(1, 3), "kdv16_seed7": heads_zeroed(2),
+              "burgers64": forcing_dropped}
+    out["evaluations"] = {}
+    try:
+        for label, name, flags, horizon in ZOO_PROTOCOLS:
+            out["evaluations"][label] = evaluate_protocol(
+                label, ["--checkpoint_dir", name, "--num_samples", str(EVAL_MEMBERS),
+                        "--time_delta", str(EVAL_DELTA), "--time_max", str(horizon),
+                        "--reference_cache_dir", "", *flags],
+                horizon, faults[label], ZOO_EVAL_TOLS[label], launch_floor_ms, work,
+                full_horizon=label != "kdv16_seed7")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - phase_start
+    log(f"    phase 18 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2094,20 +2507,17 @@ def main() -> int:
         f"stencil {model.config.stencil_size}), dt={dt}, B={BATCH}")
 
     # ---- 3. fused_rhs against its plain version -----------------------------
-    # float32 on both sides, tap sums in other orders and with FMAs, then a
-    # face difference over dx that cancels most of the sum: 1e-4 of max|u_t|
-    rhs_tol = 1e-4
     log("[3] fused_rhs vs plain")
     coeffs = model.coefficients(params, u0)
     rhs_args = (eq, grid, model.taps)
     rhs_err = check(f"flagship B={BATCH} nx={grid.size}", fk.fused_rhs(u0, coeffs, None, *rhs_args),
-                    fk.fused_rhs_plain(u0, coeffs, None, *rhs_args), rhs_tol)
+                    fk.fused_rhs_plain(u0, coeffs, None, *rhs_args), RHS_TOL)
     u_wide = eq.initial_conditions(torch.Generator().manual_seed(SEED + 2), grid,
                                    (THROUGHPUT_BATCH,), device)
     c_wide = model.coefficients(params, u_wide)
     rhs_err = max(rhs_err, check(
         f"flagship B={THROUGHPUT_BATCH} nx={grid.size}", fk.fused_rhs(u_wide, c_wide, None, *rhs_args),
-        fk.fused_rhs_plain(u_wide, c_wide, None, *rhs_args), rhs_tol))
+        fk.fused_rhs_plain(u_wide, c_wide, None, *rhs_args), RHS_TOL))
     del u_wide, c_wide
     for name, cons, size in [("burgers", True, 6), ("burgers", False, 5),
                              ("kdv", True, 6), ("kdv", False, 7),
@@ -2119,7 +2529,7 @@ def main() -> int:
         form = f"{name} {'conservative' if cons else 'direct'}"
         rhs_err = max(rhs_err, check(f"{form} B=3 nx=96{' forced' if f is not None else ''}",
                                      fk.fused_rhs(u, c, f, *a),
-                                     fk.fused_rhs_plain(u, c, f, *a), rhs_tol))
+                                     fk.fused_rhs_plain(u, c, f, *a), RHS_TOL))
     # nx=1024: each trajectory split into segments, each computing the face
     # left of it. dx is 8x smaller and the dx^-3 terms cancel: the plain
     # version itself is up to 1e-1 of max|u_t| away from float64 sums of the
@@ -2366,7 +2776,7 @@ def main() -> int:
     rhs_err = max(rhs_err, check(
         f"fused_rhs, forced Burgers form, B={ENSEMBLE} nx={bgrid.size}",
         fk.fused_rhs(eu0, ecoeffs, ef, *brhs_args),
-        fk.fused_rhs_plain(eu0, ecoeffs, ef, *brhs_args), rhs_tol))
+        fk.fused_rhs_plain(eu0, ecoeffs, ef, *brhs_args), RHS_TOL))
     # its 400 launches on the Burgers ensemble's rhs_fn route have this shape
     rhs_ensemble = {
         "ms": time_ms(lambda: fk.fused_rhs(eu0, ecoeffs, ef, *brhs_args), inner=100, queued=True),
@@ -2576,7 +2986,22 @@ def main() -> int:
     # ---- 17. the bench, profiling and debugging -------------------------------------
     tools = bench_phase(card)
 
-    # ---- 18. report -----------------------------------------------------------
+    # ---- 18. the model zoo at its own shapes -------------------------------------------
+    zoo = zoo_phase(card, launch_floor_ms)
+    zoo_paths = {f"{name} ensemble ({row['path']})": row["launches"]
+                 for name, row in zoo["ensembles"].items()}
+    zoo_paths.update({f"{label} evaluation, {EVAL_MEMBERS} members": {"fused_rhs": e["launches"]}
+                      for label, e in zoo["evaluations"].items()})
+
+    def zoo_launches(kernel: str) -> dict:
+        return {path: counts[kernel] for path, counts in zoo_paths.items()
+                if counts.get(kernel)}
+
+    def zoo_shapes(rows: dict) -> dict:
+        return {f"{name} B={batch}": {k: v for k, v in row.items() if k != "launch"}
+                for (name, batch), row in rows.items()}
+
+    # ---- 19. report -----------------------------------------------------------
     flagship = times[BATCH]
     full = new_times[ENSEMBLE]
     kernels = [
@@ -2591,7 +3016,8 @@ def main() -> int:
                          + evaluation["burgers8"]["launches"] + selection["select_launches"]
                          + selection["sweep_launches"] + serving["resumable_launches"]
                          + parallel["ensemble_false_launches"] + parallel["train_launches"]
-                         + tools["launches"]["fused_rhs"]),
+                         + tools["launches"]["fused_rhs"]
+                         + sum(zoo_launches("fused_rhs").values())),
             "launches_by_path": {"ks8 integrate(rhs_fn) B=256": launches["fused_rhs"],
                                  "burgers8 ensemble --fused false": rhs_ensemble_launches,
                                  "ks8 train step B=128 (kernel route)": training["step_launches"],
@@ -2614,7 +3040,8 @@ def main() -> int:
                                  f"ks8 train(mesh=) {PARALLEL_TRAIN_STEPS} steps, kernel route":
                                      parallel["train_launches"],
                                  "bench: rhs_fn leg B=256, train leg kernel route B=128":
-                                     tools["launches"]["fused_rhs"]},
+                                     tools["launches"]["fused_rhs"],
+                                 **zoo_launches("fused_rhs")},
             "shape": f"B={BATCH} nx={grid.size}",
             "max_abs_err": rhs_err,
             "ms": flagship["fused_rhs_ms"],
@@ -2654,6 +3081,13 @@ def main() -> int:
             # route, held here against this kernel's route at B=ENSEMBLE
             "serving": {k: v for k, v in serving.items() if k != "resumable_launches"},
             "parallel": {k: v for k, v in parallel.items() if not k.endswith("launches")},
+            "zoo": zoo_shapes(zoo["rhs"]),
+            "zoo_evaluation_b32": {
+                label: {"ms": e["rhs_ms"], "call_ms": e["rhs_call_ms"],
+                        "plain_ms": e["rhs_plain_ms"], "bound_ms": e["rhs_bound_ms"],
+                        "evaluation_s": e["seconds"], "layers_s": e["layers_s"],
+                        "card_vs_cpu": e["readings"], "survival_flips": e["flips"]}
+                for label, e in zoo["evaluations"].items()},
         },
         {
             "name": "fused_learned_rk4",
@@ -2662,14 +3096,16 @@ def main() -> int:
             "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:390",
             "launches": (launches["fused_learned_rk4"] + unforced_ensemble_launches
                          + parallel["ks_mesh_launches"] + parallel["trained_served_launches"]
-                         + tools["launches"]["fused_learned_rk4"]),
+                         + tools["launches"]["fused_learned_rk4"]
+                         + sum(zoo_launches("fused_learned_rk4").values())),
             "launches_by_path": {"ks8 integrate_fused B=256": launches["fused_learned_rk4"],
                                  "ks8 ensemble --fused true": unforced_ensemble_launches,
                                  "ks8 fused_rk4_fn(mesh=) B=10240": parallel["ks_mesh_launches"],
                                  "run_training --data_parallel 1 checkpoint, run_ensemble "
                                  "--data_parallel 1": parallel["trained_served_launches"],
                                  "bench: fused legs B=256 and B=4096":
-                                     tools["launches"]["fused_learned_rk4"]},
+                                     tools["launches"]["fused_learned_rk4"],
+                                 **zoo_launches("fused_learned_rk4")},
             "shape": f"B={BATCH} nx={grid.size}, {STEPS} steps",
             "max_abs_err": rk4_err,
             "ms": flagship["fused_learned_rk4_ms"],
@@ -2686,6 +3122,10 @@ def main() -> int:
                                       "fused_learned_rk4_plain_ms"],
                                   ENSEMBLE: full["unforced_rk4_plain_ms"]},
             "bench_fused_b256_steps_per_s": tools["bench"]["detail"]["fused"]["median"],
+            "zoo": zoo_shapes(zoo["learned"]),
+            "zoo_ensembles": {name: {k: v for k, v in row.items() if k != "launches"}
+                              for name, row in zoo["ensembles"].items()},
+            "zoo_phase_s": zoo["phase_s"],
         },
         {
             "name": "fused_learned_rk4_forced",

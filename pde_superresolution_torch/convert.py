@@ -91,7 +91,11 @@ def model_from_config(config: Mapping, device=None) -> StencilModel:
 
 
 def asset_names() -> list[str]:
-    """The committed assets (``ckpt_ks8``, ``ckpt_burgers8``, ``ckpt_kdv8``)."""
+    """The committed assets: the JAX package's model zoo under
+    ``artifacts/``, each at its checkpoint's latest step (``ckpt_ks8``,
+    ``ckpt_ks8_u16s8``, ``ckpt_ks16``, ``ckpt_ks32``, ``ckpt_kdv8``,
+    ``ckpt_kdv16``, ``ckpt_kdv16_f64``, ``kdv16_select_seed7`` from
+    ``r5_kdv16_select/seed7``, ``ckpt_burgers8``, ``ckpt_burgers64``)."""
     return sorted(p.stem for p in ASSET_DIR.glob("*.npz"))
 
 

@@ -13,9 +13,10 @@ Example:
       --time_max 10 --warmup_time 1
 
 ``--checkpoint_dir`` is a training checkpoint directory written by
-``run_training``, a committed asset (``ckpt_ks8``, ``ckpt_burgers8``,
-``ckpt_kdv8``) or the path stem of a ``.npz``/``.json`` pair written by
-``tools/export_jax_checkpoint.py`` (``convert.load_checkpoint``).
+``run_training``, a committed asset (``convert.asset_names()``: the JAX
+package's model zoo, ``ckpt_ks8`` to ``ckpt_burgers64``) or the path stem
+of a ``.npz``/``.json`` pair written by ``tools/export_jax_checkpoint.py``
+(``convert.load_checkpoint``).
 ``--exported_dir`` serves a frozen ``run_export`` artifact instead (no
 model code or checkpoint; its RHS steps). Exactly one of the two is given.
 The run is on ``cuda`` unless ``--device cpu`` is given.

@@ -6,6 +6,8 @@ one (and without JAX, so without the repo's JAX conftest):
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,12 @@ pytestmark = pytest.mark.gpu
 STEP_RMS_TOL = 3e-5
 STEP_MAX_TOL = 1.5e-3
 RUN_TOL = 2e-5
+# At the zoo's nx = 32 with 10 taps (dx four times the flagship's) the plain
+# version itself is 2.4e-5 to 2.9e-5 of max|u| from float64 sums after 10
+# steps (its third-derivative taps of order dx^-3 cancel in the face
+# difference): there a run is held to RUN_CONDITIONING times that distance
+# where it exceeds RUN_TOL (the kernel read 3.7e-5 and 3.8e-5, 1.5x).
+RUN_CONDITIONING = 4
 
 
 @pytest.fixture
@@ -49,9 +57,16 @@ def _assert_step_close(got_inc, want_inc):
     assert rms <= STEP_RMS_TOL and worst <= STEP_MAX_TOL
 
 
-def _assert_run_close(got, want, tol):
+def _assert_run_close(got, want, tol, exact=None):
+    """``got`` within ``tol`` of max|u| at the worst point, or within
+    RUN_CONDITIONING times ``want``'s own distance from ``exact`` (the
+    plain version with float64 sums) where that is larger."""
     worst = float((got - want).abs().max() / want.abs().max())
-    print(f"10 steps, of max|u|: worst point {worst:.3e}")
+    if exact is not None:
+        plain = float((want.double() - exact).abs().max() / exact.abs().max())
+        print(f"plain version vs float64 sums, of max|u|: worst point {plain:.3e}")
+        tol = max(tol, RUN_CONDITIONING * plain)
+    print(f"10 steps, of max|u|: worst point {worst:.3e} (limit {tol:.3e})")
     assert worst <= tol
 
 
@@ -70,17 +85,23 @@ def _model(name, cons, size, device, nx=96, filters=8, layers=2, seed=0, batch=3
 @pytest.mark.parametrize("name,cons,size", [
     ("burgers", True, 6), ("burgers", False, 5), ("kdv", True, 6),
     ("kdv", False, 7), ("ks", True, 6), ("ks", False, 7), ("burgers", True, 8),
+    ("ks", True, 10), ("kdv", True, 10),
 ])
 @pytest.mark.parametrize("batch,nx", [(3, 96), (256, 128), (4096, 128), (10240, 128),
-                                      (1001, 32), (5, 1024)])
+                                      (1001, 32), (5, 1024), (32, 16), (10240, 16),
+                                      (32, 32), (10240, 32)])
 def test_fused_rhs_matches_plain(cuda, name, cons, size, batch, nx):
-    """All six equation forms, and stencils of 5 to 8 taps (8, as the
-    Burgers-8x checkpoint has, lays the coefficients out swizzled in shared
-    memory), at a ragged shape (B=3, nx=96), the main paths' batches at
-    nx=128 (one trajectory per block) and B=1001 at nx=32 (four
-    trajectories per block, the last block holding one), forced for
-    Burgers: float32 on both sides, tap sums in another order and with FMAs,
-    then a face difference over dx that cancels most of the sum (measured
+    """All six equation forms, and stencils of 5 to 10 taps (8, as the
+    Burgers-8x and -64x checkpoints have, lays the coefficients out swizzled
+    in shared memory; 10, as KS-32x and KdV-16x have, reaches 5 points), at
+    a ragged shape (B=3, nx=96), the main paths' batches at nx=128 (one
+    trajectory per block) and B=1001 at nx=32 (four trajectories per block,
+    the last block holding one), the zoo's evaluation (B=32) and ensemble
+    (B=10240) batches at nx=32 (four rows a block, a halo of 5 for 10 taps)
+    and nx=16 (Burgers-64x: a 16-point row in 32 lanes, 8 rows a block, a
+    halo of 4 on a 16-point ring), forced for Burgers: float32 on both
+    sides, tap sums in another order and with FMAs, then a face
+    difference over dx that cancels most of the sum (measured
     1.7e-5 of max|u_t| for conservative KS on an H100), so within 1e-4 of
     max|u_t|. At nx=1024 (a trajectory split into segments, each computing
     the face left of it) dx is 8 times smaller and the cancellation of the
@@ -111,7 +132,8 @@ def test_fused_rhs_matches_plain(cuda, name, cons, size, batch, nx):
 
 @pytest.mark.parametrize("name,cons,size,nx", [
     ("ks", True, 6, 128), ("kdv", True, 6, 64), ("ks", False, 7, 96),
-    ("ks", True, 6, 160), ("kdv", False, 7, 1024),
+    ("ks", True, 6, 160), ("kdv", False, 7, 1024), ("ks", True, 10, 32),
+    ("kdv", True, 10, 32),
 ])
 def test_fused_learned_rk4_matches_plain(cuda, name, cons, size, nx):
     """The kernel and the plain version round the tower's inputs to bf16 at
@@ -123,7 +145,9 @@ def test_fused_learned_rk4_matches_plain(cuda, name, cons, size, nx):
     state: within RUN_TOL of max|u|. All sit near 10x the largest reading
     on an H100 and below what a wrong tower gives (chip_smoke.py plants
     such faults). nx = 160 is an odd number of 64-point tiles, the last half
-    empty; nx = 1024 walks eight pairs of tiles."""
+    empty; nx = 1024 walks eight pairs of tiles; nx = 32 (KS-32x, KdV-16x)
+    fills half of its one tile, wraps the halo of 8 around a 32-point ring
+    and reaches 5 points with 10 taps."""
     model, params, u = _model(name, cons, size, cuda, nx=nx, filters=16)
     u = 0.3 * u
     dt = model.equation.stable_time_step(model.grid, u_scale=3.0)
@@ -193,19 +217,25 @@ def test_forced_learned_rk4_matches_plain(cuda, cons, size, nx, filters):
     assert float((stale - want).abs().max()) > 100 * RUN_TOL * float(want.abs().max())
 
 
-@pytest.mark.parametrize("name,cons,size,filters,layers,batch", [
-    ("ks", True, 6, 32, 3, 530), ("burgers", True, 8, 32, 3, 397),
-    ("kdv", False, 7, 32, 3, 265), ("ks", True, 6, 64, 2, 7),
+@pytest.mark.parametrize("name,cons,size,filters,layers,batch,nx", [
+    ("ks", True, 6, 32, 3, 530, 128), ("burgers", True, 8, 32, 3, 397, 128),
+    ("kdv", False, 7, 32, 3, 265, 128), ("ks", True, 6, 64, 2, 7, 128),
+    ("ks", True, 10, 32, 3, 530, 32), ("kdv", True, 10, 32, 3, 530, 32),
+    ("kdv", True, 10, 64, 3, 530, 32), ("ks", True, 8, 32, 3, 397, 64),
 ])
-def test_learned_rk4_flagship_width_ragged_blocks(cuda, name, cons, size, filters, layers, batch):
+def test_learned_rk4_flagship_width_ragged_blocks(cuda, name, cons, size, filters, layers,
+                                                  batch, nx):
     """The flagship tower's width (3 layers x 32 filters, nx = 128) at
     batches that are no multiple of the trajectories per block: 530 = 132 x
     4 + 2 (the last block holds 2 of 4), 397 = 132 x 3 + 1 (forced), 265 =
     132 x 2 + 1; and the widest instantiation, 64 filters, one per block.
-    Limits as in test_fused_learned_rk4_matches_plain; every trajectory is
-    compared, so a team that read or wrote
-    another's rows would show."""
-    model, params, _ = _model(name, cons, size, cuda, nx=128, filters=filters, layers=layers)
+    Then the zoo's shapes: KS-32x and KdV-16x (nx = 32, 10 taps) at 32
+    filters and at 64 (the KdV-16x f64 model: 4 teams beside 64-channel
+    weights, the fullest block the kernel launches), KS-16x (nx = 64, 8
+    taps). Limits as in test_fused_learned_rk4_matches_plain, the run's
+    with RUN_CONDITIONING for the unforced cases; every trajectory is
+    compared, so a team that read or wrote another's rows would show."""
+    model, params, _ = _model(name, cons, size, cuda, nx=nx, filters=filters, layers=layers)
     gen = torch.Generator().manual_seed(3)
     dt = model.equation.stable_time_step(model.grid, u_scale=3.0)
     pack = fk.pack_learned_rk4(params, model.equation, model.grid,
@@ -216,19 +246,23 @@ def test_learned_rk4_flagship_width_ragged_blocks(cuda, name, cons, size, filter
         forcing = model.equation.sample_forcing(gen, (batch,), cuda)
         fp = fk.pack_forcing(forcing, 3.7, model.equation, model.grid, dt, batch)
         terms = fp.amplitude.shape[-1]
-    launch = fk.learned_rk4_launch(pack, 128, terms, batch)
+    launch = fk.learned_rk4_launch(pack, nx, terms, batch)
     assert launch.teams == max(1, min(batch // 132, 4))
     assert launch.teams == 1 or batch % launch.teams
     rough = torch.from_numpy(
-        np.random.default_rng(0).standard_normal((batch, 128)).astype(np.float32)).to(cuda)
+        np.random.default_rng(0).standard_normal((batch, nx)).astype(np.float32)).to(cuda)
     smooth = 0.3 * model.equation.initial_conditions(gen, model.grid, (batch,), cuda)
     want_inc = fk.fused_learned_rk4_plain(rough, pack, dt, 1, fp) - rough
     want = fk.fused_learned_rk4_plain(smooth, pack, dt, 10, fp)
+    exact = None
+    if fp is None:
+        exact = fk.fused_learned_rk4_plain(
+            smooth.double(), dataclasses.replace(pack, flat=pack.flat.double()), dt, 10)
     got_inc = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp) - rough
     got = fk.fused_learned_rk4(smooth, pack, dt, 10, forcing=fp)
     torch.cuda.synchronize()
     _assert_step_close(got_inc, want_inc)
-    _assert_run_close(got, want, RUN_TOL)
+    _assert_run_close(got, want, RUN_TOL, exact)
 
 
 @pytest.mark.parametrize("name,cons", [("ks", True), ("ks", False), ("kdv", True),
@@ -274,6 +308,27 @@ def test_fused_rk4_refuses_on_card(cuda):
         wide(torch.zeros(4, 128, device=cuda))
     assert fk.fused_rk4.launches == before
     assert advance(u.cpu()).shape == (4, 100)
+
+
+def test_run_ensemble_burgers64_refused_on_card(cuda, capsys):
+    """Burgers-64x's 16 points are below the learned kernel's 32: run_ensemble
+    --fused true raises learned_rk4_refusal's reason before any launch, and
+    --fused auto takes rhs_fn steps (four fused_rhs launches per step, at
+    8 trajectories of 16 points a block) and prints why."""
+    from pde_superresolution_torch.scripts import run_ensemble
+
+    args = ["--checkpoint_dir", "ckpt_burgers64", "--num_trajectories", "64",
+            "--time_max", "0.2", "--warmup_time", "0.2", "--num_saves", "2"]
+    fk.fused_learned_rk4.launches = fk.fused_rhs.launches = 0
+    with pytest.raises(ValueError, match=r"^--fused true, but the kernel cannot take this "
+                                         r"shape: nx=16 < 32$"):
+        run_ensemble.main(args + ["--fused", "true"])
+    assert (fk.fused_learned_rk4.launches, fk.fused_rhs.launches) == (0, 0)
+    result = run_ensemble.main(args)
+    assert result["path"] == "rhs_fn steps" and result["reason"] == "auto: nx=16 < 32"
+    assert "route: rhs_fn steps (auto: nx=16 < 32)" in capsys.readouterr().out
+    assert fk.fused_learned_rk4.launches == 0
+    assert fk.fused_rhs.launches == 4 * result["num_steps"] and result["finite"] == 64
 
 
 def test_run_ensemble_routes_on_card(cuda):
