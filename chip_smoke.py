@@ -149,12 +149,12 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      coarse grids of 128 down to 16 points, 8 and 10 taps, 32 and 64
      filters): ``fused_rhs`` against its plain version and float64 sums with
      the trained coefficients of ``ckpt_ks8_u16s8``, ``ckpt_ks16``,
-     ``ckpt_ks32``, ``ckpt_kdv8``, ``ckpt_kdv16``, ``ckpt_kdv16_f64``,
-     ``kdv16_select_seed7`` and ``ckpt_burgers64`` on their members as an
-     evaluation starts them (KS after a warm-up of 44) at B=32 and
-     B=10240, timed; ``fused_learned_rk4`` for the seven of them with nx >=
-     32 at B=256 and 10240, one step from a standard-normal state and 100
-     steps from those members (the run held to RUN_TOL or to
+     ``ckpt_ks32``, ``ks32_select_seed0``, ``ckpt_kdv8``, ``ckpt_kdv16``,
+     ``ckpt_kdv16_f64``, ``kdv16_select_seed7`` and ``ckpt_burgers64`` on
+     their members as an evaluation starts them (KS after a warm-up of 44)
+     at B=32 and B=10240, timed; ``fused_learned_rk4`` for the eight of
+     them with nx >= 32 at B=256 and 10240, one step from a standard-normal
+     state and 100 steps from those members (the run held to RUN_TOL or to
      RUN_CONDITIONING times the plain version's own distance from float64
      sums, per member at the 90% quantile), with phase 4's planted weight
      faults at
@@ -359,8 +359,8 @@ RHS_TOL = 1e-4
 # trained coefficients at the evaluation's batch and the ensemble's;
 # fused_learned_rk4 for each model of nx >= 32 (the kernel refuses fewer) at
 # BATCH and ENSEMBLE.
-ZOO_RHS = ("ckpt_ks8_u16s8", "ckpt_ks16", "ckpt_ks32", "ckpt_kdv8", "ckpt_kdv16",
-           "ckpt_kdv16_f64", "kdv16_select_seed7", "ckpt_burgers64")
+ZOO_RHS = ("ckpt_ks8_u16s8", "ckpt_ks16", "ckpt_ks32", "ks32_select_seed0", "ckpt_kdv8",
+           "ckpt_kdv16", "ckpt_kdv16_f64", "kdv16_select_seed7", "ckpt_burgers64")
 ZOO_LEARNED = ZOO_RHS[:-1]
 # fused_learned_rk4 against its plain version, tests/test_torch_gpu.py's
 # limits: one step from N(0,1), of the plain increment's max, in root mean

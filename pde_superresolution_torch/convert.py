@@ -8,12 +8,15 @@ checkpoint's tree as ``.npz`` (keys ``tower/<i>/w``, ``heads/<order>/b``, ...)
 beside its config in the JSON layout of a checkpoint's ``config/metadata``;
 ``tools/export_jax_checkpoint.py`` writes them from an orbax checkpoint.
 ``load_checkpoint`` is the one loader of the entry points: a training
-checkpoint directory written by ``training.loop`` or an asset.
+checkpoint directory written by ``training.loop`` or an asset. A JAX
+checkpoint directory is refused with the tool's name: the port reads no
+orbax checkpoint, and falls back to a committed asset only for a bare name.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from pathlib import Path
 from typing import Mapping
 
@@ -93,32 +96,90 @@ def model_from_config(config: Mapping, device=None) -> StencilModel:
 def asset_names() -> list[str]:
     """The committed assets: the JAX package's model zoo under
     ``artifacts/``, each at its checkpoint's latest step (``ckpt_ks8``,
-    ``ckpt_ks8_u16s8``, ``ckpt_ks16``, ``ckpt_ks32``, ``ckpt_kdv8``,
-    ``ckpt_kdv16``, ``ckpt_kdv16_f64``, ``kdv16_select_seed7`` from
+    ``ckpt_ks8_u16s8``, ``ckpt_ks16``, ``ckpt_ks32``, ``ks32_select_seed0``
+    from ``r5_ks32_select/seed0``, ``ckpt_kdv8``, ``ckpt_kdv16``,
+    ``ckpt_kdv16_f64``, ``kdv16_select_seed7`` from
     ``r5_kdv16_select/seed7``, ``ckpt_burgers8``, ``ckpt_burgers64``)."""
     return sorted(p.stem for p in ASSET_DIR.glob("*.npz"))
+
+
+def _is_bare_name(name: str) -> bool:
+    """A name with no directory part that is no existing path: the only
+    kind of reference that may fall back to a committed asset."""
+    return os.sep not in name and "/" not in name and not Path(name).exists()
+
+
+def _orbax_steps(path) -> list[int]:
+    """The steps of a JAX package's (orbax) checkpoint directory, sorted:
+    numeric subdirectories holding ``_CHECKPOINT_METADATA`` and
+    ``config/metadata``."""
+    path = Path(path)
+    if not path.is_dir():
+        return []
+    return sorted(
+        int(step.name) for step in path.iterdir()
+        if step.name.isdigit() and (step / "_CHECKPOINT_METADATA").is_file()
+        and (step / "config" / "metadata").is_file()
+    )
+
+
+def _refuse_path(path: Path):
+    """Raise for an existing path that is no ``.npz``/``.json`` pair: a JAX
+    checkpoint directory is named as such, with the conversion tool and
+    any committed asset whose config equals its latest step's (plain JSON,
+    read without JAX; equal configs need not mean equal weights, so the
+    asset is never loaded in its place)."""
+    steps = _orbax_steps(path)
+    if not steps:
+        raise ValueError(
+            f"{path} is neither a training checkpoint directory of this package "
+            "(step subdirectories with state.json) nor a .npz/.json pair"
+        )
+    config = json.loads((path / str(steps[-1]) / "config" / "metadata").read_text())
+    same = [name for name in asset_names()
+            if json.loads((ASSET_DIR / f"{name}.json").read_text()) == config]
+    hint = ""
+    if same:
+        hint = (f"; the committed asset {' and '.join(same)} has the config of its step "
+                f"{steps[-1]}: pass that bare name if it holds these weights")
+    raise ValueError(
+        f"{path} is a JAX (orbax) checkpoint directory, which this package does not read: "
+        "write its latest step as a .npz/.json pair with "
+        f"`python tools/export_jax_checkpoint.py {path} <stem>` and pass the stem{hint}"
+    )
 
 
 def load_asset(name: str = "ckpt_ks8", device=None):
     """(model, params, config) from ``<stem>.npz`` and ``<stem>.json``.
 
-    ``name`` is a committed asset's name (``assets/<name>``) or the path
-    stem of a pair written by ``tools/export_jax_checkpoint.py`` (with or
-    without a ``.npz``/``.json`` suffix).
+    ``name`` is a committed asset's bare name (``ckpt_ks32``, also with a
+    ``.npz``/``.json`` suffix: ``assets/<name>``, unless the working
+    directory holds such a pair) or the path stem of a pair written by
+    ``tools/export_jax_checkpoint.py`` (with or without a suffix). Any
+    other existing path raises ``ValueError`` naming it, a JAX checkpoint
+    directory with the tool's command line.
     """
+    name = str(name)
     stem = Path(name)
     if stem.suffix in (".npz", ".json"):
         stem = stem.with_suffix("")
-    if not stem.with_suffix(".npz").is_file():
+    if _is_bare_name(name) and not stem.with_suffix(".npz").is_file():
         stem = ASSET_DIR / stem.name
-    if not (stem.with_suffix(".npz").is_file() and stem.with_suffix(".json").is_file()):
+    npz, config_path = stem.with_suffix(".npz"), stem.with_suffix(".json")
+    if not (npz.is_file() and config_path.is_file()):
+        if npz.is_file() or config_path.is_file():
+            missing = config_path if npz.is_file() else npz
+            raise FileNotFoundError(f"{name}: {missing} is missing (a pair is {stem}.npz "
+                                    "and .json)")
+        if Path(name).exists():
+            _refuse_path(Path(name))
         raise FileNotFoundError(
             f"no asset {name!r}: expected {stem}.npz and .json; committed "
             f"assets: {asset_names()}"
         )
-    config = json.loads(stem.with_suffix(".json").read_text())
+    config = json.loads(config_path.read_text())
     model = model_from_config(config, device=device)
-    params = params_from_jax(jax_tree_from_npz(stem.with_suffix(".npz")), device)
+    params = params_from_jax(jax_tree_from_npz(npz), device)
     return model, params, config
 
 
@@ -127,9 +188,10 @@ def load_checkpoint(path, device=None):
 
     ``path`` is a training checkpoint directory (step subdirectories written
     by ``training.loop``; the latest step is loaded by ``loop.load_model``)
-    or what ``load_asset`` takes: a committed asset's name or the path stem
-    of an exported ``.npz``/``.json`` pair, whose JSON is a stored
-    ``TrainingConfig``.
+    or what ``load_asset`` takes: a committed asset's bare name or the path
+    stem of an exported ``.npz``/``.json`` pair, whose JSON is a stored
+    ``TrainingConfig``. A JAX package's checkpoint directory, or any other
+    existing path, raises ``ValueError`` naming it (``load_asset``).
     """
     # imported here: training.loop imports this module
     from pde_superresolution_torch.training import loop

@@ -45,11 +45,27 @@ from pde_superresolution_torch.models import StencilModel
 
 FORMAT_VERSION = 1
 DEFAULT_PLATFORMS = ("cpu", "cuda")
+# the device types a torch.export program can be loaded on here
+SUPPORTED_PLATFORMS = frozenset(DEFAULT_PLATFORMS)
 
 _RHS_FILE = "rhs.pt2"
 _STEP_FILE = "step.pt2"
 _META_FILE = "meta.json"
 _FORCING_ARGS = ForcingParams._fields  # amplitude, omega, k, phi
+
+
+def check_platforms(platforms) -> list:
+    """``platforms`` as a list, or ``ValueError`` unless it is a non-empty
+    subset of ``SUPPORTED_PLATFORMS``."""
+    platforms = [platforms] if isinstance(platforms, str) else list(platforms)
+    unknown = sorted(set(platforms) - SUPPORTED_PLATFORMS)
+    if "tpu" in unknown:
+        raise ValueError("platform 'tpu': a torch.export artifact has no TPU lowering; "
+                         f"choose from {sorted(SUPPORTED_PLATFORMS)}")
+    if unknown or not platforms:
+        raise ValueError(f"platforms {platforms}: choose a non-empty subset of "
+                         f"{sorted(SUPPORTED_PLATFORMS)}")
+    return platforms
 
 
 class _Frozen(torch.nn.Module):
@@ -75,6 +91,7 @@ def export_model(
     *,
     dt: Optional[float] = None,
     num_steps: int = 0,
+    platforms=DEFAULT_PLATFORMS,
     fine_size: Optional[int] = None,
     resample_factor: Optional[int] = None,
     extra_meta: Optional[dict] = None,
@@ -102,6 +119,7 @@ def export_model(
       (and ``"step"`` if asked), ``torch.export.ExportedProgram``s on the
       CPU.
     """
+    platforms = check_platforms(platforms)
     equation, grid = model.equation, model.grid
     forced = equation.forced
     m = equation.num_forcing_terms if forced else 0
@@ -154,7 +172,7 @@ def export_model(
         "period": float(grid.period),
         "nx": int(grid.size),
         "dx": float(grid.dx),
-        "platforms": list(DEFAULT_PLATFORMS),
+        "platforms": platforms,
         "dt": float(dt) if num_steps else None,
         "num_steps": int(num_steps),
         # consumers of the frozen rhs integrate at this step, not the
@@ -232,6 +250,11 @@ class ServedModel:
             raise ValueError(
                 f"artifact format {self.meta['format_version']} is newer "
                 f"than this library supports ({FORMAT_VERSION})"
+            )
+        if self.device.type not in self.meta["platforms"]:
+            raise ValueError(
+                f"{path} was exported for {self.meta['platforms']}, not for "
+                f"{self.device.type}: export it again with that platform"
             )
         if self.device.type == "cuda":
             # the live model's precision (StencilModel): cuDNN would run the

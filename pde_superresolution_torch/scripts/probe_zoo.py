@@ -14,23 +14,33 @@ integrated from the same members; there is no reference cache. Prints, per
 model, one JSON line: the pooled final-MAE median, survival median and
 mean and diverged count of each scheme, the per-key survival medians, the
 seconds by layer (fine solve, each scheme; host clock after a synchronize)
-and the ``fused_rhs`` launches, then the card's ``nvidia-smi`` line.
+and the ``fused_rhs`` launches, then the card's ``nvidia-smi`` line. With
+``--members jax`` a row also holds, per key, each member's survival time
+under the model and the closest its correlation comes to 0.8
+(``member_margins``): the members that can flip a median.
 
-The port draws its members from ``torch.Generator`` keys, so they are not
-the JAX package's members of the same key number: the comparison with the
-published numbers is statistical. ``--models`` picks a subset;
-``--num_samples`` and ``--max_horizon`` shrink a run for a rehearsal on
-the CPU (``--device cpu``).
+By default (``--members port``) the port draws its members from
+``torch.Generator`` keys, so they are not the JAX package's members of the
+same key number: the comparison with the published numbers is then
+statistical. ``--members jax`` evaluates the JAX package's own members of
+each key instead (``JaxMembers``: the committed draws under
+``assets/members/``, written by ``tools/export_jax_members.py``), so the
+KdV and Burgers rows compare member by member. ``--models`` picks a
+subset; ``--num_samples`` (with ``--members jax`` the first that many of
+the 32 committed members) and ``--max_horizon`` shrink a run for a
+rehearsal on the CPU (``--device cpu``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # (asset, eval keys, run_evaluation flags): RESULTS.md's protocol per model
@@ -38,6 +48,7 @@ ZOO = (
     ("ckpt_ks8_u16s8", "0,1,54321", ["--time_max", "50", "--warmup_time", "44"]),
     ("ckpt_ks16", "0,1,54321", ["--time_max", "50", "--warmup_time", "44"]),
     ("ckpt_ks32", "0,1,54321", ["--time_max", "50", "--warmup_time", "44"]),
+    ("ks32_select_seed0", "0,1,54321", ["--time_max", "50", "--warmup_time", "44"]),
     ("ckpt_kdv8", "0,1,2", ["--time_max", "10", "--ic_scale", "0.5"]),
     ("ckpt_kdv16", "0,1,2", ["--time_max", "10", "--ic_scale", "0.5"]),
     ("ckpt_kdv16_f64", "12345,1,2",
@@ -46,6 +57,73 @@ ZOO = (
     ("ckpt_burgers8", "0,1,2", ["--time_max", "3"]),
     ("ckpt_burgers64", "0,1,2", ["--time_max", "3"]),
 )
+
+
+def members_dir():
+    """Where the JAX package's committed members lie (``assets/members``)."""
+    from pde_superresolution_torch import convert
+
+    return convert.ASSET_DIR / "members"
+
+
+def members_stem(config) -> str:
+    """The members file of a checkpoint config: one per equation and fine
+    grid (``ks_1024``, ``kdv_512``, ``burgers_1024``)."""
+    return f"{config['equation']}_{config['fine_size']}"
+
+
+class JaxMembers:
+    """While entered, ``evaluate`` draws the JAX package's members: its
+    ``_draw`` is replaced by one that returns, for the eval key its
+    generator was seeded with (``torch.Generator().manual_seed(key)``, as
+    ``run_evaluation`` seeds it), the first ``num_samples`` of the 32
+    members JAX's ``evaluate`` draws from ``PRNGKey(key)`` (the initial
+    conditions times ``ic_scale``, and the forcing), from the committed
+    file of the model's equation and fine grid. Raises ``ValueError``
+    naming the model where a key has no committed draw."""
+
+    def __init__(self, name: str, seeds):
+        from pde_superresolution_torch import convert
+
+        config = json.loads((convert.ASSET_DIR / f"{name}.json").read_text())
+        self.fine_size = config["fine_size"]
+        path = members_dir() / f"{members_stem(config)}.npz"
+        self.arrays = {}
+        if path.is_file():
+            with np.load(path) as data:
+                self.arrays = {k: data[k] for k in data.files}
+        missing = [seed for seed in seeds if f"u0/{seed}" not in self.arrays]
+        if missing:
+            raise ValueError(f"{name}: no committed JAX members for eval keys {missing} "
+                             f"in {path} (tools/export_jax_members.py writes them)")
+
+    def draw(self, equation, fine_grid, generator, num_samples, ic_scale, device):
+        """``evaluate._draw``'s signature and results, on JAX's members."""
+        from pde_superresolution_torch.equations import ForcingParams
+
+        key = generator.initial_seed()
+        u0 = self.arrays[f"u0/{key}"]
+        if fine_grid.size != self.fine_size or num_samples > len(u0):
+            raise ValueError(f"JAX members of key {key}: {len(u0)} on {self.fine_size} "
+                             f"points, asked for {num_samples} on {fine_grid.size}")
+        take = lambda a: torch.from_numpy(a[:num_samples]).to(device)
+        forcing = None
+        if equation.forced:
+            forcing = ForcingParams(*(take(self.arrays[f"{leaf}/{key}"])
+                                      for leaf in ForcingParams._fields))
+        return ic_scale * take(u0), forcing
+
+    def __enter__(self):
+        from pde_superresolution_torch import evaluate
+
+        self._real = evaluate._draw
+        evaluate._draw = self.draw
+        return self
+
+    def __exit__(self, *exc):
+        from pde_superresolution_torch import evaluate
+
+        evaluate._draw = self._real
 
 
 class LayerTimes:
@@ -105,9 +183,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def member_margins(corr: torch.Tensor, threshold: float = 0.8) -> torch.Tensor:
+    """Per member (``corr`` [members, T]), the closest its correlation comes
+    to ``threshold`` up to and including its first sample below it: how
+    near the member is to another survival time."""
+    dead = corr < threshold
+    first_dead = torch.where(dead.any(-1), dead.float().argmax(-1), corr.shape[-1] - 1)
+    upto = torch.arange(corr.shape[-1], device=corr.device) <= first_dead[:, None]
+    return torch.where(upto, (corr - threshold).abs(), torch.inf).amin(-1)
+
+
+def _keys(seeds: str) -> list[int]:
+    return [int(s) for s in seeds.split(",")]
+
+
 def evaluate_model(name: str, seeds: str, flags: list, num_samples: int,
-                   max_horizon: float, device) -> dict:
-    """One zoo model at its protocol: the pooled and per-key statistics,
+                   max_horizon: float, device, members: str = "port") -> dict:
+    """One zoo model at its protocol, on the port's members or JAX's
+    (``members``: "port" or "jax"): the pooled and per-key statistics,
     seconds by layer and ``fused_rhs`` launches."""
     from pde_superresolution_torch.ops import fused_kernels as fk
     from pde_superresolution_torch.scripts import run_evaluation
@@ -122,28 +215,40 @@ def evaluate_model(name: str, seeds: str, flags: list, num_samples: int,
     if device is not None:
         argv += ["--device", str(device)]
     args = run_evaluation.build_parser().parse_args(argv)
+    draws = JaxMembers(name, _keys(seeds)) if members == "jax" else contextlib.nullcontext()
     fk.fused_rhs.launches = 0
     start = time.perf_counter()
-    with LayerTimes() as layers:
+    with draws, LayerTimes() as layers:
         result = run_evaluation.evaluate_checkpoint(args)
     seconds = time.perf_counter() - start
     schemes = list(result["pooled"])
     per_key = {scheme: [result["per_key"][seed][scheme]["survival_median"]
                         for seed in result["seeds"]] for scheme in schemes}
     times = layers.by_layer(schemes)
+    detail = {}
+    if members == "jax":  # the model's members, to compare member by member
+        for seed, res in result["results"].items():
+            detail[str(seed)] = {
+                "survival": res.survival_time["model"].cpu().tolist(),
+                "margin": member_margins(res.correlation["model"]).cpu().tolist()}
     return {
-        "model": name, "seeds": result["seeds"], "members": num_samples,
+        "model": name, "seeds": result["seeds"], "members": members,
+        "num_samples": num_samples,
         "horizon": horizon, "flags": flags, "pooled": result["pooled"],
         "per_key_survival_median": per_key, "seconds": seconds, "layers_s": times,
         "other_s": seconds - sum(times.values()), "fused_rhs_launches": fk.fused_rhs.launches,
+        **({"model_members": detail} if detail else {}),
     }
 
 
 def main(argv=None) -> list:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--models", default="",
-                        help="comma-separated subset of the zoo (default: all nine)")
+                        help="comma-separated subset of the zoo (default: all ten)")
     parser.add_argument("--num_samples", type=int, default=32, help="members per eval key")
+    parser.add_argument("--members", choices=("port", "jax"), default="port",
+                        help="the port's torch.Generator draw of each key, or the JAX "
+                        "package's committed draw (assets/members/)")
     parser.add_argument("--max_horizon", type=float, default=float("inf"),
                         help="cap on each protocol's horizon (rehearsals)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -152,13 +257,15 @@ def main(argv=None) -> list:
     unknown = set(picked) - {name for name, _, _ in ZOO}
     if unknown:
         parser.error(f"not in the zoo: {sorted(unknown)}")
+    zoo = [(name, seeds, flags) for name, seeds, flags in ZOO if not picked or name in picked]
+    if args.members == "jax":
+        for name, seeds, _ in zoo:  # refuse a model without JAX members before any run
+            JaxMembers(name, _keys(seeds))
     card = card_line() if args.device != "cpu" else "cpu"
     rows = []
-    for name, seeds, flags in ZOO:
-        if picked and name not in picked:
-            continue
+    for name, seeds, flags in zoo:
         row = evaluate_model(name, seeds, flags, args.num_samples, args.max_horizon,
-                             args.device)
+                             args.device, args.members)
         row["card"] = card
         rows.append(row)
         print(json.dumps(row), flush=True)

@@ -50,8 +50,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dt", type=float, default=0.0,
                         help="RK4 step of the advance; 0 = the model-aware stable step "
                         "on the model grid")
+    parser.add_argument("--platforms", default=",".join(export_lib.DEFAULT_PLATFORMS),
+                        help="comma-separated device types the artifact may be served on, "
+                        "a subset of cpu,cuda (a torch.export artifact has no TPU lowering)")
     parser.add_argument("--device", default=None,
-                        help="where the artifact is loaded and checked: cuda (default) or cpu")
+                        help="where the artifact is loaded and checked: cuda (default) or "
+                        "cpu; one of --platforms")
     return parser
 
 
@@ -61,11 +65,15 @@ def main(argv=None) -> dict:
     and the seconds of the export, the save and the load, and return them
     with the loaded model under ``served``."""
     args = build_parser().parse_args(argv)
+    platforms = export_lib.check_platforms(args.platforms.split(","))
     device = resolve_device(args.device)
+    if device.type not in platforms:
+        raise ValueError(f"--device {device.type} is not in --platforms {args.platforms}: "
+                         "the artifact is checked where it is loaded")
     model, params, config = convert.load_checkpoint(args.checkpoint_dir, device=device)
     start = time.perf_counter()
     meta, exported = export_lib.export_model(
-        model, params, dt=args.dt or None, num_steps=args.num_steps,
+        model, params, dt=args.dt or None, num_steps=args.num_steps, platforms=platforms,
         fine_size=config.fine_size, resample_factor=config.resample_factor,
         # provenance only: export_model serializes the live equation's
         # parameters itself

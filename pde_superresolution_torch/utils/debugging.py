@@ -3,11 +3,13 @@
 The failure modes that matter here are numerical: NaN/Inf from CFL
 violations, under-resolved shocks, or exploding unrolled gradients. Tools:
 
-  * ``checked(fn)``: run ``fn`` with every operator checked, as JAX's
-    ``checkify`` with ``float_checks`` does: a NaN in an operator's floating
-    output raises ``FloatingPointError("nan generated by primitive: <op>.")``
-    at the first operator that made one, and a division by zero raises
-    ``FloatingPointError("division by zero")`` before it runs;
+  * ``checked(fn, errors=float_checks)``: run ``fn`` with every operator
+    checked, as JAX's ``checkify`` does with the same error set: with
+    ``nan_checks`` a NaN in an operator's floating output raises
+    ``FloatingPointError("nan generated by primitive: <op>.")`` at the
+    first operator that made one, with ``div_checks`` a division by zero
+    raises ``FloatingPointError("division by zero")`` before it runs, and
+    ``float_checks`` is both;
   * ``debug_nans()``: the NaN check for everything run inside the context,
     backward included, as ``jax_debug_nans``: ``FloatingPointError("invalid
     value (nan) encountered in <op>")``;
@@ -57,6 +59,13 @@ _DIVISIONS = {
 }
 
 
+# checkify's error sets that this module implements: frozensets of names,
+# combined with ``|`` as checkify's are
+nan_checks = frozenset({"nan"})
+div_checks = frozenset({"division"})
+float_checks = nan_checks | div_checks
+
+
 def _tensors(out):
     if isinstance(out, torch.Tensor):
         yield out
@@ -66,18 +75,19 @@ def _tensors(out):
 
 
 class _FloatCheck(TorchDispatchMode):
-    """Checks every operator's floating outputs for NaN and, with
-    ``divisions``, every divisor for zero."""
+    """Checks, with ``nans``, every operator's floating outputs for NaN
+    and, with ``divisions``, every divisor for zero."""
 
-    def __init__(self, divisions: bool, message: str):
+    def __init__(self, divisions: bool, message: str, nans: bool = True):
         super().__init__()
+        self.nans = nans
         self.divisions = divisions
         self.message = message  # formatted with the operator's name
         self.enabled = True
 
     def check(self, name: str, tensor: torch.Tensor) -> None:
         """Raise if ``tensor`` (the output of ``name``) holds a NaN."""
-        if (self.enabled and (tensor.is_floating_point() or tensor.is_complex())
+        if (self.enabled and self.nans and (tensor.is_floating_point() or tensor.is_complex())
                 and tensor.device.type != "meta" and tensor.numel()
                 and bool(torch.isnan(tensor).any())):
             raise FloatingPointError(self.message.format(name))
@@ -146,18 +156,30 @@ def debug_nans(enable: bool = True):
             mode.enabled = state
 
 
-def checked(fn: Callable) -> Callable:
-    """Wrap ``fn`` with per-operator NaN and division-by-zero checks; raises
-    ``FloatingPointError`` at the first operator (or kernel) that fails one.
+def checked(fn: Callable, errors=float_checks) -> Callable:
+    """Wrap ``fn`` with per-operator checks; raises ``FloatingPointError``
+    at the first operator (or kernel) that fails one.
+
+    ``errors`` is ``nan_checks`` (NaN outputs), ``div_checks`` (zero
+    divisors) or ``float_checks`` (both), as checkify's sets of those
+    names; any other set (checkify's ``index_checks``, ``user_checks``)
+    raises ``ValueError``.
 
     Example::
 
         step = debugging.checked(train_step)
         state, parts = step(state, batch)   # raises if any op made a NaN
     """
+    errors = frozenset(errors)
+    if errors not in (nan_checks, div_checks, float_checks):
+        raise ValueError(f"errors={sorted(map(str, errors))}: supported are nan_checks "
+                         f"{sorted(nan_checks)}, div_checks {sorted(div_checks)} and "
+                         f"float_checks {sorted(float_checks)}")
+    nans, divisions = bool(errors & nan_checks), bool(errors & div_checks)
 
     def wrapper(*args, **kwargs):
-        with _FloatCheck(divisions=True, message="nan generated by primitive: {}."):
+        with _FloatCheck(divisions=divisions, nans=nans,
+                         message="nan generated by primitive: {}."):
             return fn(*args, **kwargs)
 
     return wrapper

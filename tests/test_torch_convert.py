@@ -73,14 +73,15 @@ NEW_ASSETS = [("ckpt_burgers8", 2000, ["0", "1"]), ("ckpt_kdv8", 2000, ["0", "2"
               ("ckpt_ks8_u16s8", 3000, ["0", "1", "3"]), ("ckpt_ks16", 3000, ["0", "1", "3"]),
               ("ckpt_ks32", 3000, ["0", "1", "3"]), ("ckpt_kdv16", 2000, ["0", "2"]),
               ("ckpt_kdv16_f64", 2000, ["0", "2"]), ("kdv16_select_seed7", 2000, ["0", "2"]),
-              ("ckpt_burgers64", 4000, ["0", "1"])]
+              ("ckpt_burgers64", 4000, ["0", "1"]), ("ks32_select_seed0", 3000, ["0", "1", "3"])]
 # the checkpoint directory of an asset named otherwise
-CHECKPOINT_DIRS = {"kdv16_select_seed7": "artifacts/r5_kdv16_select/seed7"}
+CHECKPOINT_DIRS = {"kdv16_select_seed7": "artifacts/r5_kdv16_select/seed7",
+                   "ks32_select_seed0": "artifacts/r5_ks32_select/seed0"}
 # (stencil size, coarsening factor, filters) of each asset's model
 SHAPES = {"ckpt_burgers8": (8, 8, 32), "ckpt_kdv8": (8, 8, 32), "ckpt_ks8_u16s8": (8, 8, 32),
           "ckpt_ks16": (8, 16, 32), "ckpt_ks32": (10, 32, 32), "ckpt_kdv16": (10, 16, 32),
           "ckpt_kdv16_f64": (10, 16, 64), "kdv16_select_seed7": (10, 16, 32),
-          "ckpt_burgers64": (8, 64, 32)}
+          "ckpt_burgers64": (8, 64, 32), "ks32_select_seed0": (10, 32, 32)}
 
 
 def _checkpoint_dir(name):
@@ -176,3 +177,96 @@ def test_load_asset_by_path_stem_and_unknown(tmp_path):
         assert params["tower.1.weight"].shape == (32, 32, 5)
     with pytest.raises(FileNotFoundError, match="ckpt_ks8"):
         convert.load_asset("ckpt_nothing", device="cpu")
+
+
+# -- what --checkpoint_dir takes: a JAX checkpoint directory is refused ------------------
+
+TOOL = "tools/export_jax_checkpoint.py"
+
+
+def _jax_copy(tmp_path, source, name):
+    """A copy of the JAX checkpoint directory ``source`` named ``name``."""
+    import shutil
+
+    return shutil.copytree(source, tmp_path / name)
+
+
+def test_jax_directory_named_as_an_asset_is_refused(tmp_path):
+    """The KdV-8x JAX checkpoint copied under the KS-8x asset's name is
+    refused by ``load_checkpoint`` and by ``run_ensemble --checkpoint_dir``,
+    naming the conversion tool and the asset whose config equals its latest
+    step's (``ckpt_kdv8``), never serving ``ckpt_ks8`` in its place (as the
+    loader did before: a path's last part fell back to the committed
+    asset of that name)."""
+    from pde_superresolution_torch.scripts import run_ensemble
+
+    path = _jax_copy(tmp_path, "artifacts/ckpt_kdv8", "ckpt_ks8")
+    message = f"{path} is a JAX .*{TOOL}.*ckpt_kdv8"
+    with pytest.raises(ValueError, match=message):
+        convert.load_checkpoint(str(path), device="cpu")
+    with pytest.raises(ValueError, match=message):
+        run_ensemble.main(["--checkpoint_dir", str(path), "--num_trajectories", "4",
+                           "--time_max", "0.05", "--warmup_time", "0.1", "--num_saves", "2",
+                           "--device", "cpu"])
+
+
+@pytest.mark.parametrize("source", ["artifacts/ckpt_ks32", "artifacts/r5_ks32_select/seed0"])
+def test_committed_jax_directory_asks_for_the_bare_name(source):
+    """A committed JAX checkpoint given by its path is refused, naming the
+    asset converted from it; the bare name loads that asset."""
+    asset = {"artifacts/ckpt_ks32": "ckpt_ks32",
+             "artifacts/r5_ks32_select/seed0": "ks32_select_seed0"}[source]
+    with pytest.raises(ValueError, match=f"{TOOL}.*the committed asset {asset} has"):
+        convert.load_checkpoint(source, device="cpu")
+    assert convert.load_checkpoint(asset, device="cpu")[2].resample_factor == 32
+
+
+def test_jax_directory_without_a_matching_asset_is_refused(tmp_path):
+    """A JAX checkpoint whose latest config is no committed asset's (here
+    the KdV-8x one with another seed) is refused naming the tool only; its
+    own name, a committed asset's, does not make it load."""
+    path = _jax_copy(tmp_path, "artifacts/ckpt_kdv8", "ckpt_kdv8")
+    metadata = path / "2000" / "config" / "metadata"
+    config = json.loads(metadata.read_text())
+    config["seed"] = 99
+    metadata.write_text(json.dumps(config))
+    with pytest.raises(ValueError, match=f"JAX .*{TOOL}") as raised:
+        convert.load_checkpoint(str(path), device="cpu")
+    assert "committed asset" not in str(raised.value)
+
+
+def test_other_paths_and_half_pairs_are_refused(tmp_path):
+    """An existing path that is no pair and no training directory is refused
+    naming it; a pair with one half missing names the missing file; a bare
+    name that does not exist lists the assets."""
+    import shutil
+
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(ValueError, match=f"{tmp_path / 'empty'} is neither a training"):
+        convert.load_checkpoint(str(tmp_path / "empty"), device="cpu")
+    shutil.copy(convert.ASSET_DIR / "ckpt_burgers8.npz", tmp_path / "half.npz")
+    shutil.copy(convert.ASSET_DIR / "ckpt_burgers8.json", tmp_path / "other.json")
+    for ref, missing in ((tmp_path / "half", "half.json"), (tmp_path / "half.npz", "half.json"),
+                         (tmp_path / "other.json", "other.npz")):
+        with pytest.raises(FileNotFoundError, match=f"{tmp_path / missing} is missing"):
+            convert.load_checkpoint(str(ref), device="cpu")
+    with pytest.raises(FileNotFoundError, match="committed assets: .*ks32_select_seed0"):
+        convert.load_checkpoint("ckpt_nothing", device="cpu")
+
+
+@pytest.mark.parametrize("ref", ["ckpt_ks32", "ckpt_ks32.npz", "ckpt_ks32.json"])
+def test_bare_names_load_the_asset(ref, tmp_path, monkeypatch):
+    """A bare name (no directory part, no existing path) loads the committed
+    asset, with or without a suffix, from any working directory; where the
+    working directory holds a JAX checkpoint of that name, the name is a
+    path and is refused."""
+    monkeypatch.chdir(tmp_path)
+    model, params, config = convert.load_checkpoint(ref, device="cpu")
+    want = convert.params_from_jax(
+        convert.jax_tree_from_npz(convert.ASSET_DIR / "ckpt_ks32.npz"), device="cpu")
+    assert config.resample_factor == 32 and model.config.stencil_size == 10
+    assert all(torch.equal(params[k], want[k]) for k in want)
+    _jax_copy(tmp_path, convert.ASSET_DIR.parents[1] / "artifacts" / "ckpt_kdv8", "ckpt_ks32")
+    if ref == "ckpt_ks32":
+        with pytest.raises(ValueError, match="ckpt_ks32 is a JAX .*ckpt_kdv8"):
+            convert.load_checkpoint(ref, device="cpu")

@@ -503,3 +503,64 @@ def test_run_export_check_fails_on_a_wrong_artifact(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="disagrees with live model"):
         run_export.main(["--checkpoint_dir", "ckpt_burgers8", "--output_dir",
                          str(tmp_path / "x"), "--num_steps", "0", "--device", "cpu"])
+
+
+# -- the platforms an artifact may be served on (JAX's lowering targets) ----------------
+
+
+def test_platforms_round_trip_cpu_only(tmp_path):
+    """``export_model(platforms=("cpu",))`` records the list in meta.json
+    as the JAX package records its lowering targets, and the artifact
+    serves on the CPU bit for bit the live plain route."""
+    model, params, model_j, tree = _make_model("ks", nx=32)
+    path = str(tmp_path / "cpu_only")
+    meta = export.export_and_save(model, params, path, platforms=("cpu",))
+    want = jexport.export_model(model_j, tree, platforms=("cpu",))[0]
+    with open(os.path.join(path, "meta.json")) as f:
+        assert json.load(f)["platforms"] == meta["platforms"] == want["platforms"] == ["cpu"]
+    served = export.ServedModel(path, device="cpu")
+    u = _members(model, (3,))
+    with torch.no_grad():
+        live = model.rhs_fn(params, None, use_kernel=False)(u, 0.0)
+    assert torch.equal(served.rhs_fn()(u, 0.0), live)
+
+
+def test_served_model_refuses_an_unlisted_device(tmp_path):
+    """An artifact exported for ``("cuda",)`` is refused on the CPU before
+    any program is loaded, as a JAX artifact refuses a platform it was not
+    lowered for."""
+    model, params, _, _ = _make_model("ks", nx=32)
+    path = str(tmp_path / "cuda_only")
+    assert export.export_and_save(model, params, path, platforms=("cuda",))["platforms"] == [
+        "cuda"]
+    os.remove(os.path.join(path, "rhs.pt2"))  # the refusal comes before any load
+    with pytest.raises(ValueError, match=r"exported for \['cuda'\], not for cpu"):
+        export.ServedModel(path, device="cpu")
+
+
+@pytest.mark.parametrize("platforms,match", [
+    (("cpu", "tpu"), "no TPU lowering"), (("tpu",), "no TPU lowering"),
+    (("cpu", "gpu"), "non-empty subset"), ((), "non-empty subset"),
+])
+def test_export_refuses_platforms(platforms, match):
+    model, params, _, _ = _make_model("ks", nx=32)
+    with pytest.raises(ValueError, match=match):
+        export.export_model(model, params, platforms=platforms)
+
+
+def test_run_export_platforms_flag(tmp_path):
+    """``run_export --platforms cpu`` writes ``["cpu"]``; the JAX default
+    ``cpu,tpu`` is refused by name, and so is a ``--device`` the list does
+    not hold, before anything is exported."""
+    path = tmp_path / "x"
+    out = run_export.main(["--checkpoint_dir", "ckpt_burgers8", "--output_dir", str(path),
+                           "--num_steps", "0", "--platforms", "cpu", "--device", "cpu"])
+    assert out["platforms"] == ["cpu"] and out["max_abs_err"] == 0.0
+    with open(path / "meta.json") as f:
+        assert json.load(f)["platforms"] == ["cpu"]
+    for platforms, match in (("cpu,tpu", "no TPU lowering"), ("cuda", "not in --platforms")):
+        with pytest.raises(ValueError, match=match):
+            run_export.main(["--checkpoint_dir", "ckpt_burgers8", "--output_dir",
+                             str(tmp_path / "y"), "--num_steps", "0", "--platforms",
+                             platforms, "--device", "cpu"])
+    assert not (tmp_path / "y").exists()

@@ -120,7 +120,8 @@ def test_integrate_fused_matches_integrate(flagship):
 def test_import_needs_no_jax_and_no_nvcc(tmp_path):
     """Importing the package and every submodule (the training, evaluation,
     selection, export and parallel modules and the scripts included) loads
-    neither jax, the JAX package, optax, orbax, h5py nor matplotlib, builds
+    neither jax, the JAX package, optax, orbax, h5py, matplotlib nor the
+    JAX members tool (``tools/export_jax_members.py``), builds
     nothing (no nvcc on PATH, no CUDA_HOME) and starts no process group."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -131,6 +132,7 @@ def test_import_needs_no_jax_and_no_nvcc(tmp_path):
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pde_superresolution_tpu', 'h5py', 'optax', 'orbax', 'matplotlib')]\n"
         "assert not bad, bad\n"
+        "assert 'export_jax_members' not in sys.modules\n"
         "assert _build.load_library.cache_info().currsize == 0\n"
         "assert _build.build.cache_info().currsize == 0\n"
         "import torch.distributed as dist\n"
@@ -142,7 +144,7 @@ def test_import_needs_no_jax_and_no_nvcc(tmp_path):
         "          'scripts.run_select', 'scripts.run_sweep', 'export', 'scripts.run_export',\n"
         "          'scripts.create_training_data', 'scripts.run_analysis',\n"
         "          'parallel.mesh', 'parallel.halo', 'parallel.sharded', 'bench',\n"
-        "          'utils.profiling', 'utils.debugging'):\n"
+        "          'utils.profiling', 'utils.debugging', 'scripts.probe_zoo'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "print(len(names))\n"
     )

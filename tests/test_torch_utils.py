@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
+from jax.experimental import checkify
 
 from pde_superresolution_tpu import integrate as jint
 from pde_superresolution_tpu.utils import debugging as jdebugging
@@ -96,6 +97,65 @@ def test_checked_matches_checkify(case):
     else:
         with pytest.raises(FloatingPointError):
             debugging.checked(tfn)(torch.from_numpy(x))
+
+
+# the error sets of checked(errors=): the port's and checkify's
+ERROR_SETS = {"nan_checks": (debugging.nan_checks, checkify.nan_checks),
+              "div_checks": (debugging.div_checks, checkify.div_checks),
+              "float_checks": (debugging.float_checks, checkify.float_checks)}
+
+
+@pytest.mark.parametrize("errors", sorted(ERROR_SETS))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_checked_errors_match_checkify(case, errors):
+    """``checked(fn, errors=<set>)`` against ``checkify.checkify(fn,
+    errors=<the same set>)``: where checkify raises, the port raises with
+    the same words; where it does not, the checked call is the unchecked
+    one, bit for bit. (An integer division by zero raises in PyTorch's own
+    operator, checked or not; JAX returns a value. With the division check
+    in force both are caught before it runs.)"""
+    jfn, tfn, x = CASES[case]
+    ours, theirs = ERROR_SETS[errors]
+    want = _outcome(jdebugging.checked(jfn, errors=theirs), jnp.asarray(x))
+    got = _outcome(debugging.checked(tfn, errors=ours), torch.from_numpy(x))
+    if want[0]:
+        assert got[:2] == want[:2]
+    else:
+        unchecked = _outcome(tfn, torch.from_numpy(x))
+        assert got[:2] == unchecked[:2]
+        if not got[0]:
+            np.testing.assert_array_equal(got[2], unchecked[2])
+
+
+def test_error_sets_split_the_checks():
+    """A division by zero that makes no NaN (1/0 = inf) is caught by
+    ``div_checks`` only, a NaN by ``nan_checks`` only; ``float_checks``
+    catches both, and the kernels' hook follows the set."""
+    one_over, zero, minus_one = (lambda x: 1.0 / x), torch.tensor([0.0]), torch.tensor([-1.0])
+    with pytest.raises(FloatingPointError, match="^division by zero$"):
+        debugging.checked(one_over, errors=debugging.div_checks)(zero)
+    assert torch.isinf(debugging.checked(one_over, errors=debugging.nan_checks)(zero)).all()
+    with pytest.raises(FloatingPointError, match=r"^nan generated by primitive: log\.$"):
+        debugging.checked(torch.log, errors=debugging.nan_checks)(minus_one)
+    assert torch.isnan(debugging.checked(torch.log, errors=debugging.div_checks)(minus_one)).all()
+    for fn, x in ((one_over, zero), (torch.log, minus_one)):
+        with pytest.raises(FloatingPointError):
+            debugging.checked(fn, errors=debugging.float_checks)(x)
+    nan = torch.tensor([float("nan")])
+    debugging.checked(lambda: debugging.check_output("fused_rhs", nan),
+                      errors=debugging.div_checks)()
+    with pytest.raises(FloatingPointError, match="fused_rhs"):
+        debugging.checked(lambda: debugging.check_output("fused_rhs", nan),
+                          errors=debugging.nan_checks)()
+    assert debugging.float_checks == debugging.nan_checks | debugging.div_checks
+
+
+@pytest.mark.parametrize("errors", [checkify.index_checks, checkify.user_checks,
+                                    checkify.all_checks, frozenset(), {"nan", "bounds"}])
+def test_checked_refuses_other_error_sets(errors):
+    with pytest.raises(ValueError, match="supported are nan_checks .* div_checks .* and "
+                                         "float_checks"):
+        debugging.checked(torch.log, errors=errors)
 
 
 @pytest.mark.parametrize("case", sorted(c for c in CASES if CASES[c][2].dtype.kind == "f"))

@@ -37,6 +37,7 @@ ZOO = {
     "ckpt_ks8_u16s8": "artifacts/ckpt_ks8_u16s8",
     "ckpt_ks16": "artifacts/ckpt_ks16",
     "ckpt_ks32": "artifacts/ckpt_ks32",
+    "ks32_select_seed0": "artifacts/r5_ks32_select/seed0",
     "ckpt_kdv16": "artifacts/ckpt_kdv16",
     "ckpt_kdv16_f64": "artifacts/ckpt_kdv16_f64",
     "kdv16_select_seed7": "artifacts/r5_kdv16_select/seed7",
@@ -131,6 +132,8 @@ GEOMETRY = {
                        (4, 26880, 23680, 131200)),
     "ckpt_ks16": ((1, 64, 4, 6704, 32), (2, 64, 4, 13392, 5120), (4, 17664, 23680, 94336)),
     "ckpt_ks32": ((1, 32, 5, 4144, 32), (4, 32, 5, 16560, 2560), (4, 20736, 25088, 108032)),
+    "ks32_select_seed0": ((1, 32, 5, 4144, 32), (4, 32, 5, 16560, 2560),
+                          (4, 20736, 25088, 108032)),
     "ckpt_kdv16": ((1, 32, 5, 2864, 32), (4, 32, 5, 11440, 2560), (4, 17664, 24064, 94720)),
     "ckpt_kdv16_f64": ((1, 32, 5, 2864, 32), (4, 32, 5, 11440, 2560),
                        (4, 26496, 87936, 193920)),
@@ -240,16 +243,28 @@ def test_zoo_evaluate_matches_jax(inject, jax_models, name):
     _compare(got, want, limits)
 
 
-def test_seed7_protocol_on_the_ports_members(inject, jax_models):
+# RESULTS.md's per-key survival medians of the selected KdV-16x seed (keys 0,
+# 1, 2; JAX on a TPU, whose default matmul precision is bf16)
+SEED7_RESULTS = [8.95, 9.50, 9.95]
+
+
+@pytest.mark.parametrize("members", ["port", "jax"])
+def test_seed7_protocol_on_the_ports_members(inject, jax_models, members):
     """The selected KdV-16x seed at RESULTS.md's multi-key protocol (keys 0,
-    1 and 2, 32 members each, ic_scale 0.5, horizon 10, the model scheme)
-    on the members the port draws from those keys (``torch.Generator``, not
-    JAX's members of the same key numbers): JAX's ``evaluate`` on the same
-    members gives the same survival time member by member (but for members
-    whose correlation comes within NEAR_THRESHOLD of 0.8), so the same
-    per-key and pooled medians. The port's pooled median away from JAX's
-    per-key range is then a property of the members drawn, not of the
+    1 and 2, 32 members each, ic_scale 0.5, horizon 10, the model scheme),
+    on the members the port draws from those keys (``port``:
+    ``torch.Generator``, injected into both packages) or on the JAX
+    package's own members of those keys (``jax``: JAX's ``evaluate`` draws
+    them from ``PRNGKey(key)``, the port evaluates the committed copy
+    through ``probe_zoo.JaxMembers``): JAX's ``evaluate`` and the port's
+    give the same survival time member by member (but for members whose
+    correlation comes within NEAR_THRESHOLD of 0.8), so the same per-key
+    and pooled medians. So a pooled median away from RESULTS.md's is a
+    property of the members drawn, or of the TPU's precision, not of the
     port's numerics."""
+    import contextlib
+
+    from pde_superresolution_torch.scripts import probe_zoo
     from test_torch_evaluate import NEAR_THRESHOLD, THRESHOLD
 
     model_j, params_j, model_t, params_t, config = _pair("kdv16_select_seed7", jax_models)
@@ -257,17 +272,29 @@ def test_seed7_protocol_on_the_ports_members(inject, jax_models):
     fine_t = TGrid(config["fine_size"], model_t.equation.period)
     jtree = jax.tree.map(jnp.asarray, params_j)
     kwargs = dict(num_samples=32, time_max=10.0, time_delta=0.1)
-    draws = {seed: teval._draw(model_t.equation, fine_t, torch.Generator().manual_seed(seed),
-                               32, config["ic_scale"], "cpu")[0].numpy() for seed in (0, 1, 2)}
+    # the port's draws, all made before the first injection replaces the sampler
+    port_draws = {seed: teval._draw(model_t.equation, fine_t, torch.Generator().manual_seed(seed),
+                                    32, config["ic_scale"], "cpu")[0].numpy() for seed in (0, 1, 2)}
     medians, pooled = {"jax": [], "port": []}, {"jax": [], "port": []}
-    for seed, u0 in draws.items():
-        inject(u0, None)
+    for seed in (0, 1, 2):
+        draws = contextlib.nullcontext()
+        if members == "port":
+            inject(port_draws[seed], None)
+        else:
+            draws = probe_zoo.JaxMembers("kdv16_select_seed7", [seed])
         want = jeval.evaluate(model_j.equation, fine_j, config["resample_factor"],
                               {"model": lambda f: model_j.rhs_fn(jtree, f, use_pallas=False)},
-                              key=jax.random.PRNGKey(seed), **kwargs)
-        got = teval.evaluate(model_t.equation, fine_t, config["resample_factor"],
-                             {"model": lambda f: model_t.rhs_fn(params_t, f)},
-                             generator=torch.Generator(), device="cpu", **kwargs)
+                              key=jax.random.PRNGKey(seed), ic_scale=config["ic_scale"]
+                              if members == "jax" else 1.0, **kwargs)
+        with draws:
+            got = teval.evaluate(model_t.equation, fine_t, config["resample_factor"],
+                                 {"model": lambda f: model_t.rhs_fn(params_t, f)},
+                                 generator=torch.Generator().manual_seed(seed), device="cpu",
+                                 ic_scale=config["ic_scale"] if members == "jax" else 1.0,
+                                 **kwargs)
+        # the same members: the coarse initial states, block means in float32
+        np.testing.assert_allclose(got.exact[:, 0].numpy(), np.asarray(want.exact)[:, 0],
+                                   rtol=0, atol=1e-6)
         surv_j = np.asarray(want.survival_time["model"])
         surv_t = got.survival_time["model"].numpy()
         near = (np.abs(np.asarray(want.correlation["model"]) - THRESHOLD)
@@ -277,7 +304,8 @@ def test_seed7_protocol_on_the_ports_members(inject, jax_models):
             medians[side].append(float(np.median(surv)))
             pooled[side].append(surv)
     pooled = {side: float(np.median(np.concatenate(s))) for side, s in pooled.items()}
-    print(f"survival medians per key {medians}, pooled {pooled}")
+    print(f"{members} members: survival medians per key {medians}, pooled {pooled}; "
+          f"RESULTS.md per key {SEED7_RESULTS}")
     assert medians["jax"] == medians["port"] and pooled["jax"] == pooled["port"]
 
 
@@ -305,3 +333,104 @@ def test_probe_zoo_rehearsal_on_cpu(capsys):
     assert printed == [json.loads(json.dumps(row))]
     with pytest.raises(SystemExit):
         probe_zoo.main(["--models", "ckpt_nothing", "--device", "cpu"])
+
+
+# -- the JAX package's members (tools/export_jax_members.py) -----------------------------
+
+
+@pytest.mark.parametrize("stem,key", [("ks_1024", 54321), ("kdv_512", 12345),
+                                      ("burgers_1024", 2)])
+def test_committed_members_are_jaxs_draw(stem, key):
+    """The committed members of one key per equation are, bit for bit, what
+    JAX's ``evaluate`` draws from that key on the CPU: ``split`` the key,
+    the initial conditions (before ic_scale) from the first half and the
+    forcing from the second, 32 members."""
+    from pde_superresolution_torch.scripts import probe_zoo
+
+    equation_name, fine_size = stem.split("_")
+    equation = jeq.from_name(equation_name, conservative=True)
+    k_ic, k_f = jax.random.split(jax.random.PRNGKey(key))
+    want = {"u0": equation.initial_conditions(k_ic, JGrid(int(fine_size), equation.period),
+                                              (32,))}
+    forcing = equation.sample_forcing(k_f, (32,))
+    if forcing is not None:
+        want.update(forcing._asdict())
+    with np.load(probe_zoo.members_dir() / f"{stem}.npz") as data:
+        for name, value in want.items():
+            got = data[f"{name}/{key}"]
+            assert got.dtype == np.float32 and got.shape[0] == 32
+            np.testing.assert_array_equal(got, np.asarray(value, np.float32))
+
+
+def test_members_tool_writes_the_committed_files(tmp_path):
+    """``tools/export_jax_members.py`` run afresh writes, for every eval key
+    of ``probe_zoo.ZOO``, the arrays that are committed, and no member file
+    is taken for a model by ``convert.asset_names()``."""
+    import importlib.util
+
+    from pde_superresolution_torch.scripts import probe_zoo
+
+    spec = importlib.util.spec_from_file_location(
+        "export_jax_members", convert.ASSET_DIR.parents[1] / "tools" / "export_jax_members.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    tool.main([str(tmp_path)])
+    committed = sorted(p.name for p in probe_zoo.members_dir().glob("*.npz"))
+    assert sorted(p.name for p in tmp_path.iterdir()) == committed == [
+        "burgers_1024.npz", "kdv_512.npz", "ks_1024.npz"]
+    for name in committed:
+        with np.load(tmp_path / name) as fresh, np.load(probe_zoo.members_dir() / name) as kept:
+            assert sorted(fresh.files) == sorted(kept.files)
+            for array in kept.files:
+                np.testing.assert_array_equal(fresh[array], kept[array])
+    for name, seeds, _ in probe_zoo.ZOO:
+        probe_zoo.JaxMembers(name, [int(s) for s in seeds.split(",")])
+    assert len(convert.asset_names()) == 11 and "members" not in convert.asset_names()
+
+
+def test_probe_zoo_jax_members_rehearsal_on_cpu():
+    """``probe_zoo --members jax`` for Burgers-64x at 2 members and a
+    horizon of 0.2 on the CPU: the row says ``"members": "jax"``, and its
+    exact fine solve starts from JAX's first 2 members of each key (the
+    port's own draw differs); a key without committed members is refused
+    by the model's name before anything runs."""
+    from pde_superresolution_torch import evaluate
+    from pde_superresolution_torch.scripts import probe_zoo
+
+    starts = []
+    real = tint.exact_solve_sampled
+
+    def record(equation, grid, u0, *args, **kwargs):
+        starts.append(u0.numpy().copy())
+        return real(equation, grid, u0, *args, **kwargs)
+
+    tint.exact_solve_sampled = record
+    try:
+        rows = probe_zoo.main(["--models", "ckpt_burgers64", "--num_samples", "2",
+                               "--max_horizon", "0.2", "--device", "cpu", "--members", "jax"])
+    finally:
+        tint.exact_solve_sampled = real
+    assert evaluate._draw.__name__ == "_draw"  # restored
+    (row,) = rows
+    assert row["members"] == "jax" and row["num_samples"] == 2 and row["seeds"] == [0, 1, 2]
+    assert all(p["members"] == 6 for p in row["pooled"].values())
+    assert sorted(row["model_members"]) == ["0", "1", "2"]
+    assert all(len(m["survival"]) == len(m["margin"]) == 2 for m in row["model_members"].values())
+    with np.load(probe_zoo.members_dir() / "burgers_1024.npz") as data:
+        for key, u0 in zip((0, 1, 2), starts):
+            np.testing.assert_array_equal(u0, data[f"u0/{key}"][:2])
+    with pytest.raises(ValueError, match=r"ckpt_burgers64: no committed JAX members for eval "
+                                         r"keys \[7\]"):
+        probe_zoo.evaluate_model("ckpt_burgers64", "0,7", ["--time_max", "3"], 2, 0.2, "cpu",
+                                 members="jax")
+
+
+def test_member_margins():
+    """The closest a member's correlation comes to 0.8 up to and including
+    its first sample below it: later samples do not count."""
+    from pde_superresolution_torch.scripts import probe_zoo
+
+    corr = torch.tensor([[1.0, 0.9, 0.85, 0.95], [1.0, 0.81, 0.7, 0.8],
+                         [0.95, 0.79, 0.8, 0.8], [0.5, 0.8, 0.8, 0.8]])
+    want = torch.tensor([0.05, 0.01, 0.01, 0.3])
+    torch.testing.assert_close(probe_zoo.member_margins(corr), want, rtol=0, atol=1e-6)
