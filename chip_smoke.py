@@ -30,7 +30,8 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      against the plain path and against the port's float64 CPU path on a
      small batch;
   6. the launch floor (an empty kernel's launch, queued) and times (CUDA
-     events, warm median of 7) at B=256 and B=4096: each
+     events, warm median of 7, of 3 for the routes and plain versions) at
+     B=256 and B=4096: each
      kernel's device time and call time, its plain version, both routes,
      the ``rhs_fn`` route's device time (one RK4 step queued behind a
      device-side sleep, times 100) and its launches per RHS, and its device
@@ -44,10 +45,15 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      faults planted in the forcing (amplitudes zeroed, rotation angle
      halved, start time ignored); ``fused_rhs`` in the forced Burgers form
      at the ensemble's batch, checked and timed;
-  8. ``fused_rk4`` (the fixed-stencil baseline) against its plain version
-     and against ``integrate(PolynomialDifferentiator(...).rhs_fn())`` for KS
-     and KdV, conservative and direct, at B=256, nx=128, at B=3, nx=96, at
-     B=5, nx=1024 and at B=1037, nx=128 (the last block holds one warp);
+  8. ``fused_rk4`` (the fixed-stencil baseline) against its plain version,
+     bit for bit, and against ``integrate(PolynomialDifferentiator(...)
+     .rhs_fn())`` for KS and KdV, conservative and direct, at B=256, nx=128,
+     at B=3, nx=96, at B=5, nx=1024 and at B=1037, nx=128 (the last block
+     holds one warp); then every scheme ``make_fused_rk4`` builds (accuracy
+     orders 4 and 6, stencil sizes 8 and 16: taps at run time) at B=256,
+     nx=128, and the grids of 32, 512 and 2048 points (the block form) at
+     B=1037, each with the classic scheme and with stencil size 32 (taps
+     reaching 16 points), in all four forms;
   9. the ensemble path at full width, in-process through
      ``scripts.run_ensemble.main``: the Burgers-8x checkpoint, 10240
      trajectories, an exact-solver warm-up, 100 RK4 steps in 10 saves, by
@@ -56,8 +62,20 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      warmed-up states; launch counts zeroed before and read after each;
  10. times of the fused RK4 kernels at B=256, 4096 and 10240 per 100
      steps (``fused_rk4`` also at 4 and 8 warps per block, and per stage for
-     one trajectory alone), of the warm-up, and of both ensemble routes end
-     to end;
+     one trajectory alone; at B=256 and 10240 also KS at accuracy order 4,
+     KdV at nx 512 and KS at nx 2048, each beside its bounds and its plain
+     version), of the warm-up, and of both ensemble routes end to end;
+ 11. ``fused_learned_rk4`` at 128 filters (the streamed form: a block per
+     trajectory, a conv tap's weights at a time through shared memory) on
+     the KS-8x and, forced, the Burgers-8x checkpoints widened to 3 x 128
+     filters by ``convert.widen_params``: one step from a standard-normal state against the
+     plain version, which must catch phase 4's three planted weight faults,
+     10 and 100 steps at B=256; times per 100 steps at B=256 and 10240
+     beside the operations bound, and the plain version's per 100 steps at
+     B=256 and per 10 at 10240; and
+     ``scripts.run_ensemble.main`` for the KS model (10240 members, 100
+     steps in 10 saves) at ``--fused auto``, which must take the kernel, one
+     launch per save;
  12. training at the KS-8x flagship recipe (``assets/ckpt_ks8.json``: batch
      128, unroll 8 snapshots of 0.05, 12 RK4 substeps each, 32 trajectories
      x 256 times after a warm-up of 44), only the optimizer steps cut: the
@@ -88,7 +106,7 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      Burgers-8x checkpoint (32 members, forced, horizon 3, eval keys 0 and
      1; model, 8-tap baseline and WENO) through ``main`` with an HDF5 output
      when ``h5py`` imports, else through ``evaluate_checkpoint``; each held,
-     on the first 4 members of the same draw, against the port's CPU path
+     on the first member of the same draw, against the port's CPU path
      (exact, trajectories, MAE, survival times with their flips counted),
      with a planted fault that must fail (KS: the order-1 head zeroed;
      Burgers: the forcing dropped from the model scheme); every model
@@ -103,7 +121,7 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      8, 2 steps, 4 members, horizon 1), both with predicted ``fused_rhs``
      launches and their seconds;
  15. the serving export: ``scripts.run_export`` of the KS-8x checkpoint
-     (``--num_steps`` 16, the CLI in a process of its own, meanwhile) and
+     (``--num_steps`` 8, the CLI in a process of its own, meanwhile) and
      of the Burgers-8x one (4), with the export, save and load timed apart; each artifact loaded on the card and held at
      B=10240 against the live model's ``fused_rhs`` route and its plain
      route (RHS), and its advance against ``integrate`` of the plain route,
@@ -293,7 +311,10 @@ EVAL_MEMBERS = 32
 KS_HORIZON = 10.0
 BURGERS_HORIZON = 3.0
 EVAL_DELTA = 0.1
-COMPARE_MEMBERS = 4  # the card against the port's CPU path on the first members
+# the card against the port's CPU path on the first members (the CPU path
+# takes 7-54 s per 2 members in phases 13 and 18 on an H100's host, and one
+# member about 72% of two: most of its time is per step, not per member)
+COMPARE_MEMBERS = 1
 # The card against the CPU path on the same members, of max|exact|: the
 # fine solve (cuFFT against pocketfft, float32) and every scheme's
 # trajectories and MAE. Each limit near 10x its reading on an H100. KS-8x:
@@ -321,7 +342,7 @@ SLEEP_CYCLES = 60_000_000  # about 30 ms of device-side sleep at H100 clocks
 # KS-8x, 2.1e-3 for Burgers-8x) must fail the plain check.
 # (asset, run_export --num_steps): the first is exported in a process of its
 # own while the second is exported, checked and served here
-SERVE_EXPORTS = (("ckpt_ks8", 16), ("ckpt_burgers8", 4))
+SERVE_EXPORTS = (("ckpt_ks8", 8), ("ckpt_burgers8", 4))
 SERVE_RHS_TOL = 1e-4  # the served RHS against the live fused_rhs route
 SERVE_PLAIN_TOL = 1e-7  # ... against the live plain route
 SERVE_STEP_TOL = 1e-7  # served.advance against integrate of the live plain route
@@ -347,8 +368,8 @@ PARALLEL_TRAIN_TOL = 1e-6
 # blocks a leg, train 5 x 3 steps a route)
 BENCH_SAMPLES = 3
 BENCH_CPU_SAMPLES = 2
-BENCH_TRAIN_BLOCKS = 3
-BENCH_TRAIN_STEPS = 2
+BENCH_TRAIN_BLOCKS = 2
+BENCH_TRAIN_STEPS = 1
 # fused_rhs against its plain version (phase 3): float32 on both sides, tap
 # sums in other orders and with FMAs, then a face difference over dx that
 # cancels most of the sum: of max|u_t|
@@ -407,7 +428,7 @@ ZOO_PROTOCOLS = (
     ("kdv16_seed7", "kdv16_select_seed7", ["--ic_scale", "0.5"], 10.0),
     ("burgers64", "ckpt_burgers64", [], 3.0),
 )
-# The card against the CPU path on the first 4 members, of max|exact|, each
+# The card against the CPU path on the first members, of max|exact|, each
 # limit near 10x its reading on an H100 (the classic baselines blow up at
 # 16x and more: the model's limit). KS-32x (ic_scale 1, 44 time units of
 # warm-up and 10 of chaos): exact read 9.0e-4, model 9.2e-4; the planted
@@ -426,7 +447,14 @@ FP32_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
 
 
+START = time.perf_counter()
+
+
 def log(*parts) -> None:
+    """Print; a phase's heading (a line that starts with "[") also gets the
+    seconds since the script started."""
+    if parts and str(parts[0]).startswith("["):
+        parts = (*parts, f"(at {time.perf_counter() - START:.1f} s)")
     print(*parts, flush=True)
 
 
@@ -545,7 +573,8 @@ def tensor_core_line(library) -> str:
 def check_stencil_builds(build) -> None:
     """Raises if ptxas gave an instantiation of fused_rk4 or fused_rhs a
     stack frame or a spill, or if their SASS holds local-memory loads or
-    stores (LDL, STL), or fused_rk4's a barrier (BAR)."""
+    stores (LDL, STL), or fused_rk4's register forms a barrier (BAR; its
+    block form, ``fused_rk4_block_kernel``, needs its barriers)."""
     from pde_superresolution_torch.scripts.probe_stencil_kernels import ptxas_lines, sass_counts
 
     frames = [line for line in ptxas_lines(build) if "stack frame" in line]
@@ -554,11 +583,17 @@ def check_stencil_builds(build) -> None:
     bad = [line for line in frames if not line.endswith(
         ": 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
     sass = sass_counts(build.library)
+    def registers(name):
+        return "fused_rk4" in name and "fused_rk4_block" not in name
+
     log(f"    fused_rk4, fused_rhs: {len(frames)} instantiations read by ptxas, "
         f"{len(bad)} with a stack frame or a spill; in the SASS of {len(sass)} kernels: "
         + ", ".join(f"{op} {sum(row[op] for row in sass.values())}" for op in ("LDL", "STL"))
-        + f", BAR in fused_rk4 {sum(r['BAR'] for n, r in sass.items() if 'fused_rk4' in n)}")
-    if bad or any(row["LDL"] or row["STL"] or ("fused_rk4" in name and row["BAR"])
+        + f", BAR in fused_rk4's register forms "
+        f"{sum(r['BAR'] for n, r in sass.items() if registers(n))} "
+        f"({sum(registers(n) for n in sass)} kernels; the block form's "
+        f"{sum(r['BAR'] for n, r in sass.items() if 'fused_rk4_block' in n)}, exempt)")
+    if bad or any(row["LDL"] or row["STL"] or (registers(name) and row["BAR"])
                   for name, row in sass.items()):
         raise AssertionError(f"stack frames, spills or barriers: {bad}, {sass}")
 
@@ -649,6 +684,126 @@ def device_profile(fn, calls: int, warm_up: bool = True) -> dict:
     return per_kernel
 
 
+# fused_rk4 beyond the classic scheme (phase 8): the schemes of
+# make_fused_rk4's accuracy_order/stencil_size, each run at a quarter of the
+# classic scheme's stable step (a wider stencil's symbol is larger), and the
+# grids of the register form's ends and of the block form
+RK4_SCHEMES = ({"accuracy_order": 4}, {"accuracy_order": 6}, {"stencil_size": 8},
+               {"stencil_size": 16})
+# the widest scheme the kernel takes (32 taps an order, reaching 16 points),
+# run at the grids: half the ring at nx=32, run-time taps in registers at 512,
+# the block form's periodic copies at 2048
+RK4_WIDEST = {"stencil_size": 32}
+# steps of those schemes: KdV's third derivative on an even collocated
+# stencil (direct form, sizes 8 and 16) grows an odd-even mode, to 1.1e3 of
+# a 0.3-scaled state after 20 steps on the CPU and past float32 within 20
+# at nx=2048 on an H100 (both sides alike)
+SCHEME_STEPS = 10
+RK4_GRIDS = (32, 512, 2048)
+RK4_GRID_BATCH = 1037  # no multiple of the warps per block
+# phase 10's extra fused_rk4 timings: (label, equation, nx, scheme)
+RK4_DOMAIN_TIMES = (("ks accuracy order 4", "ks", 128, {"accuracy_order": 4}),
+                    ("kdv nx 512", "kdv", 512, {}), ("ks nx 2048 (block form)", "ks", 2048, {}))
+WIDE_FILTERS = 128
+# phase 11's towers: a trained checkpoint widened to WIDE_FILTERS filters, the
+# new channels and every weight from or to them seeded N(0, WIDE_NOISE^2)
+# (a seeded 128-filter tower alone sends some members past float32 within
+# 100 steps: 1-3 of 64 Burgers members from a 0.3-scaled state on the CPU;
+# widened, all 64 stay finite and the new channels move the trained model's
+# 100 steps by 6e-4 (KS-8x) and 5.6e-2 (Burgers-8x) of max|u|)
+WIDE_NOISE = 0.02
+# the 128-filter kernel against its plain version (phase 11), of max|ref|:
+# one step's increment from N(0,1) in root mean square, 3e-5 as the gpu
+# tests' STEP_RMS_TOL (read 4.9e-6 KS, 2.8e-6 Burgers on an H100; a layer
+# sums 640 bf16 products, four times the flagship's, so more roundings
+# flip); 10 and 100 steps at the worst point, 1e-5 unforced (read 1.6e-7,
+# 4.7e-7) and forced phase 7's FORCED_INTERVAL_TOL and FORCED_RUN_TOL
+# (read 4.1e-7, 5.5e-5: the trained Burgers model steepens fronts)
+WIDE_STEP_TOL = 3e-5
+WIDE_RUN_TOL = 1e-5
+# the plain version at the ensemble's batch is timed on this many steps, and
+# reported as such (1.13-1.15 s at 128 filters on an H100)
+WIDE_PLAIN_STEPS = 10
+
+
+def baseline_case(name, cons, nx, batch, scheme, gen, device, steps=STEPS):
+    """(advance, u, differentiator) of a fused baseline run of ``steps``
+    steps on ``nx`` points at the KS/KdV grid spacing of nx=128: the
+    classic scheme at its stable step, any other at a quarter of it."""
+    from pde_superresolution_torch import equations, integrate
+    from pde_superresolution_torch.grids import Grid
+    from pde_superresolution_torch.ops import fused_kernels as fk
+
+    period = equations.from_name(name).period * nx / 128  # the same dx
+    e = equations.from_name(name, conservative=cons, period=period)
+    g = Grid(nx, period)
+    u = 0.3 * e.initial_conditions(gen, g, (batch,), device)
+    dt = e.stable_time_step(g) / (4 if scheme else 1)
+    advance = fk.make_fused_rk4(e, g, dt, steps, **scheme)
+    differentiator = integrate.PolynomialDifferentiator(e, g, device=device, **scheme)
+    return advance, u, differentiator
+
+
+def baseline_checks(gen, device) -> float:
+    """Phase 8: ``fused_rk4`` against its plain version, bit for bit, and
+    against ``integrate`` of the same scheme's PolynomialDifferentiator;
+    returns the largest reading against the plain version."""
+    from pde_superresolution_torch import integrate
+    from pde_superresolution_torch.ops import fused_kernels as fk
+
+    baseline_err = 0.0
+    cases = ([(batch, nx, {}) for batch, nx in ((BATCH, 128), (3, 96), (5, 1024), (1037, 128))]
+             + [(BATCH, 128, scheme) for scheme in RK4_SCHEMES]
+             + [(RK4_GRID_BATCH, nx, scheme) for nx in RK4_GRIDS for scheme in ({}, RK4_WIDEST)])
+    for name in ("ks", "kdv"):
+        for cons in (True, False):
+            for batch, nx, scheme in cases:
+                steps = SCHEME_STEPS if scheme else STEPS
+                advance, u, differentiator = baseline_case(name, cons, nx, batch, scheme, gen,
+                                                           device, steps)
+                got = advance(u)
+                launch = fk.rk4_launch(batch, nx, fk.rk4_is_classic(advance.scheme))
+                form = (f"{name} {'conservative' if cons else 'direct'} "
+                        f"{scheme or 'classic'} B={batch} nx={nx} ({launch.form}"
+                        + (f", {launch.points} points on {launch.lanes} lanes" if launch.points
+                           else "") + (", taps compiled in" if fk.rk4_is_classic(advance.scheme)
+                                       else ", taps at run time") + ")")
+                baseline_err = max(baseline_err, check(
+                    f"{form}, {steps} steps", got, fk.fused_rk4_plain(u, advance.scheme), 0.0))
+                # PolynomialDifferentiator makes a collocated stencil odd, so
+                # the direct form's even stencil_size is another scheme there
+                if cons or scheme.get("stencil_size", 1) % 2:
+                    _, ref = integrate.integrate(differentiator.rhs_fn(), u,
+                                                 advance.scheme.dt, steps, steps)
+                    check(f"{form}, vs integrate", got, ref[-1], 1e-5)
+    return baseline_err
+
+
+def baseline_domain_times(gen, device) -> dict:
+    """Phase 10's ``fused_rk4`` times beyond the classic scheme at nx=128:
+    {label B=batch: device ms, plain ms, bounds, launch} per 100 steps."""
+    import torch
+
+    from pde_superresolution_torch.ops import fused_kernels as fk
+
+    domain_times = {}
+    for label, name, nx, scheme in RK4_DOMAIN_TIMES:
+        for batch in (BATCH, ENSEMBLE):
+            advance, u, _ = baseline_case(name, True, nx, batch, scheme, gen, device)
+            bytes_ms, ops_ms = baseline_rk4_bounds_ms(advance.scheme, batch)
+            row = {
+                "ms": time_ms(lambda: advance(u), queued=True,
+                              samples=SAMPLES if batch == BATCH else LONG_SAMPLES),
+                "plain_ms": time_ms(lambda: fk.fused_rk4_plain(u, advance.scheme), samples=1),
+                "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+                "launch": fk.rk4_launch(batch, nx, fk.rk4_is_classic(advance.scheme))._asdict(),
+            }
+            domain_times[f"{label} B={batch}"] = row
+            log(f"    fused_rk4 {label} B={batch}: " + json.dumps(row))
+            del u
+    return domain_times
+
+
 def perturbed_model(name, cons, size, device, nx, filters=32, layers=3, batch=3):
     """A seeded model with small non-zero heads and a seeded initial batch."""
     import torch
@@ -730,6 +885,127 @@ def leaf_errors(got: dict, want: dict) -> dict:
         return err if err == err and err != float("inf") else float("inf")
 
     return {k: rel(got[k], want[k]) for k in want}
+
+
+def wide_phase(card: str, ks_dt: float) -> dict:
+    """Phase 11: ``fused_learned_rk4`` at ``WIDE_FILTERS`` filters (the
+    streamed form) at the KS-8x shapes and, forced, the Burgers-8x ones (the
+    checkpoints widened by ``convert.widen_params``): held to the plain version with phase 4's
+    planted weight faults, timed, and the KS model served by
+    ``run_ensemble.main --fused auto``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pde_superresolution_torch import convert
+    from pde_superresolution_torch.ops import fused_kernels as fk
+    from pde_superresolution_torch.scripts import run_ensemble
+
+    device = torch.device("cuda")
+    log(f"[11] fused_learned_rk4 at {WIDE_FILTERS} filters (ckpt_ks8 and ckpt_burgers8 "
+        f"widened, new weights N(0, {WIDE_NOISE}^2)); on {card}")
+    phase_start = time.perf_counter()
+    out = {"err": 0.0}
+    rng = np.random.default_rng(SEED + 11)
+    for label in ("ks8", "burgers8"):
+        _, trained, config = convert.load_asset(f"ckpt_{label}", device=device)
+        config = {**config, "model": {**config["model"], "filters": WIDE_FILTERS}}
+        model = convert.model_from_config(config, device=device)
+        params = convert.widen_params(trained, WIDE_FILTERS, SEED + 11, WIDE_NOISE)
+        eq, grid = model.equation, model.grid
+        pack = fk.pack_learned_rk4(params, eq, grid, model.config.kernel_size,
+                                   model.constraint_layers, model.taps)
+        dt = model.stable_time_step(u_scale=3.0)
+        gen = torch.Generator().manual_seed(SEED + 11)
+
+        def forcing_for(batch):
+            if not eq.forced:
+                return None
+            return fk.pack_forcing(eq.sample_forcing(gen, (batch,), device), FORCING_T0, eq,
+                                   grid, dt, batch)
+
+        fp = forcing_for(BATCH)
+        launch = fk.learned_rk4_launch(pack, grid.size, 0 if fp is None else
+                                       fp.amplitude.shape[-1], ENSEMBLE)
+        log(f"  {label}: {label} shapes at {WIDE_FILTERS} filters (padded "
+            f"{pack.padded_channels}, weights {pack.blob.numel()} bytes), dt={dt}; at "
+            f"B={ENSEMBLE}: {launch}")
+        rough = torch.from_numpy(
+            rng.standard_normal((BATCH, grid.size)).astype(np.float32)).to(device)
+        want_inc = fk.fused_learned_rk4_plain(rough, pack, dt, 1, fp) - rough
+        out["err"] = max(out["err"], check(
+            f"{label} one step from N(0,1), B={BATCH}, increment",
+            fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp) - rough, want_inc,
+            WIDE_STEP_TOL, rms=True))
+        if fp is None:  # whose the differences are, as phase 4 reads them
+            exact_inc = learned_rk4_float64(rough, pack, dt, 1) - rough.double()
+            got_inc = fk.fused_learned_rk4(rough, pack, dt, 1) - rough
+            log("    vs float64 sums, one step from N(0,1), rel rms: kernel "
+                f"{relative_error(got_inc.double(), exact_inc, True):.3e}, plain version "
+                f"{relative_error(want_inc.double(), exact_inc, True):.3e}")
+        for fault, bad in planted_faults(params).items():
+            bad_pack = fk.pack_learned_rk4(bad, eq, grid, model.config.kernel_size,
+                                           model.constraint_layers, model.taps)
+            check_catches(f"{label} {fault}, one step",
+                          fk.fused_learned_rk4(rough, bad_pack, dt, 1, forcing=fp) - rough,
+                          want_inc, WIDE_STEP_TOL, rms=True)
+        smooth = 0.3 * eq.initial_conditions(gen, grid, (BATCH,), device)
+        run_tols = ((FORCED_INTERVAL_TOL, FORCED_RUN_TOL) if eq.forced
+                    else (WIDE_RUN_TOL, WIDE_RUN_TOL))
+        for steps, tol in zip((STEPS // ENSEMBLE_SAVES, STEPS), run_tols):
+            out["err"] = max(out["err"], check(
+                f"{label} {steps} steps B={BATCH}",
+                fk.fused_learned_rk4(smooth, pack, dt, steps, forcing=fp),
+                fk.fused_learned_rk4_plain(smooth, pack, dt, steps, fp), tol))
+        for batch in (BATCH, ENSEMBLE):
+            u = 0.3 * eq.initial_conditions(gen, grid, (batch,), device)
+            fpb = forcing_for(batch)
+            terms = 0 if fpb is None else fpb.amplitude.shape[-1]
+            row = {
+                "ms": time_ms(lambda: fk.fused_learned_rk4(u, pack, dt, STEPS, forcing=fpb),
+                              queued=True, samples=SAMPLES if batch == BATCH else LONG_SAMPLES),
+                "bound_ms": learned_rk4_bound_ms(pack, batch, STEPS, terms),
+            }
+            if batch == ENSEMBLE:  # a 100-step plain run here takes 11 s a model
+                row[f"plain_{WIDE_PLAIN_STEPS}_steps_ms"] = time_ms(
+                    lambda: fk.fused_learned_rk4_plain(u, pack, dt, WIDE_PLAIN_STEPS, fpb),
+                    samples=1)
+            else:
+                row["plain_ms"] = time_ms(
+                    lambda: fk.fused_learned_rk4_plain(u, pack, dt, STEPS, fpb), samples=1)
+            out[f"{label} B={batch}"] = row
+            log(f"    {label} {WIDE_FILTERS} filters B={batch}, {STEPS} steps: "
+                + json.dumps(row))
+            del u, fpb
+        if eq.forced:
+            continue
+        # the ensemble entry point on this checkpoint, at --fused auto
+        stem = Path(tempfile.mkdtemp(prefix="chip_smoke_wide_")) / f"ks8_{WIDE_FILTERS}_filters"
+        stem.with_suffix(".json").write_text(json.dumps(config))
+        np.savez(stem.with_suffix(".npz"), **convert.npz_arrays_from_params(params))
+        fk.fused_rhs.launches = fk.fused_learned_rk4.launches = 0
+        result = run_ensemble.main([
+            "--checkpoint_dir", str(stem), "--num_trajectories", str(ENSEMBLE),
+            "--warmup_time", str(WARMUP_TIME), "--time_max", str((STEPS - 0.5) * ks_dt),
+            "--num_saves", str(ENSEMBLE_SAVES), "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        counts = {"fused_rhs": fk.fused_rhs.launches,
+                  "fused_learned_rk4": fk.fused_learned_rk4.launches}
+        log(f"    run_ensemble --fused auto, {WIDE_FILTERS} filters: route {result['path']} "
+            f"({result['reason']}), launches {counts}, {result['finite']}/{ENSEMBLE} finite, "
+            f"{result['traj_steps_per_s']:,.0f} traj-steps/s")
+        if (result["path"] != "fused kernel" or result["num_steps"] != STEPS
+                or result["finite"] != ENSEMBLE
+                or counts != {"fused_rhs": 0, "fused_learned_rk4": ENSEMBLE_SAVES}):
+            raise AssertionError(f"{WIDE_FILTERS}-filter ensemble: {result['path']}, {counts}")
+        out["ensemble_launches"] = counts["fused_learned_rk4"]
+        out["ensemble_s"] = result["elapsed_s"]
+        out["ensemble_traj_steps_per_s"] = result["traj_steps_per_s"]
+        out["ensemble_finite"] = result["finite"]
+    out["phase_s"] = time.perf_counter() - phase_start
+    log(f"    phase 11 took {out['phase_s']:.1f} s")
+    return out
 
 
 def training_phase(card: str, launch_floor_ms: float) -> dict:
@@ -1558,8 +1834,8 @@ def serving_phase(card: str) -> dict:
             **{k: exported[k] for k in ("export_s", "save_s", "load_s")}, **times}
         del u, forcing, frozen, live, plain, bad, tf32, advanced, traj, served, faulty
 
-    # Tracing is single-threaded host work, and the KS-8x advance of 16 steps
-    # takes a minute or two on the card machine's CPU: that export runs in a
+    # Tracing is single-threaded host work (the KS-8x advance of 16 steps took
+    # 44-115 s on the card machine's CPU): the first export runs in a
     # process of its own (the same CLI) while the Burgers-8x artifact is
     # exported and checked here and serves the ensemble and the evaluation.
     (side_name, side_steps), (name, steps) = SERVE_EXPORTS
@@ -2489,6 +2765,8 @@ def main() -> int:
     _build.load_library()
     log(f"[2] kernels built in {time.perf_counter() - start:.1f} s "
         f"(nvcc {build.seconds:.1f} s) -> {build.library.name}")
+    log("    nvcc by source (s, in parallel): " + ", ".join(
+        f"{name} {seconds:.1f}" for name, seconds in sorted(build.source_seconds.items())))
     for source, text in sorted(build.logs.items()):
         report = dict.fromkeys(  # unique lines, in order
             line.strip() for line in text.splitlines()
@@ -2635,7 +2913,8 @@ def main() -> int:
     check("card rhs_fn vs CPU float64, B=8, 20 steps", got[-1].cpu().double(), ref[-1], 1e-5)
 
     # ---- 6. times -------------------------------------------------------------
-    log(f"[6] times (ms, median of {SAMPLES}) on {card}")
+    log(f"[6] times (ms, median of {SAMPLES}; the routes and plain versions, calls of "
+        f"0.4-1.1 s, of {LONG_SAMPLES}) on {card}")
     tensor_cores = tensor_core_line(build.library)
     log(f"    {tensor_cores}")
     if "not read" not in tensor_cores and " 0 HMMA, 0 GMMA" in tensor_cores:
@@ -2667,11 +2946,11 @@ def main() -> int:
             "fused_rhs_call_ms": time_ms(rhs_kernel, inner=100),
             "fused_rhs_plain_ms": time_ms(rhs_plain, inner=10),
             "fused_rhs_bound_ms": rhs_bound_ms(u, c, None),
-            "rhs_fn_route_100_steps_ms": time_ms(path_kernel),
-            "plain_route_100_steps_ms": time_ms(path_plain),
+            "rhs_fn_route_100_steps_ms": time_ms(path_kernel, samples=LONG_SAMPLES),
+            "plain_route_100_steps_ms": time_ms(path_plain, samples=LONG_SAMPLES),
             "fused_learned_rk4_ms": time_ms(rk4_kernel, queued=True),
             "fused_learned_rk4_call_ms": time_ms(rk4_kernel),
-            "fused_learned_rk4_plain_ms": time_ms(rk4_plain),
+            "fused_learned_rk4_plain_ms": time_ms(rk4_plain, samples=LONG_SAMPLES),
             "fused_learned_rk4_bound_ms": learned_rk4_bound_ms(pack, batch, STEPS),
         }
         # where the rhs_fn route's time goes: device time by kernel name over
@@ -2795,23 +3074,7 @@ def main() -> int:
     # the PolynomialDifferentiator's RHS, whose tap sums run in another
     # order: 1e-5.
     log("[8] fused_rk4 vs plain and vs integrate(PolynomialDifferentiator)")
-    baseline_err = 0.0
-    for name in ("ks", "kdv"):
-        for cons in (True, False):
-            for batch, nx in ((BATCH, 128), (3, 96), (5, 1024), (1037, 128)):
-                period = equations.from_name(name).period * nx / 128  # the same dx
-                e = equations.from_name(name, conservative=cons, period=period)
-                g = type(grid)(nx, period)
-                u = 0.3 * e.initial_conditions(gen, g, (batch,), device)
-                step = e.stable_time_step(g)
-                advance = fk.make_fused_rk4(e, g, step, STEPS)
-                got = advance(u)
-                form = f"{name} {'conservative' if cons else 'direct'} B={batch} nx={nx}"
-                baseline_err = max(baseline_err, check(
-                    f"{form}, {STEPS} steps", got, fk.fused_rk4_plain(u, advance.scheme), 1e-6))
-                rhs = integrate.PolynomialDifferentiator(e, g, device=device).rhs_fn()
-                _, ref = integrate.integrate(rhs, u, step, STEPS, STEPS)
-                check(f"{form}, vs integrate", got, ref[-1], 1e-5)
+    baseline_err = baseline_checks(gen, device)
     log(f"    fused_rk4 against its plain version, largest reading: {baseline_err:.3e}")
 
     # ---- 9. the ensemble path at full width ---------------------------------
@@ -2919,7 +3182,7 @@ def main() -> int:
                 lambda: fk.fused_learned_rk4(u, bpack, bdt, STEPS, forcing=type(eforcing)(
                     *(leaf[:batch] for leaf in eforcing)), t=FORCING_T0), samples=samples),
             "forced_rk4_plain_ms": time_ms(
-                lambda: fk.fused_learned_rk4_plain(u, bpack, bdt, STEPS, fp), samples=LONG_SAMPLES),
+                lambda: fk.fused_learned_rk4_plain(u, bpack, bdt, STEPS, fp), samples=1),
             "forced_rk4_bound_ms": learned_rk4_bound_ms(bpack, batch, STEPS, terms),
             "unforced_rk4_ms": time_ms(
                 lambda: fk.fused_learned_rk4(ks_u, pack, ks_dt, STEPS), queued=True,
@@ -2927,13 +3190,13 @@ def main() -> int:
             "fused_rk4_ms": time_ms(lambda: base(ks_u), queued=True, samples=samples),
             "fused_rk4_call_ms": time_ms(lambda: base(ks_u), samples=samples),
             "fused_rk4_plain_ms": time_ms(
-                lambda: fk.fused_rk4_plain(ks_u, base.scheme), samples=LONG_SAMPLES),
+                lambda: fk.fused_rk4_plain(ks_u, base.scheme), samples=1),
             "fused_rk4_bytes_bound_ms": bytes_ms,
             "fused_rk4_ops_bound_ms": ops_ms,
         }
         if batch == ENSEMBLE:  # 4 and 8 warps per block (rk4_launch takes 8)
             row["unforced_rk4_plain_ms"] = time_ms(
-                lambda: fk.fused_learned_rk4_plain(ks_u, pack, ks_dt, STEPS), samples=LONG_SAMPLES)
+                lambda: fk.fused_learned_rk4_plain(ks_u, pack, ks_dt, STEPS), samples=1)
             default = fk.RK4_MAX_WARPS
             for warps in (4, 8):
                 fk.RK4_MAX_WARPS = warps
@@ -2942,6 +3205,9 @@ def main() -> int:
             fk.RK4_MAX_WARPS = default
         new_times[batch] = row
         log(f"    B={batch}: " + json.dumps(row))
+    # fused_rk4 beyond the classic scheme and the nx=128 grid: in registers
+    # with the taps at run time, on 16 points a lane, and in shared memory
+    domain_times = baseline_domain_times(gen, device)
     # the floor that binds fused_rk4 at small batch: 4 x STEPS dependent
     # stages. One trajectory alone (one warp on the card) shows the latency of
     # one stage with nothing to hide it.
@@ -2969,6 +3235,9 @@ def main() -> int:
             f"traj-steps/s); warm-up {1e3 * again['warmup_s']:.1f} ms")
         ens[key + "_warm_ms"] = 1e3 * again["elapsed_s"]
     log(f"    baseline leg: {1e3 * base_elapsed:.1f} ms")
+
+    # ---- 11. fused_learned_rk4 at 128 filters -----------------------------------
+    wide = wide_phase(card, ks_dt)
 
     # ---- 12. training --------------------------------------------------------
     training = training_phase(card, launch_floor_ms)
@@ -3095,11 +3364,14 @@ def main() -> int:
             "source": "pde_superresolution_torch/csrc/fused_learned_rk4.cu",
             "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:390",
             "launches": (launches["fused_learned_rk4"] + unforced_ensemble_launches
+                         + wide["ensemble_launches"]
                          + parallel["ks_mesh_launches"] + parallel["trained_served_launches"]
                          + tools["launches"]["fused_learned_rk4"]
                          + sum(zoo_launches("fused_learned_rk4").values())),
             "launches_by_path": {"ks8 integrate_fused B=256": launches["fused_learned_rk4"],
                                  "ks8 ensemble --fused true": unforced_ensemble_launches,
+                                 f"ks8 shapes at {WIDE_FILTERS} filters, ensemble --fused auto":
+                                     wide["ensemble_launches"],
                                  "ks8 fused_rk4_fn(mesh=) B=10240": parallel["ks_mesh_launches"],
                                  "run_training --data_parallel 1 checkpoint, run_ensemble "
                                  "--data_parallel 1": parallel["trained_served_launches"],
@@ -3122,6 +3394,9 @@ def main() -> int:
                                       "fused_learned_rk4_plain_ms"],
                                   ENSEMBLE: full["unforced_rk4_plain_ms"]},
             "bench_fused_b256_steps_per_s": tools["bench"]["detail"]["fused"]["median"],
+            f"{WIDE_FILTERS}_filters": {k: v for k, v in wide.items()
+                                        if k not in ("ensemble_launches", "err")},
+            f"{WIDE_FILTERS}_filters_max_abs_err": wide["err"],
             "zoo": zoo_shapes(zoo["learned"]),
             "zoo_ensembles": {name: {k: v for k, v in row.items() if k != "launches"}
                               for name, row in zoo["ensembles"].items()},
@@ -3168,6 +3443,7 @@ def main() -> int:
             "dependent_stage_chain_ms": chain_ms,
             "library_ms": None,
             "ms_by_batch": {b: row["fused_rk4_ms"] for b, row in new_times.items()},
+            "domain": domain_times,
         },
     ]
     if any(k["launches"] == 0 or 0 in k["launches_by_path"].values() for k in kernels):

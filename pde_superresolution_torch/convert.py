@@ -66,6 +66,30 @@ def npz_arrays_from_params(params: Mapping[str, torch.Tensor]) -> dict[str, np.n
     return arrays
 
 
+def widen_params(params: Mapping[str, torch.Tensor], filters: int, seed: int,
+                 noise: float) -> dict[str, torch.Tensor]:
+    """A tower model's state dict at ``filters`` channels: its own values in
+    the leading corner of each tensor, every new entry (new channels, and
+    every weight from or to them) drawn from N(0, noise^2) with a
+    ``torch.Generator`` seeded ``seed``. A trained model so widened stays
+    about as stable as it was while every channel carries signal, which a
+    tower seeded from scratch at that width does not promise."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for key, value in params.items():
+        shape = list(value.shape)
+        if key.startswith("tower."):
+            shape[0] = filters
+            if value.dim() == 3 and not key.startswith("tower.0."):
+                shape[1] = filters
+        elif key.endswith(".weight"):  # heads [F_d, C, 1]
+            shape[1] = filters
+        wide = (noise * torch.randn(shape, generator=gen)).to(value.device, value.dtype)
+        wide[tuple(slice(n) for n in value.shape)] = value
+        out[key] = wide
+    return out
+
+
 def jax_tree_from_npz(path) -> dict:
     """Read an asset ``.npz`` back into the JAX params tree layout."""
     with np.load(path) as data:

@@ -48,7 +48,7 @@
 //    rows at both ends of every plane, written with the rows they copy.
 //    Weights are laid out by fused_kernels.pack_learned_rk4 as wgmma reads
 //    them ([depth step][half][channel][8 values]), channels zero-padded to
-//    16, 32 or 64. Accumulators start from the bias.
+//    16, 32, 64 or 128. Accumulators start from the bias.
 //  * Layer 0 (one input channel) pads its K taps to one depth-16 step of
 //    mma.sync.m16n8k16 and builds its A fragments from u. The heads are
 //    mma.sync too: the last layer's accumulators, after ReLU and the bf16
@@ -77,6 +77,17 @@
 //  * Weights and the forcing pack are loaded once per launch with plain
 //    16-byte and 4-byte loads. TMA and cp.async buy nothing here: a launch
 //    reads about 1 KB per trajectory and runs for milliseconds.
+//  * Towers of 65 to 128 filters (padded to 128, the "wide" form, NT = 16):
+//    one layer's weights alone are 160 KB at kernel 5, so they do not stay in
+//    shared memory. A block holds one team, and layer >= 1's weights pass
+//    through a window of one conv tap's 128 x 128 slice (32 KB): per 64-point
+//    tile and tap the team copies the slice from global memory (L2-resident:
+//    330 KB for the whole tower), waits at its barrier and runs the tap's
+//    eight wgmma.m64n128k16 from it. One tile at a time (64 accumulators a
+//    thread), so lanes 16-31 idle through the projection and stencil. Layer
+//    0's and the heads' fragments, the biases and the projection are read
+//    from global memory where they lie. A simple form: the copies do not
+//    overlap the products and each tile reads the slices again.
 //  * -DPDE_MAX_TEAMS=n and -DPDE_PROFILE serve
 //    scripts/probe_learned_rk4.py: other team counts, and cycles by phase.
 
@@ -101,6 +112,7 @@ constexpr int kHalo = 8;  // fused_kernels.U_HALO: periodic copies at both ends 
 // A forced trajectory holds 20 KB of phase state: no more than 4 fit a block
 // at the flagship, and their kernel keeps the registers of a 512-thread block.
 constexpr int kMaxTeamsForced = kMaxTeams < 4 ? kMaxTeams : 4;  // MAX_TEAMS_FORCED
+constexpr int kWideNT = 16;  // 128 channels: the wide form (fused_kernels.WIDE_CHANNELS)
 
 // Forcing of a launch (device pointers): amp, rot_c, rot_s [batch][terms];
 // sin0, cos0 [batch][terms][nx].
@@ -194,7 +206,7 @@ __device__ __forceinline__ void fence_acc(float (&d)[NT][4]) {
 // D[16 w + g + 8 (i / 2)][8 nt + 2 q + i % 2], the layout of mma.m16n8.
 template <int NT>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[NT][4], uint64_t a, uint64_t b) {
-  static_assert(NT == 2 || NT == 4 || NT == 8, "channels 16, 32 or 64");
+  static_assert(NT == 2 || NT == 4 || NT == 8 || NT == 16, "channels 16, 32, 64 or 128");
   const int accumulate = 1;  // scale-d: d = a b + d
   if constexpr (NT == 2) {
     asm volatile(
@@ -215,7 +227,7 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[NT][4], uint64_t a, uint64
           "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
           "+f"(d[3][3])
         : "l"(a), "l"(b), "r"(accumulate));
-  } else {
+  } else if constexpr (NT == 8) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -229,6 +241,32 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[NT][4], uint64_t a, uint64
           "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
           "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
           "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
         : "l"(a), "l"(b), "r"(accumulate));
   }
 }
@@ -270,12 +308,16 @@ __device__ __forceinline__ float motion_of(int eq, float u, const float* v, floa
 // [channels]; the heads' mma.sync B fragments of hw [channels][F padded to
 // 8], hb [F padded]; c0 [S]; pn [S][F], all float32.
 template <int NT, bool FORCED>
-__global__ void __launch_bounds__(kTeamThreads * (FORCED ? kMaxTeamsForced : kMaxTeams))
+__global__ void __launch_bounds__(kTeamThreads *
+                                  (NT == kWideNT ? 1 : (FORCED ? kMaxTeamsForced : kMaxTeams)))
     fused_learned_rk4_kernel(const float* __restrict__ u_in,
                              const unsigned char* __restrict__ weights,
                              float* __restrict__ u_out, Config cfg, Forcing fp) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int CS = NT / 2;  // depth-16 steps across the channels
+  constexpr bool WIDE = NT == kWideNT;  // one team a block, layer >= 1's weights streamed
+  constexpr int MT = WIDE ? 1 : 2;      // 64-point tiles per pass
+  constexpr int SLICE = 128 * NT * NT;  // bytes of one conv tap's weights of a layer >= 1
   const int nx = cfg.nx, K = cfg.ksize, kh = (K - 1) / 2, F = cfg.n_free, L = cfg.layers;
   const int FT = (F + 7) / 8, z_stride = F | 1;  // odd: lanes on distinct banks
   const int tiles = (nx + 63) / 64, rows = 64 * tiles;
@@ -286,16 +328,21 @@ __global__ void __launch_bounds__(kTeamThreads * (FORCED ? kMaxTeamsForced : kMa
   const int team = tid / kTeamThreads;  // a warp group
   const int tt = tid - team * kTeamThreads, wt = tt >> 5;
 
-  for (int i = tid; i < cfg.weight_bytes / 16; i += blockDim.x) {
-    reinterpret_cast<uint4*>(smem)[i] = reinterpret_cast<const uint4*>(weights)[i];
+  if constexpr (!WIDE) {
+    for (int i = tid; i < cfg.weight_bytes / 16; i += blockDim.x) {
+      reinterpret_cast<uint4*>(smem)[i] = reinterpret_cast<const uint4*>(weights)[i];
+    }
   }
   fence_proxy_async();  // wgmma reads the weights
   __syncthreads();      // the only block-wide barrier
   const long long traj = (long long)blockIdx.x * (blockDim.x / kTeamThreads) + team;
   if (traj >= cfg.batch) return;  // a ragged last block: whole teams leave
 
-  const float* s_hb = reinterpret_cast<const float*>(smem + cfg.hb_off);
-  const float* s_proj = reinterpret_cast<const float*>(smem + cfg.proj_off);
+  // the weights read where they lie: shared memory, or global memory in the
+  // wide form (whose shared weights are the window of layer >= 1's slices)
+  const unsigned char* wts = WIDE ? weights : smem;
+  const float* s_hb = reinterpret_cast<const float*>(wts + cfg.hb_off);
+  const float* s_proj = reinterpret_cast<const float*>(wts + cfg.proj_off);
 
   unsigned char* base = smem + cfg.weight_bytes + team * cfg.team_bytes;
   unsigned char* act[2] = {base, base + NT * plane_bytes};  // bf16 [NT planes]
@@ -363,19 +410,19 @@ __global__ void __launch_bounds__(kTeamThreads * (FORCED ? kMaxTeamsForced : kMa
         const bool last = l == L - 1;
         unsigned char* out = act[l & 1];
         const unsigned char* in = act[(l & 1) ^ 1];
-        const float* bias = reinterpret_cast<const float*>(smem + cfg.b_off[l]);
+        const float* bias = reinterpret_cast<const float*>(wts + cfg.b_off[l]);
 
-        // Two 64-point tiles at a time; in each, warp wt holds rows 16 wt ..
+        // MT 64-point tiles at a time; in each, warp wt holds rows 16 wt ..
         // 16 wt + 15: acc[tile][channel tile][fragment].
-        for (int tp = 0; tp < tiles; tp += 2) {
-          const bool two = tp + 1 < tiles;
+        for (int tp = 0; tp < tiles; tp += MT) {
+          const bool two = MT == 2 && tp + 1 < tiles;
           const int row0 = 64 * tp + 16 * wt;  // this warp's first row of tile tp
-          float acc[2][NT][4];  // start from the bias of channels 8 nt + 2 q, + 1
+          float acc[MT][NT][4];  // start from the bias of channels 8 nt + 2 q, + 1
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
             const float2 b = *reinterpret_cast<const float2*>(bias + 8 * nt + 2 * q);
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
+            for (int mt = 0; mt < MT; ++mt) {
               acc[mt][nt][0] = acc[mt][nt][2] = b.x;
               acc[mt][nt][1] = acc[mt][nt][3] = b.y;
             }
@@ -383,15 +430,15 @@ __global__ void __launch_bounds__(kTeamThreads * (FORCED ? kMaxTeamsForced : kMa
 
           if (l == 0) {
             // mma.sync; A[point][tap] = bf16(u[point + tap - kh]), taps padded to 16
-            const uint2* w = reinterpret_cast<const uint2*>(smem + cfg.w_off[0]) + lane;
+            const uint2* w = reinterpret_cast<const uint2*>(wts + cfg.w_off[0]) + lane;
             auto tap = [&](int row, int col) -> float {  // no branch: load, then select
               const float v = s_u[col < K ? row + col - kh : 0];
               return col < K ? v : 0.f;
             };
             for (int ks = 0; ks * 16 < K; ++ks) {
-              uint32_t a[2][4];
+              uint32_t a[MT][4];
 #pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
+              for (int mt = 0; mt < MT; ++mt) {
                 const int r = row0 + 64 * mt + g;
                 const int r0 = r < nx ? r : 0, r1 = r + 8 < nx ? r + 8 : 0;
                 const int c = 16 * ks + 2 * q;
@@ -403,10 +450,37 @@ __global__ void __launch_bounds__(kTeamThreads * (FORCED ? kMaxTeamsForced : kMa
 #pragma unroll
               for (int nt = 0; nt < NT; ++nt) {
                 const uint2 b = w[(ks * NT + nt) * 32];
-                mma_bf16(acc[0][nt], a[0], b);
-                mma_bf16(acc[1][nt], a[1], b);
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b);
               }
             }
+          } else if constexpr (WIDE) {
+            // As below, one conv tap's slice of the weights at a time through
+            // the window at the start of shared memory (the team is the block).
+            const uint64_t a = smem_desc(
+                (uint32_t)__cvta_generic_to_shared(in) + 64 * tp * 16, plane_bytes, 128);
+            const uint64_t b0 =
+                smem_desc((uint32_t)__cvta_generic_to_shared(smem), 128 * NT, 128);
+            const uint4* slice = reinterpret_cast<const uint4*>(weights + cfg.w_off[l]);
+            for (int k = 0; k < K; ++k, slice += SLICE / 16) {
+              team_sync();  // every warp's products of the last slice are done
+              for (int i = tt; i < SLICE / 16; i += kTeamThreads) {
+                reinterpret_cast<uint4*>(smem)[i] = slice[i];
+              }
+              fence_proxy_async();  // wgmma reads the window
+              team_sync();
+              fence_acc(acc[0]);
+              wgmma_fence();
+              uint64_t b = b0;
+#pragma unroll
+              for (int cs = 0; cs < CS; ++cs, b += 16 * NT) {
+                wgmma_bf16<NT>(acc[0], a + (cs * (plane_bytes / 8) + k), b);
+              }
+              wgmma_commit();
+              wgmma_wait();
+              fence_acc(acc[0]);
+            }
+            PROF(2);
           } else {
             // wgmma, both operands from shared memory. Tap k reads the input
             // planes shifted by k - kh rows: the descriptor starts 16 bytes
@@ -437,11 +511,11 @@ __global__ void __launch_bounds__(kTeamThreads * (FORCED ? kMaxTeamsForced : kMa
 
           // ---- ReLU, bf16: lo = row g, hi = row g + 8 of the warp's 16
           // rows, channels 8 nt + 2 q and + 1 ----
-          uint32_t lo[2][NT], hi[2][NT];
+          uint32_t lo[MT][NT], hi[MT][NT];
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
+            for (int mt = 0; mt < MT; ++mt) {
               lo[mt][nt] = relu_bf16(acc[mt][nt][0], acc[mt][nt][1]);
               hi[mt][nt] = relu_bf16(acc[mt][nt][2], acc[mt][nt][3]);
             }
@@ -453,7 +527,7 @@ __global__ void __launch_bounds__(kTeamThreads * (FORCED ? kMaxTeamsForced : kMa
             // also fill the halo at the other end (the periodic wrap).
             const uint32_t out_addr = (uint32_t)__cvta_generic_to_shared(out);
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
+            for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
               for (int half = 0; half < 2; ++half) {
                 const int first = row0 + 64 * mt + 8 * half;  // of these 8 rows
@@ -495,14 +569,16 @@ __global__ void __launch_bounds__(kTeamThreads * (FORCED ? kMaxTeamsForced : kMa
           // ---- heads (mma.sync): the last layer's output is already the A
           // fragments (channel tiles 2 cs and 2 cs + 1 make depth step cs) ----
           __syncwarp();  // the previous tile pair's readers of s_z are done
-          const uint2* hw = reinterpret_cast<const uint2*>(smem + cfg.hw_off) + lane;
+          const uint2* hw = reinterpret_cast<const uint2*>(wts + cfg.hw_off) + lane;
           for (int ft = 0; ft < FT; ++ft) {
-            float z[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+            float z[MT][4];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) z[mt][0] = z[mt][1] = z[mt][2] = z[mt][3] = 0.f;
 #pragma unroll
             for (int cs = 0; cs < CS; ++cs) {
               const uint2 b = hw[(cs * FT + ft) * 32];
 #pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
+              for (int mt = 0; mt < MT; ++mt) {
                 const uint32_t a[4] = {lo[mt][2 * cs], hi[mt][2 * cs], lo[mt][2 * cs + 1],
                                        hi[mt][2 * cs + 1]};
                 mma_bf16(z[mt], a, b);
@@ -511,7 +587,7 @@ __global__ void __launch_bounds__(kTeamThreads * (FORCED ? kMaxTeamsForced : kMa
             const int f = 8 * ft + 2 * q;
             const float hb0 = s_hb[f], hb1 = s_hb[f + 1];
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
+            for (int mt = 0; mt < MT; ++mt) {
               float* dst = s_z + (16 * mt + g) * z_stride + f;
               if (f < F) {
                 dst[0] = __fadd_rn(z[mt][0], hb0);
@@ -527,8 +603,9 @@ __global__ void __launch_bounds__(kTeamThreads * (FORCED ? kMaxTeamsForced : kMa
           PROF(4);
 
           // ---- projection, stencil, flux: one grid point per lane (lanes
-          // 0-15 the warp's rows of tile tp, lanes 16-31 of tile tp + 1) ----
-          const int p = row0 + 64 * (lane >> 4) + (lane & 15);
+          // 0-15 the warp's rows of tile tp, lanes 16-31 of tile tp + 1; in
+          // the wide form lanes 16-31 have no row) ----
+          const int p = MT == 2 || lane < 16 ? row0 + 64 * (lane >> 4) + (lane & 15) : nx;
           const int pe = p < nx ? p : 0;  // padding lanes compute a value nobody reads
           const float* zp = s_z + lane * z_stride;
           float v[kMaxOrders];
@@ -669,12 +746,13 @@ int dispatch(bool forced, const float* u, const unsigned char* weights, float* o
 
 }  // namespace
 
-// meta: equation code, conservative, nx, channels (padded: 16, 32 or 64),
+// meta: equation code, conservative, nx, channels (padded: 16, 32, 64 or 128),
 //       ksize, layers, n_free, n_orders, size[3], tap0[3], free0[3],
 //       free_n[3], proj0[3], forcing terms (0 if unforced), teams per block,
 //       shared-memory bytes per team.
-// offsets: bytes in the weight buffer, then the blocks' byte offsets in
-//          buffer order: w[0], b[0], ..., w[layers-1], b[layers-1], hw, hb,
+// offsets: the weights' bytes in shared memory (the whole buffer, or at 128
+//          channels the window of one tap's slice, 32768), then the blocks'
+//          byte offsets in buffer order: w[0], b[0], ..., w[layers-1], b[layers-1], hw, hb,
 //          projection.
 // scalars: dx, eta, dt/2, dt, dt/6.
 // forcing: five device pointers amp, rot_c, rot_s [batch][terms], sin0, cos0
@@ -717,6 +795,7 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
   if (teams < 1 || teams > (fp.terms > 0 ? kMaxTeamsForced : kMaxTeams)) {
     return (int)cudaErrorInvalidValue;
   }
+  const bool wide = channels == 8 * kWideNT;
   cfg.weight_bytes = offsets[0];
   const int* block = offsets + 1;
   for (int l = 0; l < cfg.layers; ++l) {
@@ -733,6 +812,9 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
     fp.sin0 = forcing[3];
     fp.cos0 = forcing[4];
   }
+  if (wide && (teams != 1 || cfg.weight_bytes != 128 * kWideNT * kWideNT)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (cfg.weight_bytes % 16 || cfg.team_bytes % 16 ||
       cfg.team_bytes < team_bytes_needed(cfg.nx, channels, cfg.ksize, cfg.n_free, fp.terms) ||
       smem_bytes < cfg.weight_bytes + teams * cfg.team_bytes) {
@@ -748,6 +830,8 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
       return dispatch<4>(forced, u, weights, out, cfg, fp, teams, smem_bytes, s);
     case 64:
       return dispatch<8>(forced, u, weights, out, cfg, fp, teams, smem_bytes, s);
+    case 8 * kWideNT:
+      return dispatch<kWideNT>(forced, u, weights, out, cfg, fp, teams, smem_bytes, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

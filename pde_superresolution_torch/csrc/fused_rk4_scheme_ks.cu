@@ -1,0 +1,12 @@
+// fused_rk4's run-time-tap register form for KS (see fused_rk4_scheme.cuh).
+
+#include "fused_rk4_scheme.cuh"
+
+namespace pde_rk4 {
+
+int launch_scheme_ks(bool cons, int points_per_lane, const Scalars& sc, const Launch& l) {
+  return cons ? dispatch_points<Scheme, 2, true, kSchemeMaxPoints>(points_per_lane, sc, l)
+              : dispatch_points<Scheme, 2, false, kSchemeMaxPoints>(points_per_lane, sc, l);
+}
+
+}  // namespace pde_rk4

@@ -33,6 +33,7 @@ class Build:
     library: Path
     seconds: float  # wall time of this process's compile + link (0 if reused)
     logs: dict  # source name -> nvcc output (ptxas registers, smem, spills)
+    source_seconds: dict = dataclasses.field(default_factory=dict)  # name -> its nvcc's wall time
 
 
 def find_nvcc() -> str:
@@ -69,14 +70,23 @@ def build() -> Build:
     # object files of this process alone: ranks that start together (torchrun)
     # each build, and the last atomic rename below wins
     objects = {src: out_dir / f"{src.stem}.{os.getpid()}.o" for src in sources}
-    procs = {
-        src: subprocess.Popen(
-            [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src), "-o", str(objects[src])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        for src in sources
-    }
-    logs = {src.name: proc.communicate()[0] for src, proc in procs.items()}
+    outputs = {src: out_dir / f"{src.stem}.{os.getpid()}.log" for src in sources}
+    procs = {}
+    for src in sources:
+        with open(outputs[src], "w") as log:
+            procs[src] = subprocess.Popen(
+                [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src), "-o", str(objects[src])],
+                stdout=log, stderr=subprocess.STDOUT, text=True,
+            )
+    source_seconds = {}
+    while len(source_seconds) < len(procs):  # each source's own time: the slowest bounds the build
+        for src, proc in procs.items():
+            if src.name not in source_seconds and proc.poll() is not None:
+                source_seconds[src.name] = time.perf_counter() - start
+        time.sleep(0.05)
+    logs = {src.name: outputs[src].read_text() for src in sources}
+    for path in outputs.values():
+        path.unlink()
     failed = [src.name for src, proc in procs.items() if proc.returncode != 0]
     if failed:
         raise RuntimeError(
@@ -92,7 +102,7 @@ def build() -> Build:
     for obj in objects.values():
         obj.unlink()
     os.replace(tmp, library)  # atomic: a concurrent loader sees all or nothing
-    return Build(library, time.perf_counter() - start, logs)
+    return Build(library, time.perf_counter() - start, logs, source_seconds)
 
 
 @functools.cache
@@ -123,7 +133,7 @@ def load_library() -> ctypes.CDLL:
         ptr, ptr,  # u, out
         i32, i32,  # batch, num_steps
         ctypes.POINTER(i32),  # meta: see fused_rk4.cu
-        ctypes.POINTER(f32),  # coefficients [3][16]
+        ctypes.POINTER(f32),  # coefficients [3][33], by tap
         ctypes.POINTER(f32),  # dx, eta, dt/2, dt, dt/6
         ptr,  # stream
     ]

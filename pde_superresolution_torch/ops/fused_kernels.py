@@ -15,11 +15,13 @@ The counterpart of ``pde_superresolution_tpu/ops/pallas_kernels.py``:
     (Burgers) the sum-of-sinusoids forcing is evaluated in the kernel from a
     ``ForcingPack``: per-term (sin, cos) phase state advanced by a planar
     rotation per half step.
-  * ``fused_rk4`` (``csrc/fused_rk4.cu``, built by ``make_fused_rk4``,
+  * ``fused_rk4`` (``csrc/fused_rk4*.cu``, built by ``make_fused_rk4``,
     replaces ``make_fused_rk4``): ``num_steps`` RK4 steps of the fixed
-    classic-stencil baseline scheme, unforced equations only; a warp owns a
-    trajectory and holds it in registers; the tap loops are unrolled, each
-    coefficient a kernel parameter read by its multiply.
+    classic-stencil baseline scheme of any accuracy order or stencil size,
+    unforced equations only; up to 1024 points a warp owns a trajectory and
+    holds it in registers (the default schemes' tap loops unrolled, each
+    coefficient a kernel parameter read by its multiply; any other scheme's
+    taps taken at run time), above that a block holds it in shared memory.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else. It takes its plain PyTorch version (``*_plain``, in this
@@ -55,13 +57,16 @@ from pde_superresolution_torch.utils import debugging
 EQUATION_CODES = {"burgers": 0, "kdv": 1, "ks": 2}
 MAX_ORDERS = 3
 # fused_learned_rk4.cu's compile-time limits (kMaxLayers, kMaxTeams,
-# kMaxTeamWarps) and the tower widths it is instantiated for
+# kMaxTeamWarps) and the tower widths it is instantiated for; at
+# WIDE_CHANNELS a block holds one trajectory and streams layer >= 1's weights
+# through a window of one conv tap's slice (kWideNT)
 MAX_LAYERS = 16
 MAX_TEAMS = 4  # trajectories per block
 MAX_TEAMS_FORCED = 4  # the same for a forced equation (kMaxTeamsForced)
 TEAM_THREADS = 128  # one warp group owns a trajectory (kTeamThreads)
 U_HALO = 8  # periodic copies at both ends of the state in shared memory (kHalo)
-PADDED_CHANNELS = (16, 32, 64)
+PADDED_CHANNELS = (16, 32, 64, 128)
+WIDE_CHANNELS = 128
 MAX_SHARED_BYTES = 232448  # opt-in shared memory per block on sm_90
 NUM_SMS = 132  # H100: a launch should have at least this many blocks
 # fused_rhs.cu's block: one thread per point, at most RHS_BLOCK_POINTS of
@@ -72,12 +77,20 @@ NUM_SMS = 132  # H100: a launch should have at least this many blocks
 RHS_SHARED_BYTES = 49152
 RHS_BLOCK_POINTS = 128
 MAX_THREADS = 1024
-# fused_rk4.cu's compile-time limits (kMaxTaps, kMaxWarps), the points per
-# lane it is built for (nx = 32 P) and the classic schemes it is built for:
-# (equation, conservative) -> {order: (first tap, number of taps)}
-MAX_TAPS = 16
+# fused_rk4.cu's compile-time limits (kMaxTaps, kReach, kMaxWarps,
+# kBlockThreads), the points per lane its register forms are built for (nx =
+# lanes x P, 17 to 32 lanes) and the classic schemes compiled into one of
+# them: (equation, conservative) -> {order: (first tap, number of taps)}.
+# Any other scheme takes its taps at run time, in registers up to
+# RK4_SCHEME_MAX_POINTS a lane (at 32 its six register rows spill); longer
+# grids take the block form.
+MAX_TAPS = 32
+RK4_REACH = 16  # every tap lies in [-RK4_REACH, RK4_REACH]
 RK4_MAX_WARPS = 8
-RK4_POINTS_PER_LANE = (2, 3, 4, 5, 8, 32)
+RK4_BLOCK_THREADS = 256
+RK4_POINTS_PER_LANE = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32)
+RK4_REGISTER_MAX_NX = 32 * RK4_POINTS_PER_LANE[-1]
+RK4_SCHEME_MAX_POINTS = 24  # fused_rk4.cuh's kSchemeMaxPoints
 RK4_LAYOUTS = {
     ("kdv", True): {0: (0, 2), 2: (-1, 4)},
     ("kdv", False): {1: (-1, 3), 3: (-2, 5)},
@@ -373,13 +386,15 @@ class LearnedRK4Pack:
 
     ``blob`` is the kernel's buffer (bytes; ``blob_offsets`` the byte offset
     of each block, a multiple of 128, in the same order). The channels are
-    zero-padded to ``padded_channels`` (16, 32 or 64) and the free dims to a
+    zero-padded to ``padded_channels`` (16, 32, 64 or 128) and the free dims to a
     multiple of 8: zero weights and biases add exact zeros. Per layer the
     weights ``w [depth, padded_channels]`` are bf16: layer 0 (depth = the K
     taps padded to 16) in the order of ``mma.m16n8k16``'s B fragments
     (``_fragment_order``), every later layer (depth index ``k *
     padded_channels + ci``) as ``wgmma`` reads it from shared memory
-    (``_wgmma_order``); then the float32 bias ``[padded_channels]``. The
+    (``_wgmma_order``), so that one conv tap's ``[padded_channels]^2`` slice
+    is contiguous (the 128-channel form streams it); then the float32 bias
+    ``[padded_channels]``. The
     heads are the fragments of ``head_w [padded_channels, padded F]`` and the
     float32 ``head_b [padded F]``. The last block is the projection,
     float32: per order and per block of 8 stencil rows, ``c0 [8]`` then the
@@ -733,6 +748,13 @@ def _team_bytes(pack: LearnedRK4Pack, nx: int, terms: int) -> int:
     return -(-n // 128) * 128
 
 
+def _shared_weight_bytes(pack: LearnedRK4Pack) -> int:
+    """The weights a block keeps in shared memory: the whole buffer, or at
+    ``WIDE_CHANNELS`` the window of one conv tap's slice of a layer."""
+    cp = pack.padded_channels
+    return 2 * cp * cp if cp == WIDE_CHANNELS else pack.blob.numel()
+
+
 def learned_rk4_launch(
     pack: LearnedRK4Pack, nx: int, terms: int = 0, batch: int = NUM_SMS * MAX_TEAMS,
     shared_limit: int = MAX_SHARED_BYTES,
@@ -742,12 +764,15 @@ def learned_rk4_launch(
     trajectory. A block holds one copy of the weights and as many
     trajectories as fit the shared-memory limit, at most 4, but no more than
     leave the launch ``NUM_SMS`` blocks: a small batch spreads over the
-    card, a large one shares the weights. ``teams`` is 0 when not even one
-    fits (``learned_rk4_refusal`` says so)."""
+    card, a large one shares the weights. At ``WIDE_CHANNELS`` a block
+    holds one trajectory beside the window of streamed weights. ``teams`` is
+    0 when not even one fits (``learned_rk4_refusal`` says so)."""
     team_bytes = _team_bytes(pack, nx, terms)
-    weights = pack.blob.numel()
+    weights = _shared_weight_bytes(pack)
     fit = max(0, shared_limit - weights) // team_bytes
-    teams = min(MAX_TEAMS_FORCED if terms else MAX_TEAMS, fit, max(1, batch // NUM_SMS))
+    most = 1 if pack.padded_channels == WIDE_CHANNELS else (
+        MAX_TEAMS_FORCED if terms else MAX_TEAMS)
+    teams = min(most, fit, max(1, batch // NUM_SMS))
     return LearnedRK4Launch(
         teams=teams, threads=TEAM_THREADS * teams, team_bytes=team_bytes,
         shared_bytes=weights + max(1, teams) * team_bytes,
@@ -849,7 +874,7 @@ def fused_learned_rk4(
         terms, launch.teams, launch.team_bytes,
     )
     offsets = (ctypes.c_int * (1 + len(pack.blob_offsets)))(
-        pack.blob.numel(), *pack.blob_offsets)
+        _shared_weight_bytes(pack), *pack.blob_offsets)
     scalars = (ctypes.c_float * 5)(
         pack.grid.dx, float(getattr(pack.equation, "eta", 0.0)),
         0.5 * dt, dt, dt / 6.0,
@@ -917,44 +942,85 @@ def fused_rk4_plain(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
 class RK4Launch(NamedTuple):
     """Geometry of one ``fused_rk4`` launch."""
 
-    warps: int  # trajectories per block, one warp each
+    form: str  # "registers" (a warp per trajectory) or "block" (a block per trajectory)
+    warps: int  # per block: trajectories (registers) or the block's warps (block)
     threads: int  # per block
     blocks: int
+    points: int  # register form: points per lane P (0 for the block form)
+    lanes: int  # register form: lanes of the ring, nx = lanes x points
+    shared_bytes: int  # block form: the rows in shared memory
 
 
-def rk4_launch(batch: int) -> RK4Launch:
-    """The launch of ``fused_rk4`` for ``batch`` trajectories. A warp owns a
-    trajectory and warps never wait for each other, so a block is only a
-    package of warps: as many as leave the launch ``NUM_SMS`` blocks, at most
-    ``RK4_MAX_WARPS`` (8 timed 1-2% faster than 4 at B=10240 on an H100)."""
+def rk4_points(nx: int) -> tuple:
+    """(points per lane P, lanes L) of the register form for ``nx = 32 P'``:
+    the smallest P in ``RK4_POINTS_PER_LANE`` that is at least P' and divides
+    nx, on ``L = nx / P`` lanes (the rest of the warp stores nothing)."""
+    return next((p, nx // p) for p in RK4_POINTS_PER_LANE if 32 * p >= nx and nx % p == 0)
+
+
+def rk4_shared_bytes(nx: int) -> int:
+    """The block form's shared memory: the stage input with ``RK4_REACH``
+    periodic points at both ends, the fluxes, the step's start value and the
+    k sum, float32."""
+    return 4 * (4 * nx + 2 * RK4_REACH)
+
+
+def rk4_launch(batch: int, nx: int = 128, classic: bool = True) -> RK4Launch:
+    """The launch of ``fused_rk4`` for ``batch`` trajectories of ``nx``
+    points, for a classic scheme (taps compiled in) or not. Up to
+    ``RK4_REGISTER_MAX_NX`` (``32 RK4_SCHEME_MAX_POINTS`` for taps taken at
+    run time) a warp owns a trajectory and warps never wait for each other,
+    so a block is only a package of warps: as many as leave the launch
+    ``NUM_SMS`` blocks, at most ``RK4_MAX_WARPS`` (8 timed 1-2% faster than
+    4 at B=10240 on an H100). Longer grids: a block of
+    ``RK4_BLOCK_THREADS`` threads per trajectory."""
+    if nx > (RK4_REGISTER_MAX_NX if classic else 32 * RK4_SCHEME_MAX_POINTS):
+        return RK4Launch("block", RK4_BLOCK_THREADS // 32, RK4_BLOCK_THREADS, batch, 0, 0,
+                         rk4_shared_bytes(nx))
     warps = min(RK4_MAX_WARPS, max(1, batch // NUM_SMS))
-    return RK4Launch(warps=warps, threads=32 * warps, blocks=-(-batch // warps))
+    points, lanes = rk4_points(nx)
+    return RK4Launch("registers", warps, 32 * warps, -(-batch // warps), points, lanes, 0)
 
 
-def rk4_refusal(scheme: BaselineRK4, nx: int) -> Optional[str]:
-    """Why the kernel cannot run ``scheme`` on ``nx`` points, or None if it
-    can. Each of a warp's 32 lanes holds nx / 32 points in registers, and
-    the tap layout is compiled in: the classic schemes of ``make_fused_rk4``
-    (accuracy order 2) at the points per lane in ``RK4_POINTS_PER_LANE``."""
-    if nx % 32:
-        return f"nx={nx} is not a multiple of 32: each of a warp's 32 lanes holds nx/32 points"
-    if nx // 32 not in RK4_POINTS_PER_LANE:
-        return (f"nx={nx} ({nx // 32} points per lane) has no instantiation; the kernel "
-                f"is built for nx in {[32 * p for p in RK4_POINTS_PER_LANE]}")
+def rk4_is_classic(scheme: BaselineRK4) -> bool:
+    """Whether the register form runs ``scheme`` with its taps compiled in
+    (the classic accuracy-order-2 layouts of ``RK4_LAYOUTS``)."""
     eq = scheme.equation
     layout = {d: (t[0], len(t)) for d, t in scheme.taps.items()}
-    built = RK4_LAYOUTS.get((eq.name, eq.conservative))
-    if layout != built:
-        return (f"taps {layout} are not the classic scheme the kernel is built for "
-                f"({eq.name}, conservative={eq.conservative}: {built})")
+    return layout == RK4_LAYOUTS.get((eq.name, eq.conservative))
+
+
+def rk4_refusal(scheme: BaselineRK4, nx: int,
+                shared_limit: int = MAX_SHARED_BYTES) -> Optional[str]:
+    """Why the kernel cannot run ``scheme`` on ``nx`` points, or None if it
+    can. It runs the unforced equations at any nx that is a multiple of 32
+    (the JAX kernel: multiples of 128), in registers up to
+    ``RK4_REGISTER_MAX_NX`` (768 for taps at run time) and in a block's
+    shared memory above, with at
+    most ``MAX_TAPS`` contiguous taps an order within ``RK4_REACH`` points
+    of the point."""
+    eq = scheme.equation
+    if (eq.name, eq.conservative) not in RK4_LAYOUTS:
+        return f"{eq.name} is forced: the kernel takes the unforced equations (KdV, KS)"
+    if nx % 32:
+        return f"nx={nx} is not a multiple of 32 (the JAX kernel takes multiples of 128)"
+    for d, taps in scheme.taps.items():
+        if len(taps) > MAX_TAPS or not _contiguous_run(taps):
+            return f"taps of order {d} {list(taps)}: more than {MAX_TAPS} or not contiguous"
+        if min(taps) < -RK4_REACH or max(taps) > RK4_REACH:
+            return f"taps of order {d} reach beyond {RK4_REACH} points: {list(taps)}"
+    if rk4_launch(1, nx, rk4_is_classic(scheme)).form == "block" and (
+            rk4_shared_bytes(nx) > shared_limit):
+        return (f"nx={nx} needs {rk4_shared_bytes(nx)} bytes of shared memory per block > the "
+                f"limit of {shared_limit}")
     return None
 
 
 def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
     """``scheme.num_steps`` RK4 steps of the baseline scheme from ``u [B, nx]``
     in one launch of ``csrc/fused_rk4.cu`` (its plain version for a CPU
-    tensor). On the card a warp owns a trajectory; ``rk4_refusal`` says
-    which shapes and schemes it takes."""
+    tensor). On the card a warp owns a trajectory, a block above 1024
+    points; ``rk4_refusal`` says which shapes and schemes it takes."""
     if u.dim() != 2:
         raise ValueError(f"u must be [batch, nx], got shape {tuple(u.shape)}")
     batch, nx = u.shape
@@ -969,7 +1035,7 @@ def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
     refusal = rk4_refusal(scheme, nx)
     if refusal:
         raise ValueError(refusal)
-    launch = rk4_launch(batch)
+    launch = rk4_launch(batch, nx, rk4_is_classic(scheme))
 
     from pde_superresolution_torch.ops import _build
 
@@ -977,17 +1043,19 @@ def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
     out = torch.empty_like(u)
     orders = sorted(scheme.taps)
     pad = [0] * (MAX_ORDERS - len(orders))
-    meta = (ctypes.c_int * 11)(
+    meta = (ctypes.c_int * 15)(
         EQUATION_CODES[scheme.equation.name],
         int(scheme.equation.conservative),
         nx, launch.warps, len(orders),
         *[len(scheme.taps[d]) for d in orders], *pad,
         *[scheme.taps[d][0] for d in orders], *pad,
+        int(launch.form == "block"), launch.points, launch.lanes, launch.shared_bytes,
     )
-    coefs = (ctypes.c_float * (MAX_ORDERS * MAX_TAPS))()
+    slots = 2 * RK4_REACH + 1  # order i's coefficient of tap t at [i][t + RK4_REACH]
+    coefs = (ctypes.c_float * (MAX_ORDERS * slots))()
     for i, d in enumerate(orders):
-        for s, c in enumerate(scheme.coefficients[d]):
-            coefs[i * MAX_TAPS + s] = c
+        for t, c in zip(scheme.taps[d], scheme.coefficients[d]):
+            coefs[i * slots + t + RK4_REACH] = c
     dt = scheme.dt
     scalars = (ctypes.c_float * 5)(
         scheme.grid.dx, float(getattr(scheme.equation, "eta", 0.0)),
@@ -1017,8 +1085,10 @@ def make_fused_rk4(
     """Whole multi-step RK4 integration of the fixed-stencil baseline scheme
     in one kernel: the state stays on chip for all ``num_steps`` steps.
 
-    Unforced equations only (KdV, KS). The classic coefficients are
-    computed here in float64 and passed to the kernel by value. Returns
+    Unforced equations only (KdV, KS), any ``accuracy_order`` or
+    ``stencil_size`` up to ``MAX_TAPS`` taps an order. The classic
+    coefficients are computed here in float64 and passed to the kernel by
+    value. Returns
     ``advance(u [batch, nx]) -> u`` after ``num_steps`` steps; its
     ``scheme`` attribute is the ``BaselineRK4`` it runs.
     """

@@ -7,9 +7,12 @@ with ``-DPDE_MAX_TEAMS=<teams>`` (the block's thread bound, and so the
 registers a thread may use, follow from it), sets the wrapper's caps to
 match, checks 10 steps against the plain version and prints, per 100 RK4
 steps of the KS-8x (unforced) and Burgers-8x (forced, 20 terms) checkpoints,
-the kernel's time at several batches (CUDA events, median of 3) with the
-launch geometry and ptxas' registers and spills of the 32-channel
-instantiations. The first setting is run again at the end, so drift shows.
+and of both widened to ``fused_kernels.WIDE_CHANNELS`` filters
+(``convert.widen_params``: the 128-channel form, one trajectory a block,
+whatever the caps), the kernel's time at several batches (CUDA events,
+median of 3) with the launch geometry and ptxas' registers and spills of the
+32- and 128-channel instantiations. The first setting is run again at the
+end, so drift shows.
 The package's default is the first setting; nothing is kept from a run.
 
 ``--profile`` instead builds with ``-DPDE_PROFILE``: the kernel then counts
@@ -32,6 +35,7 @@ from pde_superresolution_torch.ops import fused_kernels as fk
 
 STEPS = 100
 FORCING_T0 = 3.7
+WIDE_NOISE = 0.02  # chip_smoke.WIDE_NOISE
 
 
 def time_ms(fn, samples: int = 3) -> float:
@@ -68,10 +72,11 @@ def rebuild(teams: int, profile: bool = False) -> list:
     report, keep = [], False
     for line in _build.build().logs.get("fused_learned_rk4.cu", "").splitlines():
         if "Compiling entry function" in line:
-            keep = "kernelILi4E" in line
+            keep = "kernelILi4E" in line or "kernelILi16E" in line
+            width = 128 if "kernelILi16E" in line else 32
             forced = "Lb1E" in line
         elif keep and ("registers" in line or "spill" in line):
-            report.append(f"{'forced' if forced else 'unforced'}: "
+            report.append(f"{width} channels, {'forced' if forced else 'unforced'}: "
                           + line.replace("ptxas info    : ", "").strip())
     return report
 
@@ -92,8 +97,14 @@ def main(argv=None) -> None:
 
     cases = {}
     gen = torch.Generator().manual_seed(0)
-    for name in ("ckpt_ks8", "ckpt_burgers8"):
-        model, params, _ = convert.load_asset(name, device=device)
+    for filters, name in [(f, n) for f in (0, fk.WIDE_CHANNELS)
+                          for n in ("ckpt_ks8", "ckpt_burgers8")]:
+        model, params, config = convert.load_asset(name, device=device)
+        if filters:
+            config = {**config, "model": {**config["model"], "filters": filters}}
+            model = convert.model_from_config(config, device=device)
+            params = convert.widen_params(params, filters, 11, WIDE_NOISE)
+            name = f"{name} at {filters} filters"
         eq, grid = model.equation, model.grid
         dt = model.stable_time_step(u_scale=3.0)
         pack = fk.pack_learned_rk4(params, eq, grid, model.config.kernel_size,

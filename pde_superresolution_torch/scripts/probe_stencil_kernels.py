@@ -19,7 +19,11 @@ device-side sleep while the host queues 100 calls (median of 5):
     and 10240, beside the operations bound (2 flops per tap, 12 per point
     and stage, at 67 TFLOP/s), and per stage for one trajectory alone;
     at each of ``--warps`` warps per block (when the package has
-    ``rk4_launch``).
+    ``rk4_launch``);
+  * ``fused_rk4`` beyond the classic scheme at nx=128 (KS at accuracy order
+    4, taps at run time; KdV on 512 points; KS on 2048, the block form) at
+    B=256, 4096 and 10240 (a tree whose kernel refuses a shape prints the
+    refusal).
 
 Each kernel is checked against its plain version at every timed shape
 before it is timed. The script uses only the wrappers' public calls, so it
@@ -81,9 +85,10 @@ def rk4_ops_bound_ms(scheme, batch: int) -> float:
 
 
 def ptxas_lines(build) -> list:
-    """ptxas' report per instantiation of the two kernels, one line each."""
+    """ptxas' report per instantiation of the two kernels (``fused_rk4``'s
+    sources ``fused_rk4*.cu``), one line each."""
     lines = []
-    for source in ("fused_rk4.cu", "fused_rhs.cu"):
+    for source in sorted(n for n in build.logs if n.startswith(("fused_rk4", "fused_rhs."))):
         name = None
         for line in build.logs.get(source, "").splitlines():
             found = re.search(r"Compiling entry function '(\S+)'", line)
@@ -95,7 +100,8 @@ def ptxas_lines(build) -> list:
 
 
 def sass_counts(library) -> dict:
-    """{kernel: {LDL, STL, BAR}} instruction counts of the two kernels."""
+    """{kernel: {LDL, STL, BAR}} instruction counts of the two kernels (all
+    three forms of ``fused_rk4``)."""
     tool = Path(_build.find_nvcc()).with_name("cuobjdump")
     if not tool.is_file():
         return {}
@@ -105,7 +111,7 @@ def sass_counts(library) -> dict:
     for line in out.stdout.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            name = name if ("fused_rk4_kernel" in name or "fused_rhs_kernel" in name) else None
+            name = name if ("fused_rk4_" in name or "fused_rhs_kernel" in name) else None
             if name:
                 counts[name] = {"LDL": 0, "STL": 0, "BAR": 0}
         elif name:
@@ -218,6 +224,30 @@ def main(argv=None) -> None:
     rk4["stage_us_one_trajectory"] = stage_us
     print(f"{tag} fused_rk4, one trajectory alone: {stage_us:.4f} us per stage")
     result["fused_rk4"] = rk4
+    domain = {}
+    for label, name, nx, scheme in (("ks accuracy order 4", "ks", 128, {"accuracy_order": 4}),
+                                    ("kdv nx 512", "kdv", 512, {}),
+                                    ("ks nx 2048", "ks", 2048, {})):
+        period = equations.from_name(name).period * nx / 128  # the same dx
+        e = equations.from_name(name, conservative=True, period=period)
+        g = type(grid)(nx, period)
+        advance = fk.make_fused_rk4(e, g, e.stable_time_step(g) / (4 if scheme else 1), STEPS,
+                                    **scheme)
+        for batch in (256, 4096, 10240):
+            u = 0.3 * e.initial_conditions(gen, g, (batch,), device)
+            try:
+                got = advance(u)
+            except ValueError as refusal:
+                print(f"{tag} fused_rk4 {label} B={batch}: refused ({refusal})")
+                break
+            if not torch.equal(got, fk.fused_rk4_plain(u, advance.scheme)):
+                raise AssertionError(f"fused_rk4 {label} B={batch}: not its plain version")
+            row = {"ms": time_ms(lambda: advance(u), inner=5),
+                   "ops_bound_ms": rk4_ops_bound_ms(advance.scheme, batch)}
+            domain[f"{label} B={batch}"] = row
+            print(f"{tag} fused_rk4 {label} B={batch}, {STEPS} steps: "
+                  + ", ".join(f"{k} {v:.4g}" for k, v in row.items()))
+    result["fused_rk4_domain"] = domain
     print(json.dumps(result))
 
 

@@ -162,9 +162,9 @@ def choose_route(fused: str, ensemble: Ensemble, pack,
     frozen artifact and a resumable run (``--output_path``) do not read it:
     they take RHS steps.
 
-    The kernel takes a shape when the tower has at most 64 filters and the
-    weights plus one trajectory's shared memory fit the card's opt-in limit
-    per block.
+    The kernel takes a shape when the tower has at most 128 filters and the
+    weights it keeps in shared memory plus one trajectory's fit the card's
+    opt-in limit per block.
     ``--fused true`` on a shape it cannot take raises; on the CPU it runs
     the kernel's plain version.
     """

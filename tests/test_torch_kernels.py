@@ -31,11 +31,11 @@ torch.set_num_threads(1)
 BATCH, NX = 8, 128  # the Pallas kernels need batch % 8 == 0 and nx % 128 == 0
 
 
-def _pair(name, cons, size, seed=0):
+def _pair(name, cons, size, seed=0, filters=8):
     rng = np.random.default_rng(seed)
     eq_j = jeq.from_name(name, conservative=cons)
     grid_j = JGrid(8 * NX, eq_j.period).resample(8, conservative=cons)
-    model_j = JModel(eq_j, grid_j, JConfig(num_layers=2, filters=8, stencil_size=size))
+    model_j = JModel(eq_j, grid_j, JConfig(num_layers=2, filters=filters, stencil_size=size))
     tree = jax.tree.map(
         lambda leaf: np.asarray(leaf)
         + 0.05 * rng.standard_normal(leaf.shape).astype(np.float32),
@@ -43,7 +43,7 @@ def _pair(name, cons, size, seed=0):
     )
     eq_t = teq.from_name(name, conservative=cons)
     grid_t = TGrid(8 * NX, eq_t.period).resample(8, conservative=cons)
-    model_t = TModel(eq_t, grid_t, TConfig(num_layers=2, filters=8, stencil_size=size),
+    model_t = TModel(eq_t, grid_t, TConfig(num_layers=2, filters=filters, stencil_size=size),
                      device="cpu")
     x = grid_j.x
     u = np.stack([
@@ -123,6 +123,20 @@ def test_fused_learned_rk4_plain_matches_pallas(name, cons, size):
     filters): tolerance 1e-4 relative to max|u|."""
     model_j, tree, model_t, params_t, u = _pair(name, cons, size)
     assert _check_learned_rk4(model_j, tree, model_t, params_t, 0.3 * u) < 1e-4
+
+
+@pytest.mark.parametrize("name,cons,size", [("ks", True, 6), ("kdv", False, 7)])
+def test_fused_learned_rk4_plain_matches_pallas_128_filters(name, cons, size):
+    """A tower of 128 filters (2 layers; the width the card's streamed form
+    takes): the plain version against make_fused_learned_rk4(interpret=True),
+    2 RK4 steps, weights through convert.params_from_jax. The same
+    tolerance, 1e-4 of max|u|: a layer sums 640 bf16 products in float32,
+    in other orders on the two sides, which can flip single bf16 roundings
+    of the next layer's inputs. The kernel takes this width at nx = 128."""
+    model_j, tree, model_t, params_t, u = _pair(name, cons, size, filters=128)
+    assert _check_learned_rk4(model_j, tree, model_t, params_t, 0.3 * u, steps=2) < 1e-4
+    pack = _pack(model_t, params_t)
+    assert pack.padded_channels == 128 and fk.learned_rk4_refusal(pack, NX, 0) is None
 
 
 def _ks_inputs():
@@ -342,6 +356,49 @@ def test_fused_rk4_plain_matches_pallas(name, cons):
     np.testing.assert_allclose(got, traj[-1].numpy(), rtol=2e-4, atol=1e-5)
 
 
+RK4_SCHEMES = [{"accuracy_order": 4}, {"accuracy_order": 6}, {"stencil_size": 8},
+               {"stencil_size": 16}, {"stencil_size": 18}, {"stencil_size": 32}]
+RK4_FORMS = [("ks", True), ("ks", False), ("kdv", True), ("kdv", False)]
+RUN_CONDITIONING = 4
+
+
+@pytest.mark.parametrize("nx,scheme", [(NX, kw) for kw in RK4_SCHEMES]
+                         + [(512, {"accuracy_order": 4}), (512, {"stencil_size": 16})])
+@pytest.mark.parametrize("name,cons", RK4_FORMS)
+def test_fused_rk4_schemes_match_pallas(name, cons, nx, scheme):
+    """Every scheme the JAX factory builds from accuracy_order or
+    stencil_size (up to MAX_TAPS = 32 taps an order), and nx = 512: the
+    port's plain version against make_fused_rk4(interpret=True), 10 RK4
+    steps at a quarter of the classic scheme's stable step (a wider stencil's
+    symbol is larger). Limit: 2e-6 of max|u|, as the classic scheme's
+    test, or RUN_CONDITIONING times the JAX run's own distance from float64
+    sums of the same scheme where that is larger: the collocated KdV
+    third derivative on an even stencil of 8 to 32 points amplifies one
+    rounding to 1e-5 - 1e-4 of max|u| in 10 steps on either side (read:
+    both 1.1e-5 - 1.4e-4 from float64, 1.8e-5 - 2.5e-4 from each other)."""
+    eq_j, eq_t = jeq.from_name(name, conservative=cons), teq.from_name(name, conservative=cons)
+    grid_j, grid_t = JGrid(nx, eq_j.period), TGrid(nx, eq_t.period)
+    rng = np.random.default_rng(31)
+    x = grid_j.x
+    u = 0.3 * np.stack([
+        sum(rng.uniform(-1, 1) * np.sin(2 * np.pi * k * x / eq_j.period
+                                        + rng.uniform(0, 2 * np.pi)) for k in (1, 2, 3))
+        for _ in range(BATCH)
+    ]).astype(np.float32)
+    dt = eq_j.stable_time_step(grid_j) / 4
+    want = np.asarray(pk.make_fused_rk4(eq_j, grid_j, dt, 10, interpret=True, **scheme)(
+        jnp.asarray(u)))
+    advance = fk.make_fused_rk4(eq_t, grid_t, dt, 10, **scheme)
+    got = advance(torch.from_numpy(u)).numpy()
+    exact = fk.fused_rk4_plain(torch.from_numpy(u).double(), advance.scheme).numpy()
+    scale = np.abs(exact).max()
+    tol = max(2e-6, RUN_CONDITIONING * np.abs(want - exact).max() / scale)
+    assert np.isfinite(got).all() and np.abs(got - want).max() / scale <= tol
+    assert fk.rk4_refusal(advance.scheme, nx) is None
+    size = scheme.get("stencil_size")
+    assert size is None or all(len(t) == size for t in advance.scheme.taps.values())
+
+
 def test_fused_rk4_options_and_checks():
     """accuracy_order and stencil_size reach the coefficients as in the JAX
     factory; forced equations and wrong inputs raise."""
@@ -368,8 +425,9 @@ def test_fused_rk4_options_and_checks():
         advance(u_t[:, :64].contiguous())
     with pytest.raises(ValueError, match="forward only"):
         advance(u_t.clone().requires_grad_())
-    with pytest.raises(ValueError, match="kernel limit"):
-        fk.make_fused_rk4(eq_t, grid_t, dt, 1, stencil_size=18)
+    assert len(fk.make_fused_rk4(eq_t, grid_t, dt, 1, stencil_size=32).scheme.taps[3]) == 32
+    with pytest.raises(ValueError, match="34 taps > kernel limit 32"):
+        fk.make_fused_rk4(eq_t, grid_t, dt, 1, stencil_size=34)
 
 
 def test_pack_rejects_even_kernel():
@@ -570,9 +628,9 @@ def test_learned_rk4_launch_geometry(geometry_packs, filters, nx, terms, batch):
 
 
 def test_learned_rk4_refuses_wide_and_deep():
-    model, params = _torch_model(72, layers=1)
+    model, params = _torch_model(136, layers=1)
     pack = _pack(model, params)
-    assert fk.learned_rk4_refusal(pack, NX) == "72 filters > kernel limit 64"
+    assert fk.learned_rk4_refusal(pack, NX) == "136 filters > kernel limit 128"
     u = torch.zeros(2, NX)
     assert fk.fused_learned_rk4(u, pack, 1e-3, 1).shape == u.shape  # the CPU's plain version
     deep = dataclasses.replace(pack, num_layers=17)
@@ -580,6 +638,68 @@ def test_learned_rk4_refuses_wide_and_deep():
     wide = dataclasses.replace(_pack(*_torch_model(8, layers=1)), kernel_size=19)
     assert fk.learned_rk4_refusal(wide, NX) == (
         "conv kernel or stencil reaches 9 points > the halo of 8")
+
+
+def test_widen_params_keeps_the_model():
+    """convert.widen_params (chip_smoke.py phase 11's 128-filter towers):
+    the state dict's values stay in the leading corner; with no noise the
+    new channels are zeros and the plain version gives the same result
+    (within 1e-4 of max|u|, the learned kernel's parity limit: the CPU's
+    matmul blocks a 640-deep sum otherwise than a 160-deep one, which can
+    flip a bf16 rounding of the next layer's inputs); with
+    noise every new entry is drawn (non-zero) and the same seed draws the
+    same tower."""
+    model, params = _torch_model(32, layers=3)
+    wide = convert.widen_params(params, 128, 11, 0.0)
+    for key, value in params.items():
+        assert torch.equal(wide[key][tuple(slice(n) for n in value.shape)], value)
+    assert wide["tower.1.weight"].shape == (128, 128, 5) and wide["tower.0.weight"].shape == (
+        128, 1, 5) and wide["heads.0.weight"].shape[1] == 128
+    u = torch.from_numpy(np.random.default_rng(4).standard_normal((4, NX)).astype(np.float32))
+    pack, wide_pack = _pack(model, params), _pack(model, wide)
+    assert wide_pack.padded_channels == 128
+    want = fk.fused_learned_rk4_plain(u, pack, 1e-3, 2)
+    torch.testing.assert_close(fk.fused_learned_rk4_plain(u, wide_pack, 1e-3, 2), want,
+                               rtol=0, atol=1e-4 * float(want.abs().max()))
+    noisy = convert.widen_params(params, 128, 11, 0.02)
+    assert noisy["tower.1.weight"][32:].ne(0).all() and noisy["tower.2.bias"][32:].ne(0).all()
+    assert all(torch.equal(noisy[k], v) for k, v in
+               convert.widen_params(params, 128, 11, 0.02).items())
+
+
+@pytest.fixture(scope="module")
+def wide_packs():
+    return {(filters, name): _pack(*_torch_model(filters, name=name, cons=True, size=size))
+            for filters in (65, 72, 128) for name, size in (("ks", 6), ("burgers", 8))}
+
+
+@pytest.mark.parametrize("batch", [3, 256, 10240])
+@pytest.mark.parametrize("nx", [32, 64, 96, 128, 160, 256, 512])
+@pytest.mark.parametrize("filters,name", [(65, "ks"), (72, "ks"), (128, "ks"), (128, "burgers")])
+def test_learned_rk4_launch_geometry_128_filters(wide_packs, filters, name, nx, batch):
+    """Towers of 65 to 128 filters pad to 128, where a block holds one
+    trajectory beside a window of one conv tap's 128 x 128 bf16 slice (32
+    KB; the whole buffer is 330 KB, which stays in global memory): taken at
+    nx 32 to 256, forced (20 terms) or not; at nx = 512 one trajectory's
+    activations alone exceed the block's shared memory and the refusal
+    says so. The buffer lays each layer's slices one after the other."""
+    pack = wide_packs[(filters, name)]
+    terms = 20 if name == "burgers" else 0
+    assert pack.padded_channels == fk.WIDE_CHANNELS == 128 and pack.channels == filters
+    refusal = fk.learned_rk4_refusal(pack, nx, terms)
+    launch = fk.learned_rk4_launch(pack, nx, terms, batch)
+    assert launch.team_bytes == fk._team_bytes(pack, nx, terms)
+    assert launch.shared_bytes == 2 * 128 * 128 + max(1, launch.teams) * launch.team_bytes
+    if nx == 512:
+        assert launch.teams == 0 and refusal == (
+            f"needs {launch.shared_bytes} bytes of shared memory per block > the limit of 232448")
+        return
+    assert refusal is None and launch.shared_bytes <= 232448
+    assert (launch.teams, launch.threads, launch.blocks) == (1, 128, batch)
+    for l in range(1, pack.num_layers):  # K slices of 32 KB, each on 16 bytes
+        assert pack.blob_offsets[2 * l + 1] - pack.blob_offsets[2 * l] == (
+            pack.kernel_size * 2 * 128 * 128)
+        assert pack.blob_offsets[2 * l] % 16 == 0
 
 
 @pytest.mark.parametrize("batch", [3, 256, 1037, 4096, 10240])
@@ -594,32 +714,49 @@ def test_rk4_launch_geometry(batch):
     assert launch.warps == {3: 1, 256: 1, 1037: 7, 4096: 8, 10240: 8}[batch]
 
 
-@pytest.mark.parametrize("nx", [32, 64, 96, 100, 128, 160, 256, 512, 1024])
+@pytest.mark.parametrize("nx", [32, 64, 96, 100, 128, 160, 224, 256, 352, 512, 544, 1024,
+                                1056, 2048, 4096, 14528])
 @pytest.mark.parametrize("name,cons", [("ks", True), ("ks", False), ("kdv", True),
                                        ("kdv", False)])
 def test_rk4_refusal(name, cons, nx):
-    """The kernel takes the classic schemes at nx = 32 P for the points per
-    lane it is built for, and says why it takes nothing else; the CPU path
-    (the plain version) still takes every shape."""
+    """The kernel takes every scheme make_fused_rk4 builds at every nx that
+    is a multiple of 32: in registers up to 1024 points (P points a lane on
+    nx / P lanes, P the smallest built that fits), in a block's shared
+    memory above, as long as its four rows fit the block (nx 14528 does
+    not); it says why it takes nothing else. The CPU path (the plain
+    version) still takes every shape."""
     period = teq.from_name(name).period * nx / 128
     eq = teq.from_name(name, conservative=cons, period=period)
     grid = TGrid(nx, period)
     scheme = fk.make_fused_rk4(eq, grid, eq.stable_time_step(grid), 1).scheme
     assert {d: (t[0], len(t)) for d, t in scheme.taps.items()} == fk.RK4_LAYOUTS[(name, cons)]
+    assert fk.rk4_is_classic(scheme)
     refusal = fk.rk4_refusal(scheme, nx)
+    launch = fk.rk4_launch(256, nx) if nx % 32 == 0 else None
     if nx % 32:
-        assert refusal == (f"nx={nx} is not a multiple of 32: each of a warp's 32 lanes "
-                           f"holds nx/32 points")
-    elif nx // 32 not in fk.RK4_POINTS_PER_LANE:
-        assert refusal == (f"nx={nx} ({nx // 32} points per lane) has no instantiation; the "
-                           "kernel is built for nx in [64, 96, 128, 160, 256, 1024]")
+        assert refusal == f"nx={nx} is not a multiple of 32 (the JAX kernel takes multiples of 128)"
+    elif nx > 14520:
+        assert refusal == (f"nx={nx} needs {4 * (4 * nx + 32)} bytes of shared memory per "
+                           "block > the limit of 232448")
     else:
         assert refusal is None
-    wide = fk.make_fused_rk4(eq, grid, eq.stable_time_step(grid), 1, accuracy_order=4).scheme
+    if launch is not None:  # taps at run time: in registers up to 24 points a lane
+        assert fk.rk4_launch(256, nx, False).form == ("registers" if nx <= 768 else "block")
+    if launch is not None and nx <= 1024:
+        assert launch.form == "registers" and launch.points * launch.lanes == nx
+        assert 17 <= launch.lanes <= 32 and launch.points in fk.RK4_POINTS_PER_LANE
+        assert launch.points == min(p for p in fk.RK4_POINTS_PER_LANE
+                                    if 32 * p >= nx and nx % p == 0)
+    elif launch is not None:
+        assert launch.form == "block" and launch.blocks == 256 and launch.threads == 256
+        assert launch.shared_bytes == 4 * (4 * nx + 2 * fk.RK4_REACH)
+    for kwargs in ({"accuracy_order": 4}, {"accuracy_order": 6}, {"stencil_size": 16}):
+        wide = fk.make_fused_rk4(eq, grid, eq.stable_time_step(grid), 1, **kwargs).scheme
+        assert not fk.rk4_is_classic(wide) and fk.rk4_refusal(wide, nx) == refusal
+    far = dataclasses.replace(scheme, taps={d: tuple(t + 16 for t in taps)
+                                            for d, taps in scheme.taps.items()})
     if refusal is None:
-        assert fk.rk4_refusal(wide, nx).startswith(
-            f"taps {({d: (t[0], len(t)) for d, t in wide.taps.items()})} are not the classic "
-            f"scheme the kernel is built for ({name}, conservative={cons}")
+        assert fk.rk4_refusal(far, nx).startswith("taps of order ")
     u = torch.zeros(2, nx)
     assert fk.fused_rk4(u, scheme).shape == (2, nx)  # the CPU's plain version
 
