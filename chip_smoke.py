@@ -72,7 +72,7 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      plain version, which must catch phase 4's three planted weight faults,
      10 and 100 steps at B=256; times per 100 steps at B=256 and 10240
      beside the operations bound, and the plain version's per 100 steps at
-     B=256 and per 10 at 10240; and
+     B=256; and
      ``scripts.run_ensemble.main`` for the KS model (10240 members, 100
      steps in 10 saves) at ``--fused auto``, which must take the kernel, one
      launch per save;
@@ -121,7 +121,7 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      8, 2 steps, 4 members, horizon 1), both with predicted ``fused_rhs``
      launches and their seconds;
  15. the serving export: ``scripts.run_export`` of the KS-8x checkpoint
-     (``--num_steps`` 8, the CLI in a process of its own, meanwhile) and
+     (``--num_steps`` 4, the CLI in a process of its own, meanwhile) and
      of the Burgers-8x one (4), with the export, save and load timed apart; each artifact loaded on the card and held at
      B=10240 against the live model's ``fused_rhs`` route and its plain
      route (RHS), and its advance against ``integrate`` of the plain route,
@@ -184,7 +184,30 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      the zoo's protocols (KS-32x with a warm-up of 44, the selected KdV-16x
      seed at ic_scale 0.5, Burgers-64x; 32 members, horizons 10, 10 and 3)
      through ``evaluate_protocol``, as phase 13, with planted faults;
- 19. one ``{"kernels": [...]}`` line, then the card's line, then the result.
+ 19. ``fused_learned_rk4`` on the Pallas kernel's whole grid range, where
+     one block cannot hold a trajectory and a thread-block cluster shares it
+     (the split form): one step at B=256 from a standard-normal state
+     against the plain version and float64 sums, with trained weights, for
+     KS-8x at nx 2048, forced Burgers-8x at nx 1280 and 2048, KdV-16x f64
+     (64 filters) at nx 1024 and the 3 x 128 widened KS-8x at nx 1024
+     (grids built as ``run_ensemble --domain_factor`` builds them), each of
+     which must catch phase 4's three planted weight faults; the split form
+     forced at shapes one block also holds, bit for bit the one-block form;
+     KdV-16x f64 at nx 1024 and Burgers-8x at nx 2048 over fewer blocks
+     with the weights streamed, bit for bit the launch's own run with the
+     weights whole;
+     KS-8x's tower zero-padded to kernel 21 (reach 10) at nx 2048 and
+     deepened to 17 layers by identity layers at nx 128, each against its
+     plain version and bit for bit the trained tower's run, both timed at
+     nx 128;
+     ``scripts.run_ensemble.main`` on
+     Burgers-8x at ``--domain_factor 10`` (10240 members of 1280 points,
+     100 steps in 10 saves, ``--fused auto``): exactly 10
+     ``fused_learned_rk4`` launches and no ``fused_rhs``, every member
+     finite, 64 members held to the plain version (``hold_run``),
+     traj-steps/s and cell-steps/s; times per 100 steps at B=256 and 10240
+     beside the operations bound; the phase's own seconds;
+ 20. one ``{"kernels": [...]}`` line, then the card's line, then the result.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also exits non-zero
@@ -341,8 +364,10 @@ SLEEP_CYCLES = 60_000_000  # about 30 ms of device-side sleep at H100 clocks
 # limit between the kernel and its plain version. TF32 left on and a planted fault (heads zeroed: 1.2e-4 for
 # KS-8x, 2.1e-3 for Burgers-8x) must fail the plain check.
 # (asset, run_export --num_steps): the first is exported in a process of its
-# own while the second is exported, checked and served here
-SERVE_EXPORTS = (("ckpt_ks8", 8), ("ckpt_burgers8", 4))
+# own while the second is exported, checked and served here; the KS-8x
+# export's host tracing grows with its steps (78.8 s at 8 on a slow card
+# host, beside the Burgers-8x chain's 85 s on the same cores)
+SERVE_EXPORTS = (("ckpt_ks8", 4), ("ckpt_burgers8", 4))
 SERVE_RHS_TOL = 1e-4  # the served RHS against the live fused_rhs route
 SERVE_PLAIN_TOL = 1e-7  # ... against the live plain route
 SERVE_STEP_TOL = 1e-7  # served.advance against integrate of the live plain route
@@ -506,16 +531,17 @@ def check_catches(name: str, got, want, tol: float, rms: bool = False) -> None:
         raise AssertionError(f"planted fault {name} passes the {tol} check: {rel}")
 
 
-def learned_rk4_float64(u, pack, dt: float, steps: int):
-    """``fused_learned_rk4_plain`` with float64 weights, sums and state, the
-    tower's and the heads' inputs still rounded to bf16 where the kernel
-    rounds them."""
+def learned_rk4_float64(u, pack, dt: float, steps: int, fp=None):
+    """``fused_learned_rk4_plain`` with float64 weights, sums and state (and
+    ForcingPack ``fp``), the tower's and the heads' inputs still rounded to
+    bf16 where the kernel rounds them."""
     import dataclasses
 
     from pde_superresolution_torch.ops import fused_kernels as fk
 
     exact = dataclasses.replace(pack, flat=pack.flat.double())
-    return fk.fused_learned_rk4_plain(u.double(), exact, dt, steps)
+    fp64 = None if fp is None else fk.ForcingPack(*(leaf.double() for leaf in fp))
+    return fk.fused_learned_rk4_plain(u.double(), exact, dt, steps, fp64)
 
 
 def planted_faults(params: dict) -> dict:
@@ -555,10 +581,11 @@ def tensor_core_line(library) -> str:
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             # the mangled template arguments <NT, FORCED>: channels = 8 NT
-            found = re.search(r"fused_learned_rk4_kernelILi(\d+)ELb(\d)EE", name)
+            found = re.search(r"fused_learned_rk4_(cluster_)?kernelILi(\d+)ELb(\d)EE", name)
             if found:
-                name = (f"fused_learned_rk4<{8 * int(found.group(1))} channels, "
-                        f"{'forced' if found.group(2) == '1' else 'unforced'}>")
+                name = (f"fused_learned_rk4{'_cluster' if found.group(1) else ''}"
+                        f"<{8 * int(found.group(2))} channels, "
+                        f"{'forced' if found.group(3) == '1' else 'unforced'}>")
         elif name and "fused_learned_rk4" in name:
             row = counts.setdefault(name, [0, 0, 0])
             row[0] += "HMMA" in line
@@ -641,6 +668,21 @@ def time_ms(fn, inner: int = 1, queued: bool = False, samples: int = 0) -> float
     return statistics.median(samples)
 
 
+def once_ms(fn) -> float:
+    """One call's time on CUDA events, no warm-up: for calls of seconds,
+    whose first launch costs nothing beside them."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def launch_count(fn) -> tuple:
     """(kernel launches the host issued, kernel records on the device) in
     one call of ``fn``, from torch.profiler, after one warm-up call."""
@@ -721,9 +763,6 @@ WIDE_NOISE = 0.02
 # (read 4.1e-7, 5.5e-5: the trained Burgers model steepens fronts)
 WIDE_STEP_TOL = 3e-5
 WIDE_RUN_TOL = 1e-5
-# the plain version at the ensemble's batch is timed on this many steps, and
-# reported as such (1.13-1.15 s at 128 filters on an H100)
-WIDE_PLAIN_STEPS = 10
 
 
 def baseline_case(name, cons, nx, batch, scheme, gen, device, steps=STEPS):
@@ -967,11 +1006,7 @@ def wide_phase(card: str, ks_dt: float) -> dict:
                               queued=True, samples=SAMPLES if batch == BATCH else LONG_SAMPLES),
                 "bound_ms": learned_rk4_bound_ms(pack, batch, STEPS, terms),
             }
-            if batch == ENSEMBLE:  # a 100-step plain run here takes 11 s a model
-                row[f"plain_{WIDE_PLAIN_STEPS}_steps_ms"] = time_ms(
-                    lambda: fk.fused_learned_rk4_plain(u, pack, dt, WIDE_PLAIN_STEPS, fpb),
-                    samples=1)
-            else:
+            if batch == BATCH:  # at ENSEMBLE not timed (cut to make room for phase 19)
                 row["plain_ms"] = time_ms(
                     lambda: fk.fused_learned_rk4_plain(u, pack, dt, STEPS, fpb), samples=1)
             out[f"{label} B={batch}"] = row
@@ -2553,11 +2588,11 @@ def hold_run(label: str, got, want, exact, start) -> dict:
 def zoo_learned_checks(device, warmed: dict) -> dict:
     """``fused_learned_rk4`` against its plain version for each zoo model of
     nx >= 32 at BATCH and ENSEMBLE: one step from a standard-normal state
-    (the increment within STEP_RMS_TOL and STEP_MAX_TOL), STEPS steps from
-    its warmed members (``hold_run``); at KS-32x phase 4's three planted
-    weight faults must fail both; per STEPS steps timed beside the
-    operations bound and the plain version. Returns {(asset, batch):
-    readings}."""
+    (the increment within STEP_RMS_TOL and STEP_MAX_TOL); at BATCH also
+    STEPS steps from its warmed members (``hold_run``), and at KS-32x phase
+    4's three planted weight faults must fail both; per STEPS steps timed
+    beside the operations bound, at BATCH also the plain version. Returns
+    {(asset, batch): readings}."""
     import numpy as np
     import torch
 
@@ -2590,11 +2625,23 @@ def zoo_learned_checks(device, warmed: dict) -> dict:
                    "step_max": check(f"{name} B={batch} one step from N(0,1), increment, "
                                      "worst point", got_inc, want_inc, STEP_MAX_TOL)}
             u, _, _ = zoo_warmed_state(model, config, batch, SEED, device, warmed)
+            samples = SAMPLES if batch == BATCH else LONG_SAMPLES
+            row.update({
+                "ms": time_ms(lambda: fk.fused_learned_rk4(u, pack, dt, STEPS), queued=True,
+                              samples=samples),
+                "bound_ms": learned_rk4_bound_ms(pack, batch, STEPS),
+                "launch": launch._asdict(),
+            })
+            if batch == ENSEMBLE:  # the run is checked at BATCH (cut to make room for phase 19)
+                log(f"    {name} B={batch}: {row['ms']:.3f} ms per {STEPS} steps "
+                    f"(operations bound {row['bound_ms']:.3f} ms)")
+                out[(name, batch)] = row
+                continue
             torch.cuda.synchronize()
             start = time.perf_counter()
             want = fk.fused_learned_rk4_plain(u, pack, dt, STEPS)
             torch.cuda.synchronize()
-            plain_ms = 1e3 * (time.perf_counter() - start)
+            row["plain_ms"] = 1e3 * (time.perf_counter() - start)  # host clock, to a synchronize
             exact = learned_rk4_float64(u, pack, dt, STEPS)
             row["run"] = hold_run(f"{name} B={batch} {STEPS} steps from warmed members",
                                   fk.fused_learned_rk4(u, pack, dt, STEPS), want, exact, u)
@@ -2612,14 +2659,6 @@ def zoo_learned_checks(device, warmed: dict) -> dict:
                     f"{'caught' if caught else 'NOT CAUGHT'}")
                 if not caught:
                     raise AssertionError(f"planted fault {fault} passes the run check")
-            samples = SAMPLES if batch == BATCH else LONG_SAMPLES
-            row.update({
-                "ms": time_ms(lambda: fk.fused_learned_rk4(u, pack, dt, STEPS), queued=True,
-                              samples=samples),
-                "plain_ms": plain_ms,  # the checked run's, host clock to a synchronize
-                "bound_ms": learned_rk4_bound_ms(pack, batch, STEPS),
-                "launch": launch._asdict(),
-            })
             log(f"    {name} B={batch}: {row['ms']:.3f} ms per {STEPS} steps (plain "
                 f"{row['plain_ms']:.1f} ms, operations bound {row['bound_ms']:.3f} ms)")
             out[(name, batch)] = row
@@ -2739,6 +2778,445 @@ def zoo_phase(card: str, launch_floor_ms: float) -> dict:
     out["phase_s"] = time.perf_counter() - phase_start
     log(f"    phase 18 took {out['phase_s']:.1f} s")
     return out
+
+
+# Phase 19, the learned kernel's full domain: trained models on grids that
+# one block cannot hold (the split form: a trajectory over a cluster of
+# blocks), built as run_ensemble --domain_factor builds them: (label,
+# checkpoint, domain factor, filters (None: the checkpoint's), the one-step
+# limit in root mean square of the increment, as the whole form's check of
+# that model: phase 4, 7, 18 and 11)
+DOMAIN_ROWS = (
+    ("ks8 nx 2048", "ckpt_ks8", 16, None, STEP_TOL),
+    ("burgers8 nx 1280", "ckpt_burgers8", 10, None, FORCED_STEP_TOL),
+    ("burgers8 nx 2048", "ckpt_burgers8", 16, None, FORCED_STEP_TOL),
+    ("kdv16_f64 nx 1024", "ckpt_kdv16_f64", 32, None, STEP_RMS_TOL),
+    (f"ks8 {WIDE_FILTERS} filters nx 1024", "ckpt_ks8", 8, WIDE_FILTERS, WIDE_STEP_TOL),
+)
+# the split form forced at shapes one block also holds, bit for bit: (label,
+# checkpoint, domain factor, filters, blocks)
+DOMAIN_SHARED = (("ks8 nx 1024", "ckpt_ks8", 8, None, 4),
+                 ("burgers8 nx 512", "ckpt_burgers8", 4, None, 3),
+                 (f"ks8 {WIDE_FILTERS} filters nx 256", "ckpt_ks8", 2, WIDE_FILTERS, 2))
+# the weights streamed a conv tap's slice at a time, forced by asking for
+# fewer blocks than the launch takes with them whole, bit for bit the
+# launch's run: (DOMAIN_ROWS label, blocks)
+DOMAIN_STREAMED = (("kdv16_f64 nx 1024", 2), ("burgers8 nx 2048", 3))
+DOMAIN_REACH_KERNEL = 21  # KS-8x's kernel-5 tower zero-padded: reach 10
+DOMAIN_DEEP_LAYERS = 17  # KS-8x's tower deepened by identity layers
+DOMAIN_FACTOR = 10  # the slice's path: run_ensemble --domain_factor 10 on Burgers-8x
+DOMAIN_MEMBERS = 64  # of its members held to the plain version
+DOMAIN_RUN_STEPS = 10  # steps of the smooth-state checks (one save interval)
+
+
+def domain_model(checkpoint: str, factor: int, batch: int, filters=None, kernel_size=None,
+                 layers=None, seed: int = SEED) -> dict:
+    """A trained model on a grid ``factor`` times larger at the same dx, as
+    ``run_ensemble.setup`` builds it for ``--domain_factor`` (widened to
+    ``filters`` by ``convert.widen_params``, its tower zero-padded to
+    ``kernel_size``, or deepened to ``layers`` by identity layers before its
+    last, each written to a temporary checkpoint first): the model, params,
+    pack, dt, ``batch`` seeded members and their ForcingPack at FORCING_T0
+    (None unforced). The padded and the deepened towers compute the
+    trained tower's function: zero taps add zeros, and an identity layer
+    passes its input, which a ReLU made non-negative, through its own."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pde_superresolution_torch import convert
+    from pde_superresolution_torch.ops import fused_kernels as fk
+    from pde_superresolution_torch.scripts import run_ensemble
+
+    device = torch.device("cuda")
+    name = checkpoint
+    if filters or kernel_size or layers:
+        _, trained, config = convert.load_asset(checkpoint, device=device)
+        model_cfg = dict(config["model"])
+        params = trained
+        if filters:
+            model_cfg["filters"] = filters
+            params = convert.widen_params(trained, filters, SEED + 11, WIDE_NOISE)
+        if kernel_size:
+            pad = (kernel_size - model_cfg["kernel_size"]) // 2
+            model_cfg["kernel_size"] = kernel_size
+            params = {k: torch.nn.functional.pad(v, (pad, pad)) if k.startswith("tower.")
+                      and k.endswith(".weight") else v for k, v in params.items()}
+        if layers:
+            last, more = model_cfg["num_layers"] - 1, layers - model_cfg["num_layers"]
+            w = params[f"tower.{last}.weight"]  # [C, C, K]
+            identity = torch.zeros_like(w)
+            identity[range(w.shape[0]), range(w.shape[0]), (w.shape[2] - 1) // 2] = 1.0
+            params = {k: v for k, v in params.items() if not k.startswith(f"tower.{last}.")}
+            for i in range(last, last + more):
+                params[f"tower.{i}.weight"] = identity
+                params[f"tower.{i}.bias"] = torch.zeros_like(trained[f"tower.{last}.bias"])
+            params[f"tower.{layers - 1}.weight"] = w
+            params[f"tower.{layers - 1}.bias"] = trained[f"tower.{last}.bias"]
+            model_cfg["num_layers"] = layers
+        stem = Path(tempfile.mkdtemp(prefix="chip_smoke_domain_")) / checkpoint
+        stem.with_suffix(".json").write_text(json.dumps({**config, "model": model_cfg}))
+        np.savez(stem.with_suffix(".npz"), **convert.npz_arrays_from_params(params))
+        name = str(stem)
+    ens = run_ensemble.setup(run_ensemble.build_parser().parse_args([
+        "--checkpoint_dir", name, "--num_trajectories", str(batch), "--seed", str(seed),
+        "--domain_factor", str(factor)]))
+    model, params = ens.model, ens.params
+    dt = model.stable_time_step(u_scale=3.0)
+    pack = fk.pack_learned_rk4(params, model.equation, model.grid, model.config.kernel_size,
+                               model.constraint_layers, model.taps)
+    fp = None
+    if ens.forcing is not None:
+        fp = fk.pack_forcing(ens.forcing, FORCING_T0, model.equation, model.grid, dt, batch)
+    return {"model": model, "params": params, "pack": pack, "dt": dt, "u0": ens.u0, "fp": fp,
+            "forcing": ens.forcing}
+
+
+def domain_phase(card: str) -> dict:
+    """Phase 19: ``fused_learned_rk4`` on the Pallas kernel's whole grid
+    range, where one block cannot hold a trajectory (the split form): one
+    step of each DOMAIN_ROWS model against the plain version and float64
+    sums, with phase 4's planted weight faults; the split form forced at
+    shapes one block also holds, bit for bit the one-block form; the
+    DOMAIN_STREAMED shapes with the weights streamed, bit for bit the same
+    model with them whole; KS-8x's tower zero-padded to a reach of 10 and
+    deepened to 17 layers, bit for bit the trained tower; ``run_ensemble.main`` on Burgers-8x
+    at ``--domain_factor`` DOMAIN_FACTOR (the fused route, one launch per
+    save, DOMAIN_MEMBERS of its members held to the plain version); times per
+    STEPS steps at BATCH and ENSEMBLE beside the operations bound. Returns
+    the readings and the ensemble's launch count."""
+    import numpy as np
+    import torch
+
+    from pde_superresolution_torch.ops import fused_kernels as fk
+    from pde_superresolution_torch.scripts import run_ensemble
+
+    device = torch.device("cuda")
+    phase_start = time.perf_counter()
+    log(f"[19] the learned kernel's full domain: trained models on grids one block cannot "
+        f"hold, a trajectory split over a thread-block cluster; on {card}")
+    out = {"err": 0.0, "rows": {}, "shared": {}}
+    rng = np.random.default_rng(SEED + 19)
+
+    def rough_state(batch, nx):
+        return torch.from_numpy(rng.standard_normal((batch, nx)).astype(np.float32)).to(device)
+
+    # ---- one step against the plain version and float64 sums, faults planted
+    cases = {}
+    for label, checkpoint, factor, filters, tol in DOMAIN_ROWS:
+        case = domain_model(checkpoint, factor, BATCH, filters)
+        cases[label] = case
+        pack, dt, fp, model = case["pack"], case["dt"], case["fp"], case["model"]
+        nx = model.grid.size
+        terms = 0 if fp is None else fp.amplitude.shape[-1]
+        launch = fk.learned_rk4_launch(pack, nx, terms, BATCH)
+        log(f"  {label}: {model.config.num_layers} x {pack.channels} filters (padded "
+            f"{pack.padded_channels}), stencil {model.config.stencil_size}, dt={dt:.6g}; at "
+            f"B={BATCH}: {launch}")
+        if not launch.split:
+            raise AssertionError(f"{label}: one block holds nx={nx}, no split: {launch}")
+        rough = rough_state(BATCH, nx)
+        want_inc = fk.fused_learned_rk4_plain(rough, pack, dt, 1, fp) - rough
+        got_inc = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp) - rough
+        err = check(f"{label} one step from N(0,1), B={BATCH}, increment", got_inc, want_inc,
+                    tol, rms=True)
+        out["err"] = max(out["err"], err)
+        exact_inc = learned_rk4_float64(rough, pack, dt, 1, fp) - rough.double()
+        row = {"launch": launch._asdict(), "step_err": err,
+               "kernel_vs_float64_rms": relative_error(got_inc.double(), exact_inc, True),
+               "plain_vs_float64_rms": relative_error(want_inc.double(), exact_inc, True)}
+        log(f"    vs float64 sums, rel rms: kernel {row['kernel_vs_float64_rms']:.3e}, plain "
+            f"version {row['plain_vs_float64_rms']:.3e}")
+        for fault, bad in planted_faults(case["params"]).items():
+            bad_pack = fk.pack_learned_rk4(bad, model.equation, model.grid,
+                                           model.config.kernel_size, model.constraint_layers,
+                                           model.taps)
+            check_catches(f"{label} {fault}, one step",
+                          fk.fused_learned_rk4(rough, bad_pack, dt, 1, forcing=fp) - rough,
+                          want_inc, tol, rms=True)
+        out["rows"][label] = row
+        del rough, want_inc, got_inc, exact_inc
+
+    # ---- the split form forced where one block also holds the trajectory
+    log(f"    ({time.perf_counter() - phase_start:.1f} s into the phase)")
+    for label, checkpoint, factor, filters, blocks in DOMAIN_SHARED:
+        case = domain_model(checkpoint, factor, BATCH, filters)
+        pack, dt, fp = case["pack"], case["dt"], case["fp"]
+        nx = case["model"].grid.size
+        terms = 0 if fp is None else fp.amplitude.shape[-1]
+        one = fk.learned_rk4_launch(pack, nx, terms, BATCH)
+        split = fk.learned_rk4_launch(pack, nx, terms, BATCH, cluster=blocks)
+        rough = rough_state(BATCH, nx)
+        smooth = 0.3 * case["u0"]
+        readings = {}
+        for what, u, steps in (("one step from N(0,1)", rough, 1),
+                               (f"{DOMAIN_RUN_STEPS} steps", smooth, DOMAIN_RUN_STEPS)):
+            whole = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp)
+            parts = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, cluster=blocks)
+            diff = float((parts - whole).abs().max())
+            readings[what] = diff
+            log(f"  {label}, {what}: split over {split.cluster} blocks of {split.segment} "
+                f"points against one block ({one.teams} a block): max abs diff {diff:.3e} "
+                f"{'ok (bit for bit)' if torch.equal(parts, whole) else 'FAIL'}")
+            if not torch.equal(parts, whole):
+                raise AssertionError(f"{label} {what}: the split form differs from one block")
+        out["shared"][label] = {"blocks": split.cluster, "segment": split.segment, **readings}
+
+    # ---- the weights streamed against the weights whole, both split
+    out["streamed"] = {}
+    for label, blocks in DOMAIN_STREAMED:
+        case = cases[label]
+        pack, dt, fp = case["pack"], case["dt"], case["fp"]
+        nx = case["model"].grid.size
+        terms = 0 if fp is None else fp.amplitude.shape[-1]
+        whole_w = fk.learned_rk4_launch(pack, nx, terms, BATCH)
+        streamed = fk.learned_rk4_launch(pack, nx, terms, BATCH, cluster=blocks)
+        if whole_w.stream or not streamed.stream:
+            raise AssertionError(f"{label}: {whole_w} and {streamed}: no streamed/whole pair")
+        readings = {}
+        for what, u, steps in (("one step from N(0,1)", rough_state(BATCH, nx), 1),
+                               (f"{DOMAIN_RUN_STEPS} steps", 0.3 * case["u0"], DOMAIN_RUN_STEPS)):
+            want = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp)
+            got = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, cluster=blocks)
+            readings[what] = float((got - want).abs().max())
+            log(f"  {label}, {what}: {streamed.cluster} blocks of {streamed.segment} points, "
+                f"weights streamed, against {whole_w.cluster} blocks of {whole_w.segment} with "
+                f"the weights whole: max abs diff {readings[what]:.3e} "
+                f"{'ok (bit for bit)' if torch.equal(got, want) else 'FAIL'}")
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label} {what}: streamed weights differ from whole ones")
+        out["streamed"][label] = {"blocks": streamed.cluster, "segment": streamed.segment,
+                                  "whole_blocks": whole_w.cluster, **readings}
+
+    # ---- reach 10: KS-8x's tower zero-padded to kernel 21, on the split grid
+    log(f"    ({time.perf_counter() - phase_start:.1f} s into the phase)")
+    base = cases["ks8 nx 2048"]
+    reach = domain_model("ckpt_ks8", 16, BATCH, kernel_size=DOMAIN_REACH_KERNEL)
+    pack21, dt = reach["pack"], reach["dt"]
+    nx = reach["model"].grid.size
+    rough = rough_state(BATCH, nx)
+    smooth = 0.3 * reach["u0"]
+    want_inc = fk.fused_learned_rk4_plain(rough, pack21, dt, 1) - rough
+    got_inc = fk.fused_learned_rk4(rough, pack21, dt, 1) - rough
+    five_inc = fk.fused_learned_rk4(rough, base["pack"], dt, 1) - rough
+    reach_row = {"reach": fk.learned_rk4_reach(pack21),
+                 "launch": fk.learned_rk4_launch(pack21, nx, 0, BATCH)._asdict()}
+    log(f"  ks8 kernel {DOMAIN_REACH_KERNEL} (reach {reach_row['reach']}) nx {nx}: "
+        f"{reach_row['launch']}")
+    reach_row["step_err"] = check(f"ks8 kernel {DOMAIN_REACH_KERNEL}, one step from N(0,1), "
+                                  "against its plain version", got_inc, want_inc, STEP_TOL,
+                                  rms=True)
+    reach_row["vs_kernel_5"] = check(f"ks8 kernel {DOMAIN_REACH_KERNEL}, one step from N(0,1), "
+                                     "against the kernel-5 tower's run", got_inc, five_inc,
+                                     STEP_TOL, rms=True)
+    reach_row["bit_for_bit_kernel_5"] = torch.equal(got_inc, five_inc)
+    log(f"    bit for bit the kernel-5 run: {reach_row['bit_for_bit_kernel_5']} (the zero "
+        "taps add exact zeros; layer 0 sums two depth steps of 16, not one)")
+    if not reach_row["bit_for_bit_kernel_5"]:
+        raise AssertionError(f"kernel {DOMAIN_REACH_KERNEL}: the zero-padded tower differs "
+                             "from the kernel-5 tower's run")
+    reach_row["run_err"] = check(
+        f"ks8 kernel {DOMAIN_REACH_KERNEL}, {DOMAIN_RUN_STEPS} steps",
+        fk.fused_learned_rk4(smooth, pack21, dt, DOMAIN_RUN_STEPS),
+        fk.fused_learned_rk4_plain(smooth, pack21, dt, DOMAIN_RUN_STEPS), WIDE_RUN_TOL)
+    out["err"] = max(out["err"], reach_row["step_err"], reach_row["run_err"])
+    out["reach"] = reach_row
+    del reach, pack21, rough, smooth, want_inc, got_inc, five_inc
+
+    # ---- depth: KS-8x's tower deepened to 17 layers, on its own grid (one
+    # block holds the 164 KB of weights and two trajectories)
+    flagship = domain_model("ckpt_ks8", 1, BATCH)
+    deep = domain_model("ckpt_ks8", 1, BATCH, layers=DOMAIN_DEEP_LAYERS)
+    dt, nx = deep["dt"], deep["model"].grid.size
+    rough = rough_state(BATCH, nx)
+    want_inc = fk.fused_learned_rk4_plain(rough, deep["pack"], dt, 1) - rough
+    got_inc = fk.fused_learned_rk4(rough, deep["pack"], dt, 1) - rough
+    three_inc = fk.fused_learned_rk4(rough, flagship["pack"], dt, 1) - rough
+    deep_row = {"layers": deep["pack"].num_layers,
+                "launch": fk.learned_rk4_launch(deep["pack"], nx, 0, BATCH)._asdict()}
+    log(f"  ks8 {DOMAIN_DEEP_LAYERS} layers nx {nx}: weights {deep['pack'].blob.numel()} bytes; "
+        f"{deep_row['launch']}")
+    deep_row["step_err"] = check(f"ks8 {DOMAIN_DEEP_LAYERS} layers, one step from N(0,1), "
+                                 "against its plain version", got_inc, want_inc, STEP_TOL,
+                                 rms=True)
+    deep_row["vs_3_layers"] = check(f"ks8 {DOMAIN_DEEP_LAYERS} layers, one step from N(0,1), "
+                                    "against the trained 3 layers' run", got_inc, three_inc,
+                                    STEP_TOL, rms=True)
+    deep_row["bit_for_bit_3_layers"] = torch.equal(got_inc, three_inc)
+    log(f"    bit for bit the 3-layer run: {deep_row['bit_for_bit_3_layers']} (an identity "
+        "layer passes its non-negative input through in bf16 with float32 sums)")
+    if not deep_row["bit_for_bit_3_layers"]:
+        raise AssertionError(f"{DOMAIN_DEEP_LAYERS} layers: the deepened tower differs from "
+                             "the trained tower's run")
+    out["err"] = max(out["err"], deep_row["step_err"])
+    out["deep"] = deep_row
+    # the reach-10 and the deep tower timed on the trained grid (one block)
+    reach128 = domain_model("ckpt_ks8", 1, BATCH, kernel_size=DOMAIN_REACH_KERNEL)
+    for what, row, case in ((f"kernel {DOMAIN_REACH_KERNEL}", reach_row, reach128),
+                            (f"{DOMAIN_DEEP_LAYERS} layers", deep_row, deep)):
+        pack, dt = case["pack"], case["dt"]
+        for batch in (BATCH, ENSEMBLE):
+            u = (0.3 * case["u0"]).repeat(batch // BATCH, 1)
+            row[f"ms_b{batch}_nx{nx}"] = time_ms(
+                lambda: fk.fused_learned_rk4(u, pack, dt, STEPS), queued=True,
+                samples=LONG_SAMPLES) if batch == BATCH else once_ms(
+                lambda: fk.fused_learned_rk4(u, pack, dt, STEPS))
+            row[f"bound_ms_b{batch}_nx{nx}"] = learned_rk4_bound_ms(pack, batch, STEPS)
+            if batch == BATCH:  # the plain version's STEPS steps, host clock, one call
+                start = time.perf_counter()
+                fk.fused_learned_rk4_plain(u, pack, dt, STEPS)
+                torch.cuda.synchronize()
+                row[f"plain_ms_b{batch}_nx{nx}"] = 1e3 * (time.perf_counter() - start)
+            log(f"    ks8 {what} nx {nx} B={batch}: {row[f'ms_b{batch}_nx{nx}']:.3f} ms per "
+                f"{STEPS} steps (operations bound {row[f'bound_ms_b{batch}_nx{nx}']:.3f} ms"
+                + (f", plain version {row[f'plain_ms_b{batch}_nx{nx}']:.1f} ms)"
+                   if batch == BATCH else ")"))
+            del u
+    del flagship, deep, reach128, rough, want_inc, got_inc, three_inc
+
+    # ---- the slice's path: run_ensemble --domain_factor on Burgers-8x
+    log(f"    ({time.perf_counter() - phase_start:.1f} s into the phase)")
+    bcase = cases["burgers8 nx 1280"]
+    bdt = bcase["dt"]
+    argv = ["--checkpoint_dir", "ckpt_burgers8", "--domain_factor", str(DOMAIN_FACTOR),
+            "--num_trajectories", str(ENSEMBLE), "--warmup_time", str(WARMUP_TIME),
+            "--time_max", str((STEPS - 0.5) * bdt), "--num_saves", str(ENSEMBLE_SAVES),
+            "--seed", str(SEED)]
+    kernels = (fk.fused_rhs, fk.fused_learned_rk4, fk.fused_rk4)
+    for kernel in kernels:
+        kernel.launches = 0
+    result = run_ensemble.main(argv)
+    torch.cuda.synchronize()
+    counts = {kernel.__name__: kernel.launches for kernel in kernels}
+    nx = result["nx"]
+    log(f"    run_ensemble --domain_factor {DOMAIN_FACTOR} (nx {nx}): route {result['path']} "
+        f"({result['reason']}); launches {counts}; {result['finite']}/{ENSEMBLE} finite; "
+        f"{result['traj_steps_per_s']:,.0f} traj-steps/s, "
+        f"{result['traj_steps_per_s'] * nx:,.0f} cell-steps/s")
+    if (result["path"] != "fused kernel" or "split over clusters" not in result["reason"]
+            or counts != {"fused_rhs": 0, "fused_learned_rk4": ENSEMBLE_SAVES, "fused_rk4": 0}
+            or result["num_steps"] != STEPS or result["finite"] != ENSEMBLE):
+        raise AssertionError(f"--domain_factor {DOMAIN_FACTOR}: {result['path']}, {counts}, "
+                             f"{result['finite']} finite")
+    # DOMAIN_MEMBERS of its members, from the entry point's warmed states,
+    # through the plain version save interval by save interval with the
+    # forcing the entry point drew, packed at each interval's start time as
+    # integrate_fused keeps it (float32 and float64 sums)
+    forcing = run_ensemble.setup(run_ensemble.build_parser().parse_args(argv)).forcing
+    rows = slice(0, DOMAIN_MEMBERS)
+    sub = type(forcing)(*(leaf[rows].contiguous() for leaf in forcing))
+    start = result["initial"][rows].contiguous()
+    want, exact = start, start.double()
+    every, step = STEPS // ENSEMBLE_SAVES, result["dt"]
+    t = torch.as_tensor(result["t0"], dtype=torch.float32, device=device)
+    for _ in range(ENSEMBLE_SAVES):
+        fp_i = fk.pack_forcing(sub, t, bcase["model"].equation, bcase["model"].grid, step,
+                               DOMAIN_MEMBERS)
+        want = fk.fused_learned_rk4_plain(want, bcase["pack"], step, every, fp_i)
+        exact = learned_rk4_float64(exact, bcase["pack"], step, every, fp_i)
+        t = t + step * every
+    out["ensemble_run"] = hold_run(
+        f"--domain_factor {DOMAIN_FACTOR} ensemble's final state, {DOMAIN_MEMBERS} members, "
+        f"vs plain, {STEPS} steps", result["final"][rows], want, exact, start)
+    out["ensemble_launches"] = counts["fused_learned_rk4"]
+    out["ensemble"] = {"nx": nx, "path": result["path"], "reason": result["reason"],
+                       "elapsed_s": result["elapsed_s"], "warmup_s": result["warmup_s"],
+                       "traj_steps_per_s": result["traj_steps_per_s"],
+                       "cell_steps_per_s": result["traj_steps_per_s"] * nx,
+                       "finite": result["finite"]}
+
+    # ---- times per STEPS steps at BATCH and ENSEMBLE, beside the bound
+    plain_start = time.perf_counter()
+    bsmooth = 0.3 * bcase["u0"]
+    want = fk.fused_learned_rk4_plain(bsmooth, bcase["pack"], bdt, STEPS, bcase["fp"])
+    torch.cuda.synchronize()
+    out["plain_ms"] = 1e3 * (time.perf_counter() - plain_start)  # host clock, one call
+    out["err"] = max(out["err"], check(
+        f"burgers8 nx 1280 {STEPS} steps B={BATCH}",
+        fk.fused_learned_rk4(bsmooth, bcase["pack"], bdt, STEPS, forcing=bcase["fp"]), want,
+        FORCED_RUN_TOL))
+    del want, bsmooth
+    log(f"    ({time.perf_counter() - phase_start:.1f} s into the phase)")
+
+    def plain_ms(u, pack, dt, fp=None) -> float:
+        """The plain version's STEPS steps, one call, host clock to a
+        synchronize."""
+        start = time.perf_counter()
+        fk.fused_learned_rk4_plain(u, pack, dt, STEPS, fp)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - start)
+
+    for label in out["rows"]:
+        row, case = out["rows"][label], cases[label]
+        row[f"plain_ms_b{BATCH}"] = out["plain_ms"] if label == "burgers8 nx 1280" else plain_ms(
+            0.3 * case["u0"], case["pack"], case["dt"], case["fp"])
+        pack, dt, fp = case["pack"], case["dt"], case["fp"]
+        terms = 0 if fp is None else fp.amplitude.shape[-1]
+        for batch in (BATCH, ENSEMBLE):
+            # at ENSEMBLE the BATCH members and their forcing, tiled: the
+            # time does not depend on the values, and drawing 10240 members
+            # on the host took longer than the call; one call, which runs
+            # for seconds
+            tiles = batch // BATCH
+            u = (0.3 * case["u0"]).repeat(tiles, 1)
+            fpb = None if fp is None else fk.ForcingPack(
+                *(leaf.repeat(tiles, *[1] * (leaf.dim() - 1)) for leaf in fp))
+            row[f"ms_b{batch}"] = time_ms(
+                lambda: fk.fused_learned_rk4(u, pack, dt, STEPS, forcing=fpb), queued=True,
+                samples=LONG_SAMPLES) if batch == BATCH else once_ms(
+                lambda: fk.fused_learned_rk4(u, pack, dt, STEPS, forcing=fpb))
+            row[f"bound_ms_b{batch}"] = learned_rk4_bound_ms(pack, batch, STEPS, terms)
+            row[f"blocks_b{batch}"] = fk.learned_rk4_launch(pack, pack.grid.size, terms,
+                                                            batch).blocks
+            log(f"    {label} B={batch}: {row[f'ms_b{batch}']:.3f} ms per {STEPS} steps "
+                f"(operations bound {row[f'bound_ms_b{batch}']:.3f} ms, "
+                f"{row[f'bound_ms_b{batch}'] / row[f'ms_b{batch}']:.1%}"
+                + (f"; plain version {row[f'plain_ms_b{batch}']:.1f} ms" if batch == BATCH else "")
+                + f"); {batch * STEPS / row[f'ms_b{batch}'] * 1e3:,.0f} traj-steps/s")
+            del u, fpb
+    out["phase_s"] = time.perf_counter() - phase_start
+    log(f"    phase 19 took {out['phase_s']:.1f} s")
+    return out
+
+
+def split_kernel_row(domain: dict, terms: int) -> dict:
+    """The kernels line's row of the split form, from ``domain_phase``'s
+    readings: its launches on the ``--domain_factor`` ensemble, its time at
+    the slice's shape (Burgers-8x, nx 1280, B=BATCH) beside the plain
+    version and the bound, and every domain row's times."""
+    slice_row = domain["rows"]["burgers8 nx 1280"]
+    slice_launch = slice_row["launch"]
+    return {
+        "name": "fused_learned_rk4_split",
+        "route": "cuda",
+        "source": "pde_superresolution_torch/csrc/fused_learned_rk4_cluster.cu",
+        "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:390",
+        "launches": domain["ensemble_launches"],
+        "launches_by_path": {
+            f"burgers8 ensemble --domain_factor {DOMAIN_FACTOR} (nx "
+            f"{domain['ensemble']['nx']}), --fused auto": domain["ensemble_launches"]},
+        "shape": (f"B={BATCH} nx={domain['ensemble']['nx']}, {STEPS} steps, {terms} terms, "
+                  f"clusters of {slice_launch['cluster']} blocks of "
+                  f"{slice_launch['segment']} points"),
+        "max_abs_err": domain["err"],
+        "ms": slice_row[f"ms_b{BATCH}"],
+        "plain_ms": domain["plain_ms"],
+        "bound_ms": slice_row[f"bound_ms_b{BATCH}"],
+        "bound_by": "operations",
+        "library_ms": None,
+        "domain": {label: {k: v for k, v in row.items() if k != "launch"}
+                   | {"cluster": row["launch"]["cluster"], "segment": row["launch"]["segment"],
+                      "stream": row["launch"]["stream"]}
+                   for label, row in domain["rows"].items()},
+        "split_vs_one_block_max_abs_diff": domain["shared"],
+        "streamed_vs_whole_weights_max_abs_diff": domain["streamed"],
+        "reach_10": {k: v for k, v in domain["reach"].items() if k != "launch"},
+        f"depth_{DOMAIN_DEEP_LAYERS}": {k: v for k, v in domain["deep"].items() if k != "launch"},
+        "ensemble": domain["ensemble"],
+        "ensemble_vs_plain": domain["ensemble_run"],
+        "phase_s": domain["phase_s"],
+    }
 
 
 def main() -> int:
@@ -3270,7 +3748,10 @@ def main() -> int:
         return {f"{name} B={batch}": {k: v for k, v in row.items() if k != "launch"}
                 for (name, batch), row in rows.items()}
 
-    # ---- 19. report -----------------------------------------------------------
+    # ---- 19. the learned kernel's full domain ----------------------------------
+    domain = domain_phase(card)
+
+    # ---- 20. report -----------------------------------------------------------
     flagship = times[BATCH]
     full = new_times[ENSEMBLE]
     kernels = [
@@ -3423,6 +3904,7 @@ def main() -> int:
             "bound_by": "operations",
             "library_ms": None,
         },
+        split_kernel_row(domain, terms),
         {
             "name": "fused_rk4",
             "route": "cuda",

@@ -1,0 +1,88 @@
+// fused_learned_rk4, the split form: one trajectory over a thread-block
+// cluster of cfg.cluster blocks, one team (128 threads) a block, each block a
+// segment of cfg.seg points, halos by distributed shared memory (the design
+// note in fused_learned_rk4.cuh). Launched by pde_fused_learned_rk4
+// (fused_learned_rk4.cu) where one block cannot hold a trajectory
+// (fused_kernels.learned_rk4_launch). It replaces the same Pallas kernel,
+// make_fused_learned_rk4 (pde_superresolution_tpu/ops/pallas_kernels.py,
+// the pallas_call at line 758), at the grids its VMEM takes and one block's
+// shared memory does not.
+
+#include "fused_learned_rk4.cuh"
+
+namespace {
+
+template <int NT, bool FORCED>
+__global__ void __launch_bounds__(kTeamThreads)
+    fused_learned_rk4_cluster_kernel(const float* __restrict__ u_in,
+                                     const unsigned char* __restrict__ weights,
+                                     float* __restrict__ u_out, Config cfg, Forcing fp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  learned_rk4_body<NT, FORCED, true>(smem, u_in, weights, u_out, cfg, fp);
+}
+
+template <int NT, bool FORCED>
+int launch_cluster(const float* u, const unsigned char* weights, float* out, const Config& cfg,
+                   const Forcing& fp, int smem_bytes, cudaStream_t stream) {
+  auto kernel = fused_learned_rk4_cluster_kernel<NT, FORCED>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (cfg.cluster > 8) {  // above the portable cluster size
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cfg.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)cfg.batch * cfg.cluster, 1, 1);
+  config.blockDim = dim3(kTeamThreads, 1, 1);
+  config.dynamicSmemBytes = smem_bytes;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  // a cluster this large with this much shared memory a block must fit the
+  // card's processing clusters at least once, or the launch would never run
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&config, kernel, u, weights, out, cfg, fp);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
+int dispatch_cluster(bool forced, const float* u, const unsigned char* weights, float* out,
+                     const Config& cfg, const Forcing& fp, int smem_bytes,
+                     cudaStream_t stream) {
+  return forced ? launch_cluster<NT, true>(u, weights, out, cfg, fp, smem_bytes, stream)
+                : launch_cluster<NT, false>(u, weights, out, cfg, fp, smem_bytes, stream);
+}
+
+}  // namespace
+
+namespace pde {
+
+int launch_learned_rk4_cluster(int channels, bool forced, const float* u,
+                               const unsigned char* weights, float* out,
+                               const LearnedConfig& cfg, const LearnedForcing& fp,
+                               int smem_bytes, cudaStream_t stream) {
+  switch (channels) {
+    case 16:
+      return dispatch_cluster<2>(forced, u, weights, out, cfg, fp, smem_bytes, stream);
+    case 32:
+      return dispatch_cluster<4>(forced, u, weights, out, cfg, fp, smem_bytes, stream);
+    case 64:
+      return dispatch_cluster<8>(forced, u, weights, out, cfg, fp, smem_bytes, stream);
+    case 8 * kWideNT:
+      return dispatch_cluster<kWideNT>(forced, u, weights, out, cfg, fp, smem_bytes, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace pde

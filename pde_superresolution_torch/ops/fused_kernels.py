@@ -11,7 +11,9 @@ The counterpart of ``pde_superresolution_tpu/ops/pallas_kernels.py``:
     model in one launch (tower, heads, constraint projection, stencil, flux,
     all four stages). The tower and the heads run on the tensor cores
     (``wgmma`` and ``mma.sync`` on bf16, float32 sums); a warp group owns a
-    trajectory and a block holds up to four of them. For a forced equation
+    trajectory and a block holds up to four of them, or, where one block
+    cannot hold a trajectory, a thread-block cluster shares it, a segment a
+    block, halos by distributed shared memory. For a forced equation
     (Burgers) the sum-of-sinusoids forcing is evaluated in the kernel from a
     ``ForcingPack``: per-term (sin, cos) phase state advanced by a planar
     rotation per half step.
@@ -56,15 +58,18 @@ from pde_superresolution_torch.utils import debugging
 
 EQUATION_CODES = {"burgers": 0, "kdv": 1, "ks": 2}
 MAX_ORDERS = 3
-# fused_learned_rk4.cu's compile-time limits (kMaxLayers, kMaxTeams,
-# kMaxTeamWarps) and the tower widths it is instantiated for; at
-# WIDE_CHANNELS a block holds one trajectory and streams layer >= 1's weights
-# through a window of one conv tap's slice (kWideNT)
-MAX_LAYERS = 16
+# fused_learned_rk4.cuh's compile-time limits (kMaxTeams, kMaxCluster) and
+# the tower widths it is instantiated for; at WIDE_CHANNELS a block holds one
+# trajectory and streams layer >= 1's weights through a window of one conv
+# tap's slice (kWideNT). Where one block cannot hold a trajectory, the split
+# form shares it over a thread-block cluster of up to MAX_CLUSTER blocks
+# (above PORTABLE_CLUSTER the card must allow a non-portable size).
 MAX_TEAMS = 4  # trajectories per block
 MAX_TEAMS_FORCED = 4  # the same for a forced equation (kMaxTeamsForced)
 TEAM_THREADS = 128  # one warp group owns a trajectory (kTeamThreads)
-U_HALO = 8  # periodic copies at both ends of the state in shared memory (kHalo)
+U_HALO = 8  # the least number of periodic copies of u at each end in shared memory
+MAX_CLUSTER = 16
+PORTABLE_CLUSTER = 8
 PADDED_CHANNELS = (16, 32, 64, 128)
 WIDE_CHANNELS = 128
 MAX_SHARED_BYTES = 232448  # opt-in shared memory per block on sm_90
@@ -389,7 +394,7 @@ class LearnedRK4Pack:
     zero-padded to ``padded_channels`` (16, 32, 64 or 128) and the free dims to a
     multiple of 8: zero weights and biases add exact zeros. Per layer the
     weights ``w [depth, padded_channels]`` are bf16: layer 0 (depth = the K
-    taps padded to 16) in the order of ``mma.m16n8k16``'s B fragments
+    taps padded to a multiple of 16) in the order of ``mma.m16n8k16``'s B fragments
     (``_fragment_order``), every later layer (depth index ``k *
     padded_channels + ci``) as ``wgmma`` reads it from shared memory
     (``_wgmma_order``), so that one conv tap's ``[padded_channels]^2`` slice
@@ -721,86 +726,145 @@ def fused_learned_rk4_plain(
 
 
 class LearnedRK4Launch(NamedTuple):
-    """Geometry of one ``fused_learned_rk4`` launch."""
+    """Geometry of one ``fused_learned_rk4`` launch.
+
+    Whole trajectories a block (``split`` false): ``teams`` of them, each a
+    warp group. The split form (``split``): a thread-block cluster of
+    ``cluster`` blocks per trajectory, one team a block, each holding a
+    segment of ``segment`` points (the last block the rest), with the
+    weights whole in shared memory or, ``stream``, layer >= 1's a conv tap
+    at a time. ``teams`` is 0 when no form fits."""
 
     teams: int  # trajectories per block, one warp group (128 threads) each
     threads: int  # per block
-    team_bytes: int  # shared memory of one trajectory
+    team_bytes: int  # shared memory of one team: a trajectory, or a segment
     shared_bytes: int  # dynamic shared memory of a block: weights + teams
     blocks: int
+    split: bool = False  # the cluster form
+    cluster: int = 1  # blocks per trajectory
+    segment: int = 0  # points a block holds: nx, or a segment of it
+    stream: bool = False  # layer >= 1's weights through a window of one tap's slice
+
+
+def learned_rk4_reach(pack: LearnedRK4Pack) -> int:
+    """How far a point's update reads: the conv kernel's half width or the
+    farthest stencil tap, whichever is larger."""
+    return max(pack.kernel_size // 2, *(abs(t) for taps in pack.taps.values() for t in taps))
+
+
+def learned_rk4_halo(pack: LearnedRK4Pack) -> int:
+    """Periodic points of u the kernel keeps at each end of a team's row:
+    the reach, at least ``U_HALO``."""
+    return max(U_HALO, learned_rk4_reach(pack))
 
 
 def _team_bytes(pack: LearnedRK4Pack, nx: int, terms: int) -> int:
-    """Shared memory of one trajectory (fused_learned_rk4.cu counts the same
-    in ``team_bytes_needed``): two bf16 activation buffers of one plane per
-    8 channels, ``[rows + K, 8]`` each (rows: nx rounded up to 64; K - 1
-    halo rows for the periodic wrap and a dump row), four float32 rows
-    (stage input with 8 halo points at each end, fluxes, the step's start
-    value, the k sum), a ``[32, F | 1]`` tile per warp for the head outputs
-    and, forced, the forcing value, four floats of constants per term and
-    the (sin, cos) phase state per point."""
+    """Shared memory of one team holding ``nx`` points, a whole trajectory
+    or a segment of one (fused_learned_rk4.cuh counts the same in
+    ``team_bytes_needed``): two bf16 activation buffers of one plane per 8
+    channels, ``[rows + K, 8]`` each (rows: nx rounded up to 64; K - 1 halo
+    rows for the periodic wrap and a dump row), four float32 rows (stage
+    input with ``learned_rk4_halo`` points at each end, fluxes, the step's
+    start value, the k sum), a ``[32, F | 1]`` tile per warp for the head
+    outputs and, forced, the forcing value, four floats of constants per
+    term and the (sin, cos) phase state per point."""
     rows = -(-nx // 64) * 64
     planes = pack.padded_channels // 8
-    n = (2 * planes * (rows + pack.kernel_size) * 16 + 4 * (4 * rows + 2 * U_HALO)
-         + 4 * 32 * (pack.n_free | 1) * 4)
+    n = (2 * planes * (rows + pack.kernel_size) * 16
+         + 4 * (4 * rows + 2 * learned_rk4_halo(pack)) + 4 * 32 * (pack.n_free | 1) * 4)
     if terms:
         n += 4 * rows + 16 + 16 * terms + 8 * terms * nx
     return -(-n // 128) * 128
 
 
-def _shared_weight_bytes(pack: LearnedRK4Pack) -> int:
-    """The weights a block keeps in shared memory: the whole buffer, or at
-    ``WIDE_CHANNELS`` the window of one conv tap's slice of a layer."""
-    cp = pack.padded_channels
-    return 2 * cp * cp if cp == WIDE_CHANNELS else pack.blob.numel()
+def _window_bytes(pack: LearnedRK4Pack) -> int:
+    """One conv tap's slice of a layer >= 1's weights, bf16."""
+    return 2 * pack.padded_channels ** 2
 
 
 def learned_rk4_launch(
     pack: LearnedRK4Pack, nx: int, terms: int = 0, batch: int = NUM_SMS * MAX_TEAMS,
-    shared_limit: int = MAX_SHARED_BYTES,
+    shared_limit: int = MAX_SHARED_BYTES, cluster: Optional[int] = None,
 ) -> LearnedRK4Launch:
     """The launch of ``fused_learned_rk4`` for ``batch`` trajectories of
-    ``nx`` points (``terms`` forcing sinusoids). A warp group owns a
-    trajectory. A block holds one copy of the weights and as many
-    trajectories as fit the shared-memory limit, at most 4, but no more than
-    leave the launch ``NUM_SMS`` blocks: a small batch spreads over the
-    card, a large one shares the weights. At ``WIDE_CHANNELS`` a block
-    holds one trajectory beside the window of streamed weights. ``teams`` is
-    0 when not even one fits (``learned_rk4_refusal`` says so)."""
-    team_bytes = _team_bytes(pack, nx, terms)
-    weights = _shared_weight_bytes(pack)
-    fit = max(0, shared_limit - weights) // team_bytes
-    most = 1 if pack.padded_channels == WIDE_CHANNELS else (
-        MAX_TEAMS_FORCED if terms else MAX_TEAMS)
-    teams = min(most, fit, max(1, batch // NUM_SMS))
+    ``nx`` points (``terms`` forcing sinusoids).
+
+    Where a block holds a whole trajectory, a warp group owns it and a block
+    holds one copy of the weights and as many trajectories as fit the
+    shared-memory limit, at most 4, but no more than leave the launch
+    ``NUM_SMS`` blocks: a small batch spreads over the card, a large one
+    shares the weights. At ``WIDE_CHANNELS`` a block holds one trajectory
+    beside the window of streamed weights.
+
+    Where it does not, or where the reach (``learned_rk4_halo``) is longer
+    than the grid or the conv kernel wider than nx + 1 points (a block of
+    whole trajectories writes each halo as a single periodic copy), the
+    split form: the smallest cluster of up to
+    ``MAX_CLUSTER`` blocks whose segments of ``ceil(nx / cluster)`` points
+    fit beside the whole weights or, where no cluster holds them whole, the
+    smallest whose segments fit beside the window of one conv tap's slice
+    (streamed weights cost more per point-step than a larger cluster).
+    ``cluster`` forces the split form with that many blocks (fewer where
+    ``ceil(nx / cluster)``-point segments cover nx with fewer), also at a
+    shape one block holds. ``teams`` is 0 when nothing fits
+    (``learned_rk4_refusal`` says so)."""
+    window, resident = _window_bytes(pack), pack.blob.numel()
+    wide = pack.padded_channels == WIDE_CHANNELS
+    # a block of whole trajectories writes each halo as one periodic copy
+    wraps_once = learned_rk4_halo(pack) <= nx and 2 * (pack.kernel_size // 2) <= nx
+    if cluster is None and wraps_once:
+        team_bytes = _team_bytes(pack, nx, terms)
+        weights = window if wide else resident
+        fit = max(0, shared_limit - weights) // team_bytes
+        most = 1 if wide else (MAX_TEAMS_FORCED if terms else MAX_TEAMS)
+        teams = min(most, fit, max(1, batch // NUM_SMS))
+        if teams >= 1:
+            return LearnedRK4Launch(
+                teams=teams, threads=TEAM_THREADS * teams, team_bytes=team_bytes,
+                shared_bytes=weights + teams * team_bytes, blocks=-(-batch // teams),
+                segment=nx, stream=wide)
+    if cluster is None:
+        sizes = range(1, MAX_CLUSTER + 1)
+    elif not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"cluster={cluster}: the split form takes 1 to {MAX_CLUSTER} blocks")
+    else:
+        sizes = [cluster]
+    for stream in (False, True) if not wide else (True,):
+        weights = window if stream else resident
+        for size in sizes:
+            segment = -(-nx // size)
+            team_bytes = _team_bytes(pack, segment, terms)
+            if weights + team_bytes <= shared_limit:
+                blocks = -(-nx // segment)
+                return LearnedRK4Launch(
+                    teams=1, threads=TEAM_THREADS, team_bytes=team_bytes,
+                    shared_bytes=weights + team_bytes, blocks=batch * blocks, split=True,
+                    cluster=blocks, segment=segment, stream=stream)
     return LearnedRK4Launch(
-        teams=teams, threads=TEAM_THREADS * teams, team_bytes=team_bytes,
-        shared_bytes=weights + max(1, teams) * team_bytes,
-        blocks=-(-batch // max(1, teams)),
-    )
+        teams=0, threads=TEAM_THREADS, team_bytes=team_bytes, shared_bytes=window + team_bytes,
+        blocks=0, split=True, cluster=sizes[-1], segment=segment, stream=True)
 
 
 def learned_rk4_refusal(
     pack: LearnedRK4Pack, nx: int, terms: int = 0,
-    shared_limit: int = MAX_SHARED_BYTES,
+    shared_limit: int = MAX_SHARED_BYTES, cluster: Optional[int] = None,
 ) -> Optional[str]:
     """Why the kernel cannot take this shape, or None if it can. The limits
-    are the kernel's compile-time bounds and the opt-in shared memory of one
-    block (232448 bytes on sm_90), which must hold the weights and one
-    trajectory."""
-    if pack.num_layers > MAX_LAYERS:
-        return f"{pack.num_layers} tower layers > kernel limit {MAX_LAYERS}"
+    are the widths it is built for (``PADDED_CHANNELS``), nx >= 32, and the
+    opt-in shared memory of a block (232448 bytes on sm_90), which must hold
+    the weights (or the window of one tap's slice) and one trajectory, or
+    one segment of a trajectory split over at most ``MAX_CLUSTER`` blocks
+    (``cluster``: exactly that many, as ``learned_rk4_launch`` takes it).
+    The depth and the reach of the tower and the stencil are not limited."""
     if pack.padded_channels not in PADDED_CHANNELS:
         return f"{pack.channels} filters > kernel limit {PADDED_CHANNELS[-1]}"
     if nx < 32:
         return f"nx={nx} < 32"
-    reach = max(pack.kernel_size // 2, *(abs(t) for taps in pack.taps.values() for t in taps))
-    if reach > U_HALO:
-        return f"conv kernel or stencil reaches {reach} points > the halo of {U_HALO}"
-    launch = learned_rk4_launch(pack, nx, terms, shared_limit=shared_limit)
+    launch = learned_rk4_launch(pack, nx, terms, shared_limit=shared_limit, cluster=cluster)
     if launch.teams < 1:
-        return (f"needs {launch.shared_bytes} bytes of shared memory per block > the "
-                f"limit of {shared_limit}")
+        return (f"needs {launch.shared_bytes} bytes of shared memory per block split over "
+                f"{launch.cluster} blocks ({launch.segment} points each) > the limit of "
+                f"{shared_limit}")
     return None
 
 
@@ -811,13 +875,16 @@ def fused_learned_rk4(
     num_steps: int,
     forcing: Union[ForcingParams, ForcingPack, None] = None,
     t=0.0,
+    cluster: Optional[int] = None,
 ) -> torch.Tensor:
     """``num_steps`` RK4 steps of the packed learned model from ``u [B, nx]``.
 
     A forced equation (Burgers) needs ``forcing``: ``ForcingParams`` with
     leaves ``[B, terms]`` (or broadcastable), packed here at start time
     ``t``, or a ready ``ForcingPack``. Forcing for an unforced equation
-    raises, as does a forced equation without it.
+    raises, as does a forced equation without it. ``cluster`` forces the
+    split form with that many blocks per trajectory (``learned_rk4_launch``);
+    the plain version, which a CPU tensor takes, has no blocks and ignores it.
     """
     if pack.equation.forced and forcing is None:
         raise ValueError(f"{pack.equation.name} is forced: forcing required")
@@ -848,12 +915,12 @@ def fused_learned_rk4(
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
 
-    refusal = learned_rk4_refusal(pack, nx, terms)
+    refusal = learned_rk4_refusal(pack, nx, terms, cluster=cluster)
     if refusal:
         raise ValueError(refusal)
     if pack.blob.data_ptr() % 16:
         raise ValueError("packed weights must be 16-byte aligned")
-    launch = learned_rk4_launch(pack, nx, terms, batch)
+    launch = learned_rk4_launch(pack, nx, terms, batch, cluster=cluster)
     orders = list(pack.taps)
 
     from pde_superresolution_torch.ops import _build
@@ -861,7 +928,7 @@ def fused_learned_rk4(
     lib = _build.load_library()
     out = torch.empty_like(u)
     pad = [0] * (MAX_ORDERS - len(orders))
-    meta = (ctypes.c_int * 26)(
+    meta = (ctypes.c_int * 30)(
         EQUATION_CODES[pack.equation.name],
         int(pack.equation.conservative),
         nx, pack.padded_channels, pack.kernel_size, pack.num_layers, pack.n_free,
@@ -871,10 +938,11 @@ def fused_learned_rk4(
         *[first for first, _, _ in pack.free_ranges], *pad,
         *[count for _, count, _ in pack.free_ranges], *pad,
         *[start for _, _, start in pack.free_ranges], *pad,
-        terms, launch.teams, launch.team_bytes,
+        terms, launch.teams, launch.team_bytes, learned_rk4_halo(pack),
+        launch.cluster if launch.split else 0, launch.segment, int(launch.stream),
     )
-    offsets = (ctypes.c_int * (1 + len(pack.blob_offsets)))(
-        _shared_weight_bytes(pack), *pack.blob_offsets)
+    weights = _window_bytes(pack) if launch.stream else pack.blob.numel()
+    offsets = (ctypes.c_int * (1 + len(pack.blob_offsets)))(weights, *pack.blob_offsets)
     scalars = (ctypes.c_float * 5)(
         pack.grid.dx, float(getattr(pack.equation, "eta", 0.0)),
         0.5 * dt, dt, dt / 6.0,
@@ -890,7 +958,6 @@ def fused_learned_rk4(
     fused_learned_rk4.launches += 1
     debugging.check_output("fused_learned_rk4", out)
     return out
-
 
 fused_learned_rk4.launches = 0
 

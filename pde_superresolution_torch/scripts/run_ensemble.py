@@ -87,7 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="snapshots to keep over the horizon")
     parser.add_argument("--fused", choices=["auto", "true", "false"], default="auto",
                         help="whole-interval fused kernel between snapshots; "
-                        "auto = on a CUDA device when the shapes fit one block")
+                        "auto = on a CUDA device when the kernel takes the shape: up "
+                        "to 128 filters, nx >= 32, a trajectory in one block or split "
+                        "over a cluster of up to 16 (fused_kernels.learned_rk4_refusal)")
     parser.add_argument("--domain_factor", type=int, default=1,
                         help="integrate on a domain this many times larger "
                         "than the checkpoint was trained on (same dx; the "
@@ -162,11 +164,13 @@ def choose_route(fused: str, ensemble: Ensemble, pack,
     frozen artifact and a resumable run (``--output_path``) do not read it:
     they take RHS steps.
 
-    The kernel takes a shape when the tower has at most 128 filters and the
-    weights it keeps in shared memory plus one trajectory's fit the card's
-    opt-in limit per block.
-    ``--fused true`` on a shape it cannot take raises; on the CPU it runs
-    the kernel's plain version.
+    The kernel takes a shape when the tower has at most 128 filters, the
+    grid at least 32 points, and the weights it keeps in shared memory (or
+    the window of one conv tap's slice) fit the card's opt-in limit per
+    block beside one trajectory, or beside one segment of a trajectory split
+    over a cluster of up to ``fused_kernels.MAX_CLUSTER`` blocks (as at
+    ``--domain_factor`` grids). ``--fused true`` on a shape it cannot take
+    raises; on the CPU it runs the kernel's plain version.
     """
     if fused == "false":
         return False, "--fused false"
@@ -191,6 +195,12 @@ def choose_route(fused: str, ensemble: Ensemble, pack,
         return False, f"auto: {refusal}"
     launch = fused_kernels.learned_rk4_launch(
         pack, ensemble.coarse.size, terms, ensemble.u0.shape[0], limit)
+    if launch.split:
+        weights = "a conv tap's weights at a time" if launch.stream else "the weights"
+        return True, (f"auto: cuda, a trajectory split over clusters of {launch.cluster} "
+                      f"blocks of {launch.segment} points ({launch.blocks} blocks), "
+                      f"{weights} and a segment in {launch.shared_bytes} bytes of shared "
+                      "memory per block fit")
     return True, (f"auto: cuda, {launch.blocks} blocks of {launch.teams} trajectories, "
                   f"{launch.threads} threads and {launch.shared_bytes} bytes of shared memory "
                   "per block fit")

@@ -153,15 +153,61 @@ def test_domain_factor_builds_larger_grid():
 def test_fused_true_raises_on_unsupported_shape():
     """At --domain_factor 6 one trajectory's 768 points with their 20-term
     phase state (160 bytes a point) and activations exceed a block's shared
-    memory: --fused true raises before anything runs. At --domain_factor 3
-    (384 points) the kernel fits."""
-    with pytest.raises(ValueError, match="bytes of shared memory per block > the limit of 232448"):
-        run_ensemble.main(ARGS + ["--fused", "true", "--domain_factor", "6"])
+    memory, which the kernel refused before its split form: now two blocks
+    of a cluster share it, as at --domain_factor 10 (1280 points); at 3
+    (384 points) one block holds it. --fused true raises, before anything
+    runs, only where no cluster of 16 blocks holds a trajectory:
+    --domain_factor 89 (11,392 points, segments of 712)."""
+    with pytest.raises(ValueError, match=(
+            r"^--fused true, but the kernel cannot take this shape: needs \d+ bytes of "
+            r"shared memory per block split over 16 blocks \(712 points each\) > the limit "
+            r"of 232448$")):
+        run_ensemble.main(ARGS + ["--fused", "true", "--domain_factor", "89"])
     parse = run_ensemble.build_parser().parse_args
-    for factor, fits in ((3, True), (6, False)):
+    for factor, split, cluster in ((3, False, 1), (6, True, 2), (10, True, 2)):
         ensemble = run_ensemble.setup(parse(ARGS + ["--domain_factor", str(factor)]))
         pack = ensemble.model.fused_rk4_fn(ensemble.params, 1e-3, 1, forcing=ensemble.forcing).pack
-        assert (fk.learned_rk4_refusal(pack, ensemble.coarse.size, 20) is None) == fits
+        nx = ensemble.coarse.size
+        assert nx == 128 * factor and fk.learned_rk4_refusal(pack, nx, 20) is None
+        launch = fk.learned_rk4_launch(pack, nx, 20, 10240)
+        assert (launch.split, launch.cluster, launch.stream) == (split, cluster, False)
+
+
+def test_route_takes_the_kernel_at_domain_factor_10(monkeypatch):
+    """--fused auto on a card whose blocks opt in to 232448 bytes of shared
+    memory (the H100's) takes the kernel for the Burgers-8x checkpoint at
+    --domain_factor 10 (1280 points), split over clusters of 2 blocks of 640
+    points beside the whole weights, and says so; on a card that gave a
+    block a third of that it would take 10 blocks, still beside the whole
+    weights; with less than the whole weights and a 16th of the grid, it
+    streams the weights a conv tap at a time; below what 16 blocks need,
+    rhs_fn steps with the refusal's reason."""
+    import types
+
+    ensemble = run_ensemble.setup(run_ensemble.build_parser().parse_args(
+        ARGS + ["--domain_factor", "10"]))
+    pack = ensemble.model.fused_rk4_fn(ensemble.params, 1e-3, 1, forcing=ensemble.forcing).pack
+    ensemble.model.device = torch.device("cuda")
+    limit = {"optin": 232448}
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: types.SimpleNamespace(
+        shared_memory_per_block_optin=limit["optin"]))
+    launch = fk.learned_rk4_launch(pack, 1280, 20, 16)
+    assert run_ensemble.choose_route("auto", ensemble, pack) == (True, (
+        "auto: cuda, a trajectory split over clusters of 2 blocks of 640 points (32 blocks), "
+        f"the weights and a segment in {launch.shared_bytes} bytes of shared memory per "
+        "block fit"))
+    limit["optin"] = 232448 // 3
+    fused, reason = run_ensemble.choose_route("auto", ensemble, pack)
+    assert fused and "clusters of 10 blocks of 128 points" in reason
+    assert "the weights and a segment" in reason
+    limit["optin"] = pack.blob.numel() + fk._team_bytes(pack, 1280 // 16, 20) - 1
+    fused, reason = run_ensemble.choose_route("auto", ensemble, pack)
+    assert fused and "a conv tap's weights at a time" in reason
+    launch = fk.learned_rk4_launch(pack, 1280, 20, 16, shared_limit=limit["optin"])
+    assert launch.stream and launch.cluster > 2
+    limit["optin"] = 8192
+    fused, reason = run_ensemble.choose_route("auto", ensemble, pack)
+    assert not fused and reason.startswith("auto: needs ") and "split over 16 blocks" in reason
 
 
 def test_ic_scale_and_seed():

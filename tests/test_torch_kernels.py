@@ -31,20 +31,21 @@ torch.set_num_threads(1)
 BATCH, NX = 8, 128  # the Pallas kernels need batch % 8 == 0 and nx % 128 == 0
 
 
-def _pair(name, cons, size, seed=0, filters=8):
+def _pair(name, cons, size, seed=0, filters=8, nx=NX, kernel_size=5):
     rng = np.random.default_rng(seed)
     eq_j = jeq.from_name(name, conservative=cons)
-    grid_j = JGrid(8 * NX, eq_j.period).resample(8, conservative=cons)
-    model_j = JModel(eq_j, grid_j, JConfig(num_layers=2, filters=filters, stencil_size=size))
+    grid_j = JGrid(8 * nx, eq_j.period).resample(8, conservative=cons)
+    model_j = JModel(eq_j, grid_j, JConfig(num_layers=2, filters=filters, stencil_size=size,
+                                           kernel_size=kernel_size))
     tree = jax.tree.map(
         lambda leaf: np.asarray(leaf)
         + 0.05 * rng.standard_normal(leaf.shape).astype(np.float32),
         model_j.init_params(jax.random.PRNGKey(0)),
     )
     eq_t = teq.from_name(name, conservative=cons)
-    grid_t = TGrid(8 * NX, eq_t.period).resample(8, conservative=cons)
-    model_t = TModel(eq_t, grid_t, TConfig(num_layers=2, filters=filters, stencil_size=size),
-                     device="cpu")
+    grid_t = TGrid(8 * nx, eq_t.period).resample(8, conservative=cons)
+    model_t = TModel(eq_t, grid_t, TConfig(num_layers=2, filters=filters, stencil_size=size,
+                                           kernel_size=kernel_size), device="cpu")
     x = grid_j.x
     u = np.stack([
         sum(rng.uniform(-1, 1) * np.sin(2 * np.pi * k * x / eq_j.period
@@ -245,6 +246,39 @@ def test_forced_learned_rk4_plain_matches_pallas(cons, size):
     assert np.abs(got - ref.numpy()).max() / np.abs(ref.numpy()).max() < 2e-3
 
 
+def test_forced_learned_rk4_plain_matches_pallas_long_grid():
+    """Forced Burgers at nx 1536, a grid the card's kernel splits over a
+    cluster of blocks (one block holds 640 points at the flagship's width):
+    fused_learned_rk4_plain against make_fused_learned_rk4(interpret=True),
+    batch tile 8, 2 RK4 steps from t0 = 3.7, on the same numpy forcing;
+    1e-4 of max|u|, as at nx 128."""
+    model_j, tree, model_t, params_t, u = _pair("burgers", True, 6, nx=1536)
+    leaves = _numpy_forcing(25, BATCH)
+    forcing_j = jeq.ForcingParams(*(jnp.asarray(a) for a in leaves))
+    forcing_t = teq.ForcingParams(*(torch.from_numpy(a) for a in leaves))
+    dt = model_j.equation.stable_time_step(model_j.grid, u_scale=3.0)
+    adv_j = model_j.fused_rk4_fn(tree, dt, 2, batch_tile=8, interpret=True,
+                                 forcing=forcing_j, t0=T0)
+    want = np.asarray(adv_j(jnp.asarray(u)))
+    advance = model_t.fused_rk4_fn(params_t, dt, 2, forcing=forcing_t, t0=T0)
+    got = advance(torch.from_numpy(u)).numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-4
+    assert fk.learned_rk4_launch(advance.pack, 1536, 20, BATCH).split
+
+
+@pytest.mark.parametrize("size,kernel_size", [(6, 19), (18, 5)])
+def test_learned_rk4_plain_matches_pallas_long_reach(size, kernel_size):
+    """A KS tower of kernel size 19 (reach 9; layer 0's taps fill two
+    depth steps of 16 on the card) and a KS model of stencil size 18 (taps
+    reaching 9 points), which the card's kernel refused before its halo was
+    sized from the pack: the plain version against the Pallas kernel in
+    interpret mode (batch tile 8, 2 steps, nx 128), 1e-4 of max|u|."""
+    model_j, tree, model_t, params_t, u = _pair("ks", True, size, kernel_size=kernel_size)
+    assert _check_learned_rk4(model_j, tree, model_t, params_t, 0.3 * u, steps=2) < 1e-4
+    pack = _pack(model_t, params_t)
+    assert fk.learned_rk4_reach(pack) == 9 and fk.learned_rk4_refusal(pack, NX) is None
+
+
 def test_fused_rk4_fn_advance_honours_t():
     """advance(u, t) starts the forcing's phase at t (default: the closure's
     t0), as the JAX advance does; integrate_fused hands every save interval
@@ -312,7 +346,9 @@ def test_forced_wrapper_checks():
     with pytest.raises(ValueError, match="broadcast"):
         advance(u[:5].contiguous())
     assert fk.learned_rk4_refusal(advance.pack, NX, 20) is None
-    assert "shared memory" in fk.learned_rk4_refusal(advance.pack, 2048, 20)
+    # 2048 forced points are more than one block holds: split, not refused
+    assert fk.learned_rk4_refusal(advance.pack, 2048, 20) is None
+    assert fk.learned_rk4_launch(advance.pack, 2048, 20, BATCH).split
     assert "nx=16 < 32" in fk.learned_rk4_refusal(advance.pack, 16, 20)
     launch = fk.learned_rk4_launch(advance.pack, NX, 20, BATCH)
     # 8 filters pad to 16: 2 planes of nx + 4 halo rows + a dump row; u with 8
@@ -321,9 +357,31 @@ def test_forced_wrapper_checks():
     one = (2 * 2 * (NX + 5) * 16 + 4 * (4 * NX + 16) + 4 * 32 * z_row * 4
            + 4 * (NX + 4 + 80 + 40 * NX))
     one = -(-one // 128) * 128
-    assert launch == (1, 128, one, advance.pack.blob.numel() + one, BATCH)
-    assert "shared memory" in fk.learned_rk4_refusal(
-        advance.pack, NX, 20, shared_limit=launch.shared_bytes - 1)
+    assert launch[:5] == (1, 128, one, advance.pack.blob.numel() + one, BATCH)
+    assert not launch.split and launch.segment == NX
+    # a byte less than the whole weights and one trajectory: two blocks of a
+    # cluster share it, each beside the whole weights (kept whole wherever a
+    # cluster of up to 16 blocks holds them)
+    short = fk.learned_rk4_launch(advance.pack, NX, 20, BATCH,
+                                  shared_limit=launch.shared_bytes - 1)
+    assert short.split and (short.cluster, short.segment, short.stream) == (2, NX // 2, False)
+    assert short.shared_bytes == (advance.pack.blob.numel()
+                                  + fk._team_bytes(advance.pack, NX // 2, 20))
+    # a byte less than the whole weights and a segment of 16 blocks: the
+    # fewest blocks whose segments fit beside one conv tap's slice, streamed
+    tight = advance.pack.blob.numel() + fk._team_bytes(advance.pack, NX // 16, 20) - 1
+    streamed = fk.learned_rk4_launch(advance.pack, NX, 20, BATCH, shared_limit=tight)
+    fewest = min(c for c in range(1, 17) if fk._window_bytes(advance.pack)
+                 + fk._team_bytes(advance.pack, -(-NX // c), 20) <= tight)
+    assert streamed.split and streamed.stream and streamed.cluster == fewest
+    assert streamed.shared_bytes == fk._window_bytes(advance.pack) + streamed.team_bytes <= tight
+    assert fk.learned_rk4_refusal(advance.pack, NX, 20,
+                                  shared_limit=short.shared_bytes - 1) is None
+    # less than the window of one conv tap's slice and a segment of 16 blocks
+    least = fk._window_bytes(advance.pack) + fk._team_bytes(advance.pack, NX // 16, 20)
+    assert "shared memory" in fk.learned_rk4_refusal(advance.pack, NX, 20,
+                                                     shared_limit=least - 1)
+    assert fk.learned_rk4_refusal(advance.pack, NX, 20, shared_limit=least) is None
 
 
 @pytest.mark.parametrize("name,cons", [("ks", True), ("kdv", False), ("kdv", True),
@@ -439,11 +497,12 @@ def test_pack_rejects_even_kernel():
         model.fused_rk4_fn(model.init_params(torch.Generator()), 1e-3, 1)
 
 
-def _torch_model(filters, layers=3, name="ks", cons=True, size=6, nx=NX, seed=0):
+def _torch_model(filters, layers=3, name="ks", cons=True, size=6, nx=NX, seed=0,
+                 kernel_size=5):
     eq = teq.from_name(name, conservative=cons)
     grid = TGrid(8 * nx, eq.period).resample(8, conservative=cons)
-    model = TModel(eq, grid, TConfig(num_layers=layers, filters=filters, stencil_size=size),
-                   device="cpu")
+    model = TModel(eq, grid, TConfig(num_layers=layers, filters=filters, stencil_size=size,
+                                     kernel_size=kernel_size), device="cpu")
     gen = torch.Generator().manual_seed(seed)
     params = {k: v + 0.05 * torch.randn(v.shape, generator=gen)
               for k, v in model.init_params(gen).items()}
@@ -502,11 +561,34 @@ def test_pack_blob_reads_back(filters, layers, name, cons, size):
     starts at a multiple of 128 bytes; pn is zero outside each order's
     free_ranges columns, which alone the projection block holds. Layer 0 and
     the heads feed mma.sync, the later layers wgmma."""
-    model, params = _torch_model(filters, layers, name, cons, size)
+    _check_blob_reads_back(filters, layers, name, cons, size)
+
+
+@pytest.mark.parametrize("filters,layers,name,cons,size,kernel_size", [
+    (16, 2, "ks", True, 6, 19), (8, 3, "burgers", False, 5, 21), (32, 17, "ks", True, 6, 5),
+])
+def test_pack_blob_reads_back_long_kernels_and_deep_towers(filters, layers, name, cons, size,
+                                                           kernel_size):
+    """The same read-back where the kernel once refused the tower: conv
+    kernels of 19 and 21 taps (layer 0's fragments over two depth steps of
+    16), and 17 layers, whose later layers lie at the fixed stride the
+    kernel computes their offsets from (K x channels^2 bf16, then the bias
+    rounded up to 128 bytes)."""
+    pack = _check_blob_reads_back(filters, layers, name, cons, size, kernel_size)
+    cp, k = pack.padded_channels, pack.kernel_size
+    w_bytes, stride = 2 * k * cp * cp, 2 * k * cp * cp + -(-4 * cp // 128) * 128
+    for l in range(1, layers):
+        assert pack.blob_offsets[2 * l] == pack.blob_offsets[2] + (l - 1) * stride
+        assert pack.blob_offsets[2 * l + 1] == pack.blob_offsets[2 * l] + w_bytes
+
+
+def _check_blob_reads_back(filters, layers, name, cons, size, kernel_size=5):
+    model, params = _torch_model(filters, layers, name, cons, size, kernel_size=kernel_size)
     pack = _pack(model, params)
     c, cp, k, f = pack.channels, pack.padded_channels, pack.kernel_size, pack.n_free
     fp = -(-f // 8) * 8
     assert c == filters and cp == {8: 16, 16: 16, 24: 32, 32: 32, 40: 64}[filters]
+    assert k == kernel_size
     assert all(o % 128 == 0 for o in pack.blob_offsets) and pack.blob.numel() % 128 == 0
     assert pack.blob.dtype == torch.uint8 and len(pack.blob_offsets) == 2 * layers + 3
 
@@ -515,7 +597,7 @@ def test_pack_blob_reads_back(filters, layers, name, cons, size):
 
     for l, (w, b) in enumerate(pack.tower):
         cin = 1 if l == 0 else cp
-        depth = 16 if l == 0 else k * cp
+        depth = -(-k // 16) * 16 if l == 0 else k * cp
         read = _read_fragments if l == 0 else _read_wgmma
         got = read(block(2 * l, 2 * depth * cp), depth, cp)
         want = torch.zeros(depth, cp)
@@ -552,6 +634,7 @@ def test_pack_blob_reads_back(filters, layers, name, cons, size):
         row += len(taps)
     assert torch.equal(c0, pack.c0) and torch.equal(pn, pack.pn) and pn.any()
     assert row == pack.n_rows
+    return pack
 
 
 @pytest.mark.parametrize("filters,layers,name,cons,size", PACK_CASES[:4])
@@ -599,24 +682,34 @@ def geometry_packs():
 @pytest.mark.parametrize("filters", [8, 16, 32])
 def test_learned_rk4_launch_geometry(geometry_packs, filters, nx, terms, batch):
     """What Python decides before a launch, for a 3-layer tower with 8 free
-    dims: a shape is refused only when the weights and one trajectory exceed
-    the block's shared memory (here: nx = 1024 forced, 40 x 1024 floats of
-    phase state beside the activations) and the refusal says so; otherwise the block fits the limit and 512 threads,
+    dims: where the weights and one trajectory exceed the block's shared
+    memory (here: nx = 1024 forced, 40 x 1024 floats of phase state beside
+    the activations), which the kernel refused before the split form, two
+    blocks of a cluster share the trajectory, 512 points each, beside the
+    whole weights; otherwise the block fits the limit and 512 threads,
     every trajectory has a team, and the launch has at least 132 blocks
     whenever the batch has 132 trajectories."""
     pack = geometry_packs[filters]
     refusal = fk.learned_rk4_refusal(pack, nx, terms)
     launch = fk.learned_rk4_launch(pack, nx, terms, batch)
-    rows = -(-nx // 64) * 64
-    one = (2 * (pack.padded_channels // 8) * (rows + 5) * 16 + 16 * rows + 64 + 4 * 32 * 9 * 4
-           + (4 * rows + 16 + 16 * terms + 8 * terms * nx if terms else 0))
-    assert launch.team_bytes == -(-one // 128) * 128
-    if nx == 1024 and terms:
-        assert launch.teams == 0
-        assert refusal == (f"needs {pack.blob.numel() + launch.team_bytes} bytes of shared "
-                           "memory per block > the limit of 232448")
-        return
     assert refusal is None
+
+    def team_bytes(points):
+        rows = -(-points // 64) * 64
+        n = (2 * (pack.padded_channels // 8) * (rows + 5) * 16 + 16 * rows + 64
+             + 4 * 32 * 9 * 4 + (4 * rows + 16 + 16 * terms + 8 * terms * points if terms else 0))
+        return -(-n // 128) * 128
+
+    if nx == 1024 and terms:
+        assert pack.blob.numel() + team_bytes(nx) > 232448
+        assert launch.split and (launch.teams, launch.threads) == (1, 128)
+        assert (launch.cluster, launch.segment, launch.stream) == (2, 512, False)
+        assert launch.team_bytes == team_bytes(512)
+        assert launch.shared_bytes == pack.blob.numel() + launch.team_bytes <= 232448
+        assert launch.blocks == 2 * batch
+        return
+    assert launch.team_bytes == team_bytes(nx)
+    assert not launch.split and (launch.cluster, launch.segment) == (1, nx)
     assert 1 <= launch.teams <= fk.MAX_TEAMS and launch.threads == 128 * launch.teams
     assert launch.threads <= 512
     assert launch.shared_bytes == pack.blob.numel() + launch.teams * launch.team_bytes <= 232448
@@ -628,16 +721,58 @@ def test_learned_rk4_launch_geometry(geometry_packs, filters, nx, terms, batch):
 
 
 def test_learned_rk4_refuses_wide_and_deep():
+    """More than 128 filters stay refused, with the reason; a tower of 17
+    layers and a conv kernel of 19 (reach 9), which the kernel refused
+    before the split form (its layer offsets were a table of 16, its halo 8
+    points), are taken, the deep tower's 164 KB of weights whole beside two
+    trajectories at nx 128 and beside a segment of 342 points over 6 blocks
+    at nx 2048, and streamed a tap at a time beside a segment when 2 blocks
+    are asked for; a grid no cluster of 16 blocks holds is refused with the
+    bytes it needs."""
     model, params = _torch_model(136, layers=1)
     pack = _pack(model, params)
     assert fk.learned_rk4_refusal(pack, NX) == "136 filters > kernel limit 128"
     u = torch.zeros(2, NX)
     assert fk.fused_learned_rk4(u, pack, 1e-3, 1).shape == u.shape  # the CPU's plain version
-    deep = dataclasses.replace(pack, num_layers=17)
-    assert "17 tower layers > kernel limit 16" == fk.learned_rk4_refusal(deep, NX)
-    wide = dataclasses.replace(_pack(*_torch_model(8, layers=1)), kernel_size=19)
-    assert fk.learned_rk4_refusal(wide, NX) == (
-        "conv kernel or stencil reaches 9 points > the halo of 8")
+    deep = _pack(*_torch_model(32, layers=17))
+    assert deep.num_layers == 17 and fk.learned_rk4_refusal(deep, NX) is None
+    launch = fk.learned_rk4_launch(deep, NX, 0, 10240)
+    assert not launch.split and launch.teams == 2
+    assert launch.shared_bytes == deep.blob.numel() + 2 * launch.team_bytes <= 232448
+    assert deep.blob.numel() > 160 * 1024
+    launch = fk.learned_rk4_launch(deep, 2048, 0, 10240)
+    assert launch.split and not launch.stream and (launch.cluster, launch.segment) == (6, 342)
+    assert launch.shared_bytes == deep.blob.numel() + launch.team_bytes <= 232448
+    assert fk.learned_rk4_refusal(deep, 2048) is None
+    launch = fk.learned_rk4_launch(deep, 2048, 0, 10240, cluster=2)
+    assert launch.split and launch.stream and launch.segment == 1024
+    assert launch.shared_bytes == fk._window_bytes(deep) + launch.team_bytes <= 232448
+    wide = _pack(*_torch_model(8, layers=1, kernel_size=19))
+    assert fk.learned_rk4_reach(wide) == 9 and fk.learned_rk4_halo(wide) == 9
+    assert fk.learned_rk4_refusal(wide, NX) is None
+    assert fk.learned_rk4_launch(wide, NX).team_bytes == fk._team_bytes(wide, NX, 0)
+    huge = 16 * 2048
+    launch = fk.learned_rk4_launch(deep, huge, 20)
+    assert launch.teams == 0 and (launch.cluster, launch.segment) == (16, 2048)
+    assert fk.learned_rk4_refusal(deep, huge, 20) == (
+        f"needs {launch.shared_bytes} bytes of shared memory per block split over 16 blocks "
+        "(2048 points each) > the limit of 232448")
+
+
+def test_learned_rk4_reach_beyond_the_grid_takes_the_cluster_form():
+    """A block of whole trajectories writes each halo as one periodic copy,
+    which takes a reach up to nx and a conv kernel up to nx + 1 wide; past
+    that (kernel 35 on 32 points) the cluster form runs the trajectory,
+    whose halos wrap modulo nx, here in a cluster of one block; the plain
+    version wraps any reach with its rolls."""
+    model, params = _torch_model(8, layers=1, nx=32, kernel_size=35)
+    pack = _pack(model, params)
+    assert fk.learned_rk4_halo(pack) == 17 and fk.learned_rk4_refusal(pack, 32) is None
+    launch = fk.learned_rk4_launch(pack, 32, 0, 10240)
+    assert launch.split and (launch.cluster, launch.segment) == (1, 32)
+    assert not fk.learned_rk4_launch(pack, 64, 0, 10240).split
+    u = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 32)).astype(np.float32))
+    assert torch.isfinite(fk.fused_learned_rk4(u, pack, 1e-4, 1)).all()
 
 
 def test_widen_params_keeps_the_model():
@@ -681,25 +816,139 @@ def test_learned_rk4_launch_geometry_128_filters(wide_packs, filters, name, nx, 
     trajectory beside a window of one conv tap's 128 x 128 bf16 slice (32
     KB; the whole buffer is 330 KB, which stays in global memory): taken at
     nx 32 to 256, forced (20 terms) or not; at nx = 512 one trajectory's
-    activations alone exceed the block's shared memory and the refusal
-    says so. The buffer lays each layer's slices one after the other."""
+    activations alone exceed the block's shared memory, which the kernel
+    refused before the split form: two blocks of a cluster share it, 256
+    points each, beside the same window. The buffer lays each layer's
+    slices one after the other."""
     pack = wide_packs[(filters, name)]
     terms = 20 if name == "burgers" else 0
     assert pack.padded_channels == fk.WIDE_CHANNELS == 128 and pack.channels == filters
     refusal = fk.learned_rk4_refusal(pack, nx, terms)
     launch = fk.learned_rk4_launch(pack, nx, terms, batch)
-    assert launch.team_bytes == fk._team_bytes(pack, nx, terms)
-    assert launch.shared_bytes == 2 * 128 * 128 + max(1, launch.teams) * launch.team_bytes
+    assert refusal is None and launch.stream
     if nx == 512:
-        assert launch.teams == 0 and refusal == (
-            f"needs {launch.shared_bytes} bytes of shared memory per block > the limit of 232448")
+        assert 2 * 128 * 128 + fk._team_bytes(pack, nx, terms) > 232448
+        assert launch.split and (launch.teams, launch.cluster, launch.segment) == (1, 2, 256)
+        assert launch.team_bytes == fk._team_bytes(pack, 256, terms)
+        assert launch.shared_bytes == 2 * 128 * 128 + launch.team_bytes <= 232448
+        assert launch.blocks == 2 * batch
         return
-    assert refusal is None and launch.shared_bytes <= 232448
+    assert launch.team_bytes == fk._team_bytes(pack, nx, terms)
+    assert launch.shared_bytes == 2 * 128 * 128 + launch.teams * launch.team_bytes <= 232448
+    assert not launch.split
     assert (launch.teams, launch.threads, launch.blocks) == (1, 128, batch)
     for l in range(1, pack.num_layers):  # K slices of 32 KB, each on 16 bytes
         assert pack.blob_offsets[2 * l + 1] - pack.blob_offsets[2 * l] == (
             pack.kernel_size * 2 * 128 * 128)
         assert pack.blob_offsets[2 * l] % 16 == 0
+
+
+@pytest.fixture(scope="module")
+def split_packs():
+    """3-layer towers at the flagship's kernel: KS (unforced, stencil 6)
+    and Burgers (forced, stencil 8) at 32, 64 and 128 filters."""
+    return {(filters, name): _pack(*_torch_model(filters, name=name, size=size))
+            for filters in (32, 64, 128) for name, size in (("ks", 6), ("burgers", 8))}
+
+
+@pytest.mark.parametrize("cluster", [None, 3])
+@pytest.mark.parametrize("nx", [256, 1024, 1280, 2048, 3000, 4096])
+@pytest.mark.parametrize("filters,name", [(32, "ks"), (32, "burgers"), (64, "ks"),
+                                          (64, "burgers"), (128, "ks"), (128, "burgers")])
+def test_learned_rk4_split_launch_geometry(split_packs, filters, name, nx, cluster):
+    """The split form's launch: where a block holds the trajectory (and no
+    cluster is asked for) the launch is the whole-trajectory form's, as
+    before the split form; past that, a cluster of the fewest blocks (at
+    most 16) whose segments of ceil(nx / blocks) points fit beside the
+    whole weights or, where no cluster holds them whole, the fewest whose
+    segments fit beside the window of one conv tap's slice (the weights
+    whole at any cluster size before streamed); the segments cover nx exactly (the last one
+    ragged), every block within 232448 bytes, one team (128 threads) a
+    block and ``batch x cluster`` blocks. ``cluster=3`` forces three blocks
+    also where one holds the trajectory (the card tests hold the two forms
+    against each other that way), and is refused, naming its segments,
+    where three are too few."""
+    pack = split_packs[(filters, name)]
+    terms = 20 if name == "burgers" else 0
+    batch, limit = 10240, 232448
+    launch = fk.learned_rk4_launch(pack, nx, terms, batch, cluster=cluster)
+    refusal = fk.learned_rk4_refusal(pack, nx, terms, cluster=cluster)
+    if cluster is not None and refusal is not None:  # three blocks are too few here
+        assert launch.teams == 0 and launch.shared_bytes > limit
+        assert f"split over 3 blocks ({-(-nx // 3)} points each)" in refusal
+        assert fk.learned_rk4_refusal(pack, nx, terms) is None
+        return
+    assert refusal is None
+    wide = pack.padded_channels == 128
+    whole = 2 * 128 * 128 if wide else pack.blob.numel()
+    one = fk._team_bytes(pack, nx, terms)
+    if cluster is None and whole + one <= limit:  # the whole-trajectory form, unchanged
+        most = 1 if wide else 4
+        teams = min(most, (limit - whole) // one, batch // 132)
+        assert launch == (teams, 128 * teams, one, whole + teams * one, -(-batch // teams),
+                          False, 1, nx, wide)
+        return
+    assert launch.split and (launch.teams, launch.threads) == (1, 128)
+    c, seg = launch.cluster, launch.segment
+    assert seg == -(-nx // (cluster or c)) and (c - 1) * seg < nx <= c * seg
+    assert launch.team_bytes == fk._team_bytes(pack, seg, terms)
+    window = 2 * pack.padded_channels ** 2
+    sizes = [cluster] if cluster else range(1, fk.MAX_CLUSTER + 1)
+    fits_whole = [size for size in sizes if not wide and pack.blob.numel()
+                  + fk._team_bytes(pack, -(-nx // size), terms) <= limit]
+    assert launch.stream == (not fits_whole)
+    weights = window if launch.stream else pack.blob.numel()
+    assert launch.shared_bytes == weights + launch.team_bytes <= limit
+    assert launch.blocks == batch * c and c <= fk.MAX_CLUSTER
+    if cluster is None:  # no fewer blocks fit in the form taken
+        for fewer in range(1, c):
+            assert weights + fk._team_bytes(pack, -(-nx // fewer), terms) > limit
+    else:
+        assert c == cluster
+
+
+def _jax_vmem_bytes(pack, nx, terms, batch_tile=8):
+    """The VMEM that make_fused_learned_rk4 asks for a batch tile of
+    ``batch_tile`` trajectories (pde_superresolution_tpu/ops/pallas_kernels.py
+    :741-755: every live lane tile at 1.5x, on a 16 MiB floor; n_taps is the
+    union of the conv's and the stencils' taps, weights[0].shape[0] the
+    tower's width, 7 forcing rows a term); it refuses more than
+    PHYSICAL_VMEM_BYTES (128 MiB)."""
+    kh = pack.kernel_size // 2
+    n_taps = len(set(range(-kh, kh + 1)).union(*[set(t) for t in pack.taps.values()]))
+    channels, k = pack.channels, pack.kernel_size
+    bytes_per_lane = (4 * (n_taps + 3 * channels + pack.n_rows + pack.n_free + 8)
+                      + 2 * (2 * k * channels) + 4 * 7 * terms)
+    return int(16 * 1024 * 1024 + 1.5 * bytes_per_lane * nx * batch_tile)
+
+
+@pytest.mark.parametrize("filters,name,size,kernel_size,layers,jax_most", [
+    (32, "ks", 6, 5, 3, 8192), (64, "ks", 6, 5, 3, 4352), (128, "ks", 6, 5, 3, 2176),
+    (32, "burgers", 8, 5, 3, 5504), (64, "burgers", 8, 5, 3, 3456),
+    (128, "burgers", 8, 5, 3, 1920), (32, "ks", 6, 19, 3, 3200), (32, "ks", 18, 5, 3, 6400),
+    (32, "ks", 6, 5, 17, 8192), (32, "burgers", 8, 5, 17, 5504),
+])
+def test_learned_rk4_takes_what_jax_takes(filters, name, size, kernel_size, layers, jax_most):
+    """The port's domain against the Pallas kernel's: at a batch tile of 8
+    (the smallest its tiling takes) JAX's VMEM estimate admits nx up to
+    ``jax_most`` (multiples of 128); learned_rk4_refusal takes every one of
+    them, at 32, 64 and 128 filters, forced (Burgers, 20 terms) and not, at
+    a conv kernel of 19 (reach 9), a stencil of 18 taps (reach 9) and 17
+    layers (whose weights the split form streams where no cluster of 16
+    holds them whole: JAX's estimate does not grow with depth); a cluster
+    of more than 8 blocks (non-portable) keeps the weights whole."""
+    pack = _pack(*_torch_model(filters, layers, name, True, size, kernel_size=kernel_size))
+    terms = 20 if name == "burgers" else 0
+    jax_takes = [nx for nx in range(128, 4 * jax_most, 128)
+                 if _jax_vmem_bytes(pack, nx, terms) <= pk.PHYSICAL_VMEM_BYTES]
+    assert max(jax_takes) == jax_most and len(jax_takes) == jax_most // 128
+    refused = {nx: fk.learned_rk4_refusal(pack, nx, terms) for nx in jax_takes}
+    assert all(reason is None for reason in refused.values()), refused
+    launches = [fk.learned_rk4_launch(pack, nx, terms, 10240) for nx in jax_takes]
+    assert max(launch.cluster for launch in launches) <= fk.MAX_CLUSTER
+    # more than the portable 8 blocks only to keep the weights whole
+    assert all(launch.cluster <= fk.PORTABLE_CLUSTER or not launch.stream
+               for launch in launches)
 
 
 @pytest.mark.parametrize("batch", [3, 256, 1037, 4096, 10240])
