@@ -30,7 +30,7 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      against the plain path and against the port's float64 CPU path on a
      small batch;
   6. the launch floor (an empty kernel's launch, queued) and times (CUDA
-     events, warm median of 7, of 3 for the routes and plain versions) at
+     events, warm median of 7, of 2 for the routes and plain versions) at
      B=256 and B=4096: each
      kernel's device time and call time, its plain version, both routes,
      the ``rhs_fn`` route's device time (one RK4 step queued behind a
@@ -53,7 +53,12 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      orders 4 and 6, stencil sizes 8 and 16: taps at run time) at B=256,
      nx=128, and the grids of 32, 512 and 2048 points (the block form) at
      B=1037, each with the classic scheme and with stencil size 32 (taps
-     reaching 16 points), in all four forms;
+     reaching 16 points), in all four forms; the block form where it once
+     refused, bit for bit: 40, 48 and 80 taps an order (coefficients in
+     global memory; 80 taps on 32 points reach past the grid) and nx 14528,
+     16384 and 65536 (the rows in a global scratch); and those two new
+     forms driven as the baseline leg (``integrate_fused``, one launch a
+     save, counted) and timed beside their bounds and plain versions;
   9. the ensemble path at full width, in-process through
      ``scripts.run_ensemble.main``: the Burgers-8x checkpoint, 10240
      trajectories, an exact-solver warm-up, 100 RK4 steps in 10 saves, by
@@ -66,13 +71,14 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      KdV at nx 512 and KS at nx 2048, each beside its bounds and its plain
      version), of the warm-up, and of both ensemble routes end to end;
  11. ``fused_learned_rk4`` at 128 filters (the streamed form: a block per
-     trajectory, a conv tap's weights at a time through shared memory) on
-     the KS-8x and, forced, the Burgers-8x checkpoints widened to 3 x 128
-     filters by ``convert.widen_params``: one step from a standard-normal state against the
-     plain version, which must catch phase 4's three planted weight faults,
-     10 and 100 steps at B=256; times per 100 steps at B=256 and 10240
-     beside the operations bound, and the plain version's per 100 steps at
-     B=256; and
+     trajectory, a conv tap's weights at a time through shared memory) and
+     at 256 (the chunked form: the split form in output chunks of 128
+     channels) on the KS-8x and, forced, the Burgers-8x checkpoints widened
+     by ``convert.widen_params``: one step from a standard-normal state
+     against the plain version, which must catch phase 4's three planted
+     weight faults, 10 and 100 steps at B=256; times per 100 steps at B=256
+     and 10240 (at 256 filters Burgers at B=256 only) beside the operations
+     bound, and the plain version's per 100 steps at B=256; and
      ``scripts.run_ensemble.main`` for the KS model (10240 members, 100
      steps in 10 saves) at ``--fused auto``, which must take the kernel, one
      launch per save;
@@ -199,7 +205,11 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      KS-8x's tower zero-padded to kernel 21 (reach 10) at nx 2048 and
      deepened to 17 layers by identity layers at nx 128, each against its
      plain version and bit for bit the trained tower's run, both timed at
-     nx 128;
+     nx 128; the chunked form at the widest grid JAX's VMEM estimate admits
+     at 256, 512, 1024 and 2384 filters (KS-8x widened) and 2304 forced
+     (Burgers-8x), at B=8: one step against the plain version within its
+     limit or 4 times the plain version's distance from float64 sums, with
+     the planted faults, 10 steps, and times;
      ``scripts.run_ensemble.main`` on
      Burgers-8x at ``--domain_factor 10`` (10240 members of 1280 points,
      100 steps in 10 saves, ``--fused auto``): exactly 10
@@ -234,7 +244,7 @@ STEPS = 100  # RK4 steps per main-path call
 BATCH = 256
 THROUGHPUT_BATCH = 4096
 SAMPLES = 7
-LONG_SAMPLES = 3  # for calls of a second or so (the ensemble's batch)
+LONG_SAMPLES = 2  # for calls of a second or so (the ensemble's batch)
 ENSEMBLE = 10240  # trajectories of the ensemble path (run_ensemble's default)
 ENSEMBLE_SAVES = 10
 WARMUP_TIME = 1.0
@@ -391,8 +401,8 @@ PARALLEL_TRAIN_STEPS = 2
 PARALLEL_TRAIN_TOL = 1e-6
 # Phase 17, the port's bench at reduced samples (the bench's defaults: 5
 # blocks a leg, train 5 x 3 steps a route)
-BENCH_SAMPLES = 3
-BENCH_CPU_SAMPLES = 2
+BENCH_SAMPLES = 2
+BENCH_CPU_SAMPLES = 1
 BENCH_TRAIN_BLOCKS = 2
 BENCH_TRAIN_STEPS = 1
 # fused_rhs against its plain version (phase 3): float32 on both sides, tap
@@ -580,11 +590,14 @@ def tensor_core_line(library) -> str:
     for line in out.stdout.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            # the mangled template arguments <NT, FORCED>: channels = 8 NT
-            found = re.search(r"fused_learned_rk4_(cluster_)?kernelILi(\d+)ELb(\d)EE", name)
+            # the mangled template arguments <NT, FORCED> (the cluster
+            # kernel's <NT, FORCED, CHUNKED>): channels = 8 NT, a chunk's
+            found = re.search(
+                r"fused_learned_rk4_(cluster_)?kernelILi(\d+)ELb(\d)E(?:Lb(\d)E)?E", name)
             if found:
                 name = (f"fused_learned_rk4{'_cluster' if found.group(1) else ''}"
-                        f"<{8 * int(found.group(2))} channels, "
+                        f"<{8 * int(found.group(2))} channels"
+                        f"{' a chunk' if found.group(4) == '1' else ''}, "
                         f"{'forced' if found.group(3) == '1' else 'unforced'}>")
         elif name and "fused_learned_rk4" in name:
             row = counts.setdefault(name, [0, 0, 0])
@@ -742,6 +755,19 @@ RK4_WIDEST = {"stencil_size": 32}
 # at nx=2048 on an H100 (both sides alike)
 SCHEME_STEPS = 10
 RK4_GRIDS = (32, 512, 2048)
+# the block form where it once refused (phase 8, bit for bit; 40 taps at nx
+# 128 in RK4_NEW_FORMS' path): schemes of more than 32 taps an order
+# (coefficients in global memory; 80 taps on 32 points reach 40, past the
+# grid) and grids whose four rows do not fit a
+# block (nx 14528 and more: the rows in a global scratch), SCHEME_STEPS steps
+# each: (batch, nx, scheme)
+RK4_WIDE_CASES = ((5, 32, {"stencil_size": 80}), (5, 14528, {}), (3, 65536, {}),
+                  (3, 16384, {"stencil_size": 48}))
+# the new forms driven as the baseline leg drives the classic one
+# (integrate_fused over make_fused_rk4's advance, one launch a save), timed
+# per STEPS steps: (label, equation, nx, batch, scheme)
+RK4_NEW_FORMS = (("wide taps", "ks", 128, BATCH, {"stencil_size": 40}),
+                 ("global rows", "ks", 16384, BATCH, {}))
 RK4_GRID_BATCH = 1037  # no multiple of the warps per block
 # phase 10's extra fused_rk4 timings: (label, equation, nx, scheme)
 RK4_DOMAIN_TIMES = (("ks accuracy order 4", "ks", 128, {"accuracy_order": 4}),
@@ -763,6 +789,25 @@ WIDE_NOISE = 0.02
 # (read 4.1e-7, 5.5e-5: the trained Burgers model steepens fronts)
 WIDE_STEP_TOL = 3e-5
 WIDE_RUN_TOL = 1e-5
+# phase 11's towers past 128 filters, the chunked form (output chunks of 128
+# channels, the weights streamed a slice of one chunk, conv tap and 128 input
+# channels at a time): the same checkpoints widened to CHUNKED_FILTERS. A
+# layer sums 1280 bf16 products, twice the 128-filter form's, so more
+# roundings flip: its one-step limit from N(0,1) in root mean square is
+# CHUNKED_STEP_TOL (a seeded 256-filter KS tower read 1.1e-5 on an H100, its
+# planted faults about 1e-2), or RUN_CONDITIONING times the plain version's
+# own distance from float64 sums where that is larger (phase 19's towers of
+# up to 2384 filters, forced too); the runs keep the 128-filter limits.
+CHUNKED_FILTERS = 256
+CHUNKED_STEP_TOL = 1e-4
+
+
+def widen_noise(filters: int) -> float:
+    """The noise of the weights convert.widen_params adds at ``filters``:
+    WIDE_NOISE at 128 filters, scaled by sqrt(128 / filters) beyond, so that
+    a new channel's share of a pre-activation (a sum over the input
+    channels) stays as it was at 128."""
+    return WIDE_NOISE * min(1.0, (WIDE_FILTERS / filters) ** 0.5)
 
 
 def baseline_case(name, cons, nx, batch, scheme, gen, device, steps=STEPS):
@@ -793,29 +838,79 @@ def baseline_checks(gen, device) -> float:
     baseline_err = 0.0
     cases = ([(batch, nx, {}) for batch, nx in ((BATCH, 128), (3, 96), (5, 1024), (1037, 128))]
              + [(BATCH, 128, scheme) for scheme in RK4_SCHEMES]
-             + [(RK4_GRID_BATCH, nx, scheme) for nx in RK4_GRIDS for scheme in ({}, RK4_WIDEST)])
+             + [(RK4_GRID_BATCH, nx, scheme) for nx in RK4_GRIDS for scheme in ({}, RK4_WIDEST)]
+             + list(RK4_WIDE_CASES))
     for name in ("ks", "kdv"):
         for cons in (True, False):
             for batch, nx, scheme in cases:
-                steps = SCHEME_STEPS if scheme else STEPS
+                new_form = (batch, nx, scheme) in RK4_WIDE_CASES
+                steps = SCHEME_STEPS if scheme or new_form else STEPS
                 advance, u, differentiator = baseline_case(name, cons, nx, batch, scheme, gen,
                                                            device, steps)
                 got = advance(u)
-                launch = fk.rk4_launch(batch, nx, fk.rk4_is_classic(advance.scheme))
+                taps = advance.scheme.taps
+                launch = fk.rk4_launch(batch, nx, fk.rk4_is_classic(advance.scheme), taps)
                 form = (f"{name} {'conservative' if cons else 'direct'} "
                         f"{scheme or 'classic'} B={batch} nx={nx} ({launch.form}"
                         + (f", {launch.points} points on {launch.lanes} lanes" if launch.points
-                           else "") + (", taps compiled in" if fk.rk4_is_classic(advance.scheme)
-                                       else ", taps at run time") + ")")
+                           else f", halo {launch.halo}, rows in "
+                           f"{'global' if launch.rows_global else 'shared'} memory")
+                        + (", taps compiled in" if fk.rk4_is_classic(advance.scheme)
+                           else ", coefficients in global memory" if fk.rk4_wide(taps)
+                           else ", taps at run time") + ")")
                 baseline_err = max(baseline_err, check(
                     f"{form}, {steps} steps", got, fk.fused_rk4_plain(u, advance.scheme), 0.0))
                 # PolynomialDifferentiator makes a collocated stencil odd, so
-                # the direct form's even stencil_size is another scheme there
-                if cons or scheme.get("stencil_size", 1) % 2:
+                # the direct form's even stencil_size is another scheme there;
+                # the block form's new cases are held bit for bit alone
+                if not new_form and (cons or scheme.get("stencil_size", 1) % 2):
                     _, ref = integrate.integrate(differentiator.rhs_fn(), u,
                                                  advance.scheme.dt, steps, steps)
                     check(f"{form}, vs integrate", got, ref[-1], 1e-5)
     return baseline_err
+
+
+def baseline_new_forms(gen, device) -> dict:
+    """Phase 8's paths of the block form's new cases (RK4_NEW_FORMS): each
+    driven as the baseline leg is (``integrate.integrate_fused`` over
+    ``make_fused_rk4``'s advance, one launch a save), with the launch count
+    zeroed just before and read just after, its final state bit for bit the
+    plain version's STEPS steps; then STEPS steps in one launch timed beside
+    the bounds and the plain version. {label: readings}."""
+    import torch
+
+    from pde_superresolution_torch import integrate
+    from pde_superresolution_torch.ops import fused_kernels as fk
+
+    rows = {}
+    interval = STEPS // ENSEMBLE_SAVES
+    for label, name, nx, batch, scheme in RK4_NEW_FORMS:
+        advance, u, _ = baseline_case(name, True, nx, batch, scheme, gen, device, interval)
+        dt = advance.scheme.dt
+        fk.fused_rk4.launches = 0
+        _, traj = integrate.integrate_fused(lambda v, t: advance(v), u, dt, STEPS, interval)
+        torch.cuda.synchronize()
+        launches = fk.fused_rk4.launches
+        whole = fk.make_fused_rk4(advance.scheme.equation, advance.scheme.grid, dt, STEPS,
+                                  **scheme)
+        launch = fk.rk4_launch(batch, nx, fk.rk4_is_classic(whole.scheme), whole.scheme.taps)
+        log(f"    {label} path: integrate_fused, {name} {scheme or 'classic'} nx={nx} "
+            f"B={batch}: {launches} fused_rk4 launches; {launch}")
+        if launches != ENSEMBLE_SAVES:
+            raise AssertionError(f"{label} path: {launches} launches")
+        want = fk.fused_rk4_plain(u, whole.scheme)
+        err = check(f"{label} path's final state, {STEPS} steps", traj[-1], want, 0.0)
+        bytes_ms, ops_ms = baseline_rk4_bounds_ms(whole.scheme, batch)
+        rows[label] = {
+            "launches": launches, "max_abs_err": err, "launch": launch._asdict(),
+            "ms": time_ms(lambda: whole(u), queued=True, samples=LONG_SAMPLES),
+            "plain_ms": once_ms(lambda: fk.fused_rk4_plain(u, whole.scheme)),
+            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+            "shape": f"{name} {scheme or 'classic'} B={batch} nx={nx}, {STEPS} steps"}
+        log(f"    fused_rk4 {label} B={batch} nx={nx}: " + json.dumps(
+            {k: v for k, v in rows[label].items() if k != "launch"}))
+        del u, traj, want
+    return rows
 
 
 def baseline_domain_times(gen, device) -> dict:
@@ -835,7 +930,8 @@ def baseline_domain_times(gen, device) -> dict:
                               samples=SAMPLES if batch == BATCH else LONG_SAMPLES),
                 "plain_ms": time_ms(lambda: fk.fused_rk4_plain(u, advance.scheme), samples=1),
                 "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
-                "launch": fk.rk4_launch(batch, nx, fk.rk4_is_classic(advance.scheme))._asdict(),
+                "launch": fk.rk4_launch(batch, nx, fk.rk4_is_classic(advance.scheme),
+                                        advance.scheme.taps)._asdict(),
             }
             domain_times[f"{label} B={batch}"] = row
             log(f"    fused_rk4 {label} B={batch}: " + json.dumps(row))
@@ -926,12 +1022,13 @@ def leaf_errors(got: dict, want: dict) -> dict:
     return {k: rel(got[k], want[k]) for k in want}
 
 
-def wide_phase(card: str, ks_dt: float) -> dict:
-    """Phase 11: ``fused_learned_rk4`` at ``WIDE_FILTERS`` filters (the
-    streamed form) at the KS-8x shapes and, forced, the Burgers-8x ones (the
-    checkpoints widened by ``convert.widen_params``): held to the plain version with phase 4's
-    planted weight faults, timed, and the KS model served by
-    ``run_ensemble.main --fused auto``."""
+def wide_phase(card: str, ks_dt: float, filters: int = WIDE_FILTERS) -> dict:
+    """Phase 11: ``fused_learned_rk4`` at ``filters`` filters (WIDE_FILTERS:
+    the streamed form; CHUNKED_FILTERS: the chunked form) at the KS-8x
+    shapes and, forced, the Burgers-8x ones (the checkpoints widened by
+    ``convert.widen_params``): held to the plain version with phase 4's
+    planted weight faults, timed (the chunked form's Burgers tower at BATCH
+    only), and the KS model served by ``run_ensemble.main --fused auto``."""
     import tempfile
 
     import numpy as np
@@ -942,16 +1039,19 @@ def wide_phase(card: str, ks_dt: float) -> dict:
     from pde_superresolution_torch.scripts import run_ensemble
 
     device = torch.device("cuda")
-    log(f"[11] fused_learned_rk4 at {WIDE_FILTERS} filters (ckpt_ks8 and ckpt_burgers8 "
-        f"widened, new weights N(0, {WIDE_NOISE}^2)); on {card}")
+    chunked = filters > WIDE_FILTERS
+    noise = widen_noise(filters)
+    step_tol = CHUNKED_STEP_TOL if chunked else WIDE_STEP_TOL
+    log(f"[11] fused_learned_rk4 at {filters} filters (ckpt_ks8 and ckpt_burgers8 "
+        f"widened, new weights N(0, {noise:.4g}^2)); on {card}")
     phase_start = time.perf_counter()
     out = {"err": 0.0}
     rng = np.random.default_rng(SEED + 11)
     for label in ("ks8", "burgers8"):
         _, trained, config = convert.load_asset(f"ckpt_{label}", device=device)
-        config = {**config, "model": {**config["model"], "filters": WIDE_FILTERS}}
+        config = {**config, "model": {**config["model"], "filters": filters}}
         model = convert.model_from_config(config, device=device)
-        params = convert.widen_params(trained, WIDE_FILTERS, SEED + 11, WIDE_NOISE)
+        params = convert.widen_params(trained, filters, SEED + 11, noise)
         eq, grid = model.equation, model.grid
         pack = fk.pack_learned_rk4(params, eq, grid, model.config.kernel_size,
                                    model.constraint_layers, model.taps)
@@ -967,7 +1067,8 @@ def wide_phase(card: str, ks_dt: float) -> dict:
         fp = forcing_for(BATCH)
         launch = fk.learned_rk4_launch(pack, grid.size, 0 if fp is None else
                                        fp.amplitude.shape[-1], ENSEMBLE)
-        log(f"  {label}: {label} shapes at {WIDE_FILTERS} filters (padded "
+        out[f"{label} launch"] = launch._asdict()
+        log(f"  {label}: {label} shapes at {filters} filters (padded "
             f"{pack.padded_channels}, weights {pack.blob.numel()} bytes), dt={dt}; at "
             f"B={ENSEMBLE}: {launch}")
         rough = torch.from_numpy(
@@ -976,7 +1077,7 @@ def wide_phase(card: str, ks_dt: float) -> dict:
         out["err"] = max(out["err"], check(
             f"{label} one step from N(0,1), B={BATCH}, increment",
             fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp) - rough, want_inc,
-            WIDE_STEP_TOL, rms=True))
+            step_tol, rms=True))
         if fp is None:  # whose the differences are, as phase 4 reads them
             exact_inc = learned_rk4_float64(rough, pack, dt, 1) - rough.double()
             got_inc = fk.fused_learned_rk4(rough, pack, dt, 1) - rough
@@ -988,7 +1089,7 @@ def wide_phase(card: str, ks_dt: float) -> dict:
                                            model.constraint_layers, model.taps)
             check_catches(f"{label} {fault}, one step",
                           fk.fused_learned_rk4(rough, bad_pack, dt, 1, forcing=fp) - rough,
-                          want_inc, WIDE_STEP_TOL, rms=True)
+                          want_inc, step_tol, rms=True)
         smooth = 0.3 * eq.initial_conditions(gen, grid, (BATCH,), device)
         run_tols = ((FORCED_INTERVAL_TOL, FORCED_RUN_TOL) if eq.forced
                     else (WIDE_RUN_TOL, WIDE_RUN_TOL))
@@ -997,26 +1098,33 @@ def wide_phase(card: str, ks_dt: float) -> dict:
                 f"{label} {steps} steps B={BATCH}",
                 fk.fused_learned_rk4(smooth, pack, dt, steps, forcing=fp),
                 fk.fused_learned_rk4_plain(smooth, pack, dt, steps, fp), tol))
-        for batch in (BATCH, ENSEMBLE):
-            u = 0.3 * eq.initial_conditions(gen, grid, (batch,), device)
-            fpb = forcing_for(batch)
+        # at ENSEMBLE the BATCH members and their forcing, tiled, as phase 19
+        # times them: the time does not depend on the values
+        u_batch = 0.3 * eq.initial_conditions(gen, grid, (BATCH,), device)
+        for batch in (BATCH,) if chunked and eq.forced else (BATCH, ENSEMBLE):
+            tiles = batch // BATCH
+            u = u_batch.repeat(tiles, 1)
+            fpb = None if fp is None else fk.ForcingPack(
+                *(leaf.repeat(tiles, *[1] * (leaf.dim() - 1)) for leaf in fp))
             terms = 0 if fpb is None else fpb.amplitude.shape[-1]
-            row = {
-                "ms": time_ms(lambda: fk.fused_learned_rk4(u, pack, dt, STEPS, forcing=fpb),
-                              queued=True, samples=SAMPLES if batch == BATCH else LONG_SAMPLES),
+            def run():
+                return fk.fused_learned_rk4(u, pack, dt, STEPS, forcing=fpb)
+
+            row = {  # at ENSEMBLE one call of seconds
+                "ms": time_ms(run, queued=True) if batch == BATCH else once_ms(run),
                 "bound_ms": learned_rk4_bound_ms(pack, batch, STEPS, terms),
             }
             if batch == BATCH:  # at ENSEMBLE not timed (cut to make room for phase 19)
                 row["plain_ms"] = time_ms(
                     lambda: fk.fused_learned_rk4_plain(u, pack, dt, STEPS, fpb), samples=1)
             out[f"{label} B={batch}"] = row
-            log(f"    {label} {WIDE_FILTERS} filters B={batch}, {STEPS} steps: "
+            log(f"    {label} {filters} filters B={batch}, {STEPS} steps: "
                 + json.dumps(row))
             del u, fpb
         if eq.forced:
             continue
         # the ensemble entry point on this checkpoint, at --fused auto
-        stem = Path(tempfile.mkdtemp(prefix="chip_smoke_wide_")) / f"ks8_{WIDE_FILTERS}_filters"
+        stem = Path(tempfile.mkdtemp(prefix="chip_smoke_wide_")) / f"ks8_{filters}_filters"
         stem.with_suffix(".json").write_text(json.dumps(config))
         np.savez(stem.with_suffix(".npz"), **convert.npz_arrays_from_params(params))
         fk.fused_rhs.launches = fk.fused_learned_rk4.launches = 0
@@ -1027,19 +1135,20 @@ def wide_phase(card: str, ks_dt: float) -> dict:
         torch.cuda.synchronize()
         counts = {"fused_rhs": fk.fused_rhs.launches,
                   "fused_learned_rk4": fk.fused_learned_rk4.launches}
-        log(f"    run_ensemble --fused auto, {WIDE_FILTERS} filters: route {result['path']} "
+        log(f"    run_ensemble --fused auto, {filters} filters: route {result['path']} "
             f"({result['reason']}), launches {counts}, {result['finite']}/{ENSEMBLE} finite, "
             f"{result['traj_steps_per_s']:,.0f} traj-steps/s")
         if (result["path"] != "fused kernel" or result["num_steps"] != STEPS
                 or result["finite"] != ENSEMBLE
                 or counts != {"fused_rhs": 0, "fused_learned_rk4": ENSEMBLE_SAVES}):
-            raise AssertionError(f"{WIDE_FILTERS}-filter ensemble: {result['path']}, {counts}")
+            raise AssertionError(f"{filters}-filter ensemble: {result['path']}, {counts}")
         out["ensemble_launches"] = counts["fused_learned_rk4"]
+        out["ensemble_route"] = result["reason"]
         out["ensemble_s"] = result["elapsed_s"]
         out["ensemble_traj_steps_per_s"] = result["traj_steps_per_s"]
         out["ensemble_finite"] = result["finite"]
     out["phase_s"] = time.perf_counter() - phase_start
-    log(f"    phase 11 took {out['phase_s']:.1f} s")
+    log(f"    phase 11 at {filters} filters took {out['phase_s']:.1f} s")
     return out
 
 
@@ -2807,13 +2916,23 @@ DOMAIN_DEEP_LAYERS = 17  # KS-8x's tower deepened by identity layers
 DOMAIN_FACTOR = 10  # the slice's path: run_ensemble --domain_factor 10 on Burgers-8x
 DOMAIN_MEMBERS = 64  # of its members held to the plain version
 DOMAIN_RUN_STEPS = 10  # steps of the smooth-state checks (one save interval)
+# the chunked form at the widest grid JAX's tile-8 VMEM estimate admits at
+# each width (KS-8x unforced, Burgers-8x forced): (label, checkpoint, domain
+# factor, filters), at a small batch (at 2384 filters a trajectory takes 16
+# blocks of 8 points and each block streams 114 MB of weights per stage)
+DOMAIN_CHUNKED = (("ks8 256 filters nx 1152", "ckpt_ks8", 9, 256),
+                  ("ks8 512 filters nx 512", "ckpt_ks8", 4, 512),
+                  ("ks8 1024 filters nx 256", "ckpt_ks8", 2, 1024),
+                  ("ks8 2384 filters nx 128", "ckpt_ks8", 1, 2384),
+                  ("burgers8 2304 filters nx 128", "ckpt_burgers8", 1, 2304))
+DOMAIN_CHUNKED_BATCH = 8
 
 
 def domain_model(checkpoint: str, factor: int, batch: int, filters=None, kernel_size=None,
                  layers=None, seed: int = SEED) -> dict:
     """A trained model on a grid ``factor`` times larger at the same dx, as
     ``run_ensemble.setup`` builds it for ``--domain_factor`` (widened to
-    ``filters`` by ``convert.widen_params``, its tower zero-padded to
+    ``filters`` by ``convert.widen_params`` with ``widen_noise``, its tower zero-padded to
     ``kernel_size``, or deepened to ``layers`` by identity layers before its
     last, each written to a temporary checkpoint first): the model, params,
     pack, dt, ``batch`` seeded members and their ForcingPack at FORCING_T0
@@ -2837,7 +2956,7 @@ def domain_model(checkpoint: str, factor: int, batch: int, filters=None, kernel_
         params = trained
         if filters:
             model_cfg["filters"] = filters
-            params = convert.widen_params(trained, filters, SEED + 11, WIDE_NOISE)
+            params = convert.widen_params(trained, filters, SEED + 11, widen_noise(filters))
         if kernel_size:
             pad = (kernel_size - model_cfg["kernel_size"]) // 2
             model_cfg["kernel_size"] = kernel_size
@@ -3075,6 +3194,10 @@ def domain_phase(card: str) -> dict:
             del u
     del flagship, deep, reach128, rough, want_inc, got_inc, three_inc
 
+    # ---- the chunked form at the widest grids JAX admits, 256 to 2384 filters
+    log(f"    ({time.perf_counter() - phase_start:.1f} s into the phase)")
+    out["chunked"] = chunked_domain_checks(rough_state)
+
     # ---- the slice's path: run_ensemble --domain_factor on Burgers-8x
     log(f"    ({time.perf_counter() - phase_start:.1f} s into the phase)")
     bcase = cases["burgers8 nx 1280"]
@@ -3180,6 +3303,78 @@ def domain_phase(card: str) -> dict:
     return out
 
 
+def chunked_domain_checks(rough_state) -> dict:
+    """Phase 19's chunked rows: each DOMAIN_CHUNKED model (widened trained
+    checkpoints, a smooth seeded state at DOMAIN_CHUNKED_BATCH) one step from
+    N(0,1) against the plain version, within CHUNKED_STEP_TOL in root mean
+    square or RUN_CONDITIONING times the plain version's own distance from
+    float64 sums where that is larger, with phase 4's planted weight faults
+    failing that limit; DOMAIN_RUN_STEPS steps from a smooth state at the
+    128-filter form's run limits (so conditioned); both timed beside the
+    operations bound and the plain version. Returns {label: readings}."""
+    import torch
+
+    from pde_superresolution_torch.ops import fused_kernels as fk
+
+    rows = {}
+    batch, steps = DOMAIN_CHUNKED_BATCH, DOMAIN_RUN_STEPS
+    for label, checkpoint, factor, filters in DOMAIN_CHUNKED:
+        case = domain_model(checkpoint, factor, batch, filters)
+        pack, dt, fp, model = case["pack"], case["dt"], case["fp"], case["model"]
+        nx = model.grid.size
+        terms = 0 if fp is None else fp.amplitude.shape[-1]
+        launch = fk.learned_rk4_launch(pack, nx, terms, batch)
+        log(f"  {label}: {model.config.num_layers} x {pack.channels} filters (padded "
+            f"{pack.padded_channels}), weights {pack.blob.numel()} bytes, dt={dt:.6g}; at "
+            f"B={batch}: {launch}")
+        if not (launch.split and launch.stream):
+            raise AssertionError(f"{label}: not the chunked form: {launch}")
+        rough = rough_state(batch, nx)
+        want_inc = fk.fused_learned_rk4_plain(rough, pack, dt, 1, fp) - rough
+        got_inc = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp) - rough
+        exact_inc = learned_rk4_float64(rough, pack, dt, 1, fp) - rough.double()
+        own = relative_error(want_inc.double(), exact_inc, True)
+        tol = max(CHUNKED_STEP_TOL, RUN_CONDITIONING * own)
+        row = {"launch": launch._asdict(), "step_tol": tol,
+               "step_err": check(f"{label} one step from N(0,1), B={batch}, increment",
+                                 got_inc, want_inc, tol, rms=True),
+               "kernel_vs_float64_rms": relative_error(got_inc.double(), exact_inc, True),
+               "plain_vs_float64_rms": own}
+        log(f"    vs float64 sums, rel rms: kernel {row['kernel_vs_float64_rms']:.3e}, plain "
+            f"version {own:.3e}")
+        for fault, bad in planted_faults(case["params"]).items():
+            bad_pack = fk.pack_learned_rk4(bad, model.equation, model.grid,
+                                           model.config.kernel_size, model.constraint_layers,
+                                           model.taps)
+            check_catches(f"{label} {fault}, one step",
+                          fk.fused_learned_rk4(rough, bad_pack, dt, 1, forcing=fp) - rough,
+                          want_inc, tol, rms=True)
+            del bad_pack
+        smooth = 0.3 * case["u0"]
+        start = time.perf_counter()
+        want = fk.fused_learned_rk4_plain(smooth, pack, dt, steps, fp)
+        torch.cuda.synchronize()
+        row["plain_ms"] = 1e3 * (time.perf_counter() - start)  # host clock, one call
+        exact = learned_rk4_float64(smooth, pack, dt, steps, fp)
+        run_own = relative_error(want.double(), exact, False)
+        run_tol = max(FORCED_INTERVAL_TOL if fp is not None else WIDE_RUN_TOL,
+                      RUN_CONDITIONING * run_own)
+        row["ms"] = time_ms(lambda: fk.fused_learned_rk4(smooth, pack, dt, steps, forcing=fp),
+                            samples=LONG_SAMPLES)
+        row["run_err"] = check(f"{label} {steps} steps B={batch} (plain version vs float64 "
+                               f"sums {run_own:.3e})",
+                               fk.fused_learned_rk4(smooth, pack, dt, steps, forcing=fp), want,
+                               run_tol)
+        row["bound_ms"] = learned_rk4_bound_ms(pack, batch, steps, terms)
+        row.update(batch=batch, steps=steps)
+        log(f"    {label} B={batch}: {row['ms']:.3f} ms per {steps} steps (operations bound "
+            f"{row['bound_ms']:.3f} ms, {row['bound_ms'] / row['ms']:.1%}; plain version "
+            f"{row['plain_ms']:.1f} ms)")
+        rows[label] = row
+        del case, pack, rough, want_inc, got_inc, exact_inc, smooth, want, exact
+    return rows
+
+
 def split_kernel_row(domain: dict, terms: int) -> dict:
     """The kernels line's row of the split form, from ``domain_phase``'s
     readings: its launches on the ``--domain_factor`` ensemble, its time at
@@ -3216,6 +3411,42 @@ def split_kernel_row(domain: dict, terms: int) -> dict:
         "ensemble": domain["ensemble"],
         "ensemble_vs_plain": domain["ensemble_run"],
         "phase_s": domain["phase_s"],
+    }
+
+
+def chunked_kernel_row(chunked: dict, domain: dict) -> dict:
+    """The kernels line's row of the chunked form (towers wider than 128
+    filters), from phase 11 at CHUNKED_FILTERS (its launches on the
+    ``run_ensemble --fused auto`` path, its times at the KS-8x shapes) and
+    phase 19's rows at the widest grids JAX admits."""
+    ks = chunked[f"ks8 B={BATCH}"]
+    return {
+        "name": "fused_learned_rk4_chunked",
+        "route": "cuda",
+        "source": "pde_superresolution_torch/csrc/fused_learned_rk4_cluster.cu",
+        "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:390",
+        "launches": chunked["ensemble_launches"],
+        "launches_by_path": {f"ks8 shapes at {CHUNKED_FILTERS} filters, ensemble --fused auto":
+                             chunked["ensemble_launches"]},
+        "shape": f"B={BATCH} nx=128, {STEPS} steps, {CHUNKED_FILTERS} filters",
+        "max_abs_err": max([chunked["err"]] + [max(row["step_err"], row["run_err"])
+                                               for row in domain["chunked"].values()]),
+        "ms": ks["ms"],
+        "plain_ms": ks["plain_ms"],
+        "bound_ms": ks["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": None,
+        "ms_by_batch": {BATCH: ks["ms"], ENSEMBLE: chunked[f"ks8 B={ENSEMBLE}"]["ms"]},
+        "bound_ms_by_batch": {BATCH: ks["bound_ms"],
+                              ENSEMBLE: chunked[f"ks8 B={ENSEMBLE}"]["bound_ms"]},
+        f"burgers8_b{BATCH}": chunked[f"burgers8 B={BATCH}"],
+        "launch_ks8": chunked["ks8 launch"],
+        "ensemble_route": chunked["ensemble_route"],
+        "ensemble_traj_steps_per_s": chunked["ensemble_traj_steps_per_s"],
+        "domain": {label: {k: v for k, v in row.items() if k != "launch"}
+                   | {"cluster": row["launch"]["cluster"], "segment": row["launch"]["segment"]}
+                   for label, row in domain["chunked"].items()},
+        "phase_11_s": chunked["phase_s"],
     }
 
 
@@ -3554,6 +3785,7 @@ def main() -> int:
     log("[8] fused_rk4 vs plain and vs integrate(PolynomialDifferentiator)")
     baseline_err = baseline_checks(gen, device)
     log(f"    fused_rk4 against its plain version, largest reading: {baseline_err:.3e}")
+    rk4_new = baseline_new_forms(gen, device)
 
     # ---- 9. the ensemble path at full width ---------------------------------
     def ensemble(checkpoint, route, step):
@@ -3645,6 +3877,9 @@ def main() -> int:
     new_times = {}
     for batch in (BATCH, THROUGHPUT_BATCH, ENSEMBLE):
         samples = SAMPLES if batch == BATCH else LONG_SAMPLES
+        # a plain version: one call at ENSEMBLE (seconds; the smaller batches
+        # ran it before), else one after a warm-up
+        plain_ms = once_ms if batch == ENSEMBLE else (lambda fn: time_ms(fn, samples=1))
         u = eu0[:batch].contiguous()
         fp = fk.pack_forcing(
             type(eforcing)(*(leaf[:batch].contiguous() for leaf in eforcing)),
@@ -3659,22 +3894,21 @@ def main() -> int:
             "forced_rk4_with_pack_ms": time_ms(
                 lambda: fk.fused_learned_rk4(u, bpack, bdt, STEPS, forcing=type(eforcing)(
                     *(leaf[:batch] for leaf in eforcing)), t=FORCING_T0), samples=samples),
-            "forced_rk4_plain_ms": time_ms(
-                lambda: fk.fused_learned_rk4_plain(u, bpack, bdt, STEPS, fp), samples=1),
+            "forced_rk4_plain_ms": plain_ms(
+                lambda: fk.fused_learned_rk4_plain(u, bpack, bdt, STEPS, fp)),
             "forced_rk4_bound_ms": learned_rk4_bound_ms(bpack, batch, STEPS, terms),
             "unforced_rk4_ms": time_ms(
                 lambda: fk.fused_learned_rk4(ks_u, pack, ks_dt, STEPS), queued=True,
                 samples=samples),
             "fused_rk4_ms": time_ms(lambda: base(ks_u), queued=True, samples=samples),
             "fused_rk4_call_ms": time_ms(lambda: base(ks_u), samples=samples),
-            "fused_rk4_plain_ms": time_ms(
-                lambda: fk.fused_rk4_plain(ks_u, base.scheme), samples=1),
+            "fused_rk4_plain_ms": plain_ms(lambda: fk.fused_rk4_plain(ks_u, base.scheme)),
             "fused_rk4_bytes_bound_ms": bytes_ms,
             "fused_rk4_ops_bound_ms": ops_ms,
         }
         if batch == ENSEMBLE:  # 4 and 8 warps per block (rk4_launch takes 8)
-            row["unforced_rk4_plain_ms"] = time_ms(
-                lambda: fk.fused_learned_rk4_plain(ks_u, pack, ks_dt, STEPS), samples=1)
+            row["unforced_rk4_plain_ms"] = plain_ms(
+                lambda: fk.fused_learned_rk4_plain(ks_u, pack, ks_dt, STEPS))
             default = fk.RK4_MAX_WARPS
             for warps in (4, 8):
                 fk.RK4_MAX_WARPS = warps
@@ -3714,8 +3948,9 @@ def main() -> int:
         ens[key + "_warm_ms"] = 1e3 * again["elapsed_s"]
     log(f"    baseline leg: {1e3 * base_elapsed:.1f} ms")
 
-    # ---- 11. fused_learned_rk4 at 128 filters -----------------------------------
+    # ---- 11. fused_learned_rk4 at 128 and 256 filters ------------------------------
     wide = wide_phase(card, ks_dt)
+    chunked = wide_phase(card, ks_dt, CHUNKED_FILTERS)
 
     # ---- 12. training --------------------------------------------------------
     training = training_phase(card, launch_floor_ms)
@@ -3905,6 +4140,7 @@ def main() -> int:
             "library_ms": None,
         },
         split_kernel_row(domain, terms),
+        chunked_kernel_row(chunked, domain),
         {
             "name": "fused_rk4",
             "route": "cuda",
@@ -3927,6 +4163,24 @@ def main() -> int:
             "ms_by_batch": {b: row["fused_rk4_ms"] for b, row in new_times.items()},
             "domain": domain_times,
         },
+        *[{
+            "name": f"fused_rk4_{label.replace(' ', '_')}",
+            "route": "cuda",
+            "source": "pde_superresolution_torch/csrc/fused_rk4.cu",
+            "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:304",
+            "launches": row["launches"],
+            "launches_by_path": {f"{row['shape']}, integrate_fused baseline leg":
+                                 row["launches"]},
+            "shape": row["shape"],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": max(row["bytes_bound_ms"], row["ops_bound_ms"]),
+            "bound_by": ("bytes" if row["bytes_bound_ms"] > row["ops_bound_ms"]
+                         else "operations"),
+            "library_ms": None,
+            "launch": row["launch"],
+        } for label, row in rk4_new.items()],
     ]
     if any(k["launches"] == 0 or 0 in k["launches_by_path"].values() for k in kernels):
         raise AssertionError(f"a kernel was not launched on its path: {kernels}")

@@ -5,7 +5,8 @@
 //
 // This file holds the forms in which a block holds whole trajectories (up
 // to 4 teams a block, or one at 128 channels) and the C entry point, which
-// hands a split launch (cfg.cluster > 0) to fused_learned_rk4_cluster.cu.
+// hands a split launch (cfg.cluster > 0; every tower wider than 128
+// filters) to fused_learned_rk4_cluster.cu.
 
 #include "fused_learned_rk4.cuh"
 
@@ -43,7 +44,8 @@ int dispatch(bool forced, const float* u, const unsigned char* weights, float* o
 
 }  // namespace
 
-// meta: equation code, conservative, nx, channels (padded: 16, 32, 64 or 128),
+// meta: equation code, conservative, nx, channels (padded: 16, 32, 64, 128, or
+//       above 128 a multiple of 16: the chunked form, split and streamed),
 //       ksize, layers, n_free, n_orders, size[3], tap0[3], free0[3],
 //       free_n[3], proj0[3], forcing terms (0 if unforced), teams per block,
 //       shared-memory bytes per team, halo (periodic points of u at each end,
@@ -53,7 +55,7 @@ int dispatch(bool forced, const float* u, const unsigned char* weights, float* o
 //       of a block in the split form), stream (the split form streams layer
 //       >= 1's weights a conv tap at a time: 1, or keeps them whole: 0).
 // offsets: the weights' bytes in shared memory (the whole buffer, or when
-//          streamed the window of one tap's slice, 128 x channels^2 / 64),
+//          streamed the window of one tap's slice, 2 x min(channels, 128)^2),
 //          then the blocks' byte offsets in buffer order: w[0], b[0], ...,
 //          w[layers-1], b[layers-1], hw, hb, projection. Layer l >= 1 must lie
 //          at a fixed stride from layer 1, as pack_learned_rk4 lays them out.
@@ -105,19 +107,25 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
   cfg.half_dt = scalars[2];
   cfg.dt = scalars[3];
   cfg.dt_sixth = scalars[4];
+  cfg.channels = channels;
+  const bool chunked = channels > 8 * kWideNT;
   if (cfg.layers < 1 || cfg.nx < 32 || cfg.ksize < 1 || cfg.halo < reach) {
     return (int)cudaErrorInvalidValue;
   }
   const bool wide = channels == 8 * kWideNT;
   const bool stream_weights = wide || cfg.stream;
+  // the chunked form: a multiple of 16 channels, always split and streamed
+  if (chunked && (channels % 16 || !split || !cfg.stream)) return (int)cudaErrorInvalidValue;
   cfg.weight_bytes = offsets[0];
   // the blocks: layer 0's weights and bias, then every later layer at a
   // fixed stride (its weights, then its bias w_bytes on), then the heads
   const int* block = offsets + 1;
   cfg.w0_off = block[0];
   cfg.b0_off = block[1];
-  cfg.w_bytes = cfg.ksize * channels * channels * 2;
-  cfg.layer_stride = cfg.w_bytes + round_up(channels * 4, 128);
+  // output columns (and biases) padded to whole chunks of 128 above 128
+  const int out_channels = chunked ? round_up(channels, 8 * kWideNT) : channels;
+  cfg.w_bytes = cfg.ksize * channels * out_channels * 2;
+  cfg.layer_stride = cfg.w_bytes + round_up(out_channels * 4, 128);
   cfg.w1_off = cfg.layers > 1 ? block[2] : 0;
   for (int l = 1; l < cfg.layers; ++l) {
     if (block[2 * l] != cfg.w1_off + (l - 1) * cfg.layer_stride ||
@@ -136,7 +144,8 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
     fp.sin0 = forcing[3];
     fp.cos0 = forcing[4];
   }
-  if (stream_weights && cfg.weight_bytes != 2 * channels * channels) {
+  const int slice_channels = chunked ? 8 * kWideNT : channels;  // of the window's slice
+  if (stream_weights && cfg.weight_bytes != 2 * slice_channels * slice_channels) {
     return (int)cudaErrorInvalidValue;
   }
   if (split) {  // one team a block; the segments cover nx, each block holds points
@@ -170,7 +179,7 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
       return dispatch<8>(forced, u, weights, out, cfg, fp, teams, smem_bytes, s);
     case 8 * kWideNT:
       return dispatch<kWideNT>(forced, u, weights, out, cfg, fp, teams, smem_bytes, s);
-    default:
+    default:  // the chunked form is split
       return (int)cudaErrorInvalidValue;
   }
 }

@@ -121,6 +121,23 @@
 //    order at every row, so the split form gives the one-block form's
 //    result bit for bit. A simple form: a layer waits for the whole
 //    cluster, and a block holds one team.
+//  * The chunked form (CHUNKED, split only): towers wider than 128 filters,
+//    padded to a multiple of 16 channels (cfg.channels). The output channels
+//    run in chunks of 128, each on wgmma.m64n128k16 with the 128-channel
+//    form's 64 accumulators a thread; the contraction runs over the input
+//    channels 128 at a time (the last slice the rest). The weights stream
+//    through the same 32 KB window, a slice per (chunk, conv tap, 128 input
+//    channels), laid out in that order by pack_learned_rk4 with the output
+//    columns zero-padded to whole chunks (so are layer 0's fragments and
+//    every bias). Layer 0 runs chunk by chunk; the last layer's chunks feed
+//    the heads one after the other, their products summed into the z tile.
+//    The last chunk stores only the planes the activations have. Activation
+//    planes hold the segment's rows rounded up to 8 (one core matrix), not
+//    64: a 64-row tile reads past them into the next plane, or the slack of
+//    one tile after the last, and its outputs there go to the dump row. A
+//    simple form: at 2384 filters and 128 points a block holds 8 of a tile's
+//    64 rows, and every block streams every layer's weights (57 MB at kernel
+//    5, past L2's 50 MB) once per stage.
 //  * -DPDE_MAX_TEAMS=n and -DPDE_PROFILE serve
 //    scripts/probe_learned_rk4.py: other team counts, and cycles by phase.
 #pragma once
@@ -160,6 +177,7 @@ struct LearnedConfig {
   int stream;        // split form: layer >= 1's weights a conv tap at a time
   int batch, num_steps;
   float dx, eta, half_dt, dt, dt_sixth;
+  int channels;  // the padded tower width (a multiple of 16 above 128: the chunked form)
 };
 
 // The split form's launch (fused_learned_rk4_cluster.cu): a cluster of
@@ -189,16 +207,24 @@ constexpr int kPhases = 10;               // of the PDE_PROFILE build
 constexpr int kMaxTeamsForced = kMaxTeams < 4 ? kMaxTeams : 4;  // MAX_TEAMS_FORCED
 constexpr int kWideNT = 16;  // 128 channels: the wide form (fused_kernels.WIDE_CHANNELS)
 constexpr int kMaxCluster = 16;  // fused_kernels.MAX_CLUSTER
+// the chunked form: the bytes after the activation buffers that a 64-row
+// tile reads past a plane whose rows are rounded up to 8
+// (fused_kernels.CHUNK_SLACK)
+constexpr int kChunkSlack = 64 * 16;
 
 __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 // Shared memory of one team holding `points` points, as
 // fused_kernels._team_bytes counts it.
+// Above 128 channels (the chunked form) rows are rounded up to 8, not 64,
+// and one 64-row tile of slack follows the activation buffers.
 __host__ __device__ inline int team_bytes_needed(int points, int channels, int ksize, int n_free,
                                                  int terms, int halo) {
-  const int rows = round_up(points, 64);
+  const bool chunked = channels > 8 * kWideNT;
+  const int rows = round_up(points, chunked ? 8 : 64);
   const int plane_rows = rows + ksize;  // kh halo rows before and after, a dump row
   int bytes = 2 * (channels / 8) * plane_rows * 16  // two activation buffers
+              + (chunked ? kChunkSlack : 0)
               + (4 * rows + 2 * halo) * 4           // u with halo, flux, step start, k sum
               + 4 * 32 * (n_free | 1) * 4;          // z staging, one tile per warp
   if (terms > 0) bytes += rows * 4 + 16 + 4 * terms * 4 + 2 * terms * points * 4;
@@ -373,18 +399,28 @@ __device__ __forceinline__ int segment_owner(int gp, int nx, int seg, int& rank)
 // 8], hb [F padded]; c0 [S]; pn [S][F], all float32.
 // SPLIT: the cluster form, one team a block holding a segment of the
 // trajectory (see the design note above); otherwise whole trajectories.
+// CHUNKED (SPLIT, NT = kWideNT): towers wider than 128 channels, padded to
+// cfg.channels (a multiple of 16), in output chunks of 128 channels whose
+// weights stream a slice of (chunk, tap, 128 input channels) at a time.
 // cfg and fp come by value: read through a reference to the kernel's
 // parameters the flagship ran 2-3% slower (H100, 100 steps at B=10240).
-template <int NT, bool FORCED, bool SPLIT>
+template <int NT, bool FORCED, bool SPLIT, bool CHUNKED = false>
 __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
                                                  const float* __restrict__ u_in,
                                                  const unsigned char* __restrict__ weights,
                                                  float* __restrict__ u_out, const Config cfg,
                                                  const Forcing fp) {
-  constexpr int CS = NT / 2;  // depth-16 steps across the channels
+  static_assert(!CHUNKED || (SPLIT && NT == kWideNT), "the chunked form is split, 128 a chunk");
+  constexpr int CS = NT / 2;  // depth-16 steps across the channels (of a chunk)
   constexpr bool WIDE = NT == kWideNT;  // one team a block, layer >= 1's weights streamed
   constexpr int MT = WIDE ? 1 : 2;      // 64-point tiles per pass
   constexpr int SLICE = 128 * NT * NT;  // bytes of one conv tap's weights of a layer >= 1
+  constexpr int STEP_BYTES = SLICE / CS;  // one depth step of 16 input channels of a slice
+  // 8-channel planes of the activations, output chunks of 8 NT channels,
+  // depth steps over all input channels
+  const int planes = CHUNKED ? cfg.channels / 8 : NT;
+  const int chunks = CHUNKED ? (planes + NT - 1) / NT : 1;
+  const int all_cs = CHUNKED ? planes / 2 : CS;
   // layer >= 1's weights through a window of one tap's slice: at 128
   // channels always, in the split form where the host says so
   const bool stream = WIDE || (SPLIT && cfg.stream);
@@ -392,8 +428,10 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   const int halo = cfg.halo;
   const int FT = (F + 7) / 8, z_stride = F | 1;  // odd: lanes on distinct banks
   // the layout follows cfg.seg (alike in every block of a cluster); the
-  // loops follow n, the points this team owns
-  const int rows = round_up(cfg.seg, 64);
+  // loops follow n, the points this team owns. The chunked form rounds the
+  // rows up to 8: a 64-row tile then reads past a plane (into the next one,
+  // or the slack after the last), and its rows beyond n go to the dump row.
+  const int rows = round_up(cfg.seg, CHUNKED ? 8 : 64);
   // one plane per 8 channels: [kh halo rows, rows, kh halo rows, a dump row
   // for the rows beyond the grid] x 16 bytes
   const int plane_bytes = (rows + K) * 16, dump_row = rows + K - 1;
@@ -430,9 +468,10 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   auto b_off = [&](int l) { return l == 0 ? cfg.b0_off : w_off(l) + cfg.w_bytes; };
 
   unsigned char* base = smem + cfg.weight_bytes + team * cfg.team_bytes;
-  unsigned char* act[2] = {base, base + NT * plane_bytes};  // bf16 [NT planes]
+  unsigned char* act[2] = {base, base + planes * plane_bytes};  // bf16 [planes]
   // stage input, s_u[-halo .. rows + halo): periodic copies at both ends
-  float* s_u = reinterpret_cast<float*>(base + 2 * NT * plane_bytes) + halo;
+  float* s_u = reinterpret_cast<float*>(base + 2 * planes * plane_bytes +
+                                        (CHUNKED ? kChunkSlack : 0)) + halo;
   float* s_flux = s_u + rows + halo;  // face fluxes, or u_t for a direct form
   float* s_u0 = s_flux + rows;  // the step's start value
   float* s_ksum = s_u0 + rows;  // running k1 + 2 k2 + 2 k3 + k4
@@ -539,200 +578,229 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
         for (int tp = 0; tp < tiles; tp += MT) {
           const bool two = MT == 2 && tp + 1 < tiles;
           const int row0 = 64 * tp + 16 * wt;  // this warp's first row of tile tp
-          float acc[MT][NT][4];  // start from the bias of channels 8 nt + 2 q, + 1
+          // the output channels 8 NT at a time (one chunk but in the chunked form)
+          for (int oc = 0; oc < chunks; ++oc) {
+            float acc[MT][NT][4];  // start from the bias of channels 8 (oc NT + nt) + 2 q, + 1
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const float2 b = *reinterpret_cast<const float2*>(bias + 8 * nt + 2 * q);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              acc[mt][nt][0] = acc[mt][nt][2] = b.x;
-              acc[mt][nt][1] = acc[mt][nt][3] = b.y;
-            }
-          }
-
-          if (l == 0) {
-            // mma.sync; A[point][tap] = bf16(u[point + tap - kh]), taps padded
-            // to whole depth steps of 16
-            const uint2* w = reinterpret_cast<const uint2*>(wts + cfg.w0_off) + lane;
-            auto tap = [&](int row, int col) -> float {  // no branch: load, then select
-              const float v = s_u[col < K ? row + col - kh : 0];
-              return col < K ? v : 0.f;
-            };
-            for (int ks = 0; ks * 16 < K; ++ks) {
-              uint32_t a[MT][4];
+            for (int nt = 0; nt < NT; ++nt) {
+              const float2 b =
+                  *reinterpret_cast<const float2*>(bias + 8 * (oc * NT + nt) + 2 * q);
 #pragma unroll
               for (int mt = 0; mt < MT; ++mt) {
-                const int r = row0 + 64 * mt + g;
-                const int r0 = r < n ? r : 0, r1 = r + 8 < n ? r + 8 : 0;
-                const int c = 16 * ks + 2 * q;
-                a[mt][0] = pack_bf16(tap(r0, c), tap(r0, c + 1));
-                a[mt][1] = pack_bf16(tap(r1, c), tap(r1, c + 1));
-                a[mt][2] = pack_bf16(tap(r0, c + 8), tap(r0, c + 9));
-                a[mt][3] = pack_bf16(tap(r1, c + 8), tap(r1, c + 9));
-              }
-#pragma unroll
-              for (int nt = 0; nt < NT; ++nt) {
-                const uint2 b = w[(ks * NT + nt) * 32];
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b);
+                acc[mt][nt][0] = acc[mt][nt][2] = b.x;
+                acc[mt][nt][1] = acc[mt][nt][3] = b.y;
               }
             }
-          } else if (stream) {
-            // As below, one conv tap's slice of the weights at a time through
-            // the window at the start of shared memory (the team is the block).
-            const uint64_t a = smem_desc(
-                (uint32_t)__cvta_generic_to_shared(in) + 64 * tp * 16, plane_bytes, 128);
-            const uint64_t b0 =
-                smem_desc((uint32_t)__cvta_generic_to_shared(smem), 128 * NT, 128);
-            const uint4* slice = reinterpret_cast<const uint4*>(weights + w_off(l));
-            for (int k = 0; k < K; ++k, slice += SLICE / 16) {
-              team_sync();  // every warp's products of the last slice are done
-              for (int i = tt; i < SLICE / 16; i += kTeamThreads) {
-                reinterpret_cast<uint4*>(smem)[i] = slice[i];
+
+            if (l == 0) {
+              // mma.sync; A[point][tap] = bf16(u[point + tap - kh]), taps padded
+              // to whole depth steps of 16
+              const uint2* w = reinterpret_cast<const uint2*>(wts + cfg.w0_off) + lane;
+              auto tap = [&](int row, int col) -> float {  // no branch: load, then select
+                const float v = s_u[col < K ? row + col - kh : 0];
+                return col < K ? v : 0.f;
+              };
+              for (int ks = 0; ks * 16 < K; ++ks) {
+                uint32_t a[MT][4];
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) {
+                  const int r = row0 + 64 * mt + g;
+                  const int r0 = r < n ? r : 0, r1 = r + 8 < n ? r + 8 : 0;
+                  const int c = 16 * ks + 2 * q;
+                  a[mt][0] = pack_bf16(tap(r0, c), tap(r0, c + 1));
+                  a[mt][1] = pack_bf16(tap(r1, c), tap(r1, c + 1));
+                  a[mt][2] = pack_bf16(tap(r0, c + 8), tap(r0, c + 9));
+                  a[mt][3] = pack_bf16(tap(r1, c + 8), tap(r1, c + 9));
+                }
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt) {
+                  const uint2 b = w[((ks * chunks + oc) * NT + nt) * 32];
+#pragma unroll
+                  for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b);
+                }
               }
-              fence_proxy_async();  // wgmma reads the window
-              team_sync();
+            } else if (stream) {
+              // As below, one slice of the weights at a time through the window
+              // at the start of shared memory (the team is the block): one conv
+              // tap's [8 NT]^2, or in the chunked form the tap's next 128 input
+              // channels (or the rest) to this chunk's 128 outputs, each slice
+              // contiguous in the buffer in the order (chunk, tap, input steps).
+              const uint64_t a = smem_desc(
+                  (uint32_t)__cvta_generic_to_shared(in) + 64 * tp * 16, plane_bytes, 128);
+              const uint64_t b0 =
+                  smem_desc((uint32_t)__cvta_generic_to_shared(smem), 128 * NT, 128);
+              const unsigned char* layer_w = weights + w_off(l);
+              for (int k = 0; k < K; ++k) {
+                for (int ic = 0; ic < all_cs; ic += CS) {  // ic: the slice's first depth step
+                  const int steps = CHUNKED ? min(CS, all_cs - ic) : CS;
+                  const uint4* slice = reinterpret_cast<const uint4*>(
+                      layer_w + ((size_t)(oc * K + k) * all_cs + ic) * STEP_BYTES);
+                  team_sync();  // every warp's products of the last slice are done
+                  for (int i = tt; i < steps * (STEP_BYTES / 16); i += kTeamThreads) {
+                    reinterpret_cast<uint4*>(smem)[i] = slice[i];
+                  }
+                  fence_proxy_async();  // wgmma reads the window
+                  team_sync();
 #pragma unroll
-              for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+                  for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+                  wgmma_fence();
+                  uint64_t b = b0;
+#pragma unroll
+                  for (int cs = 0; cs < CS; ++cs, b += 16 * NT) {
+                    if (!CHUNKED || cs < steps) {  // uniform over the warp group
+                      const uint64_t a_k = a + ((ic + cs) * (plane_bytes / 8) + k);
+                      wgmma_bf16<NT>(acc[0], a_k, b);
+                      if (two) wgmma_bf16<NT>(acc[MT - 1], a_k + 64, b);
+                    }
+                  }
+                  wgmma_commit();
+                  wgmma_wait();
+#pragma unroll
+                  for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+                }
+              }
+              PROF(2);
+            } else {
+              // wgmma, both operands from shared memory. Tap k reads the input
+              // planes shifted by k - kh rows: the descriptor starts 16 bytes
+              // further per row (row r lies at index r + kh).
+              // The address field counts 16 bytes, so a step is an add.
+              const uint64_t a = smem_desc(
+                  (uint32_t)__cvta_generic_to_shared(in) + 64 * tp * 16, plane_bytes, 128);
+              uint64_t b = smem_desc((uint32_t)__cvta_generic_to_shared(smem + w_off(l)),
+                                     128 * NT, 128);
+              fence_acc(acc[0]);
+              fence_acc(acc[MT - 1]);
               wgmma_fence();
-              uint64_t b = b0;
+              for (int k = 0; k < K; ++k) {
 #pragma unroll
-              for (int cs = 0; cs < CS; ++cs, b += 16 * NT) {
-                const uint64_t a_k = a + (cs * (plane_bytes / 8) + k);
-                wgmma_bf16<NT>(acc[0], a_k, b);
-                if (two) wgmma_bf16<NT>(acc[MT - 1], a_k + 64, b);
+                for (int cs = 0; cs < CS; ++cs, b += 16 * NT) {
+                  const uint64_t a_k = a + (cs * (plane_bytes / 8) + k);
+                  wgmma_bf16<NT>(acc[0], a_k, b);
+                  if (two) wgmma_bf16<NT>(acc[MT - 1], a_k + 64, b);
+                }
               }
               wgmma_commit();
               wgmma_wait();
-#pragma unroll
-              for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+              fence_acc(acc[0]);
+              fence_acc(acc[MT - 1]);
+              PROF(2);
             }
-            PROF(2);
-          } else {
-            // wgmma, both operands from shared memory. Tap k reads the input
-            // planes shifted by k - kh rows: the descriptor starts 16 bytes
-            // further per row (row r lies at index r + kh).
-            // The address field counts 16 bytes, so a step is an add.
-            const uint64_t a = smem_desc(
-                (uint32_t)__cvta_generic_to_shared(in) + 64 * tp * 16, plane_bytes, 128);
-            uint64_t b = smem_desc((uint32_t)__cvta_generic_to_shared(smem + w_off(l)),
-                                   128 * NT, 128);
-            fence_acc(acc[0]);
-            fence_acc(acc[MT - 1]);
-            wgmma_fence();
-            for (int k = 0; k < K; ++k) {
+            if (l == 0) PROF(0);
+
+            // ---- ReLU, bf16: lo = row g, hi = row g + 8 of the warp's 16
+            // rows, channels 8 nt + 2 q and + 1 ----
+            uint32_t lo[MT][NT], hi[MT][NT];
 #pragma unroll
-              for (int cs = 0; cs < CS; ++cs, b += 16 * NT) {
-                const uint64_t a_k = a + (cs * (plane_bytes / 8) + k);
-                wgmma_bf16<NT>(acc[0], a_k, b);
-                if (two) wgmma_bf16<NT>(acc[MT - 1], a_k + 64, b);
+            for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) {
+                lo[mt][nt] = relu_bf16(acc[mt][nt][0], acc[mt][nt][1]);
+                hi[mt][nt] = relu_bf16(acc[mt][nt][2], acc[mt][nt][3]);
               }
             }
-            wgmma_commit();
-            wgmma_wait();
-            fence_acc(acc[0]);
-            fence_acc(acc[MT - 1]);
-            PROF(2);
-          }
-          if (l == 0) PROF(0);
 
-          // ---- ReLU, bf16: lo = row g, hi = row g + 8 of the warp's 16
-          // rows, channels 8 nt + 2 q and + 1 ----
-          uint32_t lo[MT][NT], hi[MT][NT];
+            if (!last) {
+              // One stmatrix per 8 rows and up to 4 planes; rows beyond the
+              // points go to the plane's dump row. In one block the first and
+              // last kh rows also fill the halo at the other end (the periodic
+              // wrap; 2 kh <= nx, which the host sees to); the split form
+              // pulls its halo after the layer.
+              const uint32_t out_addr = (uint32_t)__cvta_generic_to_shared(out);
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
+              for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              lo[mt][nt] = relu_bf16(acc[mt][nt][0], acc[mt][nt][1]);
-              hi[mt][nt] = relu_bf16(acc[mt][nt][2], acc[mt][nt][3]);
-            }
-          }
-
-          if (!last) {
-            // One stmatrix per 8 rows and up to 4 planes; rows beyond the
-            // points go to the plane's dump row. In one block the first and
-            // last kh rows also fill the halo at the other end (the periodic
-            // wrap; 2 kh <= nx, which the host sees to); the split form
-            // pulls its halo after the layer.
-            const uint32_t out_addr = (uint32_t)__cvta_generic_to_shared(out);
+                for (int half = 0; half < 2; ++half) {
+                  const int first = row0 + 64 * mt + 8 * half;  // of these 8 rows
+                  const int r_lane = first + (lane & 7);
+                  const uint32_t row_addr =
+                      out_addr + (r_lane < n ? r_lane + kh : dump_row) * 16;
+                  const uint32_t* regs = half ? hi[mt] : lo[mt];
+                  if constexpr (NT == 2) {
+                    stmatrix_x2(row_addr + ((lane >> 3) & 1) * plane_bytes, regs[0], regs[1]);
+                  } else {
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-              for (int half = 0; half < 2; ++half) {
-                const int first = row0 + 64 * mt + 8 * half;  // of these 8 rows
-                const int r_lane = first + (lane & 7);
-                const uint32_t row_addr =
-                    out_addr + (r_lane < n ? r_lane + kh : dump_row) * 16;
-                const uint32_t* regs = half ? hi[mt] : lo[mt];
-                if constexpr (NT == 2) {
-                  stmatrix_x2(row_addr + ((lane >> 3) & 1) * plane_bytes, regs[0], regs[1]);
-                } else {
-#pragma unroll
-                  for (int n0 = 0; n0 < NT; n0 += 4) {
-                    stmatrix_x4(row_addr + (n0 + (lane >> 3)) * plane_bytes, regs[n0],
-                                regs[n0 + 1], regs[n0 + 2], regs[n0 + 3]);
+                    for (int n0 = 0; n0 < NT; n0 += 4) {
+                      // the chunked form's last chunk: only its planes (an even count)
+                      const int plane = oc * NT + n0;
+                      if (!CHUNKED || plane + 4 <= planes) {
+                        stmatrix_x4(row_addr + (plane + (lane >> 3)) * plane_bytes, regs[n0],
+                                    regs[n0 + 1], regs[n0 + 2], regs[n0 + 3]);
+                      } else if (plane + 2 <= planes) {
+                        stmatrix_x2(row_addr + (plane + ((lane >> 3) & 1)) * plane_bytes,
+                                    regs[n0], regs[n0 + 1]);
+                      }
+                    }
                   }
-                }
-                if constexpr (!SPLIT) {
-                  if (first < kh || first + 8 > nx - kh) {  // a few warps only
-                    const int r = first + g;
-                    const int copy =
-                        r < kh ? nx * 16 : (r >= nx - kh && r < nx ? -nx * 16 : 0);
-                    if (copy) {
-                      unsigned char* dst = out + (r + kh) * 16 + 4 * q + copy;
+                  if constexpr (!SPLIT) {
+                    if (first < kh || first + 8 > nx - kh) {  // a few warps only
+                      const int r = first + g;
+                      const int copy =
+                          r < kh ? nx * 16 : (r >= nx - kh && r < nx ? -nx * 16 : 0);
+                      if (copy) {
+                        unsigned char* dst = out + (r + kh) * 16 + 4 * q + copy;
 #pragma unroll
-                      for (int nt = 0; nt < NT; ++nt) {
-                        *reinterpret_cast<uint32_t*>(dst + nt * plane_bytes) = regs[nt];
+                        for (int nt = 0; nt < NT; ++nt) {
+                          *reinterpret_cast<uint32_t*>(dst + nt * plane_bytes) = regs[nt];
+                        }
                       }
                     }
                   }
                 }
               }
+              if (l == 0) {
+                PROF(1);
+              } else {
+                PROF(3);
+              }
+              continue;
             }
-            if (l == 0) {
-              PROF(1);
-            } else {
-              PROF(3);
-            }
-            continue;
-          }
-          PROF(3);
+            PROF(3);
 
-          // ---- heads (mma.sync): the last layer's output is already the A
-          // fragments (channel tiles 2 cs and 2 cs + 1 make depth step cs) ----
-          __syncwarp();  // the previous tile pair's readers of s_z are done
-          const uint2* hw = reinterpret_cast<const uint2*>(wts + cfg.hw_off) + lane;
-          for (int ft = 0; ft < FT; ++ft) {
-            float z[MT][4];
+            // ---- heads (mma.sync): the last layer's output is already the A
+            // fragments (channel tiles 2 cs and 2 cs + 1 make depth step cs).
+            // The chunked form sums the chunks' products into the z tile: the
+            // first chunk's plus the bias, then each later chunk's. ----
+            __syncwarp();  // the previous tile pair's readers of s_z are done
+            const uint2* hw = reinterpret_cast<const uint2*>(wts + cfg.hw_off) + lane;
+            for (int ft = 0; ft < FT; ++ft) {
+              float z[MT][4];
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt) z[mt][0] = z[mt][1] = z[mt][2] = z[mt][3] = 0.f;
+              for (int mt = 0; mt < MT; ++mt) z[mt][0] = z[mt][1] = z[mt][2] = z[mt][3] = 0.f;
 #pragma unroll
-            for (int cs = 0; cs < CS; ++cs) {
-              const uint2 b = hw[(cs * FT + ft) * 32];
+              for (int cs = 0; cs < CS; ++cs) {
+                if (!CHUNKED || oc * CS + cs < all_cs) {  // uniform over the warp
+                  const uint2 b = hw[((oc * CS + cs) * FT + ft) * 32];
+#pragma unroll
+                  for (int mt = 0; mt < MT; ++mt) {
+                    const uint32_t a[4] = {lo[mt][2 * cs], hi[mt][2 * cs], lo[mt][2 * cs + 1],
+                                           hi[mt][2 * cs + 1]};
+                    mma_bf16(z[mt], a, b);
+                  }
+                }
+              }
+              const int f = 8 * ft + 2 * q;
+              const float hb0 = s_hb[f], hb1 = s_hb[f + 1];
+              const bool add = CHUNKED && oc > 0;
 #pragma unroll
               for (int mt = 0; mt < MT; ++mt) {
-                const uint32_t a[4] = {lo[mt][2 * cs], hi[mt][2 * cs], lo[mt][2 * cs + 1],
-                                       hi[mt][2 * cs + 1]};
-                mma_bf16(z[mt], a, b);
+                float* dst = s_z + (16 * mt + g) * z_stride + f;
+                if (f < F) {
+                  dst[0] = add ? __fadd_rn(dst[0], z[mt][0]) : __fadd_rn(z[mt][0], hb0);
+                  dst[8 * z_stride] =
+                      add ? __fadd_rn(dst[8 * z_stride], z[mt][2]) : __fadd_rn(z[mt][2], hb0);
+                }
+                if (f + 1 < F) {  // the padded head columns are not kept
+                  dst[1] = add ? __fadd_rn(dst[1], z[mt][1]) : __fadd_rn(z[mt][1], hb1);
+                  dst[8 * z_stride + 1] = add ? __fadd_rn(dst[8 * z_stride + 1], z[mt][3])
+                                              : __fadd_rn(z[mt][3], hb1);
+                }
               }
             }
-            const int f = 8 * ft + 2 * q;
-            const float hb0 = s_hb[f], hb1 = s_hb[f + 1];
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              float* dst = s_z + (16 * mt + g) * z_stride + f;
-              if (f < F) {
-                dst[0] = __fadd_rn(z[mt][0], hb0);
-                dst[8 * z_stride] = __fadd_rn(z[mt][2], hb0);
-              }
-              if (f + 1 < F) {  // the padded head columns are not kept
-                dst[1] = __fadd_rn(z[mt][1], hb1);
-                dst[8 * z_stride + 1] = __fadd_rn(z[mt][3], hb1);
-              }
-            }
-          }
-          __syncwarp();
-          PROF(4);
+            __syncwarp();
+            PROF(4);
+          }  // the output chunks
+          if (!last) continue;
 
           // ---- projection, stencil, flux: one grid point per lane (lanes
           // 0-15 the warp's rows of tile tp, lanes 16-31 of tile tp + 1; in
@@ -792,8 +860,8 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
             // every block's rows of this layer are stored: the kh input rows
             // of the next layer on each side from the blocks that own them
             cluster_sync();
-            for (int i = tt; i < 2 * kh * NT; i += kTeamThreads) {
-              const int j = i / NT, plane = i - j * NT;
+            for (int i = tt; i < 2 * kh * planes; i += kTeamThreads) {
+              const int j = i / planes, plane = i - j * planes;
               const int local = j < kh ? j - kh : n + j - kh;
               int rank;
               const int src = segment_owner(seg0 + local, nx, cfg.seg, rank);

@@ -1,7 +1,8 @@
 // fused_learned_rk4, the split form: one trajectory over a thread-block
 // cluster of cfg.cluster blocks, one team (128 threads) a block, each block a
 // segment of cfg.seg points, halos by distributed shared memory (the design
-// note in fused_learned_rk4.cuh). Launched by pde_fused_learned_rk4
+// note in fused_learned_rk4.cuh); towers wider than 128 filters always take
+// it, in chunks of 128 output channels (the chunked form). Launched by pde_fused_learned_rk4
 // (fused_learned_rk4.cu) where one block cannot hold a trajectory
 // (fused_kernels.learned_rk4_launch). It replaces the same Pallas kernel,
 // make_fused_learned_rk4 (pde_superresolution_tpu/ops/pallas_kernels.py,
@@ -12,19 +13,20 @@
 
 namespace {
 
-template <int NT, bool FORCED>
+// CHUNKED: towers wider than 128 channels (NT = kWideNT a chunk).
+template <int NT, bool FORCED, bool CHUNKED>
 __global__ void __launch_bounds__(kTeamThreads)
     fused_learned_rk4_cluster_kernel(const float* __restrict__ u_in,
                                      const unsigned char* __restrict__ weights,
                                      float* __restrict__ u_out, Config cfg, Forcing fp) {
   extern __shared__ __align__(128) unsigned char smem[];
-  learned_rk4_body<NT, FORCED, true>(smem, u_in, weights, u_out, cfg, fp);
+  learned_rk4_body<NT, FORCED, true, CHUNKED>(smem, u_in, weights, u_out, cfg, fp);
 }
 
-template <int NT, bool FORCED>
+template <int NT, bool FORCED, bool CHUNKED>
 int launch_cluster(const float* u, const unsigned char* weights, float* out, const Config& cfg,
                    const Forcing& fp, int smem_bytes, cudaStream_t stream) {
-  auto kernel = fused_learned_rk4_cluster_kernel<NT, FORCED>;
+  auto kernel = fused_learned_rk4_cluster_kernel<NT, FORCED, CHUNKED>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -55,12 +57,13 @@ int launch_cluster(const float* u, const unsigned char* weights, float* out, con
   return (int)cudaGetLastError();
 }
 
-template <int NT>
+template <int NT, bool CHUNKED = false>
 int dispatch_cluster(bool forced, const float* u, const unsigned char* weights, float* out,
                      const Config& cfg, const Forcing& fp, int smem_bytes,
                      cudaStream_t stream) {
-  return forced ? launch_cluster<NT, true>(u, weights, out, cfg, fp, smem_bytes, stream)
-                : launch_cluster<NT, false>(u, weights, out, cfg, fp, smem_bytes, stream);
+  return forced
+             ? launch_cluster<NT, true, CHUNKED>(u, weights, out, cfg, fp, smem_bytes, stream)
+             : launch_cluster<NT, false, CHUNKED>(u, weights, out, cfg, fp, smem_bytes, stream);
 }
 
 }  // namespace
@@ -80,8 +83,10 @@ int launch_learned_rk4_cluster(int channels, bool forced, const float* u,
       return dispatch_cluster<8>(forced, u, weights, out, cfg, fp, smem_bytes, stream);
     case 8 * kWideNT:
       return dispatch_cluster<kWideNT>(forced, u, weights, out, cfg, fp, smem_bytes, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+    default:  // wider: the chunked form (the entry checked that it streams)
+      if (channels <= 8 * kWideNT || channels % 16) return (int)cudaErrorInvalidValue;
+      return dispatch_cluster<kWideNT, true>(forced, u, weights, out, cfg, fp, smem_bytes,
+                                             stream);
   }
 }
 

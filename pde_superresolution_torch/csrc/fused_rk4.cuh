@@ -5,7 +5,8 @@
 //
 // Replaces make_fused_rk4 in pde_superresolution_tpu/ops/pallas_kernels.py
 // (the pallas_call at line 374), which builds any classic scheme from
-// accuracy_order/stencil_size and runs it at any nx % 128 == 0. Each RHS
+// accuracy_order/stencil_size and runs it at any nx % 128 == 0; this kernel
+// takes every such scheme at every nx % 32 == 0. Each RHS
 // evaluation is, per derivative order, a tap sum of constant coefficients
 // against periodic shifts of u, then the flux divergence (conservative form)
 // or the equation of motion (direct form). Unforced equations only (KdV,
@@ -42,10 +43,15 @@
 //    padded with a zero coefficient (0 x inf would be NaN where the plain
 //    version gives inf).
 //  * block (fused_rk4.cu): above 1024 points (768 for a scheme whose taps
-//    are taken at run time) a block owns a trajectory and
-//    keeps the stage input (with a periodic halo of kReach points at both
-//    ends), the fluxes, the step's start value and the k sum in shared
-//    memory, 16 nx + 128 bytes; the taps are taken at run time. Barriers
+//    are taken at run time), and at any nx for a scheme of more than
+//    kMaxTaps taps an order or a reach beyond kReach, a block owns a
+//    trajectory and keeps the stage input (with a periodic halo of the
+//    scheme's reach at both ends, every periodic copy where the reach
+//    exceeds nx), the fluxes, the step's start value and the k sum in
+//    shared memory, 16 nx + 8 halo bytes, or, where they do not fit (nx of
+//    about 14,500 and more), in a global scratch the wrapper allocates; the
+//    taps are taken at run time, their coefficients from the kernel's
+//    parameters or, for the wide schemes, from global memory. Barriers
 //    separate the tap sums, the divergence and the stage combine.
 //
 // Points per lane: the register forms are built for the P of dispatch_points.
@@ -63,6 +69,8 @@ namespace pde_rk4 {
 
 using pde::kMaxOrders;
 
+// the register forms' schemes, whose coefficients are kernel parameters (the
+// block form takes any other with its coefficients in global memory)
 constexpr int kMaxTaps = 32;   // fused_kernels.MAX_TAPS
 constexpr int kReach = 16;     // fused_kernels.RK4_REACH: taps lie in [-kReach, kReach]
 constexpr int kSlots = 2 * kReach + 1;  // coefficient slots per order, by tap

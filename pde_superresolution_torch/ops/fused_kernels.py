@@ -23,7 +23,9 @@ The counterpart of ``pde_superresolution_tpu/ops/pallas_kernels.py``:
     unforced equations only; up to 1024 points a warp owns a trajectory and
     holds it in registers (the default schemes' tap loops unrolled, each
     coefficient a kernel parameter read by its multiply; any other scheme's
-    taps taken at run time), above that a block holds it in shared memory.
+    taps taken at run time), above that (and for a scheme of more than 32
+    taps an order) a block holds it in shared memory, or in a global scratch
+    where its rows do not fit.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else. It takes its plain PyTorch version (``*_plain``, in this
@@ -63,7 +65,10 @@ MAX_ORDERS = 3
 # trajectory and streams layer >= 1's weights through a window of one conv
 # tap's slice (kWideNT). Where one block cannot hold a trajectory, the split
 # form shares it over a thread-block cluster of up to MAX_CLUSTER blocks
-# (above PORTABLE_CLUSTER the card must allow a non-portable size).
+# (above PORTABLE_CLUSTER the card must allow a non-portable size). Wider
+# towers pad to a multiple of 16 and take the split form in chunks of
+# WIDE_CHANNELS output channels (the chunked form), their activation rows
+# rounded up to 8 with CHUNK_SLACK bytes after them (kChunkSlack).
 MAX_TEAMS = 4  # trajectories per block
 MAX_TEAMS_FORCED = 4  # the same for a forced equation (kMaxTeamsForced)
 TEAM_THREADS = 128  # one warp group owns a trajectory (kTeamThreads)
@@ -72,6 +77,7 @@ MAX_CLUSTER = 16
 PORTABLE_CLUSTER = 8
 PADDED_CHANNELS = (16, 32, 64, 128)
 WIDE_CHANNELS = 128
+CHUNK_SLACK = 64 * 16  # one 64-row tile of one plane
 MAX_SHARED_BYTES = 232448  # opt-in shared memory per block on sm_90
 NUM_SMS = 132  # H100: a launch should have at least this many blocks
 # fused_rhs.cu's block: one thread per point, at most RHS_BLOCK_POINTS of
@@ -86,11 +92,12 @@ MAX_THREADS = 1024
 # kBlockThreads), the points per lane its register forms are built for (nx =
 # lanes x P, 17 to 32 lanes) and the classic schemes compiled into one of
 # them: (equation, conservative) -> {order: (first tap, number of taps)}.
-# Any other scheme takes its taps at run time, in registers up to
-# RK4_SCHEME_MAX_POINTS a lane (at 32 its six register rows spill); longer
-# grids take the block form.
+# Any other scheme of at most MAX_TAPS taps an order within RK4_REACH points
+# takes its taps at run time, in registers up to RK4_SCHEME_MAX_POINTS a lane
+# (at 32 its six register rows spill); longer grids and wider schemes take
+# the block form, its rows in global memory where they do not fit a block.
 MAX_TAPS = 32
-RK4_REACH = 16  # every tap lies in [-RK4_REACH, RK4_REACH]
+RK4_REACH = 16  # the register forms' taps lie in [-RK4_REACH, RK4_REACH]
 RK4_MAX_WARPS = 8
 RK4_BLOCK_THREADS = 256
 RK4_POINTS_PER_LANE = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32)
@@ -391,15 +398,20 @@ class LearnedRK4Pack:
 
     ``blob`` is the kernel's buffer (bytes; ``blob_offsets`` the byte offset
     of each block, a multiple of 128, in the same order). The channels are
-    zero-padded to ``padded_channels`` (16, 32, 64 or 128) and the free dims to a
-    multiple of 8: zero weights and biases add exact zeros. Per layer the
-    weights ``w [depth, padded_channels]`` are bf16: layer 0 (depth = the K
-    taps padded to a multiple of 16) in the order of ``mma.m16n8k16``'s B fragments
+    zero-padded to ``padded_channels`` (16, 32, 64 or 128, and above 128 a
+    multiple of 16) and the free dims to a multiple of 8: zero weights and
+    biases add exact zeros. Per layer the weights ``w [depth,
+    out_channels]`` are bf16: layer 0 (depth = the K taps padded to a
+    multiple of 16) in the order of ``mma.m16n8k16``'s B fragments
     (``_fragment_order``), every later layer (depth index ``k *
     padded_channels + ci``) as ``wgmma`` reads it from shared memory
     (``_wgmma_order``), so that one conv tap's ``[padded_channels]^2`` slice
     is contiguous (the 128-channel form streams it); then the float32 bias
-    ``[padded_channels]``. The
+    ``[out_channels]``. ``out_channels`` is ``padded_channels`` up to 128;
+    above (the chunked form) it is rounded up to whole chunks of 128, and a
+    later layer's weights are laid out per output chunk and conv tap, each
+    ``[padded_channels, 128]`` in ``_wgmma_order``, so that the slice of one
+    chunk, tap and 128 input channels is contiguous. The
     heads are the fragments of ``head_w [padded_channels, padded F]`` and the
     float32 ``head_b [padded F]``. The last block is the projection,
     float32: per order and per block of 8 stencil rows, ``c0 [8]`` then the
@@ -527,17 +539,19 @@ def pack_learned_rk4(
         # weights as bf16 in the tensor-core operands' orders
         channels = blocks[1].numel()
         cp = next((c for c in PADDED_CHANNELS if c >= channels), -(-channels // 16) * 16)
+        out_p = cp if cp <= WIDE_CHANNELS else -(-cp // WIDE_CHANNELS) * WIDE_CHANNELS
         fp = -(-f_tot // 8) * 8
         k = kernel_size
         kernel_blocks = []
         for i in range(n_layers):
             w, b = blocks[2 * i], blocks[2 * i + 1]
             if i == 0:
-                padded = _pad_to(w, -(-k // 16) * 16, cp)
-            else:
-                padded = _pad_to(w.view(k, channels, channels), k, cp, cp).reshape(k * cp, cp)
-            order = _fragment_order if i == 0 else _wgmma_order
-            kernel_blocks += [order(padded), _pad_to(b, cp)]
+                w = _fragment_order(_pad_to(w, -(-k // 16) * 16, out_p))
+            else:  # per output chunk (one but in the chunked form) and tap
+                padded = _pad_to(w.view(k, channels, channels), k, cp, out_p)
+                w = torch.cat([_wgmma_order(padded[t, :, c0 : c0 + min(out_p, WIDE_CHANNELS)])
+                               for c0 in range(0, out_p, WIDE_CHANNELS) for t in range(k)])
+            kernel_blocks += [w, _pad_to(b, out_p)]
         # projection: per order, per block of 8 stencil rows, c0 [8] then
         # the rows' columns of pn transposed [free dims of the order][8]
         tail, proj_starts, row, first = [], [], 0, 0
@@ -762,15 +776,17 @@ def _team_bytes(pack: LearnedRK4Pack, nx: int, terms: int) -> int:
     """Shared memory of one team holding ``nx`` points, a whole trajectory
     or a segment of one (fused_learned_rk4.cuh counts the same in
     ``team_bytes_needed``): two bf16 activation buffers of one plane per 8
-    channels, ``[rows + K, 8]`` each (rows: nx rounded up to 64; K - 1 halo
+    channels, ``[rows + K, 8]`` each (rows: nx rounded up to 64, to 8 above
+    128 channels, where ``CHUNK_SLACK`` bytes follow the buffers; K - 1 halo
     rows for the periodic wrap and a dump row), four float32 rows (stage
     input with ``learned_rk4_halo`` points at each end, fluxes, the step's
     start value, the k sum), a ``[32, F | 1]`` tile per warp for the head
     outputs and, forced, the forcing value, four floats of constants per
     term and the (sin, cos) phase state per point."""
-    rows = -(-nx // 64) * 64
+    chunked = pack.padded_channels > WIDE_CHANNELS
+    rows = -(-nx // (8 if chunked else 64)) * (8 if chunked else 64)
     planes = pack.padded_channels // 8
-    n = (2 * planes * (rows + pack.kernel_size) * 16
+    n = (2 * planes * (rows + pack.kernel_size) * 16 + (CHUNK_SLACK if chunked else 0)
          + 4 * (4 * rows + 2 * learned_rk4_halo(pack)) + 4 * 32 * (pack.n_free | 1) * 4)
     if terms:
         n += 4 * rows + 16 + 16 * terms + 8 * terms * nx
@@ -778,8 +794,9 @@ def _team_bytes(pack: LearnedRK4Pack, nx: int, terms: int) -> int:
 
 
 def _window_bytes(pack: LearnedRK4Pack) -> int:
-    """One conv tap's slice of a layer >= 1's weights, bf16."""
-    return 2 * pack.padded_channels ** 2
+    """One conv tap's slice of a layer >= 1's weights, bf16 (in the chunked
+    form: of one chunk's 128 outputs from 128 inputs)."""
+    return 2 * min(pack.padded_channels, WIDE_CHANNELS) ** 2
 
 
 def learned_rk4_launch(
@@ -794,7 +811,8 @@ def learned_rk4_launch(
     shared-memory limit, at most 4, but no more than leave the launch
     ``NUM_SMS`` blocks: a small batch spreads over the card, a large one
     shares the weights. At ``WIDE_CHANNELS`` a block holds one trajectory
-    beside the window of streamed weights.
+    beside the window of streamed weights. Wider towers (the chunked form)
+    always take the split form below, their weights streamed.
 
     Where it does not, or where the reach (``learned_rk4_halo``) is longer
     than the grid or the conv kernel wider than nx + 1 points (a block of
@@ -809,10 +827,11 @@ def learned_rk4_launch(
     shape one block holds. ``teams`` is 0 when nothing fits
     (``learned_rk4_refusal`` says so)."""
     window, resident = _window_bytes(pack), pack.blob.numel()
-    wide = pack.padded_channels == WIDE_CHANNELS
+    wide = pack.padded_channels >= WIDE_CHANNELS
+    chunked = pack.padded_channels > WIDE_CHANNELS
     # a block of whole trajectories writes each halo as one periodic copy
     wraps_once = learned_rk4_halo(pack) <= nx and 2 * (pack.kernel_size // 2) <= nx
-    if cluster is None and wraps_once:
+    if cluster is None and wraps_once and not chunked:
         team_bytes = _team_bytes(pack, nx, terms)
         weights = window if wide else resident
         fit = max(0, shared_limit - weights) // team_bytes
@@ -850,14 +869,12 @@ def learned_rk4_refusal(
     shared_limit: int = MAX_SHARED_BYTES, cluster: Optional[int] = None,
 ) -> Optional[str]:
     """Why the kernel cannot take this shape, or None if it can. The limits
-    are the widths it is built for (``PADDED_CHANNELS``), nx >= 32, and the
-    opt-in shared memory of a block (232448 bytes on sm_90), which must hold
-    the weights (or the window of one tap's slice) and one trajectory, or
-    one segment of a trajectory split over at most ``MAX_CLUSTER`` blocks
-    (``cluster``: exactly that many, as ``learned_rk4_launch`` takes it).
-    The depth and the reach of the tower and the stencil are not limited."""
-    if pack.padded_channels not in PADDED_CHANNELS:
-        return f"{pack.channels} filters > kernel limit {PADDED_CHANNELS[-1]}"
+    are nx >= 32 and the opt-in shared memory of a block (232448 bytes on
+    sm_90), which must hold the weights (or the window of one tap's slice)
+    and one trajectory, or one segment of a trajectory split over at most
+    ``MAX_CLUSTER`` blocks (``cluster``: exactly that many, as
+    ``learned_rk4_launch`` takes it). The width, the depth and the reach of
+    the tower and the stencil are not limited."""
     if nx < 32:
         return f"nx={nx} < 32"
     launch = learned_rk4_launch(pack, nx, terms, shared_limit=shared_limit, cluster=cluster)
@@ -978,6 +995,10 @@ class BaselineRK4:
     num_steps: int
     taps: dict  # order -> tuple of contiguous integer taps
     coefficients: dict  # order -> tuple of floats
+    # a wide scheme's coefficients on each card (rk4_wide), copied there at
+    # its first launch: a copy from host memory waits for the card
+    device_coefficients: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
 
 def _baseline_rhs_plain(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
@@ -1015,7 +1036,9 @@ class RK4Launch(NamedTuple):
     blocks: int
     points: int  # register form: points per lane P (0 for the block form)
     lanes: int  # register form: lanes of the ring, nx = lanes x points
-    shared_bytes: int  # block form: the rows in shared memory
+    shared_bytes: int  # block form: the rows in shared memory (0 in global memory)
+    halo: int = 0  # block form: periodic points of the stage input at each end
+    rows_global: bool = False  # block form: the rows in a global scratch
 
 
 def rk4_points(nx: int) -> tuple:
@@ -1025,25 +1048,44 @@ def rk4_points(nx: int) -> tuple:
     return next((p, nx // p) for p in RK4_POINTS_PER_LANE if 32 * p >= nx and nx % p == 0)
 
 
-def rk4_shared_bytes(nx: int) -> int:
-    """The block form's shared memory: the stage input with ``RK4_REACH``
-    periodic points at both ends, the fluxes, the step's start value and the
-    k sum, float32."""
-    return 4 * (4 * nx + 2 * RK4_REACH)
+def rk4_shared_bytes(nx: int, halo: int) -> int:
+    """The block form's rows: the stage input with ``halo`` periodic points
+    at both ends, the fluxes, the step's start value and the k sum,
+    float32."""
+    return 4 * (4 * nx + 2 * halo)
 
 
-def rk4_launch(batch: int, nx: int = 128, classic: bool = True) -> RK4Launch:
+def rk4_reach(taps: Mapping[int, Sequence[int]]) -> int:
+    """How far a point's tap sums read, on either side."""
+    return max(max(-t[0], t[-1]) for t in taps.values())
+
+
+def rk4_wide(taps: Mapping[int, Sequence[int]]) -> bool:
+    """Whether a scheme has more than ``MAX_TAPS`` taps an order or reaches
+    beyond ``RK4_REACH`` points: the block form alone takes it, its
+    coefficients in global memory."""
+    return any(len(t) > MAX_TAPS for t in taps.values()) or rk4_reach(taps) > RK4_REACH
+
+
+def rk4_launch(batch: int, nx: int, classic: bool,
+               taps: Mapping[int, Sequence[int]]) -> RK4Launch:
     """The launch of ``fused_rk4`` for ``batch`` trajectories of ``nx``
-    points, for a classic scheme (taps compiled in) or not. Up to
+    points, for a classic scheme (taps compiled in) or not, of ``taps`` (by
+    order). Up to
     ``RK4_REGISTER_MAX_NX`` (``32 RK4_SCHEME_MAX_POINTS`` for taps taken at
     run time) a warp owns a trajectory and warps never wait for each other,
     so a block is only a package of warps: as many as leave the launch
     ``NUM_SMS`` blocks, at most ``RK4_MAX_WARPS`` (8 timed 1-2% faster than
-    4 at B=10240 on an H100). Longer grids: a block of
-    ``RK4_BLOCK_THREADS`` threads per trajectory."""
-    if nx > (RK4_REGISTER_MAX_NX if classic else 32 * RK4_SCHEME_MAX_POINTS):
+    4 at B=10240 on an H100). Longer grids and wider schemes
+    (``rk4_wide``): a block of ``RK4_BLOCK_THREADS`` threads per trajectory,
+    its rows in shared memory with a halo of the scheme's reach where they
+    fit ``MAX_SHARED_BYTES``, else in a global scratch."""
+    if rk4_wide(taps) or nx > (RK4_REGISTER_MAX_NX if classic else 32 * RK4_SCHEME_MAX_POINTS):
+        halo = rk4_reach(taps)
+        rows = rk4_shared_bytes(nx, halo)
+        in_global = rows > MAX_SHARED_BYTES
         return RK4Launch("block", RK4_BLOCK_THREADS // 32, RK4_BLOCK_THREADS, batch, 0, 0,
-                         rk4_shared_bytes(nx))
+                         0 if in_global else rows, halo, in_global)
     warps = min(RK4_MAX_WARPS, max(1, batch // NUM_SMS))
     points, lanes = rk4_points(nx)
     return RK4Launch("registers", warps, 32 * warps, -(-batch // warps), points, lanes, 0)
@@ -1057,29 +1099,20 @@ def rk4_is_classic(scheme: BaselineRK4) -> bool:
     return layout == RK4_LAYOUTS.get((eq.name, eq.conservative))
 
 
-def rk4_refusal(scheme: BaselineRK4, nx: int,
-                shared_limit: int = MAX_SHARED_BYTES) -> Optional[str]:
+def rk4_refusal(scheme: BaselineRK4, nx: int) -> Optional[str]:
     """Why the kernel cannot run ``scheme`` on ``nx`` points, or None if it
     can. It runs the unforced equations at any nx that is a multiple of 32
-    (the JAX kernel: multiples of 128), in registers up to
-    ``RK4_REGISTER_MAX_NX`` (768 for taps at run time) and in a block's
-    shared memory above, with at
-    most ``MAX_TAPS`` contiguous taps an order within ``RK4_REACH`` points
-    of the point."""
+    (the JAX kernel: multiples of 128) with contiguous taps of any number
+    and reach: in registers up to ``RK4_REGISTER_MAX_NX`` (768 for taps at
+    run time), in a block above and for the wide schemes (``rk4_launch``)."""
     eq = scheme.equation
     if (eq.name, eq.conservative) not in RK4_LAYOUTS:
         return f"{eq.name} is forced: the kernel takes the unforced equations (KdV, KS)"
     if nx % 32:
         return f"nx={nx} is not a multiple of 32 (the JAX kernel takes multiples of 128)"
     for d, taps in scheme.taps.items():
-        if len(taps) > MAX_TAPS or not _contiguous_run(taps):
-            return f"taps of order {d} {list(taps)}: more than {MAX_TAPS} or not contiguous"
-        if min(taps) < -RK4_REACH or max(taps) > RK4_REACH:
-            return f"taps of order {d} reach beyond {RK4_REACH} points: {list(taps)}"
-    if rk4_launch(1, nx, rk4_is_classic(scheme)).form == "block" and (
-            rk4_shared_bytes(nx) > shared_limit):
-        return (f"nx={nx} needs {rk4_shared_bytes(nx)} bytes of shared memory per block > the "
-                f"limit of {shared_limit}")
+        if not _contiguous_run(taps):
+            return f"taps of order {d} {list(taps)} are not contiguous"
     return None
 
 
@@ -1087,7 +1120,8 @@ def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
     """``scheme.num_steps`` RK4 steps of the baseline scheme from ``u [B, nx]``
     in one launch of ``csrc/fused_rk4.cu`` (its plain version for a CPU
     tensor). On the card a warp owns a trajectory, a block above 1024
-    points; ``rk4_refusal`` says which shapes and schemes it takes."""
+    points or for a wide scheme; ``rk4_refusal`` says which shapes and
+    schemes it takes."""
     if u.dim() != 2:
         raise ValueError(f"u must be [batch, nx], got shape {tuple(u.shape)}")
     batch, nx = u.shape
@@ -1102,7 +1136,8 @@ def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
     refusal = rk4_refusal(scheme, nx)
     if refusal:
         raise ValueError(refusal)
-    launch = rk4_launch(batch, nx, rk4_is_classic(scheme))
+    launch = rk4_launch(batch, nx, rk4_is_classic(scheme), scheme.taps)
+    wide = rk4_wide(scheme.taps)
 
     from pde_superresolution_torch.ops import _build
 
@@ -1110,27 +1145,39 @@ def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
     out = torch.empty_like(u)
     orders = sorted(scheme.taps)
     pad = [0] * (MAX_ORDERS - len(orders))
-    meta = (ctypes.c_int * 15)(
+    meta = (ctypes.c_int * 18)(
         EQUATION_CODES[scheme.equation.name],
         int(scheme.equation.conservative),
         nx, launch.warps, len(orders),
         *[len(scheme.taps[d]) for d in orders], *pad,
         *[scheme.taps[d][0] for d in orders], *pad,
         int(launch.form == "block"), launch.points, launch.lanes, launch.shared_bytes,
+        launch.halo, int(launch.rows_global), int(wide),
     )
     slots = 2 * RK4_REACH + 1  # order i's coefficient of tap t at [i][t + RK4_REACH]
     coefs = (ctypes.c_float * (MAX_ORDERS * slots))()
-    for i, d in enumerate(orders):
-        for t, c in zip(scheme.taps[d], scheme.coefficients[d]):
-            coefs[i * slots + t + RK4_REACH] = c
+    wide_coefs = scratch = None
+    if wide:  # every order's coefficients in tap order, on the card
+        wide_coefs = scheme.device_coefficients.get(u.device)
+        if wide_coefs is None:
+            wide_coefs = scheme.device_coefficients[u.device] = torch.tensor(
+                [c for d in orders for c in scheme.coefficients[d]], dtype=torch.float32,
+                device=u.device)
+    else:
+        for i, d in enumerate(orders):
+            for t, c in zip(scheme.taps[d], scheme.coefficients[d]):
+                coefs[i * slots + t + RK4_REACH] = c
+    if launch.rows_global:
+        scratch = torch.empty(batch * (4 * nx + 2 * launch.halo), device=u.device)
     dt = scheme.dt
     scalars = (ctypes.c_float * 5)(
         scheme.grid.dx, float(getattr(scheme.equation, "eta", 0.0)),
         0.5 * dt, dt, dt / 6.0,
     )
     code = lib.pde_fused_rk4(
-        u.data_ptr(), out.data_ptr(), batch, scheme.num_steps, meta, coefs,
-        scalars, _stream(u.device),
+        u.data_ptr(), out.data_ptr(), batch, scheme.num_steps, meta, coefs, scalars,
+        None if wide_coefs is None else wide_coefs.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), _stream(u.device),
     )
     _raise_on_cuda_error(code, "fused_rk4 launch")
     fused_rk4.launches += 1
@@ -1153,9 +1200,9 @@ def make_fused_rk4(
     in one kernel: the state stays on chip for all ``num_steps`` steps.
 
     Unforced equations only (KdV, KS), any ``accuracy_order`` or
-    ``stencil_size`` up to ``MAX_TAPS`` taps an order. The classic
-    coefficients are computed here in float64 and passed to the kernel by
-    value. Returns
+    ``stencil_size``. The classic coefficients are computed here in float64
+    and passed to the kernel by value (in global memory for a scheme of more
+    than ``MAX_TAPS`` taps an order). Returns
     ``advance(u [batch, nx]) -> u`` after ``num_steps`` steps; its
     ``scheme`` attribute is the ``BaselineRK4`` it runs.
     """
@@ -1177,8 +1224,6 @@ def make_fused_rk4(
         )
         if not _contiguous_run(taps[d]):
             raise ValueError(f"taps of order {d} are not contiguous: {taps[d]}")
-        if len(taps[d]) > MAX_TAPS:
-            raise ValueError(f"{len(taps[d])} taps > kernel limit {MAX_TAPS}")
     scheme = BaselineRK4(equation, grid, float(dt), int(num_steps), taps, coefs)
 
     def advance(u: torch.Tensor) -> torch.Tensor:

@@ -87,9 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="snapshots to keep over the horizon")
     parser.add_argument("--fused", choices=["auto", "true", "false"], default="auto",
                         help="whole-interval fused kernel between snapshots; "
-                        "auto = on a CUDA device when the kernel takes the shape: up "
-                        "to 128 filters, nx >= 32, a trajectory in one block or split "
-                        "over a cluster of up to 16 (fused_kernels.learned_rk4_refusal)")
+                        "auto = on a CUDA device when the kernel takes the shape: "
+                        "nx >= 32, a trajectory in one block or split over a cluster "
+                        "of up to 16 (fused_kernels.learned_rk4_refusal)")
     parser.add_argument("--domain_factor", type=int, default=1,
                         help="integrate on a domain this many times larger "
                         "than the checkpoint was trained on (same dx; the "
@@ -164,13 +164,13 @@ def choose_route(fused: str, ensemble: Ensemble, pack,
     frozen artifact and a resumable run (``--output_path``) do not read it:
     they take RHS steps.
 
-    The kernel takes a shape when the tower has at most 128 filters, the
-    grid at least 32 points, and the weights it keeps in shared memory (or
-    the window of one conv tap's slice) fit the card's opt-in limit per
-    block beside one trajectory, or beside one segment of a trajectory split
-    over a cluster of up to ``fused_kernels.MAX_CLUSTER`` blocks (as at
-    ``--domain_factor`` grids). ``--fused true`` on a shape it cannot take
-    raises; on the CPU it runs the kernel's plain version.
+    The kernel takes a shape when the grid has at least 32 points and the
+    weights it keeps in shared memory (or the window of one conv tap's
+    slice) fit the card's opt-in limit per block beside one trajectory, or
+    beside one segment of a trajectory split over a cluster of up to
+    ``fused_kernels.MAX_CLUSTER`` blocks (as at ``--domain_factor`` grids,
+    and for every tower wider than 128 filters). ``--fused true`` on a shape
+    it cannot take raises; on the CPU it runs the kernel's plain version.
     """
     if fused == "false":
         return False, "--fused false"

@@ -210,6 +210,44 @@ def test_route_takes_the_kernel_at_domain_factor_10(monkeypatch):
     assert not fused and reason.startswith("auto: needs ") and "split over 16 blocks" in reason
 
 
+def test_route_takes_the_kernel_at_256_filters(monkeypatch, tmp_path):
+    """--fused auto on a card whose blocks opt in to 232448 bytes of shared
+    memory (the H100's) takes the kernel for the KS-8x checkpoint widened to
+    256 filters (convert.widen_params), which it refused before ("256
+    filters > kernel limit 128"): the chunked form, a cluster of one block
+    per trajectory holding its 128 points beside the window of one slice of
+    the streamed weights, and says so; with less than that window and a
+    16th of the grid, rhs_fn steps with the refusal's reason."""
+    import json
+    import types
+
+    from pde_superresolution_torch import convert
+
+    _, trained, config = convert.load_asset("ckpt_ks8", device="cpu")
+    stem = tmp_path / "ks8_256_filters"
+    stem.with_suffix(".json").write_text(
+        json.dumps({**config, "model": {**config["model"], "filters": 256}}))
+    np.savez(stem.with_suffix(".npz"),
+             **convert.npz_arrays_from_params(convert.widen_params(trained, 256, 11, 0.02)))
+    ensemble = run_ensemble.setup(run_ensemble.build_parser().parse_args(
+        ["--checkpoint_dir", str(stem), "--num_trajectories", "16", "--device", "cpu"]))
+    pack = ensemble.model.fused_rk4_fn(ensemble.params, 1e-3, 1).pack
+    assert (pack.channels, pack.padded_channels) == (256, 256)
+    ensemble.model.device = torch.device("cuda")
+    limit = {"optin": 232448}
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: types.SimpleNamespace(
+        shared_memory_per_block_optin=limit["optin"]))
+    launch = fk.learned_rk4_launch(pack, 128, 0, 16)
+    assert launch.split and launch.stream and launch.cluster == 1
+    assert run_ensemble.choose_route("auto", ensemble, pack) == (True, (
+        "auto: cuda, a trajectory split over clusters of 1 blocks of 128 points (16 blocks), "
+        f"a conv tap's weights at a time and a segment in {launch.shared_bytes} bytes of "
+        "shared memory per block fit"))
+    limit["optin"] = fk._window_bytes(pack) + fk._team_bytes(pack, 128 // 16, 0) - 1
+    fused, reason = run_ensemble.choose_route("auto", ensemble, pack)
+    assert not fused and reason.startswith("auto: needs ") and "split over 16 blocks" in reason
+
+
 def test_ic_scale_and_seed():
     parse = run_ensemble.build_parser().parse_args
     a = run_ensemble.setup(parse(ARGS))

@@ -329,7 +329,7 @@ def test_fused_rk4_matches_plain(cuda, name, cons, batch, nx, scheme):
     torch.cuda.synchronize()
     assert fk.fused_rk4.launches == before + 1
     print(f"of max|u|: worst point {float((got - want).abs().max() / want.abs().max()):.3e}; "
-          f"{fk.rk4_launch(batch, nx, not scheme)}")
+          f"{fk.rk4_launch(batch, nx, not scheme, advance.scheme.taps)}")
     assert torch.isfinite(want).all()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
@@ -355,6 +355,39 @@ def test_fused_rk4_refuses_on_card(cuda):
     assert fk.rk4_refusal(wide.scheme, 128) is None
     torch.testing.assert_close(wide(u), fk.fused_rk4_plain(u, wide.scheme), rtol=0, atol=0)
     assert fk.fused_rk4.launches == before + 1
+
+
+@pytest.mark.parametrize("name,cons,batch,nx,scheme", [
+    ("ks", True, 37, 128, {"stencil_size": 40}), ("kdv", False, 37, 128, {"stencil_size": 40}),
+    ("ks", False, 5, 32, {"stencil_size": 80}), ("ks", True, 5, 14528, {}),
+    ("kdv", False, 3, 16384, {}), ("kdv", True, 3, 65536, {}),
+    ("ks", True, 3, 16384, {"stencil_size": 48}),
+])
+def test_fused_rk4_wide_schemes_and_long_grids_match_plain(cuda, name, cons, batch, nx, scheme):
+    """fused_rk4 where it once refused: schemes of more than 32 taps an
+    order (40 and 48, their coefficients in global memory; 80 taps on 32
+    points reach 40, beyond the grid, so the halo holds more than one
+    periodic copy) and grids whose four rows do not fit a block (nx 14528
+    and more: the rows in a global scratch), in the block form, bit for bit
+    the plain version (20 steps of the classic scheme, 10 of the others at a
+    quarter of its stable step)."""
+    period = teq.from_name(name).period * nx / 128  # the same dx at every nx
+    eq = teq.from_name(name, conservative=cons, period=period)
+    grid = Grid(nx, period)
+    u = 0.3 * eq.initial_conditions(torch.Generator().manual_seed(2), grid, (batch,), cuda)
+    advance = fk.make_fused_rk4(eq, grid, eq.stable_time_step(grid) / (4 if scheme else 1),
+                                10 if scheme else 20, **scheme)
+    launch = fk.rk4_launch(batch, nx, fk.rk4_is_classic(advance.scheme), advance.scheme.taps)
+    print(launch)
+    assert launch.form == "block" and launch.rows_global == (nx >= 14528)
+    assert fk.rk4_wide(advance.scheme.taps) == bool(scheme)
+    want = fk.fused_rk4_plain(u, advance.scheme)
+    before = fk.fused_rk4.launches
+    got = advance(u)
+    torch.cuda.synchronize()
+    assert fk.fused_rk4.launches == before + 1
+    assert torch.isfinite(want).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("name,cons,size,nx,filters", [
@@ -606,6 +639,127 @@ def test_learned_rk4_reach_and_depth_match_plain(cuda, name, cons, size, kernel_
                                  wide=layers > 3 or kernel_size > 5, conditioned=True)
 
 
+# Towers of 129 to 2384 filters (the chunked form) sum K x C bf16 products a
+# layer, up to 11,920 at 2384 filters against the 128-filter form's 640, so
+# more of the next layer's bf16 inputs round the other way between the
+# tensor cores' order of summation and the plain version's float32 matmul.
+# Seeded towers this wide are no models: their increments from N(0,1) reach
+# 1e20 and past float32 within a step. So these tests widen the trained
+# checkpoints (convert.widen_params, the new weights N(0, (0.02
+# sqrt(128 / filters))^2), as chip_smoke.py's phases 11 and 19 do); on an
+# H100 one step from N(0,1) then read 4.0e-6 to 2.7e-5 of the increment's
+# maximum in root mean square, the plain version 2.2e-6 to 1.4e-5 from
+# float64 sums. Held to the 128-filter form's limits, or RUN_CONDITIONING
+# times the plain version's own distance from float64 sums of the same
+# bf16 values (forced too) where that is larger.
+def _widened_inputs(checkpoint, filters, factor, batch, cuda, tmp_path):
+    """A trained checkpoint widened to ``filters`` on a grid ``factor``
+    times its own (run_ensemble --domain_factor): its pack and step, a
+    standard-normal and a smooth state (the seeded members, scaled by 0.3)
+    of ``batch`` trajectories, and for Burgers a ForcingPack from t0 = 3.7
+    of the members' forcing."""
+    import json
+
+    from pde_superresolution_torch.scripts import run_ensemble
+
+    _, trained, config = convert.load_asset(checkpoint, device=cuda)
+    stem = tmp_path / f"{checkpoint}_{filters}"
+    stem.with_suffix(".json").write_text(
+        json.dumps({**config, "model": {**config["model"], "filters": filters}}))
+    noise = 0.02 * min(1.0, (128 / filters) ** 0.5)
+    np.savez(stem.with_suffix(".npz"), **convert.npz_arrays_from_params(
+        convert.widen_params(trained, filters, 11, noise)))
+    ens = run_ensemble.setup(run_ensemble.build_parser().parse_args(
+        ["--checkpoint_dir", str(stem), "--num_trajectories", str(batch),
+         "--domain_factor", str(factor), "--device", str(cuda)]))
+    model = ens.model
+    dt = model.stable_time_step(u_scale=3.0)
+    pack = fk.pack_learned_rk4(ens.params, model.equation, model.grid, model.config.kernel_size,
+                               model.constraint_layers, model.taps)
+    fp = None
+    if ens.forcing is not None:
+        fp = fk.pack_forcing(ens.forcing, 3.7, model.equation, model.grid, dt, batch)
+    rough = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (batch, model.grid.size)).astype(np.float32)).to(cuda)
+    return pack, dt, fp, rough, 0.3 * ens.u0
+
+
+@pytest.mark.parametrize("checkpoint,filters,factor,batch,steps", [
+    ("ckpt_ks8", 136, 1, 5, 10), ("ckpt_kdv8", 200, 1, 3, 10), ("ckpt_burgers8", 256, 1, 4, 10),
+    ("ckpt_ks8", 256, 9, 2, 10), ("ckpt_burgers8", 256, 8, 2, 10), ("ckpt_ks8", 512, 4, 2, 10),
+    ("ckpt_ks8", 1024, 2, 2, 10), ("ckpt_burgers8", 1024, 2, 1, 10),
+    ("ckpt_ks8", 2384, 1, 1, 4), ("ckpt_burgers8", 2304, 1, 1, 4),
+])
+def test_learned_rk4_chunked_matches_plain(cuda, tmp_path, checkpoint, filters, factor, batch,
+                                           steps):
+    """Towers wider than 128 filters (the chunked form: the split form in
+    output chunks of 128 channels, the weights streamed a slice of one
+    chunk, conv tap and 128 input channels at a time): ragged last chunks
+    (136 and 200 filters pad to 144 and 208: chunks of 128 and 16 or 80
+    channels), and the widest grids JAX's VMEM estimate admits at 256
+    (1152 points; 1024 forced), 512, 1024, 2304 (forced) and 2384 filters,
+    over up to 16 blocks of 8 points. One step from N(0,1) and ``steps``
+    from a smooth state against the plain version (the limits above)."""
+    pack, dt, fp, rough, smooth = _widened_inputs(checkpoint, filters, factor, batch, cuda,
+                                                  tmp_path)
+    nx = pack.grid.size
+    terms = 0 if fp is None else fp.amplitude.shape[-1]
+    launch = fk.learned_rk4_launch(pack, nx, terms, batch)
+    print(launch)
+    assert pack.padded_channels == -(-filters // 16) * 16 and fk.learned_rk4_refusal(
+        pack, nx, terms) is None
+    assert launch.split and launch.stream and launch.cluster <= fk.MAX_CLUSTER
+    before = fk.fused_learned_rk4.launches
+    got_inc = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp) - rough
+    got = fk.fused_learned_rk4(smooth, pack, dt, steps, forcing=fp)
+    torch.cuda.synchronize()
+    assert fk.fused_learned_rk4.launches == before + 2
+    exact_pack = dataclasses.replace(pack, flat=pack.flat.double())
+    fp64 = None if fp is None else fk.ForcingPack(*(leaf.double() for leaf in fp))
+    want_inc = fk.fused_learned_rk4_plain(rough, pack, dt, 1, fp) - rough
+    exact_inc = (fk.fused_learned_rk4_plain(rough.double(), exact_pack, dt, 1, fp64)
+                 - rough.double())
+    _assert_step_close(got_inc, want_inc, WIDE_STEP_RMS_TOL, WIDE_STEP_MAX_TOL,
+                       exact_inc=exact_inc)
+    want = fk.fused_learned_rk4_plain(smooth, pack, dt, steps, fp)
+    exact = fk.fused_learned_rk4_plain(smooth.double(), exact_pack, dt, steps, fp64)
+    _assert_run_close(got, want, RUN_TOL, exact)
+
+
+@pytest.mark.parametrize("name,cons,size,filters,nx,cluster", [
+    ("ks", True, 6, 256, 128, 3), ("burgers", True, 8, 136, 128, 2),
+    ("kdv", False, 7, 200, 128, 4),
+])
+def test_learned_rk4_chunked_shared_shapes_bit_for_bit(cuda, name, cons, size, filters, nx,
+                                                       cluster):
+    """The chunked form where other forms take the same function, bit for
+    bit: a 128-filter tower widened with zero channels to ``filters`` (its
+    new output chunk or the ragged rest adds exact zeros, and the heads sum
+    the chunks' products after the first chunk's) against the 128-filter
+    form's one-block run, and the chunked form forced over ``cluster``
+    blocks against its own launch (one block at nx 128), one step from N(0,1)
+    and 10 steps from a smooth state."""
+    batch = 9
+    pack, dt, fp, rough, smooth = _split_inputs(name, cons, size, 128, nx, batch, cuda)
+    model, params, _ = _model(name, cons, size, cuda, nx=nx, filters=128, layers=3)
+    wide_pack = fk.pack_learned_rk4(convert.widen_params(params, filters, 0, 0.0),
+                                    model.equation, model.grid, model.config.kernel_size,
+                                    model.constraint_layers, model.taps)
+    terms = 0 if fp is None else fp.amplitude.shape[-1]
+    assert not fk.learned_rk4_launch(pack, nx, terms, batch).split
+    assert fk.learned_rk4_launch(wide_pack, nx, terms, batch).cluster == 1
+    for u, steps in ((rough, 1), (smooth, 10)):
+        narrow = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp)
+        chunked = fk.fused_learned_rk4(u, wide_pack, dt, steps, forcing=fp)
+        split = fk.fused_learned_rk4(u, wide_pack, dt, steps, forcing=fp, cluster=cluster)
+        torch.cuda.synchronize()
+        print(f"{steps} steps: max abs diff to 128 filters "
+              f"{float((chunked - narrow).abs().max()):.3e}, over {cluster} blocks "
+              f"{float((split - chunked).abs().max()):.3e}")
+        torch.testing.assert_close(chunked, narrow, rtol=0, atol=0)
+        torch.testing.assert_close(split, chunked, rtol=0, atol=0)
+
+
 def test_run_ensemble_split_and_refusal_on_card(cuda):
     """run_ensemble on the Burgers-8x checkpoint at --domain_factor 10 (nx
     1280, more than one block holds with its 20-term phase state) takes the
@@ -628,6 +782,31 @@ def test_run_ensemble_split_and_refusal_on_card(cuda):
                                          r"split over 16 blocks"):
         run_ensemble.main(args + ["--domain_factor", "89", "--fused", "true"])
     assert fk.fused_learned_rk4.launches == 2
+
+
+def test_run_ensemble_takes_the_kernel_at_256_filters_on_card(cuda, tmp_path):
+    """run_ensemble --fused auto on the KS-8x checkpoint widened to 256
+    filters (convert.widen_params) takes the kernel's chunked form (before,
+    rhs_fn steps: "256 filters > kernel limit 128"), one launch per save,
+    every member finite."""
+    import json
+
+    from pde_superresolution_torch.scripts import run_ensemble
+
+    _, trained, config = convert.load_asset("ckpt_ks8", device=cuda)
+    stem = tmp_path / "ks8_256_filters"
+    stem.with_suffix(".json").write_text(
+        json.dumps({**config, "model": {**config["model"], "filters": 256}}))
+    np.savez(stem.with_suffix(".npz"),
+             **convert.npz_arrays_from_params(convert.widen_params(trained, 256, 11, 0.02)))
+    fk.fused_learned_rk4.launches = fk.fused_rhs.launches = 0
+    result = run_ensemble.main(["--checkpoint_dir", str(stem), "--num_trajectories", "64",
+                                "--time_max", "0.05", "--warmup_time", "0.1",
+                                "--num_saves", "2"])
+    print(result["reason"])
+    assert result["path"] == "fused kernel" and "a conv tap's weights at a time" in result["reason"]
+    assert (fk.fused_learned_rk4.launches, fk.fused_rhs.launches) == (2, 0)
+    assert result["finite"] == 64
 
 
 def test_run_ensemble_burgers64_refused_on_card(cuda, capsys):

@@ -140,6 +140,22 @@ def test_fused_learned_rk4_plain_matches_pallas_128_filters(name, cons, size):
     assert pack.padded_channels == 128 and fk.learned_rk4_refusal(pack, NX, 0) is None
 
 
+@pytest.mark.parametrize("filters,name,cons,size", [(192, "ks", True, 6), (256, "kdv", False, 7)])
+def test_fused_learned_rk4_plain_matches_pallas_wide(filters, name, cons, size):
+    """Towers of 192 and 256 filters (2 layers; widths the card's chunked
+    form takes, in output chunks of 128 channels): the plain version against
+    make_fused_learned_rk4(interpret=True), 2 RK4 steps, at the 128-filter
+    test's tolerance, 1e-4 of max|u| (a layer sums 960 and 1280 bf16
+    products, in other orders on the two sides). The kernel takes these
+    widths at nx = 128 over one block of a cluster, the weights streamed."""
+    model_j, tree, model_t, params_t, u = _pair(name, cons, size, filters=filters)
+    assert _check_learned_rk4(model_j, tree, model_t, params_t, 0.3 * u, steps=2) < 1e-4
+    pack = _pack(model_t, params_t)
+    assert pack.padded_channels == filters and fk.learned_rk4_refusal(pack, NX, 0) is None
+    launch = fk.learned_rk4_launch(pack, NX, 0, BATCH)
+    assert launch.split and launch.stream and launch.cluster == 1
+
+
 def _ks_inputs():
     eq = teq.from_name("ks", conservative=True)
     grid = TGrid(8 * NX, eq.period).resample(8, conservative=True)
@@ -421,11 +437,13 @@ RUN_CONDITIONING = 4
 
 
 @pytest.mark.parametrize("nx,scheme", [(NX, kw) for kw in RK4_SCHEMES]
-                         + [(512, {"accuracy_order": 4}), (512, {"stencil_size": 16})])
+                         + [(512, {"accuracy_order": 4}), (512, {"stencil_size": 16}),
+                            (NX, {"stencil_size": 40}), (512, {"stencil_size": 48})])
 @pytest.mark.parametrize("name,cons", RK4_FORMS)
 def test_fused_rk4_schemes_match_pallas(name, cons, nx, scheme):
     """Every scheme the JAX factory builds from accuracy_order or
-    stencil_size (up to MAX_TAPS = 32 taps an order), and nx = 512: the
+    stencil_size (beyond MAX_TAPS = 32 taps an order too: 40 and 48, which
+    the card's block form takes with its coefficients in global memory), and nx = 512: the
     port's plain version against make_fused_rk4(interpret=True), 10 RK4
     steps at a quarter of the classic scheme's stable step (a wider stencil's
     symbol is larger). Limit: 2e-6 of max|u|, as the classic scheme's
@@ -484,8 +502,11 @@ def test_fused_rk4_options_and_checks():
     with pytest.raises(ValueError, match="forward only"):
         advance(u_t.clone().requires_grad_())
     assert len(fk.make_fused_rk4(eq_t, grid_t, dt, 1, stencil_size=32).scheme.taps[3]) == 32
-    with pytest.raises(ValueError, match="34 taps > kernel limit 32"):
-        fk.make_fused_rk4(eq_t, grid_t, dt, 1, stencil_size=34)
+    # more than 32 taps: built (it raised "34 taps > kernel limit 32" before
+    # the block form took such schemes), the block form at any grid
+    wide = fk.make_fused_rk4(eq_t, grid_t, dt, 1, stencil_size=34).scheme
+    assert len(wide.taps[3]) == 34 and fk.rk4_wide(wide.taps) and fk.rk4_refusal(wide, NX) is None
+    assert fk.rk4_launch(BATCH, NX, False, wide.taps).form == "block"
 
 
 def test_pack_rejects_even_kernel():
@@ -587,26 +608,35 @@ def _check_blob_reads_back(filters, layers, name, cons, size, kernel_size=5):
     pack = _pack(model, params)
     c, cp, k, f = pack.channels, pack.padded_channels, pack.kernel_size, pack.n_free
     fp = -(-f // 8) * 8
-    assert c == filters and cp == {8: 16, 16: 16, 24: 32, 32: 32, 40: 64}[filters]
+    assert c == filters and cp == {8: 16, 16: 16, 24: 32, 32: 32, 40: 64}.get(
+        filters, -(-filters // 16) * 16)
     assert k == kernel_size
     assert all(o % 128 == 0 for o in pack.blob_offsets) and pack.blob.numel() % 128 == 0
     assert pack.blob.dtype == torch.uint8 and len(pack.blob_offsets) == 2 * layers + 3
+    # the output columns: whole chunks of 128 above 128 channels (the chunked form)
+    out_p = cp if cp <= 128 else -(-cp // 128) * 128
+    n = min(out_p, 128)  # the columns of one output chunk
 
-    def block(i, nbytes):
-        return pack.blob[pack.blob_offsets[i]: pack.blob_offsets[i] + nbytes]
+    def block(i, nbytes, start=0):
+        return pack.blob[pack.blob_offsets[i] + start: pack.blob_offsets[i] + start + nbytes]
 
     for l, (w, b) in enumerate(pack.tower):
-        cin = 1 if l == 0 else cp
-        depth = -(-k // 16) * 16 if l == 0 else k * cp
-        read = _read_fragments if l == 0 else _read_wgmma
-        got = read(block(2 * l, 2 * depth * cp), depth, cp)
-        want = torch.zeros(depth, cp)
         if l == 0:
+            depth = -(-k // 16) * 16
+            got = _read_fragments(block(0, 2 * depth * out_p), depth, out_p)
+            want = torch.zeros(depth, out_p)
             want[:k, :c] = w.t()
-        else:  # depth index k * cp + ci, from the views' k * c + ci
-            want.view(k, cp, cp)[:, :c, :c] = w.t().reshape(k, c, c)
-        assert torch.equal(got, want), f"layer {l} (cin {cin})"
-        bias = block(2 * l + 1, 4 * cp).view(torch.float32)
+        else:  # the slice [cp, n] of each output chunk and conv tap, in that order
+            got = torch.full((k, cp, out_p), float("nan"))
+            for chunk in range(out_p // n):
+                for t in range(k):
+                    start = 2 * cp * n * (chunk * k + t)
+                    got[t, :, chunk * n: chunk * n + n] = _read_wgmma(
+                        block(2 * l, 2 * cp * n, start), cp, n)
+            want = torch.zeros(k, cp, out_p)  # [tap][ci][co], from the views' k * c + ci
+            want[:, :c, :c] = w.t().reshape(k, c, c)
+        assert torch.equal(got, want), f"layer {l}"
+        bias = block(2 * l + 1, 4 * out_p).view(torch.float32)
         assert torch.equal(bias[:c], b) and not bias[c:].any()
     got = _read_fragments(block(2 * layers, 2 * cp * fp), cp, fp)
     want = torch.zeros(cp, fp)
@@ -635,6 +665,30 @@ def _check_blob_reads_back(filters, layers, name, cons, size, kernel_size=5):
     assert torch.equal(c0, pack.c0) and torch.equal(pn, pack.pn) and pn.any()
     assert row == pack.n_rows
     return pack
+
+
+@pytest.mark.parametrize("filters,layers,name,cons,size", [
+    (136, 2, "ks", True, 6), (200, 3, "burgers", True, 8), (256, 2, "kdv", False, 7),
+])
+def test_pack_blob_reads_back_chunked(filters, layers, name, cons, size):
+    """The same read-back above 128 filters (the chunked form): channels
+    padded to a multiple of 16 (144, 208, 256), the output columns of every
+    layer, and its bias, to whole chunks of 128; a later layer's weights one
+    [channels, 128] slice per output chunk and conv tap, in that order, each
+    as wgmma reads it, so that the kernel's window of one chunk, tap and 128
+    input channels (or the rest) lies contiguous at ((chunk K + tap)
+    channels / 16 + first depth step) x 4096 bytes; the layers at the fixed
+    stride the kernel computes (K x channels x chunks' columns bf16, then the
+    bias rounded up to 128 bytes)."""
+    pack = _check_blob_reads_back(filters, layers, name, cons, size)
+    cp, k = pack.padded_channels, pack.kernel_size
+    out_p = -(-cp // 128) * 128
+    w_bytes = 2 * k * cp * out_p
+    assert pack.blob_offsets[1] == 2 * 16 * out_p  # layer 0's fragments: 16 taps x out_p
+    for l in range(1, layers):
+        assert pack.blob_offsets[2 * l] == pack.blob_offsets[2] + (l - 1) * (
+            w_bytes + -(-4 * out_p // 128) * 128)
+        assert pack.blob_offsets[2 * l + 1] == pack.blob_offsets[2 * l] + w_bytes
 
 
 @pytest.mark.parametrize("filters,layers,name,cons,size", PACK_CASES[:4])
@@ -721,7 +775,9 @@ def test_learned_rk4_launch_geometry(geometry_packs, filters, nx, terms, batch):
 
 
 def test_learned_rk4_refuses_wide_and_deep():
-    """More than 128 filters stay refused, with the reason; a tower of 17
+    """More than 128 filters, which the kernel refused before its chunked
+    form ("136 filters > kernel limit 128"), are taken, over a cluster of
+    one block beside the window of one slice of the streamed weights; a tower of 17
     layers and a conv kernel of 19 (reach 9), which the kernel refused
     before the split form (its layer offsets were a table of 16, its halo 8
     points), are taken, the deep tower's 164 KB of weights whole beside two
@@ -731,7 +787,9 @@ def test_learned_rk4_refuses_wide_and_deep():
     bytes it needs."""
     model, params = _torch_model(136, layers=1)
     pack = _pack(model, params)
-    assert fk.learned_rk4_refusal(pack, NX) == "136 filters > kernel limit 128"
+    assert pack.padded_channels == 144 and fk.learned_rk4_refusal(pack, NX) is None
+    launch = fk.learned_rk4_launch(pack, NX, 0, 10240)
+    assert launch.split and launch.stream and (launch.cluster, launch.segment) == (1, NX)
     u = torch.zeros(2, NX)
     assert fk.fused_learned_rk4(u, pack, 1e-3, 1).shape == u.shape  # the CPU's plain version
     deep = _pack(*_torch_model(32, layers=17))
@@ -927,16 +985,22 @@ def _jax_vmem_bytes(pack, nx, terms, batch_tile=8):
     (32, "burgers", 8, 5, 3, 5504), (64, "burgers", 8, 5, 3, 3456),
     (128, "burgers", 8, 5, 3, 1920), (32, "ks", 6, 19, 3, 3200), (32, "ks", 18, 5, 3, 6400),
     (32, "ks", 6, 5, 17, 8192), (32, "burgers", 8, 5, 17, 5504),
+    (192, "ks", 6, 5, 3, 1536), (256, "ks", 6, 5, 3, 1152), (512, "ks", 6, 5, 3, 512),
+    (1024, "ks", 6, 5, 3, 256), (2384, "ks", 6, 5, 1, 128), (256, "burgers", 8, 5, 3, 1024),
+    (2304, "burgers", 8, 5, 1, 128),
 ])
 def test_learned_rk4_takes_what_jax_takes(filters, name, size, kernel_size, layers, jax_most):
     """The port's domain against the Pallas kernel's: at a batch tile of 8
     (the smallest its tiling takes) JAX's VMEM estimate admits nx up to
     ``jax_most`` (multiples of 128); learned_rk4_refusal takes every one of
-    them, at 32, 64 and 128 filters, forced (Burgers, 20 terms) and not, at
+    them, at 32 to 2384 filters, forced (Burgers, 20 terms) and not, at
     a conv kernel of 19 (reach 9), a stencil of 18 taps (reach 9) and 17
     layers (whose weights the split form streams where no cluster of 16
     holds them whole: JAX's estimate does not grow with depth); a cluster
-    of more than 8 blocks (non-portable) keeps the weights whole."""
+    of more than 8 blocks (non-portable) keeps the weights whole, but in
+    the chunked form (above 128 filters), which always streams them. The
+    widest towers have one layer: neither estimate grows with depth, and
+    the chunked form's launch does not read the weights."""
     pack = _pack(*_torch_model(filters, layers, name, True, size, kernel_size=kernel_size))
     terms = 20 if name == "burgers" else 0
     jax_takes = [nx for nx in range(128, 4 * jax_most, 128)
@@ -946,9 +1010,50 @@ def test_learned_rk4_takes_what_jax_takes(filters, name, size, kernel_size, laye
     assert all(reason is None for reason in refused.values()), refused
     launches = [fk.learned_rk4_launch(pack, nx, terms, 10240) for nx in jax_takes]
     assert max(launch.cluster for launch in launches) <= fk.MAX_CLUSTER
-    # more than the portable 8 blocks only to keep the weights whole
+    # more than the portable 8 blocks only to keep the weights whole, or chunked
     assert all(launch.cluster <= fk.PORTABLE_CLUSTER or not launch.stream
-               for launch in launches)
+               or pack.padded_channels > fk.WIDE_CHANNELS for launch in launches)
+    if pack.padded_channels > fk.WIDE_CHANNELS:
+        assert all(launch.split and launch.stream for launch in launches)
+
+
+@pytest.mark.parametrize("name,size,terms", [("ks", 6, 0), ("burgers", 8, 20)])
+@pytest.mark.parametrize("filters", [129, 136, 192, 256, 384, 512, 768, 1024, 1536, 2304, 2384])
+def test_learned_rk4_chunked_launch_geometry(filters, name, size, terms):
+    """The chunked form's launch at every nx JAX's tile-8 VMEM estimate
+    admits (KS-8x shapes unforced, Burgers-8x forced; nothing at 2384
+    filters forced): a cluster of at most 16 blocks, one team (128 threads)
+    a block, the segments of ceil(nx / blocks) points covering nx, the
+    fewest blocks that fit; each block holds the 32 KB window of one slice
+    of the weights (128 output channels of a chunk from 128 input channels
+    of one conv tap) and its segment, within 232448 bytes: two bf16
+    activation buffers of channels / 8 planes of (the segment rounded up to
+    8) + K rows, one 64-row tile of one plane of slack, the four float32
+    rows, the z tiles and, forced, the phase state."""
+    pack = _pack(*_torch_model(filters, 1, name, True, size))
+    cp = pack.padded_channels
+    assert cp == -(-filters // 16) * 16 and fk._window_bytes(pack) == 32 * 1024
+    admitted = [nx for nx in range(128, 4096, 128)
+                if _jax_vmem_bytes(pack, nx, terms) <= pk.PHYSICAL_VMEM_BYTES]
+    assert bool(admitted) == (name == "ks" or filters <= 2304)
+
+    def team_bytes(points):
+        rows = -(-points // 8) * 8
+        n = (2 * (cp // 8) * (rows + 5) * 16 + 64 * 16 + 4 * (4 * rows + 2 * 8)
+             + 4 * 32 * (pack.n_free | 1) * 4
+             + (4 * rows + 16 + 16 * terms + 8 * terms * points if terms else 0))
+        return -(-n // 128) * 128
+
+    for nx in admitted:
+        launch = fk.learned_rk4_launch(pack, nx, terms, 256)
+        c, seg = launch.cluster, launch.segment
+        assert fk.learned_rk4_refusal(pack, nx, terms) is None
+        assert launch.split and launch.stream and (launch.teams, launch.threads) == (1, 128)
+        assert 1 <= c <= fk.MAX_CLUSTER and seg == -(-nx // c) and (c - 1) * seg < nx
+        assert launch.team_bytes == team_bytes(seg) == fk._team_bytes(pack, seg, terms)
+        assert launch.shared_bytes == 32 * 1024 + launch.team_bytes <= 232448
+        assert launch.blocks == 256 * c
+        assert all(32 * 1024 + team_bytes(-(-nx // fewer)) > 232448 for fewer in range(1, c))
 
 
 @pytest.mark.parametrize("batch", [3, 256, 1037, 4096, 10240])
@@ -956,7 +1061,9 @@ def test_rk4_launch_geometry(batch):
     """A warp per trajectory: the blocks' warps cover the batch with one
     block at most partly empty, at most RK4_MAX_WARPS warps a block, and at
     least 132 blocks whenever the batch has 132 trajectories."""
-    launch = fk.rk4_launch(batch)
+    eq = teq.from_name("ks", conservative=True)
+    scheme = fk.make_fused_rk4(eq, TGrid(NX, eq.period), 1e-3, 1).scheme
+    launch = fk.rk4_launch(batch, NX, True, scheme.taps)
     assert launch.threads == 32 * launch.warps and 1 <= launch.warps <= fk.RK4_MAX_WARPS
     assert launch.blocks * launch.warps >= batch > (launch.blocks - 1) * launch.warps
     assert launch.blocks >= min(batch, fk.NUM_SMS)
@@ -964,16 +1071,18 @@ def test_rk4_launch_geometry(batch):
 
 
 @pytest.mark.parametrize("nx", [32, 64, 96, 100, 128, 160, 224, 256, 352, 512, 544, 1024,
-                                1056, 2048, 4096, 14528])
+                                1056, 2048, 4096, 14496, 14528, 16384, 65536])
 @pytest.mark.parametrize("name,cons", [("ks", True), ("ks", False), ("kdv", True),
                                        ("kdv", False)])
 def test_rk4_refusal(name, cons, nx):
     """The kernel takes every scheme make_fused_rk4 builds at every nx that
     is a multiple of 32: in registers up to 1024 points (P points a lane on
-    nx / P lanes, P the smallest built that fits), in a block's shared
-    memory above, as long as its four rows fit the block (nx 14528 does
-    not); it says why it takes nothing else. The CPU path (the plain
-    version) still takes every shape."""
+    nx / P lanes, P the smallest built that fits), in a block above, its
+    four rows in shared memory while they fit the block (up to nx 14496)
+    and in a global scratch beyond (nx 14528 and more, which it refused
+    before); it says why it takes nothing else. A scheme shifted 16 points
+    to the right (reach 19, once refused) takes the block form. The CPU
+    path (the plain version) still takes every shape."""
     period = teq.from_name(name).period * nx / 128
     eq = teq.from_name(name, conservative=cons, period=period)
     grid = TGrid(nx, period)
@@ -981,16 +1090,14 @@ def test_rk4_refusal(name, cons, nx):
     assert {d: (t[0], len(t)) for d, t in scheme.taps.items()} == fk.RK4_LAYOUTS[(name, cons)]
     assert fk.rk4_is_classic(scheme)
     refusal = fk.rk4_refusal(scheme, nx)
-    launch = fk.rk4_launch(256, nx) if nx % 32 == 0 else None
+    launch = fk.rk4_launch(256, nx, True, scheme.taps) if nx % 32 == 0 else None
     if nx % 32:
         assert refusal == f"nx={nx} is not a multiple of 32 (the JAX kernel takes multiples of 128)"
-    elif nx > 14520:
-        assert refusal == (f"nx={nx} needs {4 * (4 * nx + 32)} bytes of shared memory per "
-                           "block > the limit of 232448")
     else:
         assert refusal is None
     if launch is not None:  # taps at run time: in registers up to 24 points a lane
-        assert fk.rk4_launch(256, nx, False).form == ("registers" if nx <= 768 else "block")
+        assert fk.rk4_launch(256, nx, False, scheme.taps).form == (
+            "registers" if nx <= 768 else "block")
     if launch is not None and nx <= 1024:
         assert launch.form == "registers" and launch.points * launch.lanes == nx
         assert 17 <= launch.lanes <= 32 and launch.points in fk.RK4_POINTS_PER_LANE
@@ -998,16 +1105,55 @@ def test_rk4_refusal(name, cons, nx):
                                     if 32 * p >= nx and nx % p == 0)
     elif launch is not None:
         assert launch.form == "block" and launch.blocks == 256 and launch.threads == 256
-        assert launch.shared_bytes == 4 * (4 * nx + 2 * fk.RK4_REACH)
+        # a halo of the scheme's own reach (16 points before the wide schemes)
+        assert launch.halo == fk.rk4_reach(scheme.taps) <= 3
+        assert launch.rows_global == (nx >= 14528)
+        assert launch.shared_bytes == (0 if nx >= 14528 else 4 * (4 * nx + 2 * launch.halo))
     for kwargs in ({"accuracy_order": 4}, {"accuracy_order": 6}, {"stencil_size": 16}):
         wide = fk.make_fused_rk4(eq, grid, eq.stable_time_step(grid), 1, **kwargs).scheme
         assert not fk.rk4_is_classic(wide) and fk.rk4_refusal(wide, nx) == refusal
     far = dataclasses.replace(scheme, taps={d: tuple(t + 16 for t in taps)
                                             for d, taps in scheme.taps.items()})
-    if refusal is None:
-        assert fk.rk4_refusal(far, nx).startswith("taps of order ")
+    assert fk.rk4_refusal(far, nx) == refusal and fk.rk4_wide(far.taps)
+    if launch is not None:
+        assert fk.rk4_launch(256, nx, False, far.taps).form == "block"
     u = torch.zeros(2, nx)
     assert fk.fused_rk4(u, scheme).shape == (2, nx)  # the CPU's plain version
+
+
+@pytest.mark.parametrize("name,cons", [("ks", True), ("ks", False), ("kdv", True),
+                                       ("kdv", False)])
+def test_rk4_takes_every_scheme_and_grid(name, cons):
+    """Every scheme make_fused_rk4 builds from stencil_size up to 48 (and
+    accuracy orders 2 to 10) at every nx that is a multiple of 32 up to
+    65,536: rk4_refusal takes it, and rk4_launch gives a form the C entry
+    takes: registers within 32 taps an order and 16 points of reach, else a
+    block whose halo is the scheme's reach (beyond nx too: 48 taps reach 24
+    points on a grid of 32), its rows in shared memory within the block's
+    232448 bytes, else in a global scratch."""
+    eq = teq.from_name(name, conservative=cons)
+    grid = TGrid(NX, eq.period)
+    dt = eq.stable_time_step(grid)
+    schemes = [fk.make_fused_rk4(eq, grid, dt, 1, stencil_size=size).scheme  # staggered: even
+               for size in range(max(eq.derivative_orders) + 1, 49) if not cons or size % 2 == 0]
+    schemes += [fk.make_fused_rk4(eq, grid, dt, 1, accuracy_order=order).scheme
+                for order in (2, 4, 6, 8, 10)]
+    assert max(len(t) for sc in schemes for t in sc.taps.values()) == 48
+    for scheme in schemes:
+        reach, wide = fk.rk4_reach(scheme.taps), fk.rk4_wide(scheme.taps)
+        assert wide == (max(len(t) for t in scheme.taps.values()) > 32 or reach > 16)
+        classic = fk.rk4_is_classic(scheme)
+        for nx in range(32, 65536 + 1, 32):
+            assert fk.rk4_refusal(scheme, nx) is None
+            launch = fk.rk4_launch(7, nx, classic, scheme.taps)
+            if launch.form == "registers":
+                assert not wide and nx <= (1024 if classic else 768)
+                continue
+            assert wide or nx > (1024 if classic else 768)
+            assert launch.halo == reach and launch.blocks == 7
+            rows = 4 * (4 * nx + 2 * reach)
+            assert launch.rows_global == (rows > 232448)
+            assert launch.shared_bytes == (0 if launch.rows_global else rows)
 
 
 RHS_TAPS = {  # the KS-8x checkpoint's (3 orders of 6) and the Burgers-8x one's (2 of 8)
