@@ -591,14 +591,15 @@ def tensor_core_line(library) -> str:
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             # the mangled template arguments <NT, FORCED> (the cluster
-            # kernel's <NT, FORCED, CHUNKED>): channels = 8 NT, a chunk's
-            found = re.search(
-                r"fused_learned_rk4_(cluster_)?kernelILi(\d+)ELb(\d)E(?:Lb(\d)E)?E", name)
+            # kernel's <NT, FORCED, CHUNKED, G>): channels = 8 NT, a chunk's
+            found = re.search(r"fused_learned_rk4_(cluster_)?kernelILi(\d+)ELb(\d)E"
+                              r"(?:Lb(\d)E)?(?:Li(\d)E)?E", name)
             if found:
                 name = (f"fused_learned_rk4{'_cluster' if found.group(1) else ''}"
                         f"<{8 * int(found.group(2))} channels"
                         f"{' a chunk' if found.group(4) == '1' else ''}, "
-                        f"{'forced' if found.group(3) == '1' else 'unforced'}>")
+                        f"{'forced' if found.group(3) == '1' else 'unforced'}"
+                        f"{f', {found.group(5)} warp groups' if found.group(5) else ''}>")
         elif name and "fused_learned_rk4" in name:
             row = counts.setdefault(name, [0, 0, 0])
             row[0] += "HMMA" in line
@@ -608,6 +609,45 @@ def tensor_core_line(library) -> str:
         return "tensor-core instructions: not read (no fused_learned_rk4 kernel in the SASS)"
     return "tensor-core instructions in SASS (HMMA = mma.sync, GMMA = wgmma, LDSM = ldmatrix): " + (
         "; ".join(f"{n}: {h} HMMA, {g} GMMA, {l} LDSM" for n, (h, g, l) in sorted(counts.items())))
+
+
+# the chunked form with one warp group (fused_learned_rk4_cluster_kernel<16,
+# forced, chunked, 1 group>): its 16-byte stack frame is the array of the two
+# activation buffers' pointers, which the kernel keeps for speed
+# (fused_learned_rk4.cuh, kPointerArray)
+POINTER_ARRAY_KERNEL = re.compile(r"cluster_kernelILi16ELb[01]ELb1ELi1E")
+
+
+def check_learned_builds(build) -> None:
+    """Raises if ptxas gave an instantiation of fused_learned_rk4 (the whole
+    forms, the split form at every width and warp-group count, the chunked
+    form) a spill, or a stack frame other than the 16 bytes of the one-group
+    chunked kernels' array of pointers."""
+    frames = []  # (kernel, ptxas' line)
+    for source, text in build.logs.items():
+        if not source.startswith("fused_learned_rk4"):
+            continue
+        kernel = None
+        for line in text.splitlines():
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                kernel = found.group(1)
+            elif "stack frame" in line:
+                frames.append((kernel or "?", line.strip()))
+    if not frames:
+        log("    fused_learned_rk4 stack frames: not read (the library was built by an earlier "
+            "process)")
+        return
+    bad = [(kernel, line) for kernel, line in frames if not re.fullmatch(
+        r"%d bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+        % (16 if POINTER_ARRAY_KERNEL.search(kernel) else 0), line)]
+    arrays = sum(bool(POINTER_ARRAY_KERNEL.search(kernel)) for kernel, _ in frames)
+    log(f"    fused_learned_rk4: {len(frames)} instantiations read by ptxas, {len(bad)} with a "
+        f"spill or an unexpected stack frame ({arrays} one-group chunked kernels, whose "
+        "16-byte frame is their array of pointers)")
+    if bad or arrays != 2:
+        raise AssertionError(f"fused_learned_rk4 stack frames or spills: {bad}; one-group "
+                             f"chunked kernels read: {arrays} of 2")
 
 
 def check_stencil_builds(build) -> None:
@@ -2907,10 +2947,13 @@ DOMAIN_ROWS = (
 DOMAIN_SHARED = (("ks8 nx 1024", "ckpt_ks8", 8, None, 4),
                  ("burgers8 nx 512", "ckpt_burgers8", 4, None, 3),
                  (f"ks8 {WIDE_FILTERS} filters nx 256", "ckpt_ks8", 2, WIDE_FILTERS, 2))
-# the weights streamed a conv tap's slice at a time, forced by asking for
-# fewer blocks than the launch takes with them whole, bit for bit the
-# launch's run: (DOMAIN_ROWS label, blocks)
-DOMAIN_STREAMED = (("kdv16_f64 nx 1024", 2), ("burgers8 nx 2048", 3))
+# the weights streamed a conv tap's slice at a time against the weights
+# whole, bit for bit: the launch the rule picks against ``blocks`` blocks,
+# whose segments take the weights the other way (KdV-16x f64 streams them
+# over 2 blocks of 4 warp groups and keeps them whole over 3; Burgers-8x at
+# nx 2048 keeps them whole over 8 and streams them over 3): (DOMAIN_ROWS
+# label, blocks)
+DOMAIN_STREAMED = (("kdv16_f64 nx 1024", 3), ("burgers8 nx 2048", 3))
 DOMAIN_REACH_KERNEL = 21  # KS-8x's kernel-5 tower zero-padded: reach 10
 DOMAIN_DEEP_LAYERS = 17  # KS-8x's tower deepened by identity layers
 DOMAIN_FACTOR = 10  # the slice's path: run_ensemble --domain_factor 10 on Burgers-8x
@@ -3010,6 +3053,7 @@ def domain_phase(card: str) -> dict:
 
     from pde_superresolution_torch.ops import fused_kernels as fk
     from pde_superresolution_torch.scripts import run_ensemble
+    from pde_superresolution_torch.scripts.probe_learned_rk4 import fewest_blocks, launch_text
 
     device = torch.device("cuda")
     phase_start = time.perf_counter()
@@ -3030,19 +3074,32 @@ def domain_phase(card: str) -> dict:
         nx = model.grid.size
         terms = 0 if fp is None else fp.amplitude.shape[-1]
         launch = fk.learned_rk4_launch(pack, nx, terms, BATCH)
+        fewest = fewest_blocks(pack, nx, terms, BATCH)
         log(f"  {label}: {model.config.num_layers} x {pack.channels} filters (padded "
             f"{pack.padded_channels}), stencil {model.config.stencil_size}, dt={dt:.6g}; at "
-            f"B={BATCH}: {launch}")
+            f"B={BATCH}: {launch}; {launch_text(launch, pack)}; the fewest-blocks launch: "
+            f"{launch_text(fewest, pack)}")
         if not launch.split:
             raise AssertionError(f"{label}: one block holds nx={nx}, no split: {launch}")
         rough = rough_state(BATCH, nx)
         want_inc = fk.fused_learned_rk4_plain(rough, pack, dt, 1, fp) - rough
         got_inc = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp) - rough
+        # the launch chosen against the fewest blocks that hold the segment,
+        # one warp group a block (the choice before warp groups), bit for bit
+        fewest_inc = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp,
+                                          cluster=fewest.cluster, groups=fewest.groups) - rough
+        log(f"    against the fewest-blocks launch: max abs diff "
+            f"{float((got_inc - fewest_inc).abs().max()):.3e} "
+            f"{'ok (bit for bit)' if torch.equal(got_inc, fewest_inc) else 'FAIL'}")
+        if not torch.equal(got_inc, fewest_inc):
+            raise AssertionError(f"{label}: the chosen launch differs from the fewest-blocks "
+                                 "launch")
         err = check(f"{label} one step from N(0,1), B={BATCH}, increment", got_inc, want_inc,
                     tol, rms=True)
         out["err"] = max(out["err"], err)
         exact_inc = learned_rk4_float64(rough, pack, dt, 1, fp) - rough.double()
-        row = {"launch": launch._asdict(), "step_err": err,
+        row = {"launch": launch._asdict(), "fewest_blocks_launch": fewest._asdict(),
+               "step_err": err,
                "kernel_vs_float64_rms": relative_error(got_inc.double(), exact_inc, True),
                "plain_vs_float64_rms": relative_error(want_inc.double(), exact_inc, True)}
         log(f"    vs float64 sums, rel rms: kernel {row['kernel_vs_float64_rms']:.3e}, plain "
@@ -3069,18 +3126,25 @@ def domain_phase(card: str) -> dict:
         rough = rough_state(BATCH, nx)
         smooth = 0.3 * case["u0"]
         readings = {}
-        for what, u, steps in (("one step from N(0,1)", rough, 1),
-                               (f"{DOMAIN_RUN_STEPS} steps", smooth, DOMAIN_RUN_STEPS)):
-            whole = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp)
-            parts = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, cluster=blocks)
-            diff = float((parts - whole).abs().max())
-            readings[what] = diff
-            log(f"  {label}, {what}: split over {split.cluster} blocks of {split.segment} "
-                f"points against one block ({one.teams} a block): max abs diff {diff:.3e} "
-                f"{'ok (bit for bit)' if torch.equal(parts, whole) else 'FAIL'}")
-            if not torch.equal(parts, whole):
-                raise AssertionError(f"{label} {what}: the split form differs from one block")
-        out["shared"][label] = {"blocks": split.cluster, "segment": split.segment, **readings}
+        # one warp group a block, and the groups the choice takes for this
+        # cluster (the split form's choice where the split form runs)
+        for groups in sorted({1, split.groups}):
+            for what, u, steps in (("one step from N(0,1)", rough, 1),
+                                   (f"{DOMAIN_RUN_STEPS} steps", smooth, DOMAIN_RUN_STEPS)):
+                whole = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp)
+                parts = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, cluster=blocks,
+                                             groups=groups)
+                diff = float((parts - whole).abs().max())
+                readings[f"{what}, {groups} groups"] = diff
+                log(f"  {label}, {what}: split over {split.cluster} blocks of {split.segment} "
+                    f"points, {groups} warp groups a block, against one block ({one.teams} a "
+                    f"block): max abs diff {diff:.3e} "
+                    f"{'ok (bit for bit)' if torch.equal(parts, whole) else 'FAIL'}")
+                if not torch.equal(parts, whole):
+                    raise AssertionError(f"{label} {what}, {groups} groups: the split form "
+                                         "differs from one block")
+        out["shared"][label] = {"blocks": split.cluster, "segment": split.segment,
+                                "groups": split.groups, **readings}
 
     # ---- the weights streamed against the weights whole, both split
     out["streamed"] = {}
@@ -3089,10 +3153,11 @@ def domain_phase(card: str) -> dict:
         pack, dt, fp = case["pack"], case["dt"], case["fp"]
         nx = case["model"].grid.size
         terms = 0 if fp is None else fp.amplitude.shape[-1]
-        whole_w = fk.learned_rk4_launch(pack, nx, terms, BATCH)
-        streamed = fk.learned_rk4_launch(pack, nx, terms, BATCH, cluster=blocks)
-        if whole_w.stream or not streamed.stream:
-            raise AssertionError(f"{label}: {whole_w} and {streamed}: no streamed/whole pair")
+        chosen = fk.learned_rk4_launch(pack, nx, terms, BATCH)
+        other = fk.learned_rk4_launch(pack, nx, terms, BATCH, cluster=blocks)
+        if chosen.stream == other.stream:
+            raise AssertionError(f"{label}: {chosen} and {other}: no streamed/whole pair")
+        streamed, whole_w = (chosen, other) if chosen.stream else (other, chosen)
         readings = {}
         for what, u, steps in (("one step from N(0,1)", rough_state(BATCH, nx), 1),
                                (f"{DOMAIN_RUN_STEPS} steps", 0.3 * case["u0"], DOMAIN_RUN_STEPS)):
@@ -3100,8 +3165,9 @@ def domain_phase(card: str) -> dict:
             got = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, cluster=blocks)
             readings[what] = float((got - want).abs().max())
             log(f"  {label}, {what}: {streamed.cluster} blocks of {streamed.segment} points, "
-                f"weights streamed, against {whole_w.cluster} blocks of {whole_w.segment} with "
-                f"the weights whole: max abs diff {readings[what]:.3e} "
+                f"{streamed.groups} warp groups, weights streamed, against {whole_w.cluster} "
+                f"blocks of {whole_w.segment}, {whole_w.groups} warp groups, with the weights "
+                f"whole: max abs diff {readings[what]:.3e} "
                 f"{'ok (bit for bit)' if torch.equal(got, want) else 'FAIL'}")
             if not torch.equal(got, want):
                 raise AssertionError(f"{label} {what}: streamed weights differ from whole ones")
@@ -3290,13 +3356,22 @@ def domain_phase(card: str) -> dict:
                 samples=LONG_SAMPLES) if batch == BATCH else once_ms(
                 lambda: fk.fused_learned_rk4(u, pack, dt, STEPS, forcing=fpb))
             row[f"bound_ms_b{batch}"] = learned_rk4_bound_ms(pack, batch, STEPS, terms)
-            row[f"blocks_b{batch}"] = fk.learned_rk4_launch(pack, pack.grid.size, terms,
-                                                            batch).blocks
-            log(f"    {label} B={batch}: {row[f'ms_b{batch}']:.3f} ms per {STEPS} steps "
-                f"(operations bound {row[f'bound_ms_b{batch}']:.3f} ms, "
+            launch = fk.learned_rk4_launch(pack, pack.grid.size, terms, batch)
+            row[f"blocks_b{batch}"] = launch.blocks
+            fewest_text = ""
+            if batch == ENSEMBLE:  # the fewest-blocks launch on the same kernel, one call
+                fewest = fewest_blocks(pack, pack.grid.size, terms, batch)
+                row[f"fewest_blocks_ms_b{batch}"] = once_ms(lambda: fk.fused_learned_rk4(
+                    u, pack, dt, STEPS, forcing=fpb, cluster=fewest.cluster,
+                    groups=fewest.groups))
+                fewest_text = (f"; the fewest-blocks launch ({launch_text(fewest, pack)}) "
+                               f"{row[f'fewest_blocks_ms_b{batch}']:.3f} ms, "
+                               f"{row[f'fewest_blocks_ms_b{batch}'] / row[f'ms_b{batch}']:.3f}x")
+            log(f"    {label} B={batch} ({launch_text(launch, pack)}): {row[f'ms_b{batch}']:.3f} "
+                f"ms per {STEPS} steps (operations bound {row[f'bound_ms_b{batch}']:.3f} ms, "
                 f"{row[f'bound_ms_b{batch}'] / row[f'ms_b{batch}']:.1%}"
                 + (f"; plain version {row[f'plain_ms_b{batch}']:.1f} ms" if batch == BATCH else "")
-                + f"); {batch * STEPS / row[f'ms_b{batch}'] * 1e3:,.0f} traj-steps/s")
+                + f"){fewest_text}; {batch * STEPS / row[f'ms_b{batch}'] * 1e3:,.0f} traj-steps/s")
             del u, fpb
     out["phase_s"] = time.perf_counter() - phase_start
     log(f"    phase 19 took {out['phase_s']:.1f} s")
@@ -3385,7 +3460,7 @@ def split_kernel_row(domain: dict, terms: int) -> dict:
     return {
         "name": "fused_learned_rk4_split",
         "route": "cuda",
-        "source": "pde_superresolution_torch/csrc/fused_learned_rk4_cluster.cu",
+        "source": "pde_superresolution_torch/csrc/fused_learned_rk4_cluster.cuh",
         "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:390",
         "launches": domain["ensemble_launches"],
         "launches_by_path": {
@@ -3393,16 +3468,20 @@ def split_kernel_row(domain: dict, terms: int) -> dict:
             f"{domain['ensemble']['nx']}), --fused auto": domain["ensemble_launches"]},
         "shape": (f"B={BATCH} nx={domain['ensemble']['nx']}, {STEPS} steps, {terms} terms, "
                   f"clusters of {slice_launch['cluster']} blocks of "
-                  f"{slice_launch['segment']} points"),
+                  f"{slice_launch['segment']} points, {slice_launch['groups']} warp groups "
+                  "a block"),
         "max_abs_err": domain["err"],
         "ms": slice_row[f"ms_b{BATCH}"],
         "plain_ms": domain["plain_ms"],
         "bound_ms": slice_row[f"bound_ms_b{BATCH}"],
         "bound_by": "operations",
         "library_ms": None,
-        "domain": {label: {k: v for k, v in row.items() if k != "launch"}
+        "domain": {label: {k: v for k, v in row.items()
+                           if k not in ("launch", "fewest_blocks_launch")}
                    | {"cluster": row["launch"]["cluster"], "segment": row["launch"]["segment"],
-                      "stream": row["launch"]["stream"]}
+                      "stream": row["launch"]["stream"], "groups": row["launch"]["groups"],
+                      "fewest_blocks_cluster": row["fewest_blocks_launch"]["cluster"],
+                      "fewest_blocks_stream": row["fewest_blocks_launch"]["stream"]}
                    for label, row in domain["rows"].items()},
         "split_vs_one_block_max_abs_diff": domain["shared"],
         "streamed_vs_whole_weights_max_abs_diff": domain["streamed"],
@@ -3423,7 +3502,7 @@ def chunked_kernel_row(chunked: dict, domain: dict) -> dict:
     return {
         "name": "fused_learned_rk4_chunked",
         "route": "cuda",
-        "source": "pde_superresolution_torch/csrc/fused_learned_rk4_cluster.cu",
+        "source": "pde_superresolution_torch/csrc/fused_learned_rk4_cluster.cuh",
         "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:390",
         "launches": chunked["ensemble_launches"],
         "launches_by_path": {f"ks8 shapes at {CHUNKED_FILTERS} filters, ensemble --fused auto":
@@ -3483,6 +3562,7 @@ def main() -> int:
         for line in report:
             log(f"    {source}: {line}")
     check_stencil_builds(build)
+    check_learned_builds(build)
 
     model, params, config = convert.load_asset("ckpt_ks8", device=device)
     eq, grid = model.equation, model.grid

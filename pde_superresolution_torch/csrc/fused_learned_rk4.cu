@@ -5,8 +5,9 @@
 //
 // This file holds the forms in which a block holds whole trajectories (up
 // to 4 teams a block, or one at 128 channels) and the C entry point, which
-// hands a split launch (cfg.cluster > 0; every tower wider than 128
-// filters) to fused_learned_rk4_cluster.cu.
+// hands a split launch (cfg.cluster > 0, with its warp groups a block; every
+// tower wider than 128 filters) to the kernel of its warp-group count
+// (fused_learned_rk4_cluster.cuh).
 
 #include "fused_learned_rk4.cuh"
 
@@ -47,13 +48,15 @@ int dispatch(bool forced, const float* u, const unsigned char* weights, float* o
 // meta: equation code, conservative, nx, channels (padded: 16, 32, 64, 128, or
 //       above 128 a multiple of 16: the chunked form, split and streamed),
 //       ksize, layers, n_free, n_orders, size[3], tap0[3], free0[3],
-//       free_n[3], proj0[3], forcing terms (0 if unforced), teams per block,
-//       shared-memory bytes per team, halo (periodic points of u at each end,
-//       at least the reach of the conv kernel and of every order's taps),
-//       cluster (0: whole trajectories a block; C >= 1: the split form, a
-//       cluster of C blocks per trajectory, one team each), segment (points
-//       of a block in the split form), stream (the split form streams layer
-//       >= 1's weights a conv tap at a time: 1, or keeps them whole: 0).
+//       free_n[3], proj0[3], forcing terms (0 if unforced), teams per block
+//       (in the split form: its warp groups on the one segment, 1, 2 or 4,
+//       at most 2 at 128 channels and above), shared-memory bytes per team (a
+//       trajectory, or the segment's layout), halo (periodic points of u at
+//       each end, at least the reach of the conv kernel and of every order's
+//       taps), cluster (0: whole trajectories a block; C >= 1: the split
+//       form, a cluster of C blocks per trajectory), segment (points of a
+//       block in the split form), stream (the split form streams layer >= 1's
+//       weights a conv tap at a time: 1, or keeps them whole: 0).
 // offsets: the weights' bytes in shared memory (the whole buffer, or when
 //          streamed the window of one tap's slice, 2 x min(channels, 128)^2),
 //          then the blocks' byte offsets in buffer order: w[0], b[0], ...,
@@ -148,11 +151,16 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
   if (stream_weights && cfg.weight_bytes != 2 * slice_channels * slice_channels) {
     return (int)cudaErrorInvalidValue;
   }
-  if (split) {  // one team a block; the segments cover nx, each block holds points
-    if (teams != 1 || cfg.cluster > kMaxCluster || cfg.seg < 1 ||
-        (cfg.cluster - 1) * cfg.seg >= cfg.nx || cfg.cluster * cfg.seg < cfg.nx) {
+  // the split form's later warp groups keep their z tiles after the segment's layout
+  int group_bytes = 0;
+  if (split) {  // 1, 2 or 4 groups (2 wide); the segments cover nx, each block holds points
+    if (teams < 1 || teams == 3 ||
+        teams > (channels >= 8 * kWideNT ? kMaxGroupsWide : kMaxGroups) ||
+        cfg.cluster > kMaxCluster || cfg.seg < 1 || (cfg.cluster - 1) * cfg.seg >= cfg.nx ||
+        cfg.cluster * cfg.seg < cfg.nx) {
       return (int)cudaErrorInvalidValue;
     }
+    group_bytes = (teams - 1) * group_z_bytes(cfg.n_free);
   } else if (teams < 1 || teams > (fp.terms > 0 ? kMaxTeamsForced : kMaxTeams) ||
              (wide && teams != 1) || cfg.halo > cfg.nx || cfg.ksize - 1 > cfg.nx) {
     return (int)cudaErrorInvalidValue;  // its halos are single periodic copies
@@ -160,15 +168,25 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
   if (cfg.weight_bytes % 16 || cfg.team_bytes % 16 ||
       cfg.team_bytes <
           team_bytes_needed(cfg.seg, channels, cfg.ksize, cfg.n_free, fp.terms, cfg.halo) ||
-      smem_bytes < cfg.weight_bytes + teams * cfg.team_bytes) {
+      smem_bytes < cfg.weight_bytes + (split ? cfg.team_bytes + group_bytes
+                                             : teams * cfg.team_bytes)) {
     return (int)cudaErrorInvalidValue;
   }
   const bool forced = fp.terms > 0;
   if (forced != (cfg.eq == 0) || cfg.eq < 0 || cfg.eq > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (split) {
-    return pde::launch_learned_rk4_cluster(channels, forced, u, weights, out, cfg, fp,
-                                           smem_bytes, s);
+  if (split) {  // one kernel per warp-group count
+    switch (teams) {
+      case 1:
+        return pde::launch_learned_rk4_cluster<1>(channels, forced, u, weights, out, cfg, fp,
+                                                  smem_bytes, s);
+      case 2:
+        return pde::launch_learned_rk4_cluster<2>(channels, forced, u, weights, out, cfg, fp,
+                                                  smem_bytes, s);
+      default:
+        return pde::launch_learned_rk4_cluster<4>(channels, forced, u, weights, out, cfg, fp,
+                                                  smem_bytes, s);
+    }
   }
   switch (channels) {
     case 16:

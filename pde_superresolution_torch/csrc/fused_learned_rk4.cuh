@@ -1,8 +1,8 @@
 // fused_learned_rk4: num_steps whole RK4 steps of the learned model in one
 // launch. The kernel body, shared by its two forms: fused_learned_rk4.cu
 // (one or more whole trajectories a block, and the C entry point) and
-// fused_learned_rk4_cluster.cu (one trajectory split over a thread-block
-// cluster).
+// fused_learned_rk4_cluster.cuh (one trajectory split over a thread-block
+// cluster, built from fused_learned_rk4_cluster.cu, _g2.cu and _g4.cu).
 //
 // Replaces make_fused_learned_rk4 in
 // pde_superresolution_tpu/ops/pallas_kernels.py (the pallas_call at line
@@ -99,28 +99,47 @@
 //    0's and the heads' fragments, the biases and the projection are read
 //    from global memory where they lie. A simple form: the copies do not
 //    overlap the products and each tile reads the slices again.
-//  * The split form (SPLIT, fused_learned_rk4_cluster.cu): where one block
+//  * The split form (SPLIT, fused_learned_rk4_cluster.cuh): where one block
 //    cannot hold a trajectory, a thread-block cluster of C blocks (up to 8,
-//    16 where the card schedules it) shares it, one team a block. Block r of
-//    the cluster owns the points [r seg, r seg + seg) (the last block the
-//    rest: a ragged segment), their activations, state rows and phase state,
-//    and keeps its own copy of the weights, or at any width streams layer
-//    >= 1's weights a conv tap at a time as the wide form does (cfg.stream,
-//    where the whole buffer does not fit beside the segment). Every block of
-//    a cluster lays out its shared memory alike (from seg), so a neighbour's
-//    rows lie at the same offsets in its block. The halos come from the
-//    blocks that own the points, by distributed shared memory
-//    (cluster.map_shared_rank, modulo nx, so any reach works): a tower
-//    layer's kh input rows on each side after a cluster barrier that follows
-//    the layer's stores (they replace the team barrier between layers), the
-//    stage input's halo after the barrier that follows the stage combine,
-//    and the left face's flux after the barrier that follows the fluxes.
-//    Between a block's read of a neighbour's rows and the neighbour's next
-//    write of them lies at least one more cluster barrier, so the two
-//    activation buffers need no more. The same products run in the same
-//    order at every row, so the split form gives the one-block form's
-//    result bit for bit. A simple form: a layer waits for the whole
-//    cluster, and a block holds one team.
+//    16 where the card schedules it) shares it. Block r of the cluster owns
+//    the points [r seg, r seg + seg) (the last block the rest: a ragged
+//    segment), their activations, state rows and phase state, and keeps its
+//    own copy of the weights, or at any width streams layer >= 1's weights a
+//    conv tap at a time as the wide form does (cfg.stream, where the whole
+//    buffer does not fit beside the segment, or where the host's rule finds
+//    more warps busy so). Every block of a cluster lays
+//    out its shared memory alike (from seg), so a neighbour's rows lie at the
+//    same offsets in its block. The halos come from the blocks that own the
+//    points, by distributed shared memory (cluster.map_shared_rank, modulo
+//    nx, so any reach works): a tower layer's kh input rows on each side
+//    after a cluster barrier that follows the layer's stores (they replace
+//    the team barrier between layers), the stage input's halo after the
+//    barrier that follows the stage combine, and the left face's flux after
+//    the barrier that follows the fluxes. Between a block's read of a
+//    neighbour's rows and the neighbour's next write of them lies at least
+//    one more cluster barrier, so the two activation buffers need no more.
+//  * A split block runs G warp groups (1, 2 or 4; 2 at 128 channels and above,
+//    whose 64 accumulators a thread leave registers for two) on its one
+//    segment: they share its activations, state rows and weights (or
+//    window). The segment's passes of MT 64-row tiles go to the groups in
+//    turn (pass i to group i mod G, so a ragged last pass lands on a group
+//    with the most passes), each group with its own z tiles (group 0's in
+//    the segment's layout, the others' after it, so the layout that remote
+//    reads rely on does not change with G); the point loops (stage combine,
+//    halos, loads and stores) run over all G x 128 threads, and the team
+//    barrier is the block's. With streamed weights the groups walk their
+//    passes in step, so each slice crosses into the window once for all G
+//    groups (a group without a pass copies and waits, and runs no product).
+//    G is a template parameter, one kernel per count (a count read from
+//    blockDim cost 30-40% at G = 1: nvcc no longer unrolled the tile loop);
+//    the loop stays rolled where unrolled it overflowed the registers
+//    (kRolledPasses), and 2 groups below 128 channels are bounded to 128
+//    registers a thread, two blocks an SM. The host picks C, G and the
+//    weights' form from the occupancy they give an SM, by a rule fitted to
+//    a sweep on the card (fused_kernels.learned_rk4_launch, _split_rank).
+//    The same products run in the same order at every row, whichever group
+//    and block own it, so the split form gives the one-block form's result
+//    bit for bit at every C and G.
 //  * The chunked form (CHUNKED, split only): towers wider than 128 filters,
 //    padded to a multiple of 16 channels (cfg.channels). The output channels
 //    run in chunks of 128, each on wgmma.m64n128k16 with the 128-channel
@@ -140,6 +159,8 @@
 //    5, past L2's 50 MB) once per stage.
 //  * -DPDE_MAX_TEAMS=n and -DPDE_PROFILE serve
 //    scripts/probe_learned_rk4.py: other team counts, and cycles by phase.
+//    -DPDE_FAULT_SKIP_LAST_PASS plants a fault for the card's tests: a split
+//    block's last warp group skips its last pass.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -180,8 +201,10 @@ struct LearnedConfig {
   int channels;  // the padded tower width (a multiple of 16 above 128: the chunked form)
 };
 
-// The split form's launch (fused_learned_rk4_cluster.cu): a cluster of
-// cfg.cluster blocks per trajectory, one team a block.
+// The split form's launch (fused_learned_rk4_cluster.cuh): a cluster of
+// cfg.cluster blocks per trajectory, G warp groups a block; one source per G
+// (fused_learned_rk4_cluster.cu, _g2.cu, _g4.cu), built in parallel.
+template <int G>
 int launch_learned_rk4_cluster(int channels, bool forced, const float* u,
                                const unsigned char* weights, float* out,
                                const LearnedConfig& cfg, const LearnedForcing& fp,
@@ -207,12 +230,22 @@ constexpr int kPhases = 10;               // of the PDE_PROFILE build
 constexpr int kMaxTeamsForced = kMaxTeams < 4 ? kMaxTeams : 4;  // MAX_TEAMS_FORCED
 constexpr int kWideNT = 16;  // 128 channels: the wide form (fused_kernels.WIDE_CHANNELS)
 constexpr int kMaxCluster = 16;  // fused_kernels.MAX_CLUSTER
+// the split form's warp groups a block on one segment (fused_kernels.MAX_GROUPS,
+// MAX_GROUPS_WIDE): 4 x 128 threads keep up to 128 registers a thread, 2 the
+// 255 that 64 accumulators a thread need
+constexpr int kMaxGroups = 4;
+constexpr int kMaxGroupsWide = 2;
 // the chunked form: the bytes after the activation buffers that a 64-row
 // tile reads past a plane whose rows are rounded up to 8
 // (fused_kernels.CHUNK_SLACK)
 constexpr int kChunkSlack = 64 * 16;
 
 __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+// The z tiles of one warp group (one [32][F | 1] float tile per warp): a
+// split block's groups after the first keep theirs after the segment's
+// layout (fused_kernels._group_bytes).
+__host__ __device__ inline int group_z_bytes(int n_free) { return 4 * 32 * (n_free | 1) * 4; }
 
 // Shared memory of one team holding `points` points, as
 // fused_kernels._team_bytes counts it.
@@ -402,15 +435,34 @@ __device__ __forceinline__ int segment_owner(int gp, int nx, int seg, int& rank)
 // CHUNKED (SPLIT, NT = kWideNT): towers wider than 128 channels, padded to
 // cfg.channels (a multiple of 16), in output chunks of 128 channels whose
 // weights stream a slice of (chunk, tap, 128 input channels) at a time.
+// G (SPLIT): the warp groups of a block, a compile-time count. With the pass
+// stride known, nvcc unrolls the tile loop as in the one-block form (a count
+// read from blockDim ran the split form 1.3-1.4x slower at G = 1 on an
+// H100); where that unrolling would not fit the registers a thread may use
+// beside G groups (kRolledPasses), the stride is read from blockDim and the
+// loop stays rolled: the groups overlap one another's passes instead.
 // cfg and fp come by value: read through a reference to the kernel's
 // parameters the flagship ran 2-3% slower (H100, 100 steps at B=10240).
-template <int NT, bool FORCED, bool SPLIT, bool CHUNKED = false>
+// Where the split form's tile loop stays rolled (its stride and the point
+// loops' read from blockDim): unrolled, 64 and 16 channels passed the
+// registers a thread may use beside 2 or more groups (ptxas for sm_90a: 64
+// channels took 200 registers at 2 groups and spilled at 4; 16 channels
+// spilled at 2 and 4). 32 channels unroll within 128 registers at 2 groups,
+// two blocks an SM (fused_learned_rk4_cluster.cuh), and at 4; at 128
+// channels and above, 2 groups use up to 255 registers, one block an SM.
+template <int NT, int G>
+constexpr bool kRolledPasses = G > 1 && (NT == 2 || NT == 8);
+
+template <int NT, bool FORCED, bool SPLIT, bool CHUNKED = false, int G = 1>
 __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
                                                  const float* __restrict__ u_in,
                                                  const unsigned char* __restrict__ weights,
                                                  float* __restrict__ u_out, const Config cfg,
                                                  const Forcing fp) {
   static_assert(!CHUNKED || (SPLIT && NT == kWideNT), "the chunked form is split, 128 a chunk");
+  static_assert((G == 1 || G == 2 || G == 4) &&
+                    G <= (NT == kWideNT ? kMaxGroupsWide : kMaxGroups) && (SPLIT || G == 1),
+                "1, 2 or 4 warp groups a split block (1 or 2 wide)");
   constexpr int CS = NT / 2;  // depth-16 steps across the channels (of a chunk)
   constexpr bool WIDE = NT == kWideNT;  // one team a block, layer >= 1's weights streamed
   constexpr int MT = WIDE ? 1 : 2;      // 64-point tiles per pass
@@ -436,8 +488,14 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   // for the rows beyond the grid] x 16 bytes
   const int plane_bytes = (rows + K) * 16, dump_row = rows + K - 1;
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, q = lane & 3;
-  const int team = SPLIT ? 0 : tid / kTeamThreads;  // a warp group
-  const int tt = tid - team * kTeamThreads, wt = tt >> 5;
+  // the block's warp groups: teams of whole trajectories, or in the split
+  // form G groups on the block's one segment
+  const int grp = SPLIT && G == 1 ? 0 : tid / kTeamThreads;
+  const int team = SPLIT ? 0 : grp;  // whose trajectory's layout
+  const int tt = tid - grp * kTeamThreads, wt = tt >> 5;
+  // the threads that share the loops over points: a team, or all G groups
+  const int lt = SPLIT ? tid : tt;
+  const int lthreads = kRolledPasses<NT, G> ? (int)blockDim.x : kTeamThreads * G;
 
   if (!stream) {
     for (int i = tid; i < cfg.weight_bytes / 16; i += blockDim.x) {
@@ -468,14 +526,28 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   auto b_off = [&](int l) { return l == 0 ? cfg.b0_off : w_off(l) + cfg.w_bytes; };
 
   unsigned char* base = smem + cfg.weight_bytes + team * cfg.team_bytes;
-  unsigned char* act[2] = {base, base + planes * plane_bytes};  // bf16 [planes]
+  // the two bf16 activation buffers [planes], chosen by a select. The
+  // chunked form with one warp group reads them from an array of their
+  // pointers instead (a 16-byte stack frame), as every form did before warp
+  // groups: there a select, an offset, or pointers hidden by an empty asm
+  // each cost 8-27% on an H100, and the array alone won it back; the other
+  // forms run 1.7-2.0% faster with the select and keep no stack frame.
+  constexpr bool kPointerArray = CHUNKED && G == 1;
+  unsigned char* const act0 = base;
+  unsigned char* const act1 = base + planes * plane_bytes;
+  unsigned char* act[2] = {act0, act1};
   // stage input, s_u[-halo .. rows + halo): periodic copies at both ends
   float* s_u = reinterpret_cast<float*>(base + 2 * planes * plane_bytes +
                                         (CHUNKED ? kChunkSlack : 0)) + halo;
   float* s_flux = s_u + rows + halo;  // face fluxes, or u_t for a direct form
   float* s_u0 = s_flux + rows;  // the step's start value
   float* s_ksum = s_u0 + rows;  // running k1 + 2 k2 + 2 k3 + k4
-  float* s_z = s_ksum + rows + wt * 32 * z_stride;  // this warp's z tile [32][F | 1]
+  // this warp's z tile [32][F | 1]; a split block's later groups keep theirs
+  // after the segment's layout
+  float* s_z = SPLIT && grp > 0
+                   ? reinterpret_cast<float*>(smem + cfg.weight_bytes + cfg.team_bytes) +
+                         (4 * (grp - 1) + wt) * 32 * z_stride
+                   : s_ksum + rows + wt * 32 * z_stride;
   // forced only: this stage's forcing [rows], the per-term constants
   // (amplitude, rotation cos, rotation sin, 0) [terms], the phase state
   // [terms][seg] each
@@ -487,7 +559,11 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   float* __restrict__ s_cos = s_sin + T * cfg.seg;
 
   auto team_sync = [&]() {
-    asm volatile("bar.sync %0, %1;\n" ::"r"(team + 1), "n"(kTeamThreads) : "memory");
+    if constexpr (SPLIT && G > 1) {
+      __syncthreads();  // the block's groups share one segment
+    } else {  // the team's named barrier (in the split form, the block's one group)
+      asm volatile("bar.sync %0, %1;\n" ::"r"(team + 1), "n"(kTeamThreads) : "memory");
+    }
   };
   // the split form: a barrier of every thread of the cluster, which orders
   // the stores before it with the other blocks' reads after it
@@ -512,25 +588,25 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   };
   // the split form: the stage input's halo from the blocks that own it
   auto pull_u = [&]() {
-    for (int i = tt; i < 2 * halo; i += kTeamThreads) {
+    for (int i = lt; i < 2 * halo; i += lthreads) {
       const int local = i < halo ? i - halo : n + i - halo;
       int rank;
       const int src = segment_owner(seg0 + local, nx, cfg.seg, rank);
       s_u[local] = *remote(s_u + src, rank);
     }
   };
-  for (int p = tt; p < n; p += kTeamThreads) {
+  for (int p = lt; p < n; p += lthreads) {
     const float v = u_in[traj * nx + seg0 + p];
     store_u(p, v);
     s_u0[p] = v;
   }
   if (FORCED) {
     const size_t row = (size_t)traj * T;
-    for (int i = tt; i < T; i += kTeamThreads) {
+    for (int i = lt; i < T; i += lthreads) {
       s_term[i] = make_float4(fp.amp[row + i], fp.rot_c[row + i], fp.rot_s[row + i], 0.f);
     }
     if constexpr (SPLIT) {
-      for (int i = tt; i < T * n; i += kTeamThreads) {
+      for (int i = lt; i < T * n; i += lthreads) {
         const int m = i / n, p = i - m * n;
         s_sin[m * cfg.seg + p] = fp.sin0[(row + m) * nx + seg0 + p];
         s_cos[m * cfg.seg + p] = fp.cos0[(row + m) * nx + seg0 + p];
@@ -565,17 +641,35 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   } while (0)
 #endif
   const int tiles = (n + 63) / 64;
+  // the split form: pass i (MT tiles from 64 MT i) to group i mod G; with
+  // streamed weights every group walks the same number of passes, in step,
+  // past the segment's last where it has none left (`active` false)
+  // the pass stride, MT G (from blockDim where the loop stays rolled)
+  const int pass_step = MT * (lthreads / kTeamThreads);
+  const int tp_end = SPLIT && G > 1 && stream ? round_up(tiles, pass_step) : tiles;
   for (int step = 0; step < cfg.num_steps; ++step) {
     for (int stage = 0; stage < 4; ++stage) {
       for (int l = 0; l < L; ++l) {
         const bool last = l == L - 1;
-        unsigned char* out = act[l & 1];
-        const unsigned char* in = act[(l & 1) ^ 1];
+        unsigned char* out = l & 1 ? act1 : act0;
+        const unsigned char* in = l & 1 ? act0 : act1;
+        if constexpr (kPointerArray) {
+          out = act[l & 1];
+          in = act[(l & 1) ^ 1];
+        }
         const float* bias = reinterpret_cast<const float*>(wts + b_off(l));
 
         // MT 64-point tiles at a time; in each, warp wt holds rows 16 wt ..
         // 16 wt + 15: acc[tile][channel tile][fragment].
-        for (int tp = 0; tp < tiles; tp += MT) {
+        for (int tp = MT * grp * SPLIT; tp < tp_end; tp += pass_step) {
+#ifdef PDE_FAULT_SKIP_LAST_PASS
+          // a planted fault (tests/test_torch_gpu.py): a split block's last
+          // warp group of two or more skips its last pass (meets its barriers)
+          const bool active = !SPLIT || (tp < tiles && !(G > 1 && grp == G - 1 &&
+                                                         tp + pass_step >= tp_end));
+#else
+          const bool active = !SPLIT || G == 1 || tp < tiles;
+#endif
           const bool two = MT == 2 && tp + 1 < tiles;
           const int row0 = 64 * tp + 16 * wt;  // this warp's first row of tile tp
           // the output channels 8 NT at a time (one chunk but in the chunked form)
@@ -593,6 +687,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
             }
 
             if (l == 0) {
+              if (!active) continue;  // no barrier in this layer's passes to meet
               // mma.sync; A[point][tap] = bf16(u[point + tap - kh]), taps padded
               // to whole depth steps of 16
               const uint2* w = reinterpret_cast<const uint2*>(wts + cfg.w0_off) + lane;
@@ -636,11 +731,12 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
                   const uint4* slice = reinterpret_cast<const uint4*>(
                       layer_w + ((size_t)(oc * K + k) * all_cs + ic) * STEP_BYTES);
                   team_sync();  // every warp's products of the last slice are done
-                  for (int i = tt; i < steps * (STEP_BYTES / 16); i += kTeamThreads) {
+                  for (int i = lt; i < steps * (STEP_BYTES / 16); i += lthreads) {
                     reinterpret_cast<uint4*>(smem)[i] = slice[i];
                   }
                   fence_proxy_async();  // wgmma reads the window
                   team_sync();
+                  if (!active) continue;  // uniform over the warp group
 #pragma unroll
                   for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
                   wgmma_fence();
@@ -687,6 +783,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
               PROF(2);
             }
             if (l == 0) PROF(0);
+            if (!active) continue;  // a split group past its passes: nothing to store
 
             // ---- ReLU, bf16: lo = row g, hi = row g + 8 of the warp's 16
             // rows, channels 8 nt + 2 q and + 1 ----
@@ -800,7 +897,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
             __syncwarp();
             PROF(4);
           }  // the output chunks
-          if (!last) continue;
+          if (!last || !active) continue;
 
           // ---- projection, stencil, flux: one grid point per lane (lanes
           // 0-15 the warp's rows of tile tp, lanes 16-31 of tile tp + 1; in
@@ -860,7 +957,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
             // every block's rows of this layer are stored: the kh input rows
             // of the next layer on each side from the blocks that own them
             cluster_sync();
-            for (int i = tt; i < 2 * kh * planes; i += kTeamThreads) {
+            for (int i = lt; i < 2 * kh * planes; i += lthreads) {
               const int j = i / planes, plane = i - j * planes;
               const int local = j < kh ? j - kh : n + j - kh;
               int rank;
@@ -885,7 +982,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
       PROF(7);
 
       // ---- forcing and RK4 stage combine ----
-      for (int p = tt; p < n; p += kTeamThreads) {
+      for (int p = lt; p < n; p += lthreads) {
         float k_val = s_flux[p];
         if (cfg.conservative) {
           float left;
@@ -950,9 +1047,9 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
       PROF(9);
     }
   }
-  for (int p = tt; p < n; p += kTeamThreads) u_out[traj * nx + seg0 + p] = s_u0[p];
+  for (int p = lt; p < n; p += lthreads) u_out[traj * nx + seg0 + p] = s_u0[p];
 #ifdef PDE_PROFILE
-  if (lane == 0) {
+  if (lane == 0 && grp == team) {  // a split block: group 0's warps
     for (int i = 0; i < kPhases; ++i) u_out[traj * nx + seg0 + 16 * wt + i] = (float)prof[i];
   }
 #endif

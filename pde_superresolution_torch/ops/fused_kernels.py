@@ -13,8 +13,9 @@ The counterpart of ``pde_superresolution_tpu/ops/pallas_kernels.py``:
     (``wgmma`` and ``mma.sync`` on bf16, float32 sums); a warp group owns a
     trajectory and a block holds up to four of them, or, where one block
     cannot hold a trajectory, a thread-block cluster shares it, a segment a
-    block, halos by distributed shared memory. For a forced equation
-    (Burgers) the sum-of-sinusoids forcing is evaluated in the kernel from a
+    block run by up to four warp groups, halos by distributed shared memory.
+    For a forced equation (Burgers) the sum-of-sinusoids forcing is
+    evaluated in the kernel from a
     ``ForcingPack``: per-term (sin, cos) phase state advanced by a planar
     rotation per half step.
   * ``fused_rk4`` (``csrc/fused_rk4*.cu``, built by ``make_fused_rk4``,
@@ -68,18 +69,38 @@ MAX_ORDERS = 3
 # (above PORTABLE_CLUSTER the card must allow a non-portable size). Wider
 # towers pad to a multiple of 16 and take the split form in chunks of
 # WIDE_CHANNELS output channels (the chunked form), their activation rows
-# rounded up to 8 with CHUNK_SLACK bytes after them (kChunkSlack).
+# rounded up to 8 with CHUNK_SLACK bytes after them (kChunkSlack). A split
+# block runs one of GROUP_COUNTS warp groups on its segment, up to
+# MAX_GROUPS (kMaxGroups), at WIDE_CHANNELS and above up to MAX_GROUPS_WIDE
+# (kMaxGroupsWide: the kernel's thread bound leaves 255 registers a thread
+# for 64 accumulators).
 MAX_TEAMS = 4  # trajectories per block
 MAX_TEAMS_FORCED = 4  # the same for a forced equation (kMaxTeamsForced)
 TEAM_THREADS = 128  # one warp group owns a trajectory (kTeamThreads)
 U_HALO = 8  # the least number of periodic copies of u at each end in shared memory
 MAX_CLUSTER = 16
 PORTABLE_CLUSTER = 8
+GROUP_COUNTS = (1, 2, 4)  # one kernel each (no sweep shape chose 3)
+MAX_GROUPS = 4
+MAX_GROUPS_WIDE = 2
 PADDED_CHANNELS = (16, 32, 64, 128)
 WIDE_CHANNELS = 128
 CHUNK_SLACK = 64 * 16  # one 64-row tile of one plane
 MAX_SHARED_BYTES = 232448  # opt-in shared memory per block on sm_90
 NUM_SMS = 132  # H100: a launch should have at least this many blocks
+# What one SM holds of the split form's blocks (learned_rk4_launch,
+# split_occupancy): shared memory for the blocks and BLOCK_RESERVED_BYTES
+# each beside them (the opt-in limit plus one reservation: 233,472 bytes on
+# sm_90), and registers for SM_WARPS warps (128 registers a thread, the
+# most that 2 and 4 groups may use) or, at WIDE_CHANNELS and above,
+# SM_WARPS_WIDE (255 a thread). These are the rule's fitted constants, not
+# ptxas' counts: one group takes 80 to 166 registers (ptxas for sm_90a, an
+# H100), so 3 one-group blocks an SM at 64 channels, not 4, and 3 at 128,
+# not 2; counted so, the rule ranks 16 blocks of one group first at 128
+# filters nx 1024, 8% slower in the sweep than its pick (PERF.md).
+BLOCK_RESERVED_BYTES = 1024
+SM_WARPS = 16
+SM_WARPS_WIDE = 8
 # fused_rhs.cu's block: one thread per point, at most RHS_BLOCK_POINTS of
 # them unless one trajectory is longer, dynamic shared memory under the
 # 48 KB that needs no opt-in. On an H100 one trajectory of 128 points per
@@ -744,10 +765,10 @@ class LearnedRK4Launch(NamedTuple):
 
     Whole trajectories a block (``split`` false): ``teams`` of them, each a
     warp group. The split form (``split``): a thread-block cluster of
-    ``cluster`` blocks per trajectory, one team a block, each holding a
-    segment of ``segment`` points (the last block the rest), with the
+    ``cluster`` blocks per trajectory, each holding a segment of ``segment``
+    points (the last block the rest) run by ``groups`` warp groups, with the
     weights whole in shared memory or, ``stream``, layer >= 1's a conv tap
-    at a time. ``teams`` is 0 when no form fits."""
+    at a time. ``teams`` is 0 when no form fits (1 in the split form)."""
 
     teams: int  # trajectories per block, one warp group (128 threads) each
     threads: int  # per block
@@ -758,6 +779,7 @@ class LearnedRK4Launch(NamedTuple):
     cluster: int = 1  # blocks per trajectory
     segment: int = 0  # points a block holds: nx, or a segment of it
     stream: bool = False  # layer >= 1's weights through a window of one tap's slice
+    groups: int = 1  # the split form: warp groups a block on its one segment
 
 
 def learned_rk4_reach(pack: LearnedRK4Pack) -> int:
@@ -793,6 +815,13 @@ def _team_bytes(pack: LearnedRK4Pack, nx: int, terms: int) -> int:
     return -(-n // 128) * 128
 
 
+def _group_bytes(pack: LearnedRK4Pack) -> int:
+    """The z tiles of one more warp group on a split block's segment
+    (``group_z_bytes``): one ``[32, F | 1]`` float32 tile per warp, kept
+    after the segment's layout."""
+    return 4 * 32 * (pack.n_free | 1) * 4
+
+
 def _window_bytes(pack: LearnedRK4Pack) -> int:
     """One conv tap's slice of a layer >= 1's weights, bf16 (in the chunked
     form: of one chunk's 128 outputs from 128 inputs)."""
@@ -802,6 +831,7 @@ def _window_bytes(pack: LearnedRK4Pack) -> int:
 def learned_rk4_launch(
     pack: LearnedRK4Pack, nx: int, terms: int = 0, batch: int = NUM_SMS * MAX_TEAMS,
     shared_limit: int = MAX_SHARED_BYTES, cluster: Optional[int] = None,
+    groups: Optional[int] = None,
 ) -> LearnedRK4Launch:
     """The launch of ``fused_learned_rk4`` for ``batch`` trajectories of
     ``nx`` points (``terms`` forcing sinusoids).
@@ -817,21 +847,27 @@ def learned_rk4_launch(
     Where it does not, or where the reach (``learned_rk4_halo``) is longer
     than the grid or the conv kernel wider than nx + 1 points (a block of
     whole trajectories writes each halo as a single periodic copy), the
-    split form: the smallest cluster of up to
-    ``MAX_CLUSTER`` blocks whose segments of ``ceil(nx / cluster)`` points
-    fit beside the whole weights or, where no cluster holds them whole, the
-    smallest whose segments fit beside the window of one conv tap's slice
-    (streamed weights cost more per point-step than a larger cluster).
-    ``cluster`` forces the split form with that many blocks (fewer where
-    ``ceil(nx / cluster)``-point segments cover nx with fewer), also at a
-    shape one block holds. ``teams`` is 0 when nothing fits
+    split form: a cluster of up to ``MAX_CLUSTER`` blocks, each a segment of
+    ``ceil(nx / cluster)`` points run by ``groups`` warp groups, chosen by
+    ``_split_rank`` from the occupancy each choice gives. ``cluster`` and
+    ``groups`` force the split form (also at a shape one block holds) with
+    that many blocks (fewer where ``ceil(nx / cluster)``-point segments
+    cover nx with fewer) or warp groups, the other chosen as above; a value
+    out of range raises. ``teams`` is 0 when nothing fits
     (``learned_rk4_refusal`` says so)."""
     window, resident = _window_bytes(pack), pack.blob.numel()
     wide = pack.padded_channels >= WIDE_CHANNELS
     chunked = pack.padded_channels > WIDE_CHANNELS
+    most_groups = MAX_GROUPS_WIDE if wide else MAX_GROUPS
+    if cluster is not None and not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"cluster={cluster}: the split form takes 1 to {MAX_CLUSTER} blocks")
+    counts = [g for g in GROUP_COUNTS if g <= most_groups]
+    if groups is not None and groups not in counts:
+        raise ValueError(f"groups={groups}: the split form takes {counts} warp groups a block "
+                         f"at {pack.padded_channels} channels")
     # a block of whole trajectories writes each halo as one periodic copy
     wraps_once = learned_rk4_halo(pack) <= nx and 2 * (pack.kernel_size // 2) <= nx
-    if cluster is None and wraps_once and not chunked:
+    if cluster is None and groups is None and wraps_once and not chunked:
         team_bytes = _team_bytes(pack, nx, terms)
         weights = window if wide else resident
         fit = max(0, shared_limit - weights) // team_bytes
@@ -842,42 +878,87 @@ def learned_rk4_launch(
                 teams=teams, threads=TEAM_THREADS * teams, team_bytes=team_bytes,
                 shared_bytes=weights + teams * team_bytes, blocks=-(-batch // teams),
                 segment=nx, stream=wide)
-    if cluster is None:
-        sizes = range(1, MAX_CLUSTER + 1)
-    elif not 1 <= cluster <= MAX_CLUSTER:
-        raise ValueError(f"cluster={cluster}: the split form takes 1 to {MAX_CLUSTER} blocks")
-    else:
-        sizes = [cluster]
+    sizes = range(1, MAX_CLUSTER + 1) if cluster is None else [cluster]
+    counts = counts if groups is None else [groups]
+    best = None
     for stream in (False, True) if not wide else (True,):
         weights = window if stream else resident
         for size in sizes:
             segment = -(-nx // size)
             team_bytes = _team_bytes(pack, segment, terms)
-            if weights + team_bytes <= shared_limit:
-                blocks = -(-nx // segment)
-                return LearnedRK4Launch(
-                    teams=1, threads=TEAM_THREADS, team_bytes=team_bytes,
-                    shared_bytes=weights + team_bytes, blocks=batch * blocks, split=True,
-                    cluster=blocks, segment=segment, stream=stream)
+            for count in counts:
+                shared = weights + team_bytes + (count - 1) * _group_bytes(pack)
+                if shared > shared_limit:
+                    continue
+                launch = LearnedRK4Launch(
+                    teams=1, threads=TEAM_THREADS * count, team_bytes=team_bytes,
+                    shared_bytes=shared, blocks=batch * -(-nx // segment), split=True,
+                    cluster=-(-nx // segment), segment=segment, stream=stream, groups=count)
+                rank = _split_rank(launch, wide, shared_limit)
+                if best is None or rank < best[0]:
+                    best = (rank, launch)
+    if best is not None:
+        return best[1]
+    segment = -(-nx // sizes[-1])
+    team_bytes = _team_bytes(pack, segment, terms)
     return LearnedRK4Launch(
-        teams=0, threads=TEAM_THREADS, team_bytes=team_bytes, shared_bytes=window + team_bytes,
-        blocks=0, split=True, cluster=sizes[-1], segment=segment, stream=True)
+        teams=0, threads=TEAM_THREADS * counts[0], team_bytes=team_bytes,
+        shared_bytes=window + team_bytes + (counts[0] - 1) * _group_bytes(pack), blocks=0,
+        split=True, cluster=sizes[-1], segment=segment, stream=True, groups=counts[0])
+
+
+def split_occupancy(launch: LearnedRK4Launch, wide: bool,
+                    shared_limit: int = MAX_SHARED_BYTES) -> tuple:
+    """What one SM holds of a split launch: (blocks by shared memory and by
+    registers, warps of them that have a pass of tiles to run, passes of
+    64-row tiles per warp group and stage). A pass is two tiles below
+    ``WIDE_CHANNELS`` (MT = 2), one at and above it."""
+    per_sm = min((shared_limit + BLOCK_RESERVED_BYTES)
+                 // (launch.shared_bytes + BLOCK_RESERVED_BYTES),
+                 (SM_WARPS_WIDE if wide else SM_WARPS) // (4 * launch.groups))
+    tiles = -(-launch.segment // 64)
+    units = -(-tiles // (1 if wide else 2))  # passes of the segment, over all groups
+    return per_sm, 4 * per_sm * min(launch.groups, units), -(-units // launch.groups)
+
+
+def _split_rank(launch: LearnedRK4Launch, wide: bool, shared_limit: int) -> tuple:
+    """The order of the split form's candidates (the least first), from the
+    sweep of every cluster size and warp-group count on an H100
+    (``scripts/probe_learned_rk4.py --clusters all --groups all``; PERF.md):
+    the most warps with a pass to run resident an SM; then the weights
+    whole before streamed; then, streamed, the fewest copies of each slice
+    into a window a trajectory (blocks x passes: the groups of a block share
+    one); then the fewest tile slots a trajectory holds (blocks x groups x
+    passes: the padded tile work); then, where a group runs one pass between
+    barriers, two blocks an SM or more before one (a block's cluster barrier
+    then overlaps another's work: Burgers-8x nx 2048, 8 blocks of 2 groups
+    against 4 of 4); then the fewest blocks (with two passes or more a group
+    the barriers weigh less than the halos and barriers of more blocks:
+    KS-8x nx 2048, 2 blocks of 4 groups against 4 of 2); then the fewest
+    warp groups."""
+    per_sm, busy, passes = split_occupancy(launch, wide, shared_limit)
+    copies = launch.cluster * passes if launch.stream else 0
+    return (-busy, launch.stream, copies, launch.cluster * launch.groups * passes,
+            per_sm < 2 and passes < 2, launch.cluster, launch.groups)
 
 
 def learned_rk4_refusal(
     pack: LearnedRK4Pack, nx: int, terms: int = 0,
     shared_limit: int = MAX_SHARED_BYTES, cluster: Optional[int] = None,
+    groups: Optional[int] = None,
 ) -> Optional[str]:
     """Why the kernel cannot take this shape, or None if it can. The limits
     are nx >= 32 and the opt-in shared memory of a block (232448 bytes on
     sm_90), which must hold the weights (or the window of one tap's slice)
     and one trajectory, or one segment of a trajectory split over at most
-    ``MAX_CLUSTER`` blocks (``cluster``: exactly that many, as
-    ``learned_rk4_launch`` takes it). The width, the depth and the reach of
-    the tower and the stencil are not limited."""
+    ``MAX_CLUSTER`` blocks (``cluster``, ``groups``: exactly that many
+    blocks or warp groups a block, as ``learned_rk4_launch`` takes them).
+    The width, the depth and the reach of the tower and the stencil are not
+    limited."""
     if nx < 32:
         return f"nx={nx} < 32"
-    launch = learned_rk4_launch(pack, nx, terms, shared_limit=shared_limit, cluster=cluster)
+    launch = learned_rk4_launch(pack, nx, terms, shared_limit=shared_limit, cluster=cluster,
+                                groups=groups)
     if launch.teams < 1:
         return (f"needs {launch.shared_bytes} bytes of shared memory per block split over "
                 f"{launch.cluster} blocks ({launch.segment} points each) > the limit of "
@@ -893,15 +974,18 @@ def fused_learned_rk4(
     forcing: Union[ForcingParams, ForcingPack, None] = None,
     t=0.0,
     cluster: Optional[int] = None,
+    groups: Optional[int] = None,
 ) -> torch.Tensor:
     """``num_steps`` RK4 steps of the packed learned model from ``u [B, nx]``.
 
     A forced equation (Burgers) needs ``forcing``: ``ForcingParams`` with
     leaves ``[B, terms]`` (or broadcastable), packed here at start time
     ``t``, or a ready ``ForcingPack``. Forcing for an unforced equation
-    raises, as does a forced equation without it. ``cluster`` forces the
-    split form with that many blocks per trajectory (``learned_rk4_launch``);
-    the plain version, which a CPU tensor takes, has no blocks and ignores it.
+    raises, as does a forced equation without it. ``cluster`` and ``groups``
+    force the split form with that many blocks per trajectory or warp groups
+    a block (``learned_rk4_launch``, which raises on a value out of range);
+    the plain version, which a CPU tensor takes, has no blocks and ignores
+    them.
     """
     if pack.equation.forced and forcing is None:
         raise ValueError(f"{pack.equation.name} is forced: forcing required")
@@ -932,12 +1016,12 @@ def fused_learned_rk4(
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
 
-    refusal = learned_rk4_refusal(pack, nx, terms, cluster=cluster)
+    refusal = learned_rk4_refusal(pack, nx, terms, cluster=cluster, groups=groups)
     if refusal:
         raise ValueError(refusal)
     if pack.blob.data_ptr() % 16:
         raise ValueError("packed weights must be 16-byte aligned")
-    launch = learned_rk4_launch(pack, nx, terms, batch, cluster=cluster)
+    launch = learned_rk4_launch(pack, nx, terms, batch, cluster=cluster, groups=groups)
     orders = list(pack.taps)
 
     from pde_superresolution_torch.ops import _build
@@ -955,7 +1039,8 @@ def fused_learned_rk4(
         *[first for first, _, _ in pack.free_ranges], *pad,
         *[count for _, count, _ in pack.free_ranges], *pad,
         *[start for _, _, start in pack.free_ranges], *pad,
-        terms, launch.teams, launch.team_bytes, learned_rk4_halo(pack),
+        terms, launch.groups if launch.split else launch.teams, launch.team_bytes,
+        learned_rk4_halo(pack),
         launch.cluster if launch.split else 0, launch.segment, int(launch.stream),
     )
     weights = _window_bytes(pack) if launch.stream else pack.blob.numel()

@@ -20,11 +20,33 @@ checkpoints at their own width and at ``WIDE_CHANNELS``). ``--nx`` times
 the checkpoints on other grids, built as ``run_ensemble
 --domain_factor`` builds them (a multiple of each checkpoint's own nx, 128),
 where one block may not hold a trajectory; ``--clusters`` times the split
-form with that many blocks per trajectory (``auto``: the launch
-``learned_rk4_launch`` picks, whole trajectories a block where they fit), as
-the whole form is timed by trajectories per block. A cluster too small for a
-shape is skipped with the refusal's reason. For example
-``--settings 4:4 --nx 128,1280,2048 --clusters auto,2,4,8 --batches 256,10240``.
+form with that many blocks per trajectory and ``--groups`` with that many
+warp groups a block (``auto``: the launch ``learned_rk4_launch`` picks,
+whole trajectories a block where they fit; ``all``: every cluster size or
+group count), as the whole form is timed by trajectories per block. A
+cluster too small for a shape is skipped with the refusal's reason. For
+example ``--settings 4:4 --nx 1280,2048 --clusters all --groups all
+--batches 10240`` (the sweep behind the split form's choice; each line also
+gives the blocks an SM, busy warps and passes ``fk.split_occupancy``
+counts).
+
+``--src DIR[,DIR...]`` builds the kernels from other ``csrc`` trees (``-``:
+this package's own) and times each launch on every tree in turn, forward
+then backward (A B B A), each tree's 10 steps bit for bit the first's: an
+older tree (``git archive`` of a parent commit's ``csrc``) is driven
+through this package's wrapper, so give it launches its entry takes (the
+split form before warp groups: ``--groups 1``). For example ``--src
+_checkout/parent/pde_superresolution_torch/csrc,- --checkpoints ckpt_ks8
+--filters 256 --nx 128 --clusters 1 --groups 1 --batches 10240 --steps 20
+--settings 4:4``. ``--ab`` and ``--profile`` build from the first tree.
+
+``--ab ROUNDS`` instead times, for each split shape and batch, the launch the
+choice took before warp groups (``fewest_blocks``: the fewest blocks that
+hold the weights whole, else the fewest that stream them, one warp group a
+block) against the one ``learned_rk4_launch`` picks, on the same kernels, in turns
+(parent, new, new, parent) ROUNDS times, after checking that both give the
+same result bit for bit over 10 steps. For example ``--ab 2 --nx
+1280,2048 --filters 0 --batches 10240``.
 
 ``--profile`` instead builds with ``-DPDE_PROFILE``: the kernel then counts
 clock cycles by phase of one RHS evaluation (``clock64`` around each phase,
@@ -48,6 +70,7 @@ from pde_superresolution_torch.ops import _build
 from pde_superresolution_torch.ops import fused_kernels as fk
 
 STEPS = 100
+CHECK_BATCH = 256  # trajectories of the 10-step check (the plain version's memory)
 FORCING_T0 = 3.7
 WIDE_NOISE = 0.02  # chip_smoke.WIDE_NOISE
 
@@ -98,9 +121,42 @@ def load_case(name: str, filters: int, nx: int, device, stems: Path):
     return ens.model, ens.params
 
 
-def rebuild(teams: int, profile: bool = False) -> list:
-    """Build and load the library for ``teams`` per block; ptxas' lines for
-    the 32-channel kernels (empty when the build was already on disk)."""
+def fewest_blocks(pack, nx: int, terms: int, batch: int):
+    """The split launch the choice took before warp groups (kept to time
+    against the occupancy rule): the fewest blocks whose segments fit beside
+    the whole weights, else the fewest beside the window of streamed
+    weights, one warp group a block. None where one block holds the
+    trajectory."""
+    if not fk.learned_rk4_launch(pack, nx, terms, batch).split:
+        return None
+    for stream in (False, True):
+        for cluster in range(1, fk.MAX_CLUSTER + 1):
+            if fk.learned_rk4_refusal(pack, nx, terms, cluster=cluster, groups=1):
+                continue
+            launch = fk.learned_rk4_launch(pack, nx, terms, batch, cluster=cluster, groups=1)
+            if launch.stream == stream:
+                return launch
+    return None
+
+
+def launch_text(launch, pack) -> str:
+    """A launch in words, with what one SM holds of a split one
+    (``fk.split_occupancy``)."""
+    if not launch.split:
+        return f"{launch.blocks} blocks x {launch.teams} trajectories"
+    per_sm, busy, passes = fk.split_occupancy(launch, pack.padded_channels >= fk.WIDE_CHANNELS)
+    return (f"clusters of {launch.cluster} blocks x {launch.segment} points, {launch.groups} "
+            f"groups" + (", weights streamed" if launch.stream else "")
+            + f"; {per_sm} blocks an SM, {busy} busy warps, {passes} passes")
+
+
+def rebuild(teams: int, profile: bool = False, src: str = "-") -> list:
+    """Build and load the library for ``teams`` per block from the kernel
+    sources in ``src`` (``-``: this package's); ptxas' lines for the 32- and
+    128-channel kernels (empty when the build was already on disk)."""
+    source = _build.PACKAGE_DIR / "csrc" if src == "-" else Path(src).resolve()
+    _build.SOURCE_DIR = source
+    _build.BUILD_DIR = _build.PACKAGE_DIR / "_build" if src == "-" else source.parent / "_build"
     _build.NVCC_FLAGS[:] = [f for f in _build.NVCC_FLAGS if not f.startswith("-DPDE_")]
     _build.NVCC_FLAGS.append(f"-DPDE_MAX_TEAMS={teams}")
     if profile:
@@ -130,7 +186,16 @@ def main(argv=None) -> None:
     parser.add_argument("--nx", default="128",
                         help="comma-separated grids, multiples of the checkpoints' 128 points")
     parser.add_argument("--clusters", default="auto",
-                        help="comma-separated blocks per trajectory of the split form, or auto")
+                        help="comma-separated blocks per trajectory of the split form, auto "
+                             "or all")
+    parser.add_argument("--groups", default="auto",
+                        help="comma-separated warp groups a split block, auto or all")
+    parser.add_argument("--steps", type=int, default=STEPS, help="RK4 steps a timed call")
+    parser.add_argument("--ab", type=int, default=0,
+                        help="rounds of the fewest-blocks split launch against the rule's")
+    parser.add_argument("--src", default="-",
+                        help="comma-separated csrc trees to build from, timed in turns (-: this "
+                             "package's)")
     parser.add_argument("--checkpoints", default="ckpt_ks8,ckpt_burgers8",
                         help="comma-separated committed checkpoints")
     parser.add_argument("--filters", default=f"0,{fk.WIDE_CHANNELS}",
@@ -142,7 +207,13 @@ def main(argv=None) -> None:
     settings = [tuple(int(n) for n in s.split(":")) for s in args.settings.split(",")]
     batches = [int(b) for b in args.batches.split(",")]
     grids = [int(n) for n in args.nx.split(",")]
-    clusters = [None if c == "auto" else int(c) for c in args.clusters.split(",")]
+    clusters = [None if c == "auto" else int(c) for c in args.clusters.split(",")
+                if c != "all"] + (list(range(1, fk.MAX_CLUSTER + 1))
+                                  if "all" in args.clusters.split(",") else [])
+    group_counts = [None if g == "auto" else int(g) for g in args.groups.split(",")
+                    if g != "all"] + (list(fk.GROUP_COUNTS)
+                                      if "all" in args.groups.split(",") else [])
+    trees = args.src.split(",")
 
     cases = {}
     gen = torch.Generator().manual_seed(0)
@@ -162,9 +233,50 @@ def main(argv=None) -> None:
                                       FORCING_T0, eq, grid, dt, max(batches))
         cases[name] = (pack, dt, u, forcing)
 
+    def batch_of(u, forcing, batch):
+        fb = None if forcing is None else type(forcing)(
+            *(leaf[:batch].contiguous() for leaf in forcing))
+        return u[:batch].contiguous(), fb
+
+    if args.ab:
+        teams, forced_teams = settings[0]
+        rebuild(teams, src=trees[0])
+        fk.MAX_TEAMS, fk.MAX_TEAMS_FORCED = teams, forced_teams
+        print(f"card: {torch.cuda.get_device_name(0)}; per {args.steps} RK4 steps, ms; the "
+              f"fewest-blocks split launch (P) against the rule's (N), in turns P N N P, "
+              f"{args.ab} rounds")
+        for name, (pack, dt, u, forcing) in cases.items():
+            terms = 0 if forcing is None else forcing.amplitude.shape[-1]
+            for batch in batches:
+                ub, fb = batch_of(u, forcing, batch)
+                nx = ub.shape[1]
+                old = fewest_blocks(pack, nx, terms, batch)
+                new = fk.learned_rk4_launch(pack, nx, terms, batch)
+                if old is None:
+                    print(f"{name} B={batch}: one block holds a trajectory, no split launch")
+                    continue
+                runs = {}
+                for label, launch in (("P", old), ("N", new)):
+                    def run(launch=launch, steps=args.steps):
+                        return fk.fused_learned_rk4(ub, pack, dt, steps, forcing=fb,
+                                                    cluster=launch.cluster, groups=launch.groups)
+                    runs[label] = run
+                if not torch.equal(runs["P"](steps=10), runs["N"](steps=10)):
+                    raise AssertionError(f"{name} B={batch}: the two launches differ")
+                times = {"P": [], "N": []}
+                for _ in range(args.ab):
+                    for label in "PNNP":
+                        times[label].append(time_ms(runs[label]))
+                p_ms, n_ms = statistics.median(times["P"]), statistics.median(times["N"])
+                print(f"{name} B={batch}: P {p_ms:.3f} ms ({launch_text(old, pack)}; "
+                      f"{', '.join(f'{t:.3f}' for t in times['P'])}), N {n_ms:.3f} ms "
+                      f"({launch_text(new, pack)}; {', '.join(f'{t:.3f}' for t in times['N'])}); "
+                      f"P / N {p_ms / n_ms:.3f}; bit for bit over 10 steps")
+        return
+
     if args.profile:
         teams, forced_teams = settings[0]
-        rebuild(teams, profile=True)
+        rebuild(teams, profile=True, src=trees[0])
         fk.MAX_TEAMS, fk.MAX_TEAMS_FORCED = teams, forced_teams
         steps = 20
         print(f"card: {torch.cuda.get_device_name(0)}; cycles per RHS by phase, warp 0, "
@@ -180,56 +292,83 @@ def main(argv=None) -> None:
                     print(f"  {phase:34s} {first:8.0f} {last:8.0f}")
                 print(f"  {'sum':34s} {float(cycles[0].sum()):8.0f} {float(cycles[1].sum()):8.0f}")
         return
-    print(f"card: {torch.cuda.get_device_name(0)}; per {STEPS} RK4 steps, ms")
+    print(f"card: {torch.cuda.get_device_name(0)}; per {args.steps} RK4 steps, ms")
+    # several trees: each launch on every tree in turn, forward then backward
+    order = trees if len(trees) == 1 else trees + trees[::-1]
     for teams, forced_teams in settings + settings[:1]:
-        for line in rebuild(teams):
-            print(f"  max teams {teams}: {line}")
+        for tree in trees:
+            for line in rebuild(teams, src=tree):
+                print(f"  max teams {teams}{'' if len(trees) == 1 else ', ' + tree}: {line}")
         fk.MAX_TEAMS, fk.MAX_TEAMS_FORCED = teams, forced_teams
         for name, (pack, dt, u, forcing) in cases.items():
             terms = 0 if forcing is None else forcing.amplitude.shape[-1]
-            for batch, cluster in [(b, c) for b in batches for c in clusters]:
-                ub = u[:batch].contiguous()
-                fb = None if forcing is None else type(forcing)(
-                    *(leaf[:batch].contiguous() for leaf in forcing))
+            most = fk.MAX_GROUPS_WIDE if pack.padded_channels >= fk.WIDE_CHANNELS else (
+                fk.MAX_GROUPS)
+            first = {}  # batches[0]'s plain version, its limit and the first kernel run
+            for batch, cluster, groups in [(b, c, g) for b in batches for c in clusters
+                                           for g in group_counts if g is None or g <= most]:
+                ub, fb = batch_of(u, forcing, batch)
                 nx = ub.shape[1]
-                refusal = fk.learned_rk4_refusal(pack, nx, terms, cluster=cluster)
+                refusal = fk.learned_rk4_refusal(pack, nx, terms, cluster=cluster, groups=groups)
                 if refusal:
-                    print(f"{name} B={batch} cluster {cluster}: skipped ({refusal})")
+                    print(f"{name} B={batch} cluster {cluster} groups {groups}: skipped "
+                          f"({refusal})")
                     continue
-                if batch == batches[0]:
-                    want = fk.fused_learned_rk4_plain(ub, pack, dt, 10, fb)
-                    got = fk.fused_learned_rk4(ub, pack, dt, 10, forcing=fb, cluster=cluster)
-                    # a model may blow up on some members (KdV-16x does) and
-                    # amplify roundings: as chip_smoke.hold_run holds a run, the
-                    # kernel blows up on the same members and 90% of the others
-                    # are within 1e-4, or 4x the plain version's own distance
-                    # from float64 sums (unforced) where that is larger
-                    finite = torch.isfinite(want).all(-1)
-                    if not torch.equal(finite, torch.isfinite(got).all(-1)):
-                        raise AssertionError(f"{name}: kernel and plain blow up on other members")
+                if cluster and -(-nx // -(-nx // cluster)) < cluster:
+                    continue  # as many blocks as a smaller cluster's: timed there
+                for tree in trees if batch == batches[0] else ():
+                    if len(trees) > 1:
+                        rebuild(teams, src=tree)
+                    uc, fc = batch_of(u, forcing, min(batch, CHECK_BATCH))
+                    got = fk.fused_learned_rk4(uc, pack, dt, 10, forcing=fc, cluster=cluster,
+                                               groups=groups)
+                    if not first:
+                        first["got"] = got
+                        first["want"] = want = fk.fused_learned_rk4_plain(uc, pack, dt, 10, fc)
+                        # a model may blow up on some members (KdV-16x does)
+                        # and amplify roundings: as chip_smoke.hold_run holds
+                        # a run, the kernel blows up on the same members and
+                        # 90% of the others are within 1e-4, or 4x the plain
+                        # version's own distance from float64 sums (unforced)
+                        # where that is larger
+                        first["finite"] = finite = torch.isfinite(want).all(-1)
+                        if not torch.equal(finite, torch.isfinite(got).all(-1)):
+                            raise AssertionError(f"{name}: kernel and plain blow up on other "
+                                                 "members")
 
-                    def spread(a, b):
-                        return float(((a - b)[finite].abs().amax(-1)
-                                      / b[finite].abs().amax(-1)).quantile(0.9))
+                        def spread(a, b):
+                            return float(((a - b)[finite].abs().amax(-1)
+                                          / b[finite].abs().amax(-1)).quantile(0.9))
 
-                    rel, limit = spread(got, want), 1e-4
-                    if fb is None:
-                        exact = fk.fused_learned_rk4_plain(
-                            ub.double(), dataclasses.replace(pack, flat=pack.flat.double()),
-                            dt, 10)
-                        limit = max(limit, 4 * spread(want.double(), exact))
-                    if not rel < limit:
-                        raise AssertionError(f"{name}: kernel vs plain after 10 steps: {rel} "
-                                             f"(limit {limit})")
-                launch = fk.learned_rk4_launch(pack, nx, terms, batch, cluster=cluster)
-                ms = time_ms(lambda: fk.fused_learned_rk4(ub, pack, dt, STEPS, forcing=fb,
-                                                          cluster=cluster))
-                form = (f"{launch.blocks} blocks x {launch.teams} trajectories" if not launch.split
-                        else f"clusters of {launch.cluster} blocks x {launch.segment} points"
-                        + (", weights streamed" if launch.stream else ""))
-                print(f"caps {teams}:{forced_teams} {name} B={batch}: {ms:.3f} ms "
-                      f"({form}, {launch.threads} threads, {launch.shared_bytes} bytes shared; "
-                      f"{batch * STEPS * nx / ms * 1e3:,.0f} cell-steps/s)")
+                        rel, limit = spread(got, want), 1e-4
+                        if fc is None:
+                            exact = fk.fused_learned_rk4_plain(
+                                uc.double(), dataclasses.replace(pack, flat=pack.flat.double()),
+                                dt, 10)
+                            limit = max(limit, 4 * spread(want.double(), exact))
+                        if not rel < limit:
+                            raise AssertionError(f"{name}: kernel vs plain after 10 steps: "
+                                                 f"{rel} (limit {limit})")
+                    # every launch of the kernel, from every tree, gives the
+                    # same bits (a member that blows up gives NaN in each):
+                    # each row runs the same products in the same order
+                    elif not torch.equal(got.nan_to_num(nan=7.0),
+                                         first["got"].nan_to_num(nan=7.0)):
+                        raise AssertionError(f"{name} cluster {cluster} groups {groups} tree "
+                                             f"{tree}: not bit for bit the first launch's 10 "
+                                             "steps")
+                launch = fk.learned_rk4_launch(pack, nx, terms, batch, cluster=cluster,
+                                               groups=groups)
+                for tree in order:
+                    if len(trees) > 1:
+                        rebuild(teams, src=tree)
+                    ms = time_ms(lambda: fk.fused_learned_rk4(
+                        ub, pack, dt, args.steps, forcing=fb, cluster=cluster, groups=groups))
+                    print(f"caps {teams}:{forced_teams} {name} B={batch} cluster {cluster} "
+                          f"groups {groups}{'' if len(trees) == 1 else ' tree ' + tree}: "
+                          f"{ms:.3f} ms ({launch_text(launch, pack)}, {launch.threads} "
+                          f"threads, {launch.shared_bytes} bytes shared; "
+                          f"{batch * args.steps * nx / ms * 1e3:,.0f} cell-steps/s)", flush=True)
 
 
 if __name__ == "__main__":

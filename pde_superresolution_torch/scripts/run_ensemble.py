@@ -198,9 +198,9 @@ def choose_route(fused: str, ensemble: Ensemble, pack,
     if launch.split:
         weights = "a conv tap's weights at a time" if launch.stream else "the weights"
         return True, (f"auto: cuda, a trajectory split over clusters of {launch.cluster} "
-                      f"blocks of {launch.segment} points ({launch.blocks} blocks), "
-                      f"{weights} and a segment in {launch.shared_bytes} bytes of shared "
-                      "memory per block fit")
+                      f"blocks of {launch.segment} points ({launch.blocks} blocks, "
+                      f"{launch.groups} warp groups each), {weights} and a segment in "
+                      f"{launch.shared_bytes} bytes of shared memory per block fit")
     return True, (f"auto: cuda, {launch.blocks} blocks of {launch.teams} trajectories, "
                   f"{launch.threads} threads and {launch.shared_bytes} bytes of shared memory "
                   "per block fit")

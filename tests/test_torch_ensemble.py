@@ -153,9 +153,10 @@ def test_domain_factor_builds_larger_grid():
 def test_fused_true_raises_on_unsupported_shape():
     """At --domain_factor 6 one trajectory's 768 points with their 20-term
     phase state (160 bytes a point) and activations exceed a block's shared
-    memory, which the kernel refused before its split form: now two blocks
-    of a cluster share it, as at --domain_factor 10 (1280 points); at 3
-    (384 points) one block holds it. --fused true raises, before anything
+    memory, which the kernel refused before its split form: now a cluster
+    shares it, 3 blocks of 256 points and 2 warp groups each, as 5 such
+    blocks share --domain_factor 10 (1280 points); at 3 (384 points) one
+    block holds it. --fused true raises, before anything
     runs, only where no cluster of 16 blocks holds a trajectory:
     --domain_factor 89 (11,392 points, segments of 712)."""
     with pytest.raises(ValueError, match=(
@@ -164,7 +165,7 @@ def test_fused_true_raises_on_unsupported_shape():
             r"of 232448$")):
         run_ensemble.main(ARGS + ["--fused", "true", "--domain_factor", "89"])
     parse = run_ensemble.build_parser().parse_args
-    for factor, split, cluster in ((3, False, 1), (6, True, 2), (10, True, 2)):
+    for factor, split, cluster in ((3, False, 1), (6, True, 3), (10, True, 5)):
         ensemble = run_ensemble.setup(parse(ARGS + ["--domain_factor", str(factor)]))
         pack = ensemble.model.fused_rk4_fn(ensemble.params, 1e-3, 1, forcing=ensemble.forcing).pack
         nx = ensemble.coarse.size
@@ -176,12 +177,13 @@ def test_fused_true_raises_on_unsupported_shape():
 def test_route_takes_the_kernel_at_domain_factor_10(monkeypatch):
     """--fused auto on a card whose blocks opt in to 232448 bytes of shared
     memory (the H100's) takes the kernel for the Burgers-8x checkpoint at
-    --domain_factor 10 (1280 points), split over clusters of 2 blocks of 640
-    points beside the whole weights, and says so; on a card that gave a
-    block a third of that it would take 10 blocks, still beside the whole
-    weights; with less than the whole weights and a 16th of the grid, it
-    streams the weights a conv tap at a time; below what 16 blocks need,
-    rhs_fn steps with the refusal's reason."""
+    --domain_factor 10 (1280 points), split over clusters of 5 blocks of 256
+    points, 2 warp groups each, beside the whole weights, and says so; on a
+    card that gave a block a third of that it would take 7 blocks of 2
+    groups with the weights streamed a conv tap at a time (16 busy warps an
+    SM against 12 for 10 blocks beside the whole weights); with less than
+    the whole weights and a 16th of the grid, it streams them too; below
+    what 16 blocks need, rhs_fn steps with the refusal's reason."""
     import types
 
     ensemble = run_ensemble.setup(run_ensemble.build_parser().parse_args(
@@ -193,13 +195,13 @@ def test_route_takes_the_kernel_at_domain_factor_10(monkeypatch):
         shared_memory_per_block_optin=limit["optin"]))
     launch = fk.learned_rk4_launch(pack, 1280, 20, 16)
     assert run_ensemble.choose_route("auto", ensemble, pack) == (True, (
-        "auto: cuda, a trajectory split over clusters of 2 blocks of 640 points (32 blocks), "
-        f"the weights and a segment in {launch.shared_bytes} bytes of shared memory per "
-        "block fit"))
+        "auto: cuda, a trajectory split over clusters of 5 blocks of 256 points (80 blocks, "
+        f"2 warp groups each), the weights and a segment in {launch.shared_bytes} bytes of "
+        "shared memory per block fit"))
     limit["optin"] = 232448 // 3
     fused, reason = run_ensemble.choose_route("auto", ensemble, pack)
-    assert fused and "clusters of 10 blocks of 128 points" in reason
-    assert "the weights and a segment" in reason
+    assert fused and "clusters of 7 blocks of 183 points (112 blocks, 2 warp groups" in reason
+    assert "a conv tap's weights at a time" in reason
     limit["optin"] = pack.blob.numel() + fk._team_bytes(pack, 1280 // 16, 20) - 1
     fused, reason = run_ensemble.choose_route("auto", ensemble, pack)
     assert fused and "a conv tap's weights at a time" in reason
@@ -215,8 +217,9 @@ def test_route_takes_the_kernel_at_256_filters(monkeypatch, tmp_path):
     memory (the H100's) takes the kernel for the KS-8x checkpoint widened to
     256 filters (convert.widen_params), which it refused before ("256
     filters > kernel limit 128"): the chunked form, a cluster of one block
-    per trajectory holding its 128 points beside the window of one slice of
-    the streamed weights, and says so; with less than that window and a
+    per trajectory holding its 128 points (two 64-row tiles, one for each of
+    its 2 warp groups) beside the window of one slice of the streamed
+    weights, and says so; with less than that window and a
     16th of the grid, rhs_fn steps with the refusal's reason."""
     import json
     import types
@@ -238,11 +241,12 @@ def test_route_takes_the_kernel_at_256_filters(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: types.SimpleNamespace(
         shared_memory_per_block_optin=limit["optin"]))
     launch = fk.learned_rk4_launch(pack, 128, 0, 16)
-    assert launch.split and launch.stream and launch.cluster == 1
+    assert launch.split and launch.stream and (launch.cluster, launch.groups) == (1, 2)
     assert run_ensemble.choose_route("auto", ensemble, pack) == (True, (
-        "auto: cuda, a trajectory split over clusters of 1 blocks of 128 points (16 blocks), "
-        f"a conv tap's weights at a time and a segment in {launch.shared_bytes} bytes of "
-        "shared memory per block fit"))
+        f"auto: cuda, a trajectory split over clusters of {launch.cluster} blocks of "
+        f"{launch.segment} points ({16 * launch.cluster} blocks, {launch.groups} warp groups "
+        f"each), a conv tap's weights at a time and a segment in {launch.shared_bytes} bytes "
+        "of shared memory per block fit"))
     limit["optin"] = fk._window_bytes(pack) + fk._team_bytes(pack, 128 // 16, 0) - 1
     fused, reason = run_ensemble.choose_route("auto", ensemble, pack)
     assert not fused and reason.startswith("auto: needs ") and "split over 16 blocks" in reason

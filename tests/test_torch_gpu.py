@@ -516,28 +516,139 @@ def test_learned_rk4_split_matches_one_block(cuda, name, cons, size, filters, nx
                                  wide=filters > 64)
 
 
-@pytest.mark.parametrize("name,cons,size,filters,nx,cluster,stream", [
-    ("ks", True, 6, 32, 2048, 2, False), ("burgers", True, 8, 32, 1280, 2, False),
-    ("burgers", True, 8, 32, 2048, 4, False), ("ks", True, 6, 64, 1024, 2, False),
-    ("burgers", True, 8, 64, 1280, 5, False), ("ks", True, 6, 128, 1024, 4, True),
-    ("burgers", True, 6, 128, 1000, 4, True),
+# test_learned_rk4_split_matches_one_block's shapes, and a streamed one at
+# 32 filters (Burgers-8x's shapes at nx 2048 over 3 blocks: the segment does
+# not fit beside the whole weights), with every warp-group count the split
+# form takes at that width (at 128 filters the weights always stream)
+SPLIT_SHAPES = [
+    ("ks", True, 6, 32, 256, 2), ("kdv", False, 7, 32, 200, 3),
+    ("burgers", True, 8, 32, 256, 3), ("ks", False, 7, 64, 256, 4),
+    ("burgers", False, 5, 64, 256, 2), ("ks", True, 6, 128, 192, 3),
+    ("burgers", True, 6, 128, 128, 2), ("ks", True, 6, 32, 128, 1),
+    ("kdv", True, 6, 32, 1024, 16), ("burgers", True, 8, 32, 2048, 3),
+]
+SPLIT_GROUP_CASES = [shape + (groups,) for shape in SPLIT_SHAPES for groups in fk.GROUP_COUNTS
+                     if groups <= (fk.MAX_GROUPS_WIDE if shape[3] >= fk.WIDE_CHANNELS
+                                   else fk.MAX_GROUPS) and (shape[4] < 2048 or groups <= 2)]
+
+
+@pytest.mark.parametrize("name,cons,size,filters,nx,cluster,groups", SPLIT_GROUP_CASES)
+def test_learned_rk4_split_groups_bit_for_bit(cuda, name, cons, size, filters, nx, cluster,
+                                              groups):
+    """The split form with ``groups`` warp groups a block on one segment,
+    forced over ``cluster`` blocks (the weights whole or streamed, as the
+    rule ranks them), against the same cluster with one group and against
+    the one-block form (where one block holds the trajectory; at nx 2048
+    the launch the rule takes, the weights whole, against forced segments
+    that stream them), bit for bit, one step from N(0,1) and
+    10 steps from a smooth state: the groups take the segment's tile passes
+    in turn and every row runs the same products in the same order. Forced
+    (Burgers) and not, 32 to 128 filters, ragged segments, a cluster of one
+    and of 16, groups with no pass (16 blocks of 64 points have one pass)."""
+    batch = 11
+    pack, dt, fp, rough, smooth = _split_inputs(name, cons, size, filters, nx, batch, cuda)
+    terms = 0 if fp is None else fp.amplitude.shape[-1]
+    launch = fk.learned_rk4_launch(pack, nx, terms, batch, cluster=cluster, groups=groups)
+    one = fk.learned_rk4_launch(pack, nx, terms, batch)
+    print(f"{launch}; against {one}")
+    assert launch.split and (launch.cluster, launch.groups) == (cluster, groups)
+    assert launch.threads == 128 * groups
+    before = fk.fused_learned_rk4.launches
+    for u, steps in ((rough, 1), (smooth, 10)):
+        got = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, cluster=cluster, groups=groups)
+        single = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, cluster=cluster, groups=1)
+        whole = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp)
+        torch.cuda.synchronize()
+        print(f"{steps} steps: max abs diff to one group {float((got - single).abs().max()):.3e}"
+              f", to {'one block' if not one.split else 'the chosen launch'} "
+              f"{float((got - whole).abs().max()):.3e}")
+        torch.testing.assert_close(got, single, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(got, whole, rtol=0, atol=0, equal_nan=True)
+    assert fk.fused_learned_rk4.launches == before + 6
+
+
+def test_learned_rk4_split_groups_planted_fault_is_caught(cuda):
+    """The check above has power: the kernels built with
+    -DPDE_FAULT_SKIP_LAST_PASS (a split block's last warp group skips its
+    last pass of tiles, and still meets its barriers) give another result
+    with 2 warp groups than with one at KS-8x-like shapes (nx 1024 over 2
+    blocks: group 1 owns tile pairs 1 and 3 of each segment; one block also
+    holds it) and with the weights streamed (128 filters, nx 512 over 2
+    blocks: group 1 owns tiles 1 and 3), while one group, which the fault
+    leaves alone, still equals the one-block form where one block holds the
+    trajectory."""
+    from pde_superresolution_torch.ops import _build
+
+    flags = list(_build.NVCC_FLAGS)
+    _build.NVCC_FLAGS.append("-DPDE_FAULT_SKIP_LAST_PASS")
+    _build.build.cache_clear()
+    _build.load_library.cache_clear()
+    try:
+        for filters, nx in ((32, 1024), (128, 512)):
+            batch = 5
+            pack, dt, _, rough, smooth = _split_inputs("ks", True, 6, filters, nx, batch, cuda)
+            for u, steps in ((rough, 1), (smooth, 10)):
+                faulty = fk.fused_learned_rk4(u, pack, dt, steps, cluster=2, groups=2)
+                single = fk.fused_learned_rk4(u, pack, dt, steps, cluster=2, groups=1)
+                torch.cuda.synchronize()
+                # the rows the fault leaves stale may blow up: a NaN counts as a difference
+                diff = float((faulty - single).abs().nan_to_num(nan=float("inf")).max())
+                print(f"{filters} filters nx {nx}, {steps} steps: the planted fault's max abs "
+                      f"diff {diff:.3e}")
+                assert not torch.equal(faulty, single) and diff > 1e-3 * float(single.abs().max())
+                if fk.learned_rk4_launch(pack, nx, 0, batch).split:
+                    continue  # one block does not hold it
+                whole = fk.fused_learned_rk4(u, pack, dt, steps)
+                torch.testing.assert_close(single, whole, rtol=0, atol=0)
+    finally:
+        _build.NVCC_FLAGS[:] = flags
+        _build.build.cache_clear()
+        _build.load_library.cache_clear()
+
+
+@pytest.mark.parametrize("filters,groups", [(32, 0), (32, 3), (32, 5), (128, 3), (128, 4)])
+def test_learned_rk4_entry_refuses_groups_out_of_range(cuda, monkeypatch, filters, groups):
+    """The C entry checks the split form's warp groups itself: a launch
+    handed 0, 3 (no kernel has 3) or 5 groups (3 or 4 at 128 filters, whose
+    kernels are bounded to 256 threads) past the wrapper's own checks is
+    refused with
+    cudaErrorInvalidValue before anything runs."""
+    batch, nx = 3, 256
+    pack, dt, fp, rough, _ = _split_inputs("ks", True, 6, filters, nx, batch, cuda)
+    good = fk.learned_rk4_launch(pack, nx, 0, batch, cluster=2, groups=1)
+    bad = good._replace(groups=groups, threads=128 * groups,
+                        shared_bytes=good.shared_bytes + max(0, groups - 1) * fk._group_bytes(pack))
+    monkeypatch.setattr(fk, "learned_rk4_launch", lambda *a, **k: bad)
+    before = fk.fused_learned_rk4.launches
+    with pytest.raises(RuntimeError, match=r"fused_learned_rk4 launch failed: invalid argument"):
+        fk.fused_learned_rk4(rough, pack, dt, 1, cluster=2)
+    assert fk.fused_learned_rk4.launches == before
+
+
+@pytest.mark.parametrize("name,cons,size,filters,nx,cluster,groups,stream", [
+    ("ks", True, 6, 32, 2048, 2, 4, False), ("burgers", True, 8, 32, 1280, 5, 2, False),
+    ("burgers", True, 8, 32, 2048, 8, 2, False), ("ks", True, 6, 64, 1024, 2, 4, True),
+    ("burgers", True, 8, 64, 1280, 3, 4, True), ("ks", True, 6, 128, 1024, 4, 2, True),
+    ("burgers", True, 6, 128, 1000, 4, 2, True),
 ])
 def test_learned_rk4_long_grids_match_plain(cuda, name, cons, size, filters, nx, cluster,
-                                            stream):
-    """Grids one block cannot hold take the split form at the smallest
-    cluster whose segments fit beside the whole weights (streamed a conv
-    tap's slice at a time only where no cluster holds them whole, as at 128
-    filters): the KS-8x tower at nx 2048, the Burgers-8x shapes at nx 1280
-    (run_ensemble --domain_factor 10) and 2048 (4 blocks of 512, not 3
-    streamed blocks of 683), 64 filters at nx 1024 and 1280 (5 blocks of
-    256), 128 filters at nx 1024 and 1000 (segments of 250). Against the
-    plain version at the whole forms' limits."""
+                                            groups, stream):
+    """Grids one block cannot hold take the split form at the (blocks, warp
+    groups, weights whole or streamed) the split form's rule ranks first
+    (fk._split_rank): the KS-8x tower at nx 2048 (2 blocks of 4 groups), the
+    Burgers-8x shapes at nx 1280 (run_ensemble --domain_factor 10: 5 blocks
+    of 256 points, 2 groups) and 2048 (8 of 256), 64 filters at nx 1024 and
+    1280 (the weights streamed beside segments that 4 groups share: more
+    busy warps than any cluster beside the whole weights), 128 filters at nx
+    1024 and 1000 (segments of 250). Against the plain version at the whole
+    forms' limits."""
     batch = 19
     pack, dt, fp, rough, smooth = _split_inputs(name, cons, size, filters, nx, batch, cuda)
     terms = 0 if fp is None else fp.amplitude.shape[-1]
     launch = fk.learned_rk4_launch(pack, nx, terms, batch)
     print(launch)
-    assert launch.split and (launch.cluster, launch.stream) == (cluster, stream)
+    assert launch.split and (launch.cluster, launch.groups, launch.stream) == (cluster, groups,
+                                                                                stream)
     assert fk.learned_rk4_refusal(pack, nx, terms) is None
     got_inc = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp) - rough
     got = fk.fused_learned_rk4(smooth, pack, dt, 10, forcing=fp)
@@ -547,19 +658,20 @@ def test_learned_rk4_long_grids_match_plain(cuda, name, cons, size, filters, nx,
 
 
 @pytest.mark.parametrize("checkpoint,factor,cluster,stream,other", [
-    ("ckpt_kdv16_f64", 32, 3, False, 2), ("ckpt_burgers8", 16, 4, False, 3),
+    ("ckpt_kdv16_f64", 32, 2, True, 3), ("ckpt_burgers8", 16, 8, False, 3),
 ])
 def test_learned_rk4_long_grids_trained_match_plain(cuda, checkpoint, factor, cluster, stream,
                                                     other):
     """Trained towers where one block cannot hold the trajectory, built as
     run_ensemble --domain_factor builds them: KdV-16x f64 (64 filters,
-    stencil 10) at nx 1024, three blocks of 342, 342 and 340 points beside
-    the whole weights, and Burgers-8x at nx 2048. A seeded 64-filter KdV
+    stencil 10) at nx 1024, two blocks of 512 points of 4 warp groups with
+    the weights streamed, and Burgers-8x at nx 2048, 8 blocks of 256 points
+    beside the whole weights. A seeded 64-filter KdV
     tower of stencil 10 is no model of the equation: at nx 1024 it blows up
     within 10 steps from a smooth state, in the plain version and in
-    float64 sums as in the kernel. ``other`` blocks (a segment that takes
-    the weights a conv tap's slice at a time) give the same result bit for
-    bit. Against the plain version at the whole forms' limits, or
+    float64 sums as in the kernel. ``other`` blocks (a segment beside the
+    whole weights where the launch streams them, and the other way round)
+    give the same result bit for bit. Against the plain version at the whole forms' limits, or
     RUN_CONDITIONING times the plain version's own distance from float64
     sums where that is larger (KdV's third derivative amplifies single bf16
     flips)."""
@@ -581,17 +693,17 @@ def test_learned_rk4_long_grids_trained_match_plain(cuda, checkpoint, factor, cl
     launch = fk.learned_rk4_launch(pack, nx, terms, batch)
     print(launch)
     assert launch.split and (launch.cluster, launch.stream) == (cluster, stream)
-    assert fk.learned_rk4_launch(pack, nx, terms, batch, cluster=other).stream
+    assert fk.learned_rk4_launch(pack, nx, terms, batch, cluster=other).stream != stream
     rough = torch.from_numpy(
         np.random.default_rng(0).standard_normal((batch, nx)).astype(np.float32)).to(cuda)
     smooth = 0.3 * model.equation.initial_conditions(gen, model.grid, (batch,), cuda)
     got_inc = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp) - rough
     got = fk.fused_learned_rk4(smooth, pack, dt, 10, forcing=fp)
-    streamed_inc = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp, cluster=other) - rough
-    streamed = fk.fused_learned_rk4(smooth, pack, dt, 10, forcing=fp, cluster=other)
+    other_inc = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp, cluster=other) - rough
+    other_run = fk.fused_learned_rk4(smooth, pack, dt, 10, forcing=fp, cluster=other)
     torch.cuda.synchronize()
-    torch.testing.assert_close(streamed_inc, got_inc, rtol=0, atol=0)
-    torch.testing.assert_close(streamed, got, rtol=0, atol=0)
+    torch.testing.assert_close(other_inc, got_inc, rtol=0, atol=0)
+    torch.testing.assert_close(other_run, got, rtol=0, atol=0)
     _assert_split_close_to_plain(pack, dt, fp, rough, smooth, got_inc, got, conditioned=True)
 
 
@@ -763,7 +875,7 @@ def test_learned_rk4_chunked_shared_shapes_bit_for_bit(cuda, name, cons, size, f
 def test_run_ensemble_split_and_refusal_on_card(cuda):
     """run_ensemble on the Burgers-8x checkpoint at --domain_factor 10 (nx
     1280, more than one block holds with its 20-term phase state) takes the
-    kernel at --fused auto, split over 2 blocks, one launch per save, every
+    kernel at --fused auto, split over 5 blocks, one launch per save, every
     member finite; --fused true is refused on the card only beyond 16
     blocks (nx 11,392 at --domain_factor 89), with the refusal's reason
     and before any launch."""
@@ -774,7 +886,7 @@ def test_run_ensemble_split_and_refusal_on_card(cuda):
     fk.fused_learned_rk4.launches = fk.fused_rhs.launches = 0
     result = run_ensemble.main(args + ["--domain_factor", "10"])
     assert result["path"] == "fused kernel" and result["nx"] == 1280
-    assert "clusters of 2 blocks" in result["reason"]
+    assert "clusters of 5 blocks" in result["reason"]
     assert (fk.fused_learned_rk4.launches, fk.fused_rhs.launches) == (2, 0)
     assert result["finite"] == 64
     with pytest.raises(ValueError, match=r"^--fused true, but the kernel cannot take this "

@@ -147,13 +147,12 @@ def test_fused_learned_rk4_plain_matches_pallas_wide(filters, name, cons, size):
     make_fused_learned_rk4(interpret=True), 2 RK4 steps, at the 128-filter
     test's tolerance, 1e-4 of max|u| (a layer sums 960 and 1280 bf16
     products, in other orders on the two sides). The kernel takes these
-    widths at nx = 128 over one block of a cluster, the weights streamed."""
+    widths at nx = 128 in the split form, the weights streamed."""
     model_j, tree, model_t, params_t, u = _pair(name, cons, size, filters=filters)
     assert _check_learned_rk4(model_j, tree, model_t, params_t, 0.3 * u, steps=2) < 1e-4
     pack = _pack(model_t, params_t)
     assert pack.padded_channels == filters and fk.learned_rk4_refusal(pack, NX, 0) is None
-    launch = fk.learned_rk4_launch(pack, NX, 0, BATCH)
-    assert launch.split and launch.stream and launch.cluster == 1
+    _check_split(pack, NX, 0, fk.learned_rk4_launch(pack, NX, 0, BATCH), BATCH)
 
 
 def _ks_inputs():
@@ -375,22 +374,18 @@ def test_forced_wrapper_checks():
     one = -(-one // 128) * 128
     assert launch[:5] == (1, 128, one, advance.pack.blob.numel() + one, BATCH)
     assert not launch.split and launch.segment == NX
-    # a byte less than the whole weights and one trajectory: two blocks of a
-    # cluster share it, each beside the whole weights (kept whole wherever a
-    # cluster of up to 16 blocks holds them)
-    short = fk.learned_rk4_launch(advance.pack, NX, 20, BATCH,
-                                  shared_limit=launch.shared_bytes - 1)
-    assert short.split and (short.cluster, short.segment, short.stream) == (2, NX // 2, False)
-    assert short.shared_bytes == (advance.pack.blob.numel()
-                                  + fk._team_bytes(advance.pack, NX // 2, 20))
+    # a byte less than the whole weights and one trajectory: a cluster shares
+    # it, as the split form's rule ranks its launches
+    limit = launch.shared_bytes - 1
+    short = fk.learned_rk4_launch(advance.pack, NX, 20, BATCH, shared_limit=limit)
+    _check_split(advance.pack, NX, 20, short, BATCH, limit=limit)
     # a byte less than the whole weights and a segment of 16 blocks: the
-    # fewest blocks whose segments fit beside one conv tap's slice, streamed
+    # blocks and warp groups the rule ranks first beside one conv tap's
+    # slice, streamed
     tight = advance.pack.blob.numel() + fk._team_bytes(advance.pack, NX // 16, 20) - 1
     streamed = fk.learned_rk4_launch(advance.pack, NX, 20, BATCH, shared_limit=tight)
-    fewest = min(c for c in range(1, 17) if fk._window_bytes(advance.pack)
-                 + fk._team_bytes(advance.pack, -(-NX // c), 20) <= tight)
-    assert streamed.split and streamed.stream and streamed.cluster == fewest
-    assert streamed.shared_bytes == fk._window_bytes(advance.pack) + streamed.team_bytes <= tight
+    _check_split(advance.pack, NX, 20, streamed, BATCH, limit=tight)
+    assert streamed.stream
     assert fk.learned_rk4_refusal(advance.pack, NX, 20,
                                   shared_limit=short.shared_bytes - 1) is None
     # less than the window of one conv tap's slice and a segment of 16 blocks
@@ -533,6 +528,35 @@ def _torch_model(filters, layers=3, name="ks", cons=True, size=6, nx=NX, seed=0,
 def _pack(model, params):
     return fk.pack_learned_rk4(params, model.equation, model.grid, model.config.kernel_size,
                                model.constraint_layers, model.taps)
+
+
+def _check_split(pack, nx, terms, launch, batch=None, cluster=None, groups=None,
+                 limit=232448):
+    """What every split launch keeps, whichever blocks and warp groups the
+    rule ranks first: 1, 2 or 4 groups (1 or 2 at 128 channels and above,
+    whose 64 accumulators a thread leave registers for two) of 128 threads,
+    the weights streamed at and above 128 channels, segments of ceil(nx /
+    blocks) points that cover nx with every block holding points, a block's
+    shared bytes (the weights whole or the window of one slice, the
+    segment's layout, 512 (F | 1) bytes of z tiles for each group after the
+    first) within ``limit``, and ``cluster`` and ``groups`` as asked."""
+    wide = pack.padded_channels >= 128
+    assert launch.split and launch.teams == 1
+    assert launch.groups in ((1, 2) if wide else (1, 2, 4))
+    assert launch.threads == 128 * launch.groups
+    assert launch.stream or not wide
+    assert launch.segment == -(-nx // launch.cluster)
+    assert (launch.cluster - 1) * launch.segment < nx <= launch.cluster * launch.segment
+    weights = 2 * min(pack.padded_channels, 128) ** 2 if launch.stream else pack.blob.numel()
+    assert launch.team_bytes == fk._team_bytes(pack, launch.segment, terms)
+    assert launch.shared_bytes == (weights + launch.team_bytes
+                                   + (launch.groups - 1) * 512 * (pack.n_free | 1)) <= limit
+    if batch is not None:
+        assert launch.blocks == launch.cluster * batch
+    if cluster is not None:
+        assert launch.cluster == -(-nx // -(-nx // cluster))
+    if groups is not None:
+        assert launch.groups == groups
 
 
 def _read_wgmma(raw, depth, n):
@@ -738,9 +762,9 @@ def test_learned_rk4_launch_geometry(geometry_packs, filters, nx, terms, batch):
     """What Python decides before a launch, for a 3-layer tower with 8 free
     dims: where the weights and one trajectory exceed the block's shared
     memory (here: nx = 1024 forced, 40 x 1024 floats of phase state beside
-    the activations), which the kernel refused before the split form, two
-    blocks of a cluster share the trajectory, 512 points each, beside the
-    whole weights; otherwise the block fits the limit and 512 threads,
+    the activations), which the kernel refused before the split form, a
+    cluster shares the trajectory beside the whole weights, in the blocks
+    and warp groups the split form's rule ranks first; otherwise the block fits the limit and 512 threads,
     every trajectory has a team, and the launch has at least 132 blocks
     whenever the batch has 132 trajectories."""
     pack = geometry_packs[filters]
@@ -756,11 +780,8 @@ def test_learned_rk4_launch_geometry(geometry_packs, filters, nx, terms, batch):
 
     if nx == 1024 and terms:
         assert pack.blob.numel() + team_bytes(nx) > 232448
-        assert launch.split and (launch.teams, launch.threads) == (1, 128)
-        assert (launch.cluster, launch.segment, launch.stream) == (2, 512, False)
-        assert launch.team_bytes == team_bytes(512)
-        assert launch.shared_bytes == pack.blob.numel() + launch.team_bytes <= 232448
-        assert launch.blocks == 2 * batch
+        _check_split(pack, nx, terms, launch, batch)
+        assert not launch.stream and launch.team_bytes == team_bytes(launch.segment)
         return
     assert launch.team_bytes == team_bytes(nx)
     assert not launch.split and (launch.cluster, launch.segment) == (1, nx)
@@ -776,20 +797,19 @@ def test_learned_rk4_launch_geometry(geometry_packs, filters, nx, terms, batch):
 
 def test_learned_rk4_refuses_wide_and_deep():
     """More than 128 filters, which the kernel refused before its chunked
-    form ("136 filters > kernel limit 128"), are taken, over a cluster of
-    one block beside the window of one slice of the streamed weights; a tower of 17
+    form ("136 filters > kernel limit 128"), are taken, in the split form
+    beside the window of one slice of the streamed weights; a tower of 17
     layers and a conv kernel of 19 (reach 9), which the kernel refused
     before the split form (its layer offsets were a table of 16, its halo 8
     points), are taken, the deep tower's 164 KB of weights whole beside two
-    trajectories at nx 128 and beside a segment of 342 points over 6 blocks
-    at nx 2048, and streamed a tap at a time beside a segment when 2 blocks
+    trajectories at nx 128, split at nx 2048 as the split form's rule ranks
+    its launches, and streamed a tap at a time beside a segment when 2 blocks
     are asked for; a grid no cluster of 16 blocks holds is refused with the
     bytes it needs."""
     model, params = _torch_model(136, layers=1)
     pack = _pack(model, params)
     assert pack.padded_channels == 144 and fk.learned_rk4_refusal(pack, NX) is None
-    launch = fk.learned_rk4_launch(pack, NX, 0, 10240)
-    assert launch.split and launch.stream and (launch.cluster, launch.segment) == (1, NX)
+    _check_split(pack, NX, 0, fk.learned_rk4_launch(pack, NX, 0, 10240), 10240)
     u = torch.zeros(2, NX)
     assert fk.fused_learned_rk4(u, pack, 1e-3, 1).shape == u.shape  # the CPU's plain version
     deep = _pack(*_torch_model(32, layers=17))
@@ -798,13 +818,12 @@ def test_learned_rk4_refuses_wide_and_deep():
     assert not launch.split and launch.teams == 2
     assert launch.shared_bytes == deep.blob.numel() + 2 * launch.team_bytes <= 232448
     assert deep.blob.numel() > 160 * 1024
-    launch = fk.learned_rk4_launch(deep, 2048, 0, 10240)
-    assert launch.split and not launch.stream and (launch.cluster, launch.segment) == (6, 342)
-    assert launch.shared_bytes == deep.blob.numel() + launch.team_bytes <= 232448
+    _check_split(deep, 2048, 0, fk.learned_rk4_launch(deep, 2048, 0, 10240), 10240)
     assert fk.learned_rk4_refusal(deep, 2048) is None
     launch = fk.learned_rk4_launch(deep, 2048, 0, 10240, cluster=2)
     assert launch.split and launch.stream and launch.segment == 1024
-    assert launch.shared_bytes == fk._window_bytes(deep) + launch.team_bytes <= 232448
+    assert launch.shared_bytes == (fk._window_bytes(deep) + launch.team_bytes
+                                   + (launch.groups - 1) * fk._group_bytes(deep)) <= 232448
     wide = _pack(*_torch_model(8, layers=1, kernel_size=19))
     assert fk.learned_rk4_reach(wide) == 9 and fk.learned_rk4_halo(wide) == 9
     assert fk.learned_rk4_refusal(wide, NX) is None
@@ -875,8 +894,8 @@ def test_learned_rk4_launch_geometry_128_filters(wide_packs, filters, name, nx, 
     KB; the whole buffer is 330 KB, which stays in global memory): taken at
     nx 32 to 256, forced (20 terms) or not; at nx = 512 one trajectory's
     activations alone exceed the block's shared memory, which the kernel
-    refused before the split form: two blocks of a cluster share it, 256
-    points each, beside the same window. The buffer lays each layer's
+    refused before the split form: a cluster shares it beside the same
+    window, in the blocks and warp groups the split form's rule ranks first. The buffer lays each layer's
     slices one after the other."""
     pack = wide_packs[(filters, name)]
     terms = 20 if name == "burgers" else 0
@@ -886,10 +905,7 @@ def test_learned_rk4_launch_geometry_128_filters(wide_packs, filters, name, nx, 
     assert refusal is None and launch.stream
     if nx == 512:
         assert 2 * 128 * 128 + fk._team_bytes(pack, nx, terms) > 232448
-        assert launch.split and (launch.teams, launch.cluster, launch.segment) == (1, 2, 256)
-        assert launch.team_bytes == fk._team_bytes(pack, 256, terms)
-        assert launch.shared_bytes == 2 * 128 * 128 + launch.team_bytes <= 232448
-        assert launch.blocks == 2 * batch
+        _check_split(pack, nx, terms, launch, batch)
         return
     assert launch.team_bytes == fk._team_bytes(pack, nx, terms)
     assert launch.shared_bytes == 2 * 128 * 128 + launch.teams * launch.team_bytes <= 232448
@@ -909,28 +925,36 @@ def split_packs():
             for filters in (32, 64, 128) for name, size in (("ks", 6), ("burgers", 8))}
 
 
+# The rule's choice at a few shapes of the 3-layer towers (filters, name,
+# nx): (blocks, warp groups, streamed); 32 filters at nx 1280 and 2048 are
+# the recorded shapes' (RECORDED_SPLIT) at this tower.
+SPLIT_PINS = {(32, "ks", 2048): (2, 4, False), (32, "burgers", 1280): (5, 2, False),
+              (32, "burgers", 2048): (8, 2, False), (64, "burgers", 1024): (6, 2, True),
+              (128, "ks", 1024): (4, 2, True)}
+
+
+@pytest.mark.parametrize("groups", [None, 2])
 @pytest.mark.parametrize("cluster", [None, 3])
 @pytest.mark.parametrize("nx", [256, 1024, 1280, 2048, 3000, 4096])
 @pytest.mark.parametrize("filters,name", [(32, "ks"), (32, "burgers"), (64, "ks"),
                                           (64, "burgers"), (128, "ks"), (128, "burgers")])
-def test_learned_rk4_split_launch_geometry(split_packs, filters, name, nx, cluster):
+def test_learned_rk4_split_launch_geometry(split_packs, filters, name, nx, cluster, groups):
     """The split form's launch: where a block holds the trajectory (and no
-    cluster is asked for) the launch is the whole-trajectory form's, as
-    before the split form; past that, a cluster of the fewest blocks (at
-    most 16) whose segments of ceil(nx / blocks) points fit beside the
-    whole weights or, where no cluster holds them whole, the fewest whose
-    segments fit beside the window of one conv tap's slice (the weights
-    whole at any cluster size before streamed); the segments cover nx exactly (the last one
-    ragged), every block within 232448 bytes, one team (128 threads) a
-    block and ``batch x cluster`` blocks. ``cluster=3`` forces three blocks
-    also where one holds the trajectory (the card tests hold the two forms
-    against each other that way), and is refused, naming its segments,
-    where three are too few."""
+    cluster or warp-group count is asked for) the launch is the
+    whole-trajectory form's, as before the split form; past that, a launch
+    that keeps what every split launch keeps (_check_split: segments that
+    cover nx exactly, the last one ragged, every block within 232448 bytes,
+    1, 2 or 4 warp groups of 128 threads, at most 2 at 128 filters,
+    ``batch x cluster`` blocks), and at the shapes of SPLIT_PINS the rule's
+    recorded choice. ``cluster=3`` and ``groups=2`` force the split form
+    also where one block holds the trajectory (the card tests hold the forms
+    against each other that way) and are honoured; three blocks are
+    refused, naming their segments, where they are too few."""
     pack = split_packs[(filters, name)]
     terms = 20 if name == "burgers" else 0
     batch, limit = 10240, 232448
-    launch = fk.learned_rk4_launch(pack, nx, terms, batch, cluster=cluster)
-    refusal = fk.learned_rk4_refusal(pack, nx, terms, cluster=cluster)
+    launch = fk.learned_rk4_launch(pack, nx, terms, batch, cluster=cluster, groups=groups)
+    refusal = fk.learned_rk4_refusal(pack, nx, terms, cluster=cluster, groups=groups)
     if cluster is not None and refusal is not None:  # three blocks are too few here
         assert launch.teams == 0 and launch.shared_bytes > limit
         assert f"split over 3 blocks ({-(-nx // 3)} points each)" in refusal
@@ -940,29 +964,63 @@ def test_learned_rk4_split_launch_geometry(split_packs, filters, name, nx, clust
     wide = pack.padded_channels == 128
     whole = 2 * 128 * 128 if wide else pack.blob.numel()
     one = fk._team_bytes(pack, nx, terms)
-    if cluster is None and whole + one <= limit:  # the whole-trajectory form, unchanged
+    if cluster is None and groups is None and whole + one <= limit:  # the whole form, unchanged
         most = 1 if wide else 4
         teams = min(most, (limit - whole) // one, batch // 132)
         assert launch == (teams, 128 * teams, one, whole + teams * one, -(-batch // teams),
-                          False, 1, nx, wide)
+                          False, 1, nx, wide, 1)
         return
-    assert launch.split and (launch.teams, launch.threads) == (1, 128)
-    c, seg = launch.cluster, launch.segment
-    assert seg == -(-nx // (cluster or c)) and (c - 1) * seg < nx <= c * seg
-    assert launch.team_bytes == fk._team_bytes(pack, seg, terms)
-    window = 2 * pack.padded_channels ** 2
-    sizes = [cluster] if cluster else range(1, fk.MAX_CLUSTER + 1)
-    fits_whole = [size for size in sizes if not wide and pack.blob.numel()
-                  + fk._team_bytes(pack, -(-nx // size), terms) <= limit]
-    assert launch.stream == (not fits_whole)
-    weights = window if launch.stream else pack.blob.numel()
-    assert launch.shared_bytes == weights + launch.team_bytes <= limit
-    assert launch.blocks == batch * c and c <= fk.MAX_CLUSTER
-    if cluster is None:  # no fewer blocks fit in the form taken
-        for fewer in range(1, c):
-            assert weights + fk._team_bytes(pack, -(-nx // fewer), terms) > limit
-    else:
-        assert c == cluster
+    _check_split(pack, nx, terms, launch, batch, cluster, groups, limit)
+    assert launch.cluster <= fk.MAX_CLUSTER
+    if cluster is None and groups is None and (filters, name, nx) in SPLIT_PINS:
+        assert (launch.cluster, launch.groups, launch.stream) == SPLIT_PINS[(filters, name, nx)]
+
+
+# The split form's launches at the shapes PERF.md records (trained
+# checkpoints on run_ensemble --domain_factor grids, B=10240): (checkpoint,
+# filters (0: its own), nx, blocks, warp groups, streamed), each the
+# fastest of a sweep of every cluster size and warp-group count on an H100
+# (PERF.md).
+RECORDED_SPLIT = [
+    ("ckpt_burgers8", 0, 1280, 5, 2, False), ("ckpt_ks8", 0, 2048, 2, 4, False),
+    ("ckpt_burgers8", 0, 2048, 8, 2, False), ("ckpt_kdv16_f64", 0, 1024, 2, 4, True),
+    ("ckpt_ks8", 128, 1024, 4, 2, True),
+]
+
+
+@pytest.mark.parametrize("checkpoint,filters,nx,blocks,groups,stream", RECORDED_SPLIT)
+def test_learned_rk4_split_choice_at_recorded_shapes(tmp_path, checkpoint, filters, nx, blocks,
+                                                     groups, stream):
+    """The rule's launch at each shape PERF.md records is the one the sweep
+    found fastest (the rule counts what an SM holds from the shapes alone,
+    so the CPU decides as the card does)."""
+    from pde_superresolution_torch.scripts import probe_learned_rk4
+
+    model, params = probe_learned_rk4.load_case(checkpoint, filters, nx, torch.device("cpu"),
+                                                tmp_path)
+    pack = _pack(model, params)
+    terms = 20 if model.equation.forced else 0
+    launch = fk.learned_rk4_launch(pack, nx, terms, 10240)
+    _check_split(pack, nx, terms, launch, 10240)
+    assert (launch.cluster, launch.groups, launch.stream) == (blocks, groups, stream)
+
+
+@pytest.mark.parametrize("filters,cluster,groups", [
+    (32, 0, None), (32, 17, None), (32, None, 0), (32, None, 5), (32, 2, 5), (32, None, 3),
+    (64, 2, 3), (128, None, 3), (128, 4, 3), (128, None, 4), (256, None, 3)])
+def test_learned_rk4_split_refuses_out_of_range(filters, cluster, groups):
+    """``cluster`` outside 1..16 and ``groups`` other than 1, 2 or 4 (1 or 2
+    at 128 filters and above, whose kernels hold 64 accumulators a thread;
+    no kernel has 3) raise,
+    in learned_rk4_launch, learned_rk4_refusal and the wrapper on the card;
+    the CPU's plain version has no blocks and ignores them."""
+    pack = _pack(*_torch_model(filters, layers=1))
+    for call in (lambda: fk.learned_rk4_launch(pack, NX, 0, 16, cluster=cluster, groups=groups),
+                 lambda: fk.learned_rk4_refusal(pack, NX, 0, cluster=cluster, groups=groups)):
+        with pytest.raises(ValueError, match="cluster=|groups="):
+            call()
+    u = torch.zeros(2, NX)
+    assert fk.fused_learned_rk4(u, pack, 1e-3, 1, cluster=cluster, groups=groups).shape == u.shape
 
 
 def _jax_vmem_bytes(pack, nx, terms, batch_tile=8):
@@ -996,10 +1054,9 @@ def test_learned_rk4_takes_what_jax_takes(filters, name, size, kernel_size, laye
     them, at 32 to 2384 filters, forced (Burgers, 20 terms) and not, at
     a conv kernel of 19 (reach 9), a stencil of 18 taps (reach 9) and 17
     layers (whose weights the split form streams where no cluster of 16
-    holds them whole: JAX's estimate does not grow with depth); a cluster
-    of more than 8 blocks (non-portable) keeps the weights whole, but in
-    the chunked form (above 128 filters), which always streams them. The
-    widest towers have one layer: neither estimate grows with depth, and
+    holds them whole: JAX's estimate does not grow with depth); each split
+    launch is the one the split form's rule ranks first, in at most 16
+    blocks. The widest towers have one layer: neither estimate grows with depth, and
     the chunked form's launch does not read the weights."""
     pack = _pack(*_torch_model(filters, layers, name, True, size, kernel_size=kernel_size))
     terms = 20 if name == "burgers" else 0
@@ -1010,9 +1067,9 @@ def test_learned_rk4_takes_what_jax_takes(filters, name, size, kernel_size, laye
     assert all(reason is None for reason in refused.values()), refused
     launches = [fk.learned_rk4_launch(pack, nx, terms, 10240) for nx in jax_takes]
     assert max(launch.cluster for launch in launches) <= fk.MAX_CLUSTER
-    # more than the portable 8 blocks only to keep the weights whole, or chunked
-    assert all(launch.cluster <= fk.PORTABLE_CLUSTER or not launch.stream
-               or pack.padded_channels > fk.WIDE_CHANNELS for launch in launches)
+    for nx, launch in zip(jax_takes, launches):
+        if launch.split:
+            _check_split(pack, nx, terms, launch, 10240)
     if pack.padded_channels > fk.WIDE_CHANNELS:
         assert all(launch.split and launch.stream for launch in launches)
 
@@ -1022,9 +1079,10 @@ def test_learned_rk4_takes_what_jax_takes(filters, name, size, kernel_size, laye
 def test_learned_rk4_chunked_launch_geometry(filters, name, size, terms):
     """The chunked form's launch at every nx JAX's tile-8 VMEM estimate
     admits (KS-8x shapes unforced, Burgers-8x forced; nothing at 2384
-    filters forced): a cluster of at most 16 blocks, one team (128 threads)
-    a block, the segments of ceil(nx / blocks) points covering nx, the
-    fewest blocks that fit; each block holds the 32 KB window of one slice
+    filters forced): a cluster of at most 16 blocks of 1 or 2 warp groups
+    (128 threads each), the segments of ceil(nx / blocks) points covering
+    nx, the blocks and groups the split form's rule ranks first; each
+    block holds the 32 KB window of one slice
     of the weights (128 output channels of a chunk from 128 input channels
     of one conv tap) and its segment, within 232448 bytes: two bf16
     activation buffers of channels / 8 planes of (the segment rounded up to
@@ -1046,14 +1104,15 @@ def test_learned_rk4_chunked_launch_geometry(filters, name, size, terms):
 
     for nx in admitted:
         launch = fk.learned_rk4_launch(pack, nx, terms, 256)
-        c, seg = launch.cluster, launch.segment
+        c, g, seg = launch.cluster, launch.groups, launch.segment
         assert fk.learned_rk4_refusal(pack, nx, terms) is None
-        assert launch.split and launch.stream and (launch.teams, launch.threads) == (1, 128)
+        assert launch.split and launch.stream and launch.teams == 1
+        assert 1 <= g <= fk.MAX_GROUPS_WIDE == 2 and launch.threads == 128 * g
         assert 1 <= c <= fk.MAX_CLUSTER and seg == -(-nx // c) and (c - 1) * seg < nx
         assert launch.team_bytes == team_bytes(seg) == fk._team_bytes(pack, seg, terms)
-        assert launch.shared_bytes == 32 * 1024 + launch.team_bytes <= 232448
-        assert launch.blocks == 256 * c
-        assert all(32 * 1024 + team_bytes(-(-nx // fewer)) > 232448 for fewer in range(1, c))
+        assert launch.shared_bytes == (32 * 1024 + launch.team_bytes
+                                       + (g - 1) * 512 * (pack.n_free | 1)) <= 232448
+        _check_split(pack, nx, terms, launch, 256)
 
 
 @pytest.mark.parametrize("batch", [3, 256, 1037, 4096, 10240])
