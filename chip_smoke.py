@@ -51,14 +51,13 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      at B=3, nx=96, at B=5, nx=1024 and at B=1037, nx=128 (the last block
      holds one warp); then every scheme ``make_fused_rk4`` builds (accuracy
      orders 4 and 6, stencil sizes 8 and 16: taps at run time) at B=256,
-     nx=128, and the grids of 32, 512 and 2048 points (the block form) at
-     B=1037, each with the classic scheme and with stencil size 32 (taps
-     reaching 16 points), in all four forms; the block form where it once
-     refused, bit for bit: 40, 48 and 80 taps an order (coefficients in
-     global memory; 80 taps on 32 points reach past the grid) and nx 14528,
-     16384 and 65536 (the rows in a global scratch); and those two new
-     forms driven as the baseline leg (``integrate_fused``, one launch a
-     save, counted) and timed beside their bounds and plain versions;
+     nx=128, and the classic scheme on grids of 32, 512 and 2048 points (the
+     block form) at B=1037, in all four forms (stencil size 32 at those
+     grids, and the block form's wider schemes and longer grids, are
+     ``tests/test_torch_gpu.py``'s alone); and the block form's new forms
+     (40 taps an order at nx 128, nx 16384) driven as the baseline leg
+     (``integrate_fused``, one launch a save, counted) and timed beside their
+     bounds and plain versions;
   9. the ensemble path at full width, in-process through
      ``scripts.run_ensemble.main``: the Burgers-8x checkpoint, 10240
      trajectories, an exact-solver warm-up, 100 RK4 steps in 10 saves, by
@@ -176,17 +175,20 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      ``ckpt_ks32``, ``ks32_select_seed0``, ``ckpt_kdv8``, ``ckpt_kdv16``,
      ``ckpt_kdv16_f64``, ``kdv16_select_seed7`` and ``ckpt_burgers64`` on
      their members as an evaluation starts them (KS after a warm-up of 44)
-     at B=32 and B=10240, timed; ``fused_learned_rk4`` for the eight of
-     them with nx >= 32 at B=256 and 10240, one step from a standard-normal
-     state and 100 steps from those members (the run held to RUN_TOL or to
-     RUN_CONDITIONING times the plain version's own distance from float64
-     sums, per member at the 90% quantile), with phase 4's planted weight
-     faults at
-     KS-32x, timed; ``scripts.run_ensemble.main`` for KS-32x, KdV-16x (64
-     filters) and Burgers-64x (10240 members, 100 steps in 10 saves: the
-     fused route for the first two, ``rhs_fn`` steps for the 16-point
-     Burgers grid, whose ``--fused true`` is refused with the kernel's
-     reason), launch counts as predicted, traj-steps/s; and evaluation at
+     at B=32 and B=10240, timed; ``fused_learned_rk4`` for all nine at
+     B=256, 2053 and 10240 (below nx 128 the last two packed, 2, 4 or 8
+     trajectories a team, ragged at 2053), one step from a standard-normal
+     state, and at B=256 and 2053 100 steps from those members (the run
+     held to RUN_TOL or to RUN_CONDITIONING times the plain version's own
+     distance from float64 sums, per member at the 90% quantile), with
+     phase 4's planted weight faults at KS-32x and Burgers-64x (nx 32 and
+     16) at 2053; each packed launch bit for bit its unpacked one
+     (``per_team=1``); timed, at 10240 packed and unpacked in turns;
+     ``scripts.run_ensemble.main`` for KS-32x, KdV-16x (64 filters) and
+     Burgers-64x (10240 members, 100 steps in 10 saves, ``--fused auto``:
+     the kernel for each, the 16-point Burgers grid too), launch counts as
+     predicted, the final states held to the plain version, traj-steps/s;
+     and evaluation at
      the zoo's protocols (KS-32x with a warm-up of 44, the selected KdV-16x
      seed at ic_scale 0.5, Burgers-64x; 32 members, horizons 10, 10 and 3)
      through ``evaluate_protocol``, as phase 13, with planted faults;
@@ -413,11 +415,20 @@ RHS_TOL = 1e-4
 # coarse grids of 128 down to 16 points, 8 and 10 taps, towers of 32 and 64
 # filters, Burgers at 64x with accuracy order 3. fused_rhs with each model's
 # trained coefficients at the evaluation's batch and the ensemble's;
-# fused_learned_rk4 for each model of nx >= 32 (the kernel refuses fewer) at
-# BATCH and ENSEMBLE.
+# fused_learned_rk4 for each model at BATCH, PACKED_BATCH and ENSEMBLE.
 ZOO_RHS = ("ckpt_ks8_u16s8", "ckpt_ks16", "ckpt_ks32", "ks32_select_seed0", "ckpt_kdv8",
            "ckpt_kdv16", "ckpt_kdv16_f64", "kdv16_select_seed7", "ckpt_burgers64")
-ZOO_LEARNED = ZOO_RHS[:-1]
+ZOO_LEARNED = ZOO_RHS
+# Below nx 128 the learned kernel packs P trajectories a team (8 at nx 16, 4
+# at 32, 2 at 64) from a batch that keeps a team for each SM; at BATCH it
+# keeps one. PACKED_BATCH is packed at every short grid and ragged at each
+# P (2053 = 8 x 256 + 5), so the last team holds fewer trajectories than P;
+# there the runs are held to the plain version, the planted faults must fail
+# at nx 32 (KS-32x) and 16 (Burgers-64x), and each packed launch, there and
+# at ENSEMBLE, must give its unpacked launch's (per_team=1) bits. At
+# ENSEMBLE both launches are timed in the same call, in turns.
+PACKED_BATCH = 2053
+ZOO_FAULTS = ("ckpt_ks32", "ckpt_burgers64")
 # fused_learned_rk4 against its plain version, tests/test_torch_gpu.py's
 # limits: one step from N(0,1), of the plain increment's max, in root mean
 # square and at the worst point; after a run, of max|u|, in root mean square
@@ -590,16 +601,18 @@ def tensor_core_line(library) -> str:
     for line in out.stdout.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            # the mangled template arguments <NT, FORCED> (the cluster
+            # the mangled template arguments <NT, FORCED, P> (the cluster
             # kernel's <NT, FORCED, CHUNKED, G>): channels = 8 NT, a chunk's
             found = re.search(r"fused_learned_rk4_(cluster_)?kernelILi(\d+)ELb(\d)E"
                               r"(?:Lb(\d)E)?(?:Li(\d)E)?E", name)
             if found:
+                count = found.group(5)
+                what = "warp groups" if found.group(1) else "trajectories a team"
                 name = (f"fused_learned_rk4{'_cluster' if found.group(1) else ''}"
                         f"<{8 * int(found.group(2))} channels"
                         f"{' a chunk' if found.group(4) == '1' else ''}, "
                         f"{'forced' if found.group(3) == '1' else 'unforced'}"
-                        f"{f', {found.group(5)} warp groups' if found.group(5) else ''}>")
+                        f"{f', {count} {what}' if count else ''}>")
         elif name and "fused_learned_rk4" in name:
             row = counts.setdefault(name, [0, 0, 0])
             row[0] += "HMMA" in line
@@ -785,24 +798,17 @@ def device_profile(fn, calls: int, warm_up: bool = True) -> dict:
 # grids of the register form's ends and of the block form
 RK4_SCHEMES = ({"accuracy_order": 4}, {"accuracy_order": 6}, {"stencil_size": 8},
                {"stencil_size": 16})
-# the widest scheme the kernel takes (32 taps an order, reaching 16 points),
-# run at the grids: half the ring at nx=32, run-time taps in registers at 512,
-# the block form's periodic copies at 2048
-RK4_WIDEST = {"stencil_size": 32}
 # steps of those schemes: KdV's third derivative on an even collocated
 # stencil (direct form, sizes 8 and 16) grows an odd-even mode, to 1.1e3 of
 # a 0.3-scaled state after 20 steps on the CPU and past float32 within 20
 # at nx=2048 on an H100 (both sides alike)
 SCHEME_STEPS = 10
+# the classic scheme at the grids: half the ring at nx=32, 16 points a lane at
+# 512, the block form at 2048. The widest register scheme (stencil size 32)
+# at these grids, and the block form's wider schemes and longer grids, are
+# held by tests/test_torch_gpu.py alone (each fused_rk4 check runs in one
+# place).
 RK4_GRIDS = (32, 512, 2048)
-# the block form where it once refused (phase 8, bit for bit; 40 taps at nx
-# 128 in RK4_NEW_FORMS' path): schemes of more than 32 taps an order
-# (coefficients in global memory; 80 taps on 32 points reach 40, past the
-# grid) and grids whose four rows do not fit a
-# block (nx 14528 and more: the rows in a global scratch), SCHEME_STEPS steps
-# each: (batch, nx, scheme)
-RK4_WIDE_CASES = ((5, 32, {"stencil_size": 80}), (5, 14528, {}), (3, 65536, {}),
-                  (3, 16384, {"stencil_size": 48}))
 # the new forms driven as the baseline leg drives the classic one
 # (integrate_fused over make_fused_rk4's advance, one launch a save), timed
 # per STEPS steps: (label, equation, nx, batch, scheme)
@@ -878,13 +884,11 @@ def baseline_checks(gen, device) -> float:
     baseline_err = 0.0
     cases = ([(batch, nx, {}) for batch, nx in ((BATCH, 128), (3, 96), (5, 1024), (1037, 128))]
              + [(BATCH, 128, scheme) for scheme in RK4_SCHEMES]
-             + [(RK4_GRID_BATCH, nx, scheme) for nx in RK4_GRIDS for scheme in ({}, RK4_WIDEST)]
-             + list(RK4_WIDE_CASES))
+             + [(RK4_GRID_BATCH, nx, {}) for nx in RK4_GRIDS])
     for name in ("ks", "kdv"):
         for cons in (True, False):
             for batch, nx, scheme in cases:
-                new_form = (batch, nx, scheme) in RK4_WIDE_CASES
-                steps = SCHEME_STEPS if scheme or new_form else STEPS
+                steps = SCHEME_STEPS if scheme else STEPS
                 advance, u, differentiator = baseline_case(name, cons, nx, batch, scheme, gen,
                                                            device, steps)
                 got = advance(u)
@@ -901,9 +905,8 @@ def baseline_checks(gen, device) -> float:
                 baseline_err = max(baseline_err, check(
                     f"{form}, {steps} steps", got, fk.fused_rk4_plain(u, advance.scheme), 0.0))
                 # PolynomialDifferentiator makes a collocated stencil odd, so
-                # the direct form's even stencil_size is another scheme there;
-                # the block form's new cases are held bit for bit alone
-                if not new_form and (cons or scheme.get("stencil_size", 1) % 2):
+                # the direct form's even stencil_size is another scheme there
+                if cons or scheme.get("stencil_size", 1) % 2:
                     _, ref = integrate.integrate(differentiator.rhs_fn(), u,
                                                  advance.scheme.dt, steps, steps)
                     check(f"{form}, vs integrate", got, ref[-1], 1e-5)
@@ -2735,12 +2738,17 @@ def hold_run(label: str, got, want, exact, start) -> dict:
 
 
 def zoo_learned_checks(device, warmed: dict) -> dict:
-    """``fused_learned_rk4`` against its plain version for each zoo model of
-    nx >= 32 at BATCH and ENSEMBLE: one step from a standard-normal state
-    (the increment within STEP_RMS_TOL and STEP_MAX_TOL); at BATCH also
-    STEPS steps from its warmed members (``hold_run``), and at KS-32x phase
-    4's three planted weight faults must fail both; per STEPS steps timed
-    beside the operations bound, at BATCH also the plain version. Returns
+    """``fused_learned_rk4`` against its plain version for each zoo model at
+    BATCH, PACKED_BATCH and ENSEMBLE: one step from a standard-normal state
+    (the increment within STEP_RMS_TOL and STEP_MAX_TOL); at BATCH and
+    PACKED_BATCH also STEPS steps from its warmed members (``hold_run``), and
+    at PACKED_BATCH for ZOO_FAULTS (nx 32 and 16) phase 4's three planted
+    weight faults must fail both; where the launch packs trajectories, the
+    packed launch bit for bit its unpacked one (``per_team=1``), one step
+    and STEPS steps; per STEPS steps timed beside the operations bound, at
+    ENSEMBLE the packed and the unpacked launch in turns (U P P U), at
+    BATCH and PACKED_BATCH also the plain version. Forced models (Burgers)
+    run with their members' forcing from the warmed state's time. Returns
     {(asset, batch): readings}."""
     import numpy as np
     import torch
@@ -2756,51 +2764,77 @@ def zoo_learned_checks(device, warmed: dict) -> dict:
                                    model.constraint_layers, model.taps)
         dt = model.stable_time_step(u_scale=3.0)
         faults = {}
-        if name == "ckpt_ks32":
+        if name in ZOO_FAULTS:
             faults = {fault: fk.pack_learned_rk4(p, eq, grid, model.config.kernel_size,
                                                  model.constraint_layers, model.taps)
                       for fault, p in planted_faults(params).items()}
-        for batch in (BATCH, ENSEMBLE):
-            launch = fk.learned_rk4_launch(pack, grid.size, 0, batch)
+        for batch in (BATCH, PACKED_BATCH, ENSEMBLE):
+            u, forcing, t = zoo_warmed_state(model, config, batch, SEED, device, warmed)
+            fp = None if forcing is None else fk.pack_forcing(forcing, t, eq, grid, dt, batch)
+            terms = 0 if fp is None else fp.amplitude.shape[-1]
+            launch = fk.learned_rk4_launch(pack, grid.size, terms, batch)
+            packed = launch.per_team > 1
             log(f"  {name} B={batch} nx={grid.size}, {model.config.filters} filters, stencil "
                 f"{model.config.stencil_size}, dt={dt:.6g}: {launch}")
+
+            def run(v, steps, weights=pack, per_team=None):
+                return fk.fused_learned_rk4(v, weights, dt, steps, forcing=fp, per_team=per_team)
+
             rng = np.random.default_rng(SEED)
             rough = torch.from_numpy(
                 rng.standard_normal((batch, grid.size)).astype(np.float32)).to(device)
-            want_inc = fk.fused_learned_rk4_plain(rough, pack, dt, 1) - rough
-            got_inc = fk.fused_learned_rk4(rough, pack, dt, 1) - rough
+            want_inc = fk.fused_learned_rk4_plain(rough, pack, dt, 1, fp) - rough
+            got_inc = run(rough, 1) - rough
             row = {"step_rms": check(f"{name} B={batch} one step from N(0,1), increment",
                                      got_inc, want_inc, STEP_RMS_TOL, rms=True),
                    "step_max": check(f"{name} B={batch} one step from N(0,1), increment, "
-                                     "worst point", got_inc, want_inc, STEP_MAX_TOL)}
-            u, _, _ = zoo_warmed_state(model, config, batch, SEED, device, warmed)
-            samples = SAMPLES if batch == BATCH else LONG_SAMPLES
-            row.update({
-                "ms": time_ms(lambda: fk.fused_learned_rk4(u, pack, dt, STEPS), queued=True,
-                              samples=samples),
-                "bound_ms": learned_rk4_bound_ms(pack, batch, STEPS),
-                "launch": launch._asdict(),
-            })
-            if batch == ENSEMBLE:  # the run is checked at BATCH (cut to make room for phase 19)
-                log(f"    {name} B={batch}: {row['ms']:.3f} ms per {STEPS} steps "
-                    f"(operations bound {row['bound_ms']:.3f} ms)")
+                                     "worst point", got_inc, want_inc, STEP_MAX_TOL),
+                   "bound_ms": learned_rk4_bound_ms(pack, batch, STEPS, terms),
+                   "launch": launch._asdict()}
+            got = run(u, STEPS)
+            if packed:  # each row's products and sums are P = 1's, in the same order
+                same = (torch.equal(got_inc + rough, run(rough, 1, per_team=1))
+                        and torch.equal(got.nan_to_num(nan=7.0),
+                                        run(u, STEPS, per_team=1).nan_to_num(nan=7.0)))
+                log(f"  {name} B={batch} packed {launch.per_team} a team against per_team=1, "
+                    f"one step and {STEPS} steps: {'bit for bit' if same else 'DIFFERENT'}")
+                if not same:
+                    raise AssertionError(f"{name} B={batch}: packed launch differs from "
+                                         "per_team=1")
+                row["packed_bit_for_bit"] = same
+            if batch == ENSEMBLE:  # the run is checked at the smaller batches
+                if packed:
+                    turns = {"unpacked": [], "packed": []}
+                    for label in ("unpacked", "packed", "packed", "unpacked"):
+                        per_team = 1 if label == "unpacked" else None
+                        turns[label].append(time_ms(lambda: run(u, STEPS, per_team=per_team),
+                                                    queued=True, samples=LONG_SAMPLES))
+                    row["ms"] = statistics.mean(turns["packed"])
+                    row["unpacked_ms"] = statistics.mean(turns["unpacked"])
+                    row["turns_ms"] = turns
+                else:
+                    row["ms"] = time_ms(lambda: run(u, STEPS), queued=True, samples=LONG_SAMPLES)
+                log(f"    {name} B={batch}: {row['ms']:.3f} ms per {STEPS} steps"
+                    + (f" ({launch.per_team} a team; unpacked {row['unpacked_ms']:.3f} ms, "
+                       f"{row['unpacked_ms'] / row['ms']:.3f}x)" if packed else "")
+                    + f" (operations bound {row['bound_ms']:.3f} ms)")
                 out[(name, batch)] = row
                 continue
+            row["ms"] = time_ms(lambda: run(u, STEPS), queued=True, samples=SAMPLES)
             torch.cuda.synchronize()
             start = time.perf_counter()
-            want = fk.fused_learned_rk4_plain(u, pack, dt, STEPS)
+            want = fk.fused_learned_rk4_plain(u, pack, dt, STEPS, fp)
             torch.cuda.synchronize()
             row["plain_ms"] = 1e3 * (time.perf_counter() - start)  # host clock, to a synchronize
-            exact = learned_rk4_float64(u, pack, dt, STEPS)
-            row["run"] = hold_run(f"{name} B={batch} {STEPS} steps from warmed members",
-                                  fk.fused_learned_rk4(u, pack, dt, STEPS), want, exact, u)
-            for fault, bad in faults.items():
+            exact = learned_rk4_float64(u, pack, dt, STEPS, fp)
+            row["run"] = hold_run(f"{name} B={batch} {STEPS} steps from warmed members", got,
+                                  want, exact, u)
+            for fault, bad in faults.items() if batch == PACKED_BATCH else ():
                 check_catches(f"{name} B={batch} {fault}, one step",
-                              fk.fused_learned_rk4(rough, bad, dt, 1) - rough, want_inc,
-                              STEP_RMS_TOL, rms=True)
+                              run(rough, 1, bad) - rough, want_inc, STEP_RMS_TOL, rms=True)
                 try:
-                    hold_run(f"planted fault {fault}, {STEPS} steps",
-                             fk.fused_learned_rk4(u, bad, dt, STEPS), want, exact, u)
+                    hold_run(f"planted fault {fault}, {STEPS} steps", run(u, STEPS, bad), want,
+                             exact, u)
                     caught = False
                 except AssertionError:
                     caught = True
@@ -2816,16 +2850,18 @@ def zoo_learned_checks(device, warmed: dict) -> dict:
 
 def zoo_ensembles(device) -> dict:
     """``scripts.run_ensemble.main`` for ZOO_ENSEMBLES at ENSEMBLE members,
-    STEPS RK4 steps in ENSEMBLE_SAVES saves,
-    with the launch counts zeroed before each run and held to the route's
-    prediction after (Burgers-64x's 16 points: ``--fused true`` refused with
-    the kernel's reason, ``auto`` takes rhs_fn steps); the fused routes'
-    final states held to the plain version from the entry point's warmed
-    members (``hold_run``), the rhs_fn route's to the plain route. Returns
-    {asset: readings}."""
+    STEPS RK4 steps in ENSEMBLE_SAVES saves at ``--fused auto``, which must
+    take the kernel for each (Burgers-64x's 16 points too, packed 8 a team;
+    it took rhs_fn steps before the kernel packed short grids), with the
+    launch counts zeroed before each run and held to ENSEMBLE_SAVES
+    ``fused_learned_rk4`` launches and no other after; the final states held
+    to the plain version from the entry point's warmed members
+    (``hold_run``), a forced model's save interval by save interval with the
+    forcing the entry point drew, packed at each interval's start as
+    ``integrate_fused`` keeps it. Returns {asset: readings}."""
     import torch
 
-    from pde_superresolution_torch import convert, integrate
+    from pde_superresolution_torch import convert
     from pde_superresolution_torch.ops import fused_kernels as fk
     from pde_superresolution_torch.scripts import run_ensemble
 
@@ -2838,52 +2874,37 @@ def zoo_ensembles(device) -> dict:
                 "--warmup_time", str(warmup), "--time_max", str((STEPS - 0.5) * dt),
                 "--num_saves", str(ENSEMBLE_SAVES), "--seed", str(SEED),
                 "--ic_scale", ic_scale]
-        refused = None
         for kernel in kernels:
             kernel.launches = 0
-        if model.grid.size < 32:
-            try:
-                run_ensemble.main(argv + ["--fused", "true"])
-            except ValueError as e:
-                refused = str(e)
-            log(f"    {name} --fused true: {refused or 'NOT REFUSED'}")
-            if refused != "--fused true, but the kernel cannot take this shape: nx=16 < 32":
-                raise AssertionError(f"{name} --fused true: {refused}")
         result = run_ensemble.main(argv)
         torch.cuda.synchronize()
         counts = {kernel.__name__: kernel.launches for kernel in kernels}
-        fused = result["path"].startswith("fused kernel")
-        predicted = {"fused_rhs": 0 if fused else 4 * STEPS,
-                     "fused_learned_rk4": ENSEMBLE_SAVES if fused else 0, "fused_rk4": 0}
+        predicted = {"fused_rhs": 0, "fused_learned_rk4": ENSEMBLE_SAVES, "fused_rk4": 0}
+        pack = fk.pack_learned_rk4(params, model.equation, model.grid, model.config.kernel_size,
+                                   model.constraint_layers, model.taps)
+        forcing = run_ensemble.setup(run_ensemble.build_parser().parse_args(argv)).forcing
+        terms = 0 if forcing is None else forcing.amplitude.shape[-1]
+        launch = fk.learned_rk4_launch(pack, model.grid.size, terms, ENSEMBLE)
         log(f"    {name}: route {result['path']} ({result['reason']}); launches {counts} "
             f"(predicted {predicted}); {result['traj_steps_per_s']:,.0f} traj-steps/s; "
-            f"finite {result['finite']}/{ENSEMBLE}")
-        if counts != predicted or result["num_steps"] != STEPS or fused != (model.grid.size >= 32):
+            f"finite {result['finite']}/{ENSEMBLE}; {launch}")
+        if (counts != predicted or result["num_steps"] != STEPS
+                or not result["path"].startswith("fused kernel")):
             raise AssertionError(f"{name} ensemble: {result['path']}, {counts}")
         row = {"path": result["path"], "reason": result["reason"], "launches": counts,
                "traj_steps_per_s": result["traj_steps_per_s"], "elapsed_s": result["elapsed_s"],
-               "warmup_s": result["warmup_s"], "finite": result["finite"], "refused": refused}
+               "warmup_s": result["warmup_s"], "finite": result["finite"],
+               "per_team": launch.per_team, "teams": launch.teams, "blocks": launch.blocks}
         warmed = result["initial"]
-        if fused:
-            pack = fk.pack_learned_rk4(params, model.equation, model.grid,
-                                       model.config.kernel_size, model.constraint_layers,
-                                       model.taps)
-            want = fk.fused_learned_rk4_plain(warmed, pack, dt, STEPS)
-            exact = learned_rk4_float64(warmed, pack, dt, STEPS)
-        else:
-            # the plain route from the same warmed members, with the forcing
-            # the entry point drew, in float32 and in float64
-            forcing = run_ensemble.setup(run_ensemble.build_parser().parse_args(argv)).forcing
-            wide = {k: v.double() for k, v in params.items()}
-            runs = []
-            for p, f, u in ((params, forcing, warmed),
-                            (wide, forcing and type(forcing)(*(x.double() for x in forcing)),
-                             warmed.double())):
-                with torch.no_grad():
-                    _, traj = integrate.integrate(model.rhs_fn(p, f, use_kernel=False), u, dt,
-                                                  STEPS, STEPS, t0=result["t0"])
-                runs.append(traj[-1])
-            want, exact = runs
+        want, exact = warmed, warmed.double()
+        every = STEPS // ENSEMBLE_SAVES
+        t = torch.as_tensor(result["t0"], dtype=torch.float32, device=device)
+        for _ in range(ENSEMBLE_SAVES):  # as integrate_fused: the forcing packed at each start
+            fp = None if forcing is None else fk.pack_forcing(forcing, t, model.equation,
+                                                             model.grid, dt, ENSEMBLE)
+            want = fk.fused_learned_rk4_plain(want, pack, dt, every, fp)
+            exact = learned_rk4_float64(exact, pack, dt, every, fp)
+            t = t + dt * every
         row["run"] = hold_run(f"{name} ensemble's final state vs plain, {STEPS} steps",
                               result["final"], want, exact, warmed)
         out[name] = row
@@ -3490,6 +3511,49 @@ def split_kernel_row(domain: dict, terms: int) -> dict:
         "ensemble": domain["ensemble"],
         "ensemble_vs_plain": domain["ensemble_run"],
         "phase_s": domain["phase_s"],
+    }
+
+
+def packed_kernel_row(zoo: dict) -> dict:
+    """The kernels line's row of the whole form's packed teams (P
+    trajectories a warp group below nx 128), from phase 18: its launches on
+    the zoo's ensembles whose launch packs, its time at KS-32x's shape at
+    PACKED_BATCH beside the plain version and the bound, and at ENSEMBLE for
+    each short-grid model beside the unpacked launch's (per_team=1) time."""
+    paths = {f"{name} ensemble, --fused auto, {row['per_team']} trajectories a team":
+             row["launches"]["fused_learned_rk4"]
+             for name, row in zoo["ensembles"].items() if row["per_team"] > 1}
+    packed = {key: row for key, row in zoo["learned"].items()
+              if row["launch"]["per_team"] > 1}
+    main = packed[("ckpt_ks32", PACKED_BATCH)]
+    return {
+        "name": "fused_learned_rk4_packed",
+        "route": "cuda",
+        "source": "pde_superresolution_torch/csrc/fused_learned_rk4_whole.cuh",
+        "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:390",
+        "launches": sum(paths.values()),
+        "launches_by_path": paths,
+        "shape": (f"ckpt_ks32 B={PACKED_BATCH} nx=32, {STEPS} steps, "
+                  f"{main['launch']['per_team']} trajectories a team"),
+        "max_abs_err": main["step_max"],
+        "bit_for_bit_unpacked": {f"{name} B={batch}": row["packed_bit_for_bit"]
+                                 for (name, batch), row in packed.items()},
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": None,
+        f"zoo_b{ENSEMBLE}": {
+            name: {"per_team": row["launch"]["per_team"], "teams": row["launch"]["teams"],
+                   "ms": row["ms"], "unpacked_ms": row["unpacked_ms"],
+                   "unpacked_over_packed": row["unpacked_ms"] / row["ms"],
+                   "bound_ms": row["bound_ms"]}
+            for (name, batch), row in packed.items() if batch == ENSEMBLE},
+        f"zoo_b{PACKED_BATCH}": {
+            name: {"per_team": row["launch"]["per_team"], "ms": row["ms"],
+                   "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                   "run": row["run"]}
+            for (name, batch), row in packed.items() if batch == PACKED_BATCH},
     }
 
 
@@ -4219,6 +4283,7 @@ def main() -> int:
             "bound_by": "operations",
             "library_ms": None,
         },
+        packed_kernel_row(zoo),
         split_kernel_row(domain, terms),
         chunked_kernel_row(chunked, domain),
         {

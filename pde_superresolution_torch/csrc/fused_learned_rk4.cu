@@ -3,47 +3,33 @@
 // pde_superresolution_tpu/ops/pallas_kernels.py (the pallas_call at line
 // 758). The design note and the kernel body are in fused_learned_rk4.cuh.
 //
-// This file holds the forms in which a block holds whole trajectories (up
-// to 4 teams a block, or one at 128 channels) and the C entry point, which
-// hands a split launch (cfg.cluster > 0, with its warp groups a block; every
-// tower wider than 128 filters) to the kernel of its warp-group count
+// This file builds the whole form (up to 4 teams a block, or one at 128
+// channels; fused_learned_rk4_whole.cuh) with one trajectory a team, and
+// holds the C entry point, which hands a packed launch (P > 1 trajectories a
+// team) to the kernel of its P (fused_learned_rk4_p2.cu, _p4.cu, _p8.cu) and
+// a split launch (cfg.cluster > 0, with its warp groups a block; every tower
+// wider than 128 filters) to the kernel of its warp-group count
 // (fused_learned_rk4_cluster.cuh).
 
-#include "fused_learned_rk4.cuh"
+#include "fused_learned_rk4_whole.cuh"
 
-namespace {
-
-template <int NT, bool FORCED>
-__global__ void __launch_bounds__(kTeamThreads *
-                                  (NT == kWideNT ? 1 : (FORCED ? kMaxTeamsForced : kMaxTeams)))
-    fused_learned_rk4_kernel(const float* __restrict__ u_in,
-                             const unsigned char* __restrict__ weights,
-                             float* __restrict__ u_out, Config cfg, Forcing fp) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  learned_rk4_body<NT, FORCED, false>(smem, u_in, weights, u_out, cfg, fp);
-}
-
-template <int NT, bool FORCED>
-int launch(const float* u, const unsigned char* weights, float* out, const Config& cfg,
-           const Forcing& fp, int teams, int smem_bytes, cudaStream_t stream) {
-  auto kernel = fused_learned_rk4_kernel<NT, FORCED>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (cfg.batch + teams - 1) / teams;
-  kernel<<<blocks, kTeamThreads * teams, smem_bytes, stream>>>(u, weights, out, cfg, fp);
-  return (int)cudaGetLastError();
-}
-
-template <int NT>
-int dispatch(bool forced, const float* u, const unsigned char* weights, float* out,
-           const Config& cfg, const Forcing& fp, int teams, int smem_bytes,
-           cudaStream_t stream) {
-  return forced ? launch<NT, true>(u, weights, out, cfg, fp, teams, smem_bytes, stream)
-                : launch<NT, false>(u, weights, out, cfg, fp, teams, smem_bytes, stream);
-}
-
-}  // namespace
+// built by their own sources (fused_learned_rk4_p2.cu, _p4.cu, _p8.cu), not
+// again here where the entry names them
+extern template int pde::launch_learned_rk4_whole<2>(int, bool, const float*,
+                                                     const unsigned char*, float*,
+                                                     const pde::LearnedConfig&,
+                                                     const pde::LearnedForcing&, int, int,
+                                                     cudaStream_t);
+extern template int pde::launch_learned_rk4_whole<4>(int, bool, const float*,
+                                                     const unsigned char*, float*,
+                                                     const pde::LearnedConfig&,
+                                                     const pde::LearnedForcing&, int, int,
+                                                     cudaStream_t);
+extern template int pde::launch_learned_rk4_whole<kMaxPerTeam>(int, bool, const float*,
+                                                               const unsigned char*, float*,
+                                                               const pde::LearnedConfig&,
+                                                               const pde::LearnedForcing&, int,
+                                                               int, cudaStream_t);
 
 // meta: equation code, conservative, nx, channels (padded: 16, 32, 64, 128, or
 //       above 128 a multiple of 16: the chunked form, split and streamed),
@@ -56,7 +42,9 @@ int dispatch(bool forced, const float* u, const unsigned char* weights, float* o
 //       taps), cluster (0: whole trajectories a block; C >= 1: the split
 //       form, a cluster of C blocks per trajectory), segment (points of a
 //       block in the split form), stream (the split form streams layer >= 1's
-//       weights a conv tap at a time: 1, or keeps them whole: 0).
+//       weights a conv tap at a time: 1, or keeps them whole: 0), trajectories
+//       a team in the whole form (1, 2, 4 or 8; more than 1 below 128
+//       channels with nx times it at most 128 points; 1 in the split form).
 // offsets: the weights' bytes in shared memory (the whole buffer, or when
 //          streamed the window of one tap's slice, 2 x min(channels, 128)^2),
 //          then the blocks' byte offsets in buffer order: w[0], b[0], ...,
@@ -112,7 +100,13 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
   cfg.dt_sixth = scalars[4];
   cfg.channels = channels;
   const bool chunked = channels > 8 * kWideNT;
-  if (cfg.layers < 1 || cfg.nx < 32 || cfg.ksize < 1 || cfg.halo < reach) {
+  const int per_team = meta[30];
+  // the split form takes nx >= 32, the whole form nx >= 16
+  if (cfg.layers < 1 || cfg.nx < (split ? 32 : 16) || cfg.ksize < 1 || cfg.halo < reach) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((per_team != 1 && per_team != 2 && per_team != 4 && per_team != kMaxPerTeam) ||
+      (per_team > 1 && (split || channels >= 8 * kWideNT || per_team * cfg.nx > kPackedRows))) {
     return (int)cudaErrorInvalidValue;
   }
   const bool wide = channels == 8 * kWideNT;
@@ -167,7 +161,8 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
   }
   if (cfg.weight_bytes % 16 || cfg.team_bytes % 16 ||
       cfg.team_bytes <
-          team_bytes_needed(cfg.seg, channels, cfg.ksize, cfg.n_free, fp.terms, cfg.halo) ||
+          team_bytes_needed(cfg.seg, channels, cfg.ksize, cfg.n_free, fp.terms, cfg.halo,
+                            per_team) ||
       smem_bytes < cfg.weight_bytes + (split ? cfg.team_bytes + group_bytes
                                              : teams * cfg.team_bytes)) {
     return (int)cudaErrorInvalidValue;
@@ -188,16 +183,18 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
                                                   smem_bytes, s);
     }
   }
-  switch (channels) {
-    case 16:
-      return dispatch<2>(forced, u, weights, out, cfg, fp, teams, smem_bytes, s);
-    case 32:
-      return dispatch<4>(forced, u, weights, out, cfg, fp, teams, smem_bytes, s);
-    case 64:
-      return dispatch<8>(forced, u, weights, out, cfg, fp, teams, smem_bytes, s);
-    case 8 * kWideNT:
-      return dispatch<kWideNT>(forced, u, weights, out, cfg, fp, teams, smem_bytes, s);
-    default:  // the chunked form is split
-      return (int)cudaErrorInvalidValue;
+  switch (per_team) {  // one kernel per count of trajectories a team
+    case 1:
+      return pde::launch_learned_rk4_whole<1>(channels, forced, u, weights, out, cfg, fp, teams,
+                                              smem_bytes, s);
+    case 2:
+      return pde::launch_learned_rk4_whole<2>(channels, forced, u, weights, out, cfg, fp, teams,
+                                              smem_bytes, s);
+    case 4:
+      return pde::launch_learned_rk4_whole<4>(channels, forced, u, weights, out, cfg, fp, teams,
+                                              smem_bytes, s);
+    default:
+      return pde::launch_learned_rk4_whole<kMaxPerTeam>(channels, forced, u, weights, out, cfg,
+                                                        fp, teams, smem_bytes, s);
   }
 }

@@ -1,8 +1,10 @@
 // fused_learned_rk4: num_steps whole RK4 steps of the learned model in one
-// launch. The kernel body, shared by its two forms: fused_learned_rk4.cu
-// (one or more whole trajectories a block, and the C entry point) and
-// fused_learned_rk4_cluster.cuh (one trajectory split over a thread-block
-// cluster, built from fused_learned_rk4_cluster.cu, _g2.cu and _g4.cu).
+// launch. The kernel body, shared by its two forms:
+// fused_learned_rk4_whole.cuh (whole trajectories a block, P a warp group,
+// built from fused_learned_rk4.cu, which also holds the C entry point, and
+// _p2.cu, _p4.cu, _p8.cu) and fused_learned_rk4_cluster.cuh (one trajectory
+// split over a thread-block cluster, built from fused_learned_rk4_cluster.cu,
+// _g2.cu and _g4.cu).
 //
 // Replaces make_fused_learned_rk4 in
 // pde_superresolution_tpu/ops/pallas_kernels.py (the pallas_call at line
@@ -74,6 +76,22 @@
 //    sends it a grid of at least the halo and twice kh points; a longer
 //    reach takes the split form (a cluster of one block or more), whose
 //    halos wrap modulo nx.
+//  * Short grids (the whole form below 128 channels, nx < 128): a team owns
+//    P trajectories (P = 2, 4 or 8; the host picks the most whose nx P rows
+//    fit two 64-row tiles, as long as the launch keeps a team for every SM),
+//    so at nx 16 to 64 a pass fills both tiles and all 128 lanes of the tail
+//    as at nx 128, where one trajectory used a quarter or half of them. The
+//    rows interleave the trajectories point by point (row p P + j: point p of
+//    trajectory j), the Pallas kernel's lane order (x * batch_tile + b) in
+//    16-byte rows: a conv tap's shift is (k - kh) P rows, still one uniform
+//    descriptor step; a stencil tap's P floats; the periodic halos kh P and
+//    halo P rows, each row's copy nx P rows away, so every trajectory wraps
+//    onto itself. A row's products and sums are those of P = 1, in the same
+//    order: a packed launch gives the unpacked one's result bit for bit. P is
+//    a template parameter (fused_learned_rk4_whole.cuh, a source per P): a
+//    count read at run time would cost the unrolled tile loop (as G did in the
+//    split form). The last team's empty slots hold 0, read no input and write
+//    no output, and meet every barrier.
 //  * A block holds up to 4 teams and one copy of the weights (about 24 KB).
 //    Teams synchronize on their own named barrier (bar.sync id, 128), never
 //    across the block: L - 1 barriers between tower layers (a layer reads
@@ -158,7 +176,8 @@
 //    64 rows, and every block streams every layer's weights (57 MB at kernel
 //    5, past L2's 50 MB) once per stage.
 //  * -DPDE_MAX_TEAMS=n and -DPDE_PROFILE serve
-//    scripts/probe_learned_rk4.py: other team counts, and cycles by phase.
+//    scripts/probe_learned_rk4.py: other team counts, and cycles by phase
+//    (each warp's counters written over its team's own output).
 //    -DPDE_FAULT_SKIP_LAST_PASS plants a fault for the card's tests: a split
 //    block's last warp group skips its last pass.
 #pragma once
@@ -210,6 +229,15 @@ int launch_learned_rk4_cluster(int channels, bool forced, const float* u,
                                const LearnedConfig& cfg, const LearnedForcing& fp,
                                int smem_bytes, cudaStream_t stream);
 
+// The whole form's launch (fused_learned_rk4_whole.cuh): `teams` warp groups
+// a block, P trajectories a warp group; one source per P
+// (fused_learned_rk4.cu for P = 1, _p2.cu, _p4.cu, _p8.cu), built in parallel.
+template <int P>
+int launch_learned_rk4_whole(int channels, bool forced, const float* u,
+                             const unsigned char* weights, float* out, const LearnedConfig& cfg,
+                             const LearnedForcing& fp, int teams, int smem_bytes,
+                             cudaStream_t stream);
+
 }  // namespace pde
 
 namespace {
@@ -229,6 +257,11 @@ constexpr int kPhases = 10;               // of the PDE_PROFILE build
 // at the flagship, and their kernel keeps the registers of a 512-thread block.
 constexpr int kMaxTeamsForced = kMaxTeams < 4 ? kMaxTeams : 4;  // MAX_TEAMS_FORCED
 constexpr int kWideNT = 16;  // 128 channels: the wide form (fused_kernels.WIDE_CHANNELS)
+// the whole form below 128 channels packs up to 8 trajectories a warp group
+// (fused_kernels.PER_TEAM_COUNTS), as many as fill kPackedRows rows (MT = 2
+// tiles of 64): 8 at nx 16, 4 at 32, 2 at 64
+constexpr int kMaxPerTeam = 8;
+constexpr int kPackedRows = 128;
 constexpr int kMaxCluster = 16;  // fused_kernels.MAX_CLUSTER
 // the split form's warp groups a block on one segment (fused_kernels.MAX_GROUPS,
 // MAX_GROUPS_WIDE): 4 x 128 threads keep up to 128 registers a thread, 2 the
@@ -247,20 +280,24 @@ __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m *
 // layout (fused_kernels._group_bytes).
 __host__ __device__ inline int group_z_bytes(int n_free) { return 4 * 32 * (n_free | 1) * 4; }
 
-// Shared memory of one team holding `points` points, as
+// Shared memory of one team holding `points` points of each of `per_team`
+// trajectories (packed: a row per point and trajectory), as
 // fused_kernels._team_bytes counts it.
 // Above 128 channels (the chunked form) rows are rounded up to 8, not 64,
 // and one 64-row tile of slack follows the activation buffers.
 __host__ __device__ inline int team_bytes_needed(int points, int channels, int ksize, int n_free,
-                                                 int terms, int halo) {
+                                                 int terms, int halo, int per_team) {
   const bool chunked = channels > 8 * kWideNT;
-  const int rows = round_up(points, chunked ? 8 : 64);
-  const int plane_rows = rows + ksize;  // kh halo rows before and after, a dump row
-  int bytes = 2 * (channels / 8) * plane_rows * 16  // two activation buffers
+  const int rows = round_up(points * per_team, chunked ? 8 : 64);
+  // the conv's K - 1 halo rows of each trajectory around them, a dump row
+  const int plane_rows = rows + (ksize - 1) * per_team + 1;
+  int bytes = 2 * (channels / 8) * plane_rows * 16   // two activation buffers
               + (chunked ? kChunkSlack : 0)
-              + (4 * rows + 2 * halo) * 4           // u with halo, flux, step start, k sum
-              + 4 * 32 * (n_free | 1) * 4;          // z staging, one tile per warp
-  if (terms > 0) bytes += rows * 4 + 16 + 4 * terms * 4 + 2 * terms * points * 4;
+              + (4 * rows + 2 * halo * per_team) * 4  // u with halo, flux, step start, k sum
+              + 4 * 32 * (n_free | 1) * 4;            // z staging, one tile per warp
+  if (terms > 0) {
+    bytes += rows * 4 + 16 + 4 * terms * per_team * 4 + 2 * terms * points * per_team * 4;
+  }
   return round_up(bytes, 16);
 }
 
@@ -453,7 +490,11 @@ __device__ __forceinline__ int segment_owner(int gp, int nx, int seg, int& rank)
 template <int NT, int G>
 constexpr bool kRolledPasses = G > 1 && (NT == 2 || NT == 8);
 
-template <int NT, bool FORCED, bool SPLIT, bool CHUNKED = false, int G = 1>
+// P (the whole form below 128 channels): trajectories a team, packed point
+// by point (row p P + j holds point p of the team's trajectory j), so a conv
+// tap or stencil shift of t points is one of t P rows and every loop over rows
+// and the tiles runs as for one trajectory of nx P points (the design note).
+template <int NT, bool FORCED, bool SPLIT, bool CHUNKED = false, int G = 1, int P = 1>
 __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
                                                  const float* __restrict__ u_in,
                                                  const unsigned char* __restrict__ weights,
@@ -463,6 +504,10 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   static_assert((G == 1 || G == 2 || G == 4) &&
                     G <= (NT == kWideNT ? kMaxGroupsWide : kMaxGroups) && (SPLIT || G == 1),
                 "1, 2 or 4 warp groups a split block (1 or 2 wide)");
+  static_assert((P == 1 || P == 2 || P == 4 || P == 8) && P <= kMaxPerTeam &&
+                    (P == 1 || (!SPLIT && NT != kWideNT)),
+                "1, 2, 4 or 8 trajectories a team, more than one in the whole form below 128 "
+                "channels only");
   constexpr int CS = NT / 2;  // depth-16 steps across the channels (of a chunk)
   constexpr bool WIDE = NT == kWideNT;  // one team a block, layer >= 1's weights streamed
   constexpr int MT = WIDE ? 1 : 2;      // 64-point tiles per pass
@@ -483,10 +528,11 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   // loops follow n, the points this team owns. The chunked form rounds the
   // rows up to 8: a 64-row tile then reads past a plane (into the next one,
   // or the slack after the last), and its rows beyond n go to the dump row.
-  const int rows = round_up(cfg.seg, CHUNKED ? 8 : 64);
-  // one plane per 8 channels: [kh halo rows, rows, kh halo rows, a dump row
-  // for the rows beyond the grid] x 16 bytes
-  const int plane_bytes = (rows + K) * 16, dump_row = rows + K - 1;
+  // Packed (P > 1), the rows hold P trajectories point by point.
+  const int rows = round_up(cfg.seg * P, CHUNKED ? 8 : 64);
+  // one plane per 8 channels: [kh P halo rows, rows, (K - 1 - kh) P halo
+  // rows, a dump row for the rows beyond the grid] x 16 bytes
+  const int plane_bytes = (rows + (K - 1) * P + 1) * 16, dump_row = rows + (K - 1) * P;
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, q = lane & 3;
   // the block's warp groups: teams of whole trajectories, or in the split
   // form G groups on the block's one segment
@@ -504,16 +550,19 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   }
   fence_proxy_async();  // wgmma reads the weights
   __syncthreads();      // the only block-wide barrier
-  long long traj;
+  long long traj;  // this team's (first) trajectory
   int seg0 = 0, n = nx;  // this team's first point and its count
+  int valid = 1;  // packed: the team's slots that hold a trajectory (the last team's are ragged)
   if constexpr (SPLIT) {
     traj = blockIdx.x / cfg.cluster;
     seg0 = (int)cg::this_cluster().block_rank() * cfg.seg;
     n = min(cfg.seg, nx - seg0);
   } else {
-    traj = (long long)blockIdx.x * (blockDim.x / kTeamThreads) + team;
+    traj = ((long long)blockIdx.x * (blockDim.x / kTeamThreads) + team) * P;
     if (traj >= cfg.batch) return;  // a ragged last block: whole teams leave
+    if constexpr (P > 1) valid = (int)min((long long)P, cfg.batch - traj);
   }
+  const int nr = n * P;  // the rows of the team's points
 
   // the weights read where they lie: shared memory, or global memory when
   // streamed (the shared weights are then the window of layer >= 1's slices)
@@ -538,8 +587,8 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   unsigned char* act[2] = {act0, act1};
   // stage input, s_u[-halo .. rows + halo): periodic copies at both ends
   float* s_u = reinterpret_cast<float*>(base + 2 * planes * plane_bytes +
-                                        (CHUNKED ? kChunkSlack : 0)) + halo;
-  float* s_flux = s_u + rows + halo;  // face fluxes, or u_t for a direct form
+                                        (CHUNKED ? kChunkSlack : 0)) + halo * P;
+  float* s_flux = s_u + rows + halo * P;  // face fluxes, or u_t for a direct form
   float* s_u0 = s_flux + rows;  // the step's start value
   float* s_ksum = s_u0 + rows;  // running k1 + 2 k2 + 2 k3 + k4
   // this warp's z tile [32][F | 1]; a split block's later groups keep theirs
@@ -549,14 +598,15 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
                          (4 * (grp - 1) + wt) * 32 * z_stride
                    : s_ksum + rows + wt * 32 * z_stride;
   // forced only: this stage's forcing [rows], the per-term constants
-  // (amplitude, rotation cos, rotation sin, 0) [terms], the phase state
-  // [terms][seg] each
+  // (amplitude, rotation cos, rotation sin, 0) [terms][P], the phase state
+  // [terms][seg P] each (packed as the rows)
   const int T = FORCED ? fp.terms : 0;
+  const int phase_rows = cfg.seg * P;
   float* s_force = s_ksum + rows + 4 * 32 * z_stride;
   float4* __restrict__ s_term = reinterpret_cast<float4*>(
       base + round_up((int)(reinterpret_cast<unsigned char*>(s_force + rows) - base), 16));
-  float* __restrict__ s_sin = reinterpret_cast<float*>(s_term + T);
-  float* __restrict__ s_cos = s_sin + T * cfg.seg;
+  float* __restrict__ s_sin = reinterpret_cast<float*>(s_term + T * P);
+  float* __restrict__ s_cos = s_sin + T * phase_rows;
 
   auto team_sync = [&]() {
     if constexpr (SPLIT && G > 1) {
@@ -578,12 +628,13 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
 
   // one block: u and its periodic copy in the halo (halo <= nx, which the
   // host sees to: a loop over further copies made the flagship 10% slower);
-  // the split form: u alone, the halo comes from pull_u
+  // the split form: u alone, the halo comes from pull_u. p: a row (packed,
+  // the copy lies nx P rows on, halo P rows a side)
   auto store_u = [&](int p, float v) {
     s_u[p] = v;
     if constexpr (!SPLIT) {
-      if (p < halo) s_u[p + nx] = v;
-      if (p >= nx - halo) s_u[p - nx] = v;
+      if (p < halo * P) s_u[p + nr] = v;
+      if (p >= nr - halo * P) s_u[p - nr] = v;
     }
   };
   // the split form: the stage input's halo from the blocks that own it
@@ -595,17 +646,46 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
       s_u[local] = *remote(s_u + src, rank);
     }
   };
-  for (int p = lt; p < n; p += lthreads) {
-    const float v = u_in[traj * nx + seg0 + p];
-    store_u(p, v);
-    s_u0[p] = v;
-  }
-  if (FORCED) {
-    const size_t row = (size_t)traj * T;
-    for (int i = lt; i < T; i += lthreads) {
-      s_term[i] = make_float4(fp.amp[row + i], fp.rot_c[row + i], fp.rot_s[row + i], 0.f);
+  if constexpr (P == 1) {
+    for (int p = lt; p < n; p += lthreads) {
+      const float v = u_in[traj * nx + seg0 + p];
+      store_u(p, v);
+      s_u0[p] = v;
     }
-    if constexpr (SPLIT) {
+  } else {
+    // the team's trajectories lie one after another in u: read in that
+    // order, stored to their packed rows; an empty slot holds 0 and reads
+    // nothing (its rows are computed, never written out)
+    for (int i = tt; i < P * nx; i += kTeamThreads) {
+      const int j = i / nx, r = (i - j * nx) * P + j;
+      const float v = j < valid ? u_in[traj * nx + i] : 0.f;
+      store_u(r, v);
+      s_u0[r] = v;
+    }
+  }
+  if constexpr (FORCED) {
+    const size_t row = (size_t)traj * T;
+    if constexpr (P == 1) {
+      for (int i = lt; i < T; i += lthreads) {
+        s_term[i] = make_float4(fp.amp[row + i], fp.rot_c[row + i], fp.rot_s[row + i], 0.f);
+      }
+    } else {  // [term][slot]: a warp's rows read one term's P slots, 16 P bytes
+      for (int i = tt; i < P * T; i += kTeamThreads) {
+        const int j = i / T;  // an empty slot's amplitude 0
+        s_term[(i - j * T) * P + j] =
+            j < valid ? make_float4(fp.amp[row + i], fp.rot_c[row + i], fp.rot_s[row + i], 0.f)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    if constexpr (P > 1) {
+      for (int i = tt; i < P * T * nx; i += kTeamThreads) {
+        const int j = i / (T * nx), m = (i - j * T * nx) / nx;
+        const int r = (i - (j * T + m) * nx) * P + j;
+        const bool ok = j < valid;
+        s_sin[m * phase_rows + r] = ok ? fp.sin0[row * nx + i] : 0.f;
+        s_cos[m * phase_rows + r] = ok ? fp.cos0[row * nx + i] : 0.f;
+      }
+    } else if constexpr (SPLIT) {
       for (int i = lt; i < T * n; i += lthreads) {
         const int m = i / n, p = i - m * n;
         s_sin[m * cfg.seg + p] = fp.sin0[(row + m) * nx + seg0 + p];
@@ -640,7 +720,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   do {          \
   } while (0)
 #endif
-  const int tiles = (n + 63) / 64;
+  const int tiles = (nr + 63) / 64;
   // the split form: pass i (MT tiles from 64 MT i) to group i mod G; with
   // streamed weights every group walks the same number of passes, in step,
   // past the segment's last where it has none left (`active` false)
@@ -692,7 +772,8 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
               // to whole depth steps of 16
               const uint2* w = reinterpret_cast<const uint2*>(wts + cfg.w0_off) + lane;
               auto tap = [&](int row, int col) -> float {  // no branch: load, then select
-                const float v = s_u[col < K ? row + col - kh : 0];
+                const int at = P == 1 ? row + col - kh : row + (col - kh) * P;
+                const float v = s_u[col < K ? at : 0];
                 return col < K ? v : 0.f;
               };
               for (int ks = 0; ks * 16 < K; ++ks) {
@@ -700,7 +781,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
 #pragma unroll
                 for (int mt = 0; mt < MT; ++mt) {
                   const int r = row0 + 64 * mt + g;
-                  const int r0 = r < n ? r : 0, r1 = r + 8 < n ? r + 8 : 0;
+                  const int r0 = r < nr ? r : 0, r1 = r + 8 < nr ? r + 8 : 0;
                   const int c = 16 * ks + 2 * q;
                   a[mt][0] = pack_bf16(tap(r0, c), tap(r0, c + 1));
                   a[mt][1] = pack_bf16(tap(r1, c), tap(r1, c + 1));
@@ -758,8 +839,8 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
               PROF(2);
             } else {
               // wgmma, both operands from shared memory. Tap k reads the input
-              // planes shifted by k - kh rows: the descriptor starts 16 bytes
-              // further per row (row r lies at index r + kh).
+              // planes shifted by (k - kh) P rows: the descriptor starts 16
+              // bytes further per row (row r lies at index r + kh P).
               // The address field counts 16 bytes, so a step is an add.
               const uint64_t a = smem_desc(
                   (uint32_t)__cvta_generic_to_shared(in) + 64 * tp * 16, plane_bytes, 128);
@@ -771,7 +852,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
               for (int k = 0; k < K; ++k) {
 #pragma unroll
                 for (int cs = 0; cs < CS; ++cs, b += 16 * NT) {
-                  const uint64_t a_k = a + (cs * (plane_bytes / 8) + k);
+                  const uint64_t a_k = a + (cs * (plane_bytes / 8) + k * P);
                   wgmma_bf16<NT>(acc[0], a_k, b);
                   if (two) wgmma_bf16<NT>(acc[MT - 1], a_k + 64, b);
                 }
@@ -800,9 +881,9 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
             if (!last) {
               // One stmatrix per 8 rows and up to 4 planes; rows beyond the
               // points go to the plane's dump row. In one block the first and
-              // last kh rows also fill the halo at the other end (the periodic
-              // wrap; 2 kh <= nx, which the host sees to); the split form
-              // pulls its halo after the layer.
+              // last kh P rows also fill the halo at the other end (the
+              // periodic wrap; 2 kh <= nx, which the host sees to); the split
+              // form pulls its halo after the layer.
               const uint32_t out_addr = (uint32_t)__cvta_generic_to_shared(out);
 #pragma unroll
               for (int mt = 0; mt < MT; ++mt) {
@@ -811,7 +892,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
                   const int first = row0 + 64 * mt + 8 * half;  // of these 8 rows
                   const int r_lane = first + (lane & 7);
                   const uint32_t row_addr =
-                      out_addr + (r_lane < n ? r_lane + kh : dump_row) * 16;
+                      out_addr + (r_lane < nr ? r_lane + kh * P : dump_row) * 16;
                   const uint32_t* regs = half ? hi[mt] : lo[mt];
                   if constexpr (NT == 2) {
                     stmatrix_x2(row_addr + ((lane >> 3) & 1) * plane_bytes, regs[0], regs[1]);
@@ -830,12 +911,12 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
                     }
                   }
                   if constexpr (!SPLIT) {
-                    if (first < kh || first + 8 > nx - kh) {  // a few warps only
+                    if (first < kh * P || first + 8 > nr - kh * P) {  // a few warps only
                       const int r = first + g;
-                      const int copy =
-                          r < kh ? nx * 16 : (r >= nx - kh && r < nx ? -nx * 16 : 0);
+                      const int copy = r < kh * P ? nr * 16
+                                                  : (r >= nr - kh * P && r < nr ? -nr * 16 : 0);
                       if (copy) {
-                        unsigned char* dst = out + (r + kh) * 16 + 4 * q + copy;
+                        unsigned char* dst = out + (r + kh * P) * 16 + 4 * q + copy;
 #pragma unroll
                         for (int nt = 0; nt < NT; ++nt) {
                           *reinterpret_cast<uint32_t*>(dst + nt * plane_bytes) = regs[nt];
@@ -899,11 +980,11 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
           }  // the output chunks
           if (!last || !active) continue;
 
-          // ---- projection, stencil, flux: one grid point per lane (lanes
-          // 0-15 the warp's rows of tile tp, lanes 16-31 of tile tp + 1; in
-          // the wide form lanes 16-31 have no row) ----
-          const int p = MT == 2 || lane < 16 ? row0 + 64 * (lane >> 4) + (lane & 15) : n;
-          const int pe = p < n ? p : 0;  // padding lanes compute a value nobody reads
+          // ---- projection, stencil, flux: one row per lane (lanes 0-15 the
+          // warp's rows of tile tp, lanes 16-31 of tile tp + 1; in the wide
+          // form lanes 16-31 have no row) ----
+          const int p = MT == 2 || lane < 16 ? row0 + 64 * (lane >> 4) + (lane & 15) : nr;
+          const int pe = p < nr ? p : 0;  // padding lanes compute a value nobody reads
           const float* zp = s_z + lane * z_stride;
           float v[kMaxOrders];
 #pragma unroll
@@ -914,7 +995,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
               const int size = cfg.size[o], count = cfg.free_n[o];
               const float* zo = zp + cfg.free0[o];
               const float* block = s_proj + cfg.proj0[o];
-              const float* up = s_u + pe + cfg.tap0[o];  // taps reach into the halo
+              const float* up = s_u + pe + cfg.tap0[o] * P;  // taps reach into the halo
               float sum = 0.f;
               for (int s0 = 0; s0 < size; s0 += 8, block += 8 + 8 * count) {
                 const float4* pn = reinterpret_cast<const float4*>(block + 8);
@@ -939,7 +1020,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
                 for (int j = 0; j < 8; ++j) {
                   if (s0 + j < size) {
                     const float c = __fadd_rn(c0[j], pr[j]);
-                    const float uv = up[s0 + j];
+                    const float uv = up[(s0 + j) * P];
                     sum = s0 + j == 0 ? __fmul_rn(c, uv) : fmaf(c, uv, sum);
                   }
                 }
@@ -949,7 +1030,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
           }
           const float k_val = cfg.conservative ? flux_of(cfg.eq, v, cfg.eta)
                                                : motion_of(cfg.eq, s_u[pe], v, cfg.eta);
-          if (p < n) s_flux[p] = k_val;
+          if (p < nr) s_flux[p] = k_val;
           PROF(5);
         }
         if (!last) {
@@ -981,19 +1062,20 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
       }
       PROF(7);
 
-      // ---- forcing and RK4 stage combine ----
-      for (int p = lt; p < n; p += lthreads) {
+      // ---- forcing and RK4 stage combine (p: a row; packed, the left face
+      // of point 0 is its own trajectory's last, nx - 1 points on) ----
+      for (int p = lt; p < nr; p += lthreads) {
         float k_val = s_flux[p];
         if (cfg.conservative) {
           float left;
-          if (p > 0) {
-            left = s_flux[p - 1];
+          if (p >= P) {
+            left = s_flux[p - P];
           } else if constexpr (SPLIT) {
             int rank;
             const int src = segment_owner(seg0 - 1, nx, cfg.seg, rank);
             left = *remote(s_flux + src, rank);
           } else {
-            left = s_flux[nx - 1];
+            left = s_flux[P == 1 ? nx - 1 : nr - P + p];
           }
           k_val = pde::divergence(k_val, left, cfg.dx);
         }
@@ -1004,14 +1086,15 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
             float f = 0.f;
 #pragma unroll 4
             for (int m = 0; m < T; ++m) {
-              const float4 term_m = s_term[m];  // amplitude, rotation cos, sin
-              float s = s_sin[m * cfg.seg + p];
+              // amplitude, rotation cos, sin of the row's own trajectory
+              const float4 term_m = s_term[m * P + (p & (P - 1))];
+              float s = s_sin[m * phase_rows + p];
               if (stage != 0) {
-                const float c = s_cos[m * cfg.seg + p];
+                const float c = s_cos[m * phase_rows + p];
                 const float rc = term_m.y, rs = term_m.z;
                 const float rotated = __fadd_rn(__fmul_rn(s, rc), __fmul_rn(c, rs));
-                s_cos[m * cfg.seg + p] = __fsub_rn(__fmul_rn(c, rc), __fmul_rn(s, rs));
-                s_sin[m * cfg.seg + p] = rotated;
+                s_cos[m * phase_rows + p] = __fsub_rn(__fmul_rn(c, rc), __fmul_rn(s, rs));
+                s_sin[m * phase_rows + p] = rotated;
                 s = rotated;
               }
               const float term = __fmul_rn(term_m.x, s);
@@ -1047,10 +1130,21 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
       PROF(9);
     }
   }
-  for (int p = lt; p < n; p += lthreads) u_out[traj * nx + seg0 + p] = s_u0[p];
+  if constexpr (P == 1) {
+    for (int p = lt; p < n; p += lthreads) u_out[traj * nx + seg0 + p] = s_u0[p];
+  } else {  // the slots that hold a trajectory, in u's order
+    for (int i = tt; i < valid * nx; i += kTeamThreads) {
+      const int j = i / nx;
+      u_out[traj * nx + i] = s_u0[(i - j * nx) * P + j];
+    }
+  }
 #ifdef PDE_PROFILE
+  // warp wt's counters at floats kPhases wt on of the team's own output (its
+  // valid slots' points, or a split block's segment), as many as fit there
   if (lane == 0 && grp == team) {  // a split block: group 0's warps
-    for (int i = 0; i < kPhases; ++i) u_out[traj * nx + seg0 + 16 * wt + i] = (float)prof[i];
+    for (int i = 0; i < kPhases && kPhases * wt + i < valid * n; ++i) {
+      u_out[traj * nx + seg0 + kPhases * wt + i] = (float)prof[i];
+    }
   }
 #endif
 #undef PROF

@@ -11,7 +11,8 @@ The counterpart of ``pde_superresolution_tpu/ops/pallas_kernels.py``:
     model in one launch (tower, heads, constraint projection, stencil, flux,
     all four stages). The tower and the heads run on the tensor cores
     (``wgmma`` and ``mma.sync`` on bf16, float32 sums); a warp group owns a
-    trajectory and a block holds up to four of them, or, where one block
+    trajectory, or below nx 128 up to eight of them packed point by point,
+    and a block holds up to four warp groups, or, where one block
     cannot hold a trajectory, a thread-block cluster shares it, a segment a
     block run by up to four warp groups, halos by distributed shared memory.
     For a forced equation (Burgers) the sum-of-sinusoids forcing is
@@ -74,9 +75,18 @@ MAX_ORDERS = 3
 # MAX_GROUPS (kMaxGroups), at WIDE_CHANNELS and above up to MAX_GROUPS_WIDE
 # (kMaxGroupsWide: the kernel's thread bound leaves 255 registers a thread
 # for 64 accumulators).
-MAX_TEAMS = 4  # trajectories per block
+MAX_TEAMS = 4  # teams (warp groups) per block
 MAX_TEAMS_FORCED = 4  # the same for a forced equation (kMaxTeamsForced)
-TEAM_THREADS = 128  # one warp group owns a trajectory (kTeamThreads)
+TEAM_THREADS = 128  # one warp group owns a trajectory, or per_team of them (kTeamThreads)
+# Below WIDE_CHANNELS a team of the whole form packs P trajectories of a
+# short grid into its rows, one kernel per count (kMaxPerTeam): the most whose
+# P nx points fit PACKED_ROWS rows (kPackedRows: two 64-row tiles), as long as
+# the launch keeps NUM_SMS teams. The split form takes nx >= MIN_SPLIT_NX,
+# the whole form nx >= MIN_NX.
+PER_TEAM_COUNTS = (1, 2, 4, 8)
+PACKED_ROWS = 128
+MIN_NX = 16
+MIN_SPLIT_NX = 32
 U_HALO = 8  # the least number of periodic copies of u at each end in shared memory
 MAX_CLUSTER = 16
 PORTABLE_CLUSTER = 8
@@ -763,16 +773,17 @@ def fused_learned_rk4_plain(
 class LearnedRK4Launch(NamedTuple):
     """Geometry of one ``fused_learned_rk4`` launch.
 
-    Whole trajectories a block (``split`` false): ``teams`` of them, each a
-    warp group. The split form (``split``): a thread-block cluster of
-    ``cluster`` blocks per trajectory, each holding a segment of ``segment``
+    Whole trajectories a block (``split`` false): ``teams`` warp groups,
+    each owning ``per_team`` trajectories. The split form (``split``): a
+    thread-block cluster of ``cluster`` blocks per trajectory, each holding
+    a segment of ``segment``
     points (the last block the rest) run by ``groups`` warp groups, with the
     weights whole in shared memory or, ``stream``, layer >= 1's a conv tap
     at a time. ``teams`` is 0 when no form fits (1 in the split form)."""
 
-    teams: int  # trajectories per block, one warp group (128 threads) each
+    teams: int  # warp groups (128 threads) per block, each its own trajectories
     threads: int  # per block
-    team_bytes: int  # shared memory of one team: a trajectory, or a segment
+    team_bytes: int  # shared memory of one team: its trajectories, or a segment
     shared_bytes: int  # dynamic shared memory of a block: weights + teams
     blocks: int
     split: bool = False  # the cluster form
@@ -780,6 +791,7 @@ class LearnedRK4Launch(NamedTuple):
     segment: int = 0  # points a block holds: nx, or a segment of it
     stream: bool = False  # layer >= 1's weights through a window of one tap's slice
     groups: int = 1  # the split form: warp groups a block on its one segment
+    per_team: int = 1  # the whole form: trajectories a team, packed point by point
 
 
 def learned_rk4_reach(pack: LearnedRK4Pack) -> int:
@@ -794,24 +806,28 @@ def learned_rk4_halo(pack: LearnedRK4Pack) -> int:
     return max(U_HALO, learned_rk4_reach(pack))
 
 
-def _team_bytes(pack: LearnedRK4Pack, nx: int, terms: int) -> int:
-    """Shared memory of one team holding ``nx`` points, a whole trajectory
-    or a segment of one (fused_learned_rk4.cuh counts the same in
-    ``team_bytes_needed``): two bf16 activation buffers of one plane per 8
-    channels, ``[rows + K, 8]`` each (rows: nx rounded up to 64, to 8 above
-    128 channels, where ``CHUNK_SLACK`` bytes follow the buffers; K - 1 halo
-    rows for the periodic wrap and a dump row), four float32 rows (stage
-    input with ``learned_rk4_halo`` points at each end, fluxes, the step's
-    start value, the k sum), a ``[32, F | 1]`` tile per warp for the head
-    outputs and, forced, the forcing value, four floats of constants per
-    term and the (sin, cos) phase state per point."""
+def _team_bytes(pack: LearnedRK4Pack, nx: int, terms: int, per_team: int = 1) -> int:
+    """Shared memory of one team holding ``nx`` points of each of
+    ``per_team`` trajectories (whole ones, packed a row per point and
+    trajectory), or a segment of one trajectory (fused_learned_rk4.cuh
+    counts the same in ``team_bytes_needed``): two bf16 activation buffers
+    of one plane per 8 channels, ``[rows + (K - 1) P + 1, 8]`` each (rows: P
+    nx rounded up to 64, to 8 above 128 channels, where ``CHUNK_SLACK``
+    bytes follow the buffers; K - 1 halo rows of each trajectory for the
+    periodic wrap and a dump row), four float32 rows (stage input with
+    ``learned_rk4_halo`` points of each trajectory at each end, fluxes, the
+    step's start value, the k sum), a ``[32, F | 1]`` tile per warp for the
+    head outputs and, forced, the forcing value, four floats of constants
+    per term and trajectory and the (sin, cos) phase state per row."""
     chunked = pack.padded_channels > WIDE_CHANNELS
-    rows = -(-nx // (8 if chunked else 64)) * (8 if chunked else 64)
+    rows = -(-nx * per_team // (8 if chunked else 64)) * (8 if chunked else 64)
     planes = pack.padded_channels // 8
-    n = (2 * planes * (rows + pack.kernel_size) * 16 + (CHUNK_SLACK if chunked else 0)
-         + 4 * (4 * rows + 2 * learned_rk4_halo(pack)) + 4 * 32 * (pack.n_free | 1) * 4)
+    plane_rows = rows + (pack.kernel_size - 1) * per_team + 1
+    n = (2 * planes * plane_rows * 16 + (CHUNK_SLACK if chunked else 0)
+         + 4 * (4 * rows + 2 * learned_rk4_halo(pack) * per_team)
+         + 4 * 32 * (pack.n_free | 1) * 4)
     if terms:
-        n += 4 * rows + 16 + 16 * terms + 8 * terms * nx
+        n += 4 * rows + 16 + 16 * terms * per_team + 8 * terms * nx * per_team
     return -(-n // 128) * 128
 
 
@@ -828,21 +844,36 @@ def _window_bytes(pack: LearnedRK4Pack) -> int:
     return 2 * min(pack.padded_channels, WIDE_CHANNELS) ** 2
 
 
+def most_per_team(pack: LearnedRK4Pack, nx: int) -> int:
+    """The most trajectories a team of the whole form packs at ``nx``
+    points: the largest count of ``PER_TEAM_COUNTS`` whose rows fit
+    ``PACKED_ROWS`` (8 at nx 16, 4 at 32, 2 at 64), 1 from nx 65 and at
+    ``WIDE_CHANNELS`` and above (one 64-row tile a pass)."""
+    if pack.padded_channels >= WIDE_CHANNELS:
+        return 1
+    return max(p for p in PER_TEAM_COUNTS if p == 1 or p * nx <= PACKED_ROWS)
+
+
 def learned_rk4_launch(
     pack: LearnedRK4Pack, nx: int, terms: int = 0, batch: int = NUM_SMS * MAX_TEAMS,
     shared_limit: int = MAX_SHARED_BYTES, cluster: Optional[int] = None,
-    groups: Optional[int] = None,
+    groups: Optional[int] = None, per_team: Optional[int] = None,
 ) -> LearnedRK4Launch:
     """The launch of ``fused_learned_rk4`` for ``batch`` trajectories of
     ``nx`` points (``terms`` forcing sinusoids).
 
-    Where a block holds a whole trajectory, a warp group owns it and a block
-    holds one copy of the weights and as many trajectories as fit the
-    shared-memory limit, at most 4, but no more than leave the launch
+    Where a block holds whole trajectories, a warp group (a team) owns P of
+    them: the most that ``most_per_team`` allows and that still leave the
+    launch ``NUM_SMS`` teams (at nx 32: 4 from B = 525, 2 from 263, else 1),
+    and fit. A block holds one copy of the weights and as many teams as fit
+    the shared-memory limit, at most 4, but no more than leave the launch
     ``NUM_SMS`` blocks: a small batch spreads over the card, a large one
     shares the weights. At ``WIDE_CHANNELS`` a block holds one trajectory
     beside the window of streamed weights. Wider towers (the chunked form)
-    always take the split form below, their weights streamed.
+    always take the split form below, their weights streamed. ``per_team``
+    forces P (one of ``PER_TEAM_COUNTS`` up to ``most_per_team``), whatever
+    the batch; a value out of range raises, as does P > 1 with ``cluster``
+    or ``groups`` or where the whole form does not fit.
 
     Where it does not, or where the reach (``learned_rk4_halo``) is longer
     than the grid or the conv kernel wider than nx + 1 points (a block of
@@ -865,19 +896,33 @@ def learned_rk4_launch(
     if groups is not None and groups not in counts:
         raise ValueError(f"groups={groups}: the split form takes {counts} warp groups a block "
                          f"at {pack.padded_channels} channels")
+    packs = [p for p in PER_TEAM_COUNTS if p <= most_per_team(pack, nx)]
+    if per_team is not None and per_team not in packs:
+        raise ValueError(f"per_team={per_team}: the whole form packs {packs} trajectories a "
+                         f"team at nx {nx}, {pack.padded_channels} channels")
+    if (per_team or 1) > 1 and (cluster is not None or groups is not None):
+        raise ValueError(f"per_team={per_team} packs the whole form; cluster and groups force "
+                         "the split form")
     # a block of whole trajectories writes each halo as one periodic copy
     wraps_once = learned_rk4_halo(pack) <= nx and 2 * (pack.kernel_size // 2) <= nx
     if cluster is None and groups is None and wraps_once and not chunked:
-        team_bytes = _team_bytes(pack, nx, terms)
         weights = window if wide else resident
-        fit = max(0, shared_limit - weights) // team_bytes
         most = 1 if wide else (MAX_TEAMS_FORCED if terms else MAX_TEAMS)
-        teams = min(most, fit, max(1, batch // NUM_SMS))
-        if teams >= 1:
-            return LearnedRK4Launch(
-                teams=teams, threads=TEAM_THREADS * teams, team_bytes=team_bytes,
-                shared_bytes=weights + teams * team_bytes, blocks=-(-batch // teams),
-                segment=nx, stream=wide)
+        for p in [per_team] if per_team is not None else packs[::-1]:
+            slots = -(-batch // p)  # teams of p trajectories
+            if per_team is None and p > 1 and slots < NUM_SMS:
+                continue  # fewer teams than SMs: a smaller P spreads the batch
+            team_bytes = _team_bytes(pack, nx, terms, p)
+            fit = max(0, shared_limit - weights) // team_bytes
+            teams = min(most, fit, max(1, slots // NUM_SMS))
+            if teams >= 1:
+                return LearnedRK4Launch(
+                    teams=teams, threads=TEAM_THREADS * teams, team_bytes=team_bytes,
+                    shared_bytes=weights + teams * team_bytes, blocks=-(-slots // teams),
+                    segment=nx, stream=wide, per_team=p)
+        if (per_team or 1) > 1:
+            raise ValueError(f"per_team={per_team}: {per_team} trajectories of {nx} points do "
+                             f"not fit a team beside the weights in {shared_limit} bytes")
     sizes = range(1, MAX_CLUSTER + 1) if cluster is None else [cluster]
     counts = counts if groups is None else [groups]
     best = None
@@ -948,17 +993,20 @@ def learned_rk4_refusal(
     groups: Optional[int] = None,
 ) -> Optional[str]:
     """Why the kernel cannot take this shape, or None if it can. The limits
-    are nx >= 32 and the opt-in shared memory of a block (232448 bytes on
+    are nx >= ``MIN_NX`` (16; ``MIN_SPLIT_NX``, 32, where the shape takes
+    the split form) and the opt-in shared memory of a block (232448 bytes on
     sm_90), which must hold the weights (or the window of one tap's slice)
     and one trajectory, or one segment of a trajectory split over at most
     ``MAX_CLUSTER`` blocks (``cluster``, ``groups``: exactly that many
     blocks or warp groups a block, as ``learned_rk4_launch`` takes them).
     The width, the depth and the reach of the tower and the stencil are not
     limited."""
-    if nx < 32:
-        return f"nx={nx} < 32"
+    if nx < MIN_NX:
+        return f"nx={nx} < {MIN_NX}"
     launch = learned_rk4_launch(pack, nx, terms, shared_limit=shared_limit, cluster=cluster,
                                 groups=groups)
+    if launch.split and nx < MIN_SPLIT_NX:
+        return f"nx={nx} < {MIN_SPLIT_NX} in the split form"
     if launch.teams < 1:
         return (f"needs {launch.shared_bytes} bytes of shared memory per block split over "
                 f"{launch.cluster} blocks ({launch.segment} points each) > the limit of "
@@ -975,6 +1023,7 @@ def fused_learned_rk4(
     t=0.0,
     cluster: Optional[int] = None,
     groups: Optional[int] = None,
+    per_team: Optional[int] = None,
 ) -> torch.Tensor:
     """``num_steps`` RK4 steps of the packed learned model from ``u [B, nx]``.
 
@@ -983,8 +1032,9 @@ def fused_learned_rk4(
     ``t``, or a ready ``ForcingPack``. Forcing for an unforced equation
     raises, as does a forced equation without it. ``cluster`` and ``groups``
     force the split form with that many blocks per trajectory or warp groups
-    a block (``learned_rk4_launch``, which raises on a value out of range);
-    the plain version, which a CPU tensor takes, has no blocks and ignores
+    a block, ``per_team`` the trajectories a team of the whole form packs
+    (``learned_rk4_launch``, which raises on a value out of range); the
+    plain version, which a CPU tensor takes, has no blocks and ignores
     them.
     """
     if pack.equation.forced and forcing is None:
@@ -1021,7 +1071,8 @@ def fused_learned_rk4(
         raise ValueError(refusal)
     if pack.blob.data_ptr() % 16:
         raise ValueError("packed weights must be 16-byte aligned")
-    launch = learned_rk4_launch(pack, nx, terms, batch, cluster=cluster, groups=groups)
+    launch = learned_rk4_launch(pack, nx, terms, batch, cluster=cluster, groups=groups,
+                                per_team=per_team)
     orders = list(pack.taps)
 
     from pde_superresolution_torch.ops import _build
@@ -1029,7 +1080,7 @@ def fused_learned_rk4(
     lib = _build.load_library()
     out = torch.empty_like(u)
     pad = [0] * (MAX_ORDERS - len(orders))
-    meta = (ctypes.c_int * 30)(
+    meta = (ctypes.c_int * 31)(
         EQUATION_CODES[pack.equation.name],
         int(pack.equation.conservative),
         nx, pack.padded_channels, pack.kernel_size, pack.num_layers, pack.n_free,
@@ -1042,6 +1093,7 @@ def fused_learned_rk4(
         terms, launch.groups if launch.split else launch.teams, launch.team_bytes,
         learned_rk4_halo(pack),
         launch.cluster if launch.split else 0, launch.segment, int(launch.stream),
+        launch.per_team,
     )
     weights = _window_bytes(pack) if launch.stream else pack.blob.numel()
     offsets = (ctypes.c_int * (1 + len(pack.blob_offsets)))(weights, *pack.blob_offsets)

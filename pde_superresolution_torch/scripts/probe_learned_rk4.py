@@ -30,15 +30,31 @@ example ``--settings 4:4 --nx 1280,2048 --clusters all --groups all
 gives the blocks an SM, busy warps and passes ``fk.split_occupancy``
 counts).
 
+``--per_team`` times the whole form with that many trajectories a team
+(``auto``: the launch's own; ``1``: unpacked, the launch of every batch
+before the kernel packed short grids; ``all``: 1, 2, 4 and 8 where the grid
+takes them). The packed A/B at the zoo's short grids, on the same kernels:
+``--settings 4:4 --checkpoints ckpt_ks32,ckpt_kdv16_f64,ckpt_burgers64
+--filters 0 --nx 16,32 --batches 256,10240 --per_team 1,auto`` (a grid
+that is no multiple of a checkpoint's own is skipped).
+
 ``--src DIR[,DIR...]`` builds the kernels from other ``csrc`` trees (``-``:
 this package's own) and times each launch on every tree in turn, forward
 then backward (A B B A), each tree's 10 steps bit for bit the first's: an
 older tree (``git archive`` of a parent commit's ``csrc``) is driven
 through this package's wrapper, so give it launches its entry takes (the
-split form before warp groups: ``--groups 1``). For example ``--src
+split form before warp groups: ``--groups 1``; the whole form before packed
+teams: ``--per_team 1``). For example ``--src
 _checkout/parent/pde_superresolution_torch/csrc,- --checkpoints ckpt_ks8
 --filters 256 --nx 128 --clusters 1 --groups 1 --batches 10240 --steps 20
 --settings 4:4``. ``--ab`` and ``--profile`` build from the first tree.
+
+``--sass`` with two ``--src`` trees instead compares the SASS of the whole
+form's one-trajectory-a-team kernels (every width, forced or not) of the
+two builds, instruction by instruction without addresses and encodings
+(``cuobjdump -sass``), and prints each kernel's instruction, HMMA and GMMA
+counts: for example the parent's ``csrc`` against this one's, whose P = 1
+kernels must be the parent's.
 
 ``--ab ROUNDS`` instead times, for each split shape and batch, the launch the
 choice took before warp groups (``fewest_blocks``: the fewest blocks that
@@ -51,15 +67,19 @@ same result bit for bit over 10 steps. For example ``--ab 2 --nx
 ``--profile`` instead builds with ``-DPDE_PROFILE``: the kernel then counts
 clock cycles by phase of one RHS evaluation (``clock64`` around each phase,
 which also keeps the compiler from overlapping them, so the sum is above an
-ordinary build's time) and writes them over its output. It prints cycles per
-RHS for the first and last trajectory of each batch, warp 0 of the team.
+ordinary build's time) and writes each warp's over its team's own output
+(warp w's from float 10 w of the team's first trajectory on). It prints
+cycles per RHS for the first and the last team of each batch, warp 0.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import difflib
+import re
 import statistics
+import subprocess
 import tempfile
 from pathlib import Path
 
@@ -99,7 +119,7 @@ PHASES = ("layer 0 (mma.sync)", "layer 0 epilogue, stores", "later layers (wgmma
 def load_case(name: str, filters: int, nx: int, device, stems: Path):
     """The checkpoint ``name`` (widened to ``filters`` when given, written to
     ``stems`` first) on ``nx`` points, built as ``run_ensemble --domain_factor``
-    builds it: (model, params)."""
+    builds it: (model, params); None where nx is no multiple of its grid."""
     import json
 
     import numpy as np
@@ -115,6 +135,8 @@ def load_case(name: str, filters: int, nx: int, device, stems: Path):
         np.savez(stem.with_suffix(".npz"), **convert.npz_arrays_from_params(params))
         name = str(stem)
     base = convert.load_checkpoint(name, device=device)[0].grid.size
+    if nx % base:
+        return None
     ens = run_ensemble.setup(run_ensemble.build_parser().parse_args(
         ["--checkpoint_dir", name, "--num_trajectories", "1", "--domain_factor",
          str(nx // base), "--device", str(device)]))
@@ -143,7 +165,8 @@ def launch_text(launch, pack) -> str:
     """A launch in words, with what one SM holds of a split one
     (``fk.split_occupancy``)."""
     if not launch.split:
-        return f"{launch.blocks} blocks x {launch.teams} trajectories"
+        return (f"{launch.blocks} blocks x {launch.teams} teams x {launch.per_team} "
+                "trajectories")
     per_sm, busy, passes = fk.split_occupancy(launch, pack.padded_channels >= fk.WIDE_CHANNELS)
     return (f"clusters of {launch.cluster} blocks x {launch.segment} points, {launch.groups} "
             f"groups" + (", weights streamed" if launch.stream else "")
@@ -176,6 +199,29 @@ def rebuild(teams: int, profile: bool = False, src: str = "-") -> list:
     return report
 
 
+def sass_whole_kernels(library: Path) -> dict:
+    """{(channels, forced): instructions} of the whole form's kernels with
+    one trajectory a team in ``library``'s SASS (``cuobjdump -sass``; the
+    kernels before packed teams had no third template argument), each line
+    without its address and encoding."""
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    kernels, key = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            found = re.search(r"fused_learned_rk4_kernelILi(\d+)ELb(\d)E(?:Li(\d)E)?E", line)
+            key = None
+            if found and found.group(3) in (None, "1"):
+                key = (8 * int(found.group(1)), found.group(2) == "1")
+                kernels[key] = []
+        elif key is not None:
+            text = re.sub(r"/\*\s*[0-9a-fx]+\s*\*/", "", line).strip().rstrip(";").strip()
+            if text:
+                kernels[key].append(text)
+    return kernels
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--settings", default="4:4,6:4,8:4",
@@ -184,13 +230,18 @@ def main(argv=None) -> None:
     parser.add_argument("--profile", action="store_true",
                         help="cycles per RHS by phase (first setting only)")
     parser.add_argument("--nx", default="128",
-                        help="comma-separated grids, multiples of the checkpoints' 128 points")
+                        help="comma-separated grids, multiples of each checkpoint's own grid "
+                             "(others are skipped)")
     parser.add_argument("--clusters", default="auto",
                         help="comma-separated blocks per trajectory of the split form, auto "
                              "or all")
     parser.add_argument("--groups", default="auto",
                         help="comma-separated warp groups a split block, auto or all")
+    parser.add_argument("--per_team", default="auto",
+                        help="comma-separated trajectories a team of the whole form, auto or all")
     parser.add_argument("--steps", type=int, default=STEPS, help="RK4 steps a timed call")
+    parser.add_argument("--sass", action="store_true",
+                        help="compare the two --src trees' one-trajectory whole-form SASS")
     parser.add_argument("--ab", type=int, default=0,
                         help="rounds of the fewest-blocks split launch against the rule's")
     parser.add_argument("--src", default="-",
@@ -204,6 +255,29 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("probe_learned_rk4: no CUDA device is available")
     device = torch.device("cuda")
+    if args.sass:
+        trees = args.src.split(",")
+        if len(trees) != 2:
+            raise SystemExit("probe_learned_rk4 --sass: give two --src trees")
+        builds = []
+        for tree in trees:
+            rebuild(int(args.settings.split(",")[0].split(":")[0]), src=tree)
+            builds.append(sass_whole_kernels(_build.build().library))
+        for key in sorted(set(builds[0]) | set(builds[1])):
+            a, b = (build.get(key, []) for build in builds)
+            # lines outside the longest matching runs (difflib), so one
+            # inserted instruction counts once
+            ops = difflib.SequenceMatcher(None, a, b, autojunk=False).get_opcodes()
+            differ = sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2 in ops if tag != "equal")
+            counts = [(len(k), sum("HMMA" in i for i in k), sum("GMMA" in i for i in k))
+                      for k in (a, b)]
+            print(f"{key[0]} channels, {'forced' if key[1] else 'unforced'}: "
+                  + "; ".join(f"{tree}: {n} instructions, {h} HMMA, {g} GMMA"
+                              for tree, (n, h, g) in zip(trees, counts))
+                  + f"; {'identical' if a and not differ else f'{differ} lines differ'}")
+            for tag, i1, i2, j1, j2 in [op for op in ops if op[0] != "equal"][:3]:
+                print(f"    {tag}: {' / '.join(a[i1:i2][:2])}  |  {' / '.join(b[j1:j2][:2])}")
+        return
     settings = [tuple(int(n) for n in s.split(":")) for s in args.settings.split(",")]
     batches = [int(b) for b in args.batches.split(",")]
     grids = [int(n) for n in args.nx.split(",")]
@@ -213,6 +287,9 @@ def main(argv=None) -> None:
     group_counts = [None if g == "auto" else int(g) for g in args.groups.split(",")
                     if g != "all"] + (list(fk.GROUP_COUNTS)
                                       if "all" in args.groups.split(",") else [])
+    per_teams = [None if p == "auto" else int(p) for p in args.per_team.split(",")
+                 if p != "all"] + (list(fk.PER_TEAM_COUNTS)
+                                   if "all" in args.per_team.split(",") else [])
     trees = args.src.split(",")
 
     cases = {}
@@ -220,7 +297,11 @@ def main(argv=None) -> None:
     stems = Path(tempfile.mkdtemp(prefix="probe_learned_rk4_"))
     for filters, checkpoint, nx in [(int(f), n, x) for f in args.filters.split(",")
                                     for n in args.checkpoints.split(",") for x in grids]:
-        model, params = load_case(checkpoint, filters, nx, device, stems)
+        case = load_case(checkpoint, filters, nx, device, stems)
+        if case is None:
+            print(f"{checkpoint} at nx {nx}: skipped (no multiple of its grid)")
+            continue
+        model, params = case
         name = checkpoint + (f" at {filters} filters" if filters else "") + f", nx {nx}"
         eq, grid = model.equation, model.grid
         dt = model.stable_time_step(u_scale=3.0)
@@ -282,12 +363,20 @@ def main(argv=None) -> None:
         print(f"card: {torch.cuda.get_device_name(0)}; cycles per RHS by phase, warp 0, "
               f"caps {teams}:{forced_teams}, {steps} steps")
         for name, (pack, dt, u, forcing) in cases.items():
-            for batch in batches:
-                fb = None if forcing is None else type(forcing)(
-                    *(leaf[:batch].contiguous() for leaf in forcing))
-                out = fk.fused_learned_rk4(u[:batch].contiguous(), pack, dt, steps, forcing=fb)
-                cycles = out[[0, batch - 1], :len(PHASES)].cpu() / (4 * steps)
-                print(f"{name} B={batch}: first trajectory, last trajectory")
+            terms = 0 if forcing is None else forcing.amplitude.shape[-1]
+            for batch, per_team in [(b, p) for b in batches for p in per_teams]:
+                ub, fb = batch_of(u, forcing, batch)
+                try:
+                    launch = fk.learned_rk4_launch(pack, ub.shape[1], terms, batch,
+                                                   per_team=per_team)
+                except ValueError as e:
+                    print(f"{name} B={batch} per_team {per_team}: skipped ({e})")
+                    continue
+                out = fk.fused_learned_rk4(ub, pack, dt, steps, forcing=fb, per_team=per_team)
+                # the last team's counters lie over its first trajectory
+                last = (batch - 1) // launch.per_team * launch.per_team
+                cycles = out[[0, last], :len(PHASES)].cpu() / (4 * steps)
+                print(f"{name} B={batch} ({launch_text(launch, pack)}): first team, last team")
                 for phase, (first, last) in zip(PHASES, cycles.t().tolist()):
                     print(f"  {phase:34s} {first:8.0f} {last:8.0f}")
                 print(f"  {'sum':34s} {float(cycles[0].sum()):8.0f} {float(cycles[1].sum()):8.0f}")
@@ -305,14 +394,21 @@ def main(argv=None) -> None:
             most = fk.MAX_GROUPS_WIDE if pack.padded_channels >= fk.WIDE_CHANNELS else (
                 fk.MAX_GROUPS)
             first = {}  # batches[0]'s plain version, its limit and the first kernel run
-            for batch, cluster, groups in [(b, c, g) for b in batches for c in clusters
-                                           for g in group_counts if g is None or g <= most]:
+            for batch, cluster, groups, per_team in [
+                    (b, c, g, p) for b in batches for c in clusters for g in group_counts
+                    for p in per_teams if g is None or g <= most]:
                 ub, fb = batch_of(u, forcing, batch)
                 nx = ub.shape[1]
                 refusal = fk.learned_rk4_refusal(pack, nx, terms, cluster=cluster, groups=groups)
+                if not refusal:
+                    try:
+                        launch = fk.learned_rk4_launch(pack, nx, terms, batch, cluster=cluster,
+                                                       groups=groups, per_team=per_team)
+                    except ValueError as e:
+                        refusal = str(e)
                 if refusal:
-                    print(f"{name} B={batch} cluster {cluster} groups {groups}: skipped "
-                          f"({refusal})")
+                    print(f"{name} B={batch} cluster {cluster} groups {groups} per_team "
+                          f"{per_team}: skipped ({refusal})")
                     continue
                 if cluster and -(-nx // -(-nx // cluster)) < cluster:
                     continue  # as many blocks as a smaller cluster's: timed there
@@ -321,7 +417,7 @@ def main(argv=None) -> None:
                         rebuild(teams, src=tree)
                     uc, fc = batch_of(u, forcing, min(batch, CHECK_BATCH))
                     got = fk.fused_learned_rk4(uc, pack, dt, 10, forcing=fc, cluster=cluster,
-                                               groups=groups)
+                                               groups=groups, per_team=per_team)
                     if not first:
                         first["got"] = got
                         first["want"] = want = fk.fused_learned_rk4_plain(uc, pack, dt, 10, fc)
@@ -354,18 +450,18 @@ def main(argv=None) -> None:
                     # each row runs the same products in the same order
                     elif not torch.equal(got.nan_to_num(nan=7.0),
                                          first["got"].nan_to_num(nan=7.0)):
-                        raise AssertionError(f"{name} cluster {cluster} groups {groups} tree "
-                                             f"{tree}: not bit for bit the first launch's 10 "
-                                             "steps")
-                launch = fk.learned_rk4_launch(pack, nx, terms, batch, cluster=cluster,
-                                               groups=groups)
+                        raise AssertionError(f"{name} cluster {cluster} groups {groups} per_team "
+                                             f"{per_team} tree {tree}: not bit for bit the "
+                                             "first launch's 10 steps")
                 for tree in order:
                     if len(trees) > 1:
                         rebuild(teams, src=tree)
                     ms = time_ms(lambda: fk.fused_learned_rk4(
-                        ub, pack, dt, args.steps, forcing=fb, cluster=cluster, groups=groups))
+                        ub, pack, dt, args.steps, forcing=fb, cluster=cluster, groups=groups,
+                        per_team=per_team))
                     print(f"caps {teams}:{forced_teams} {name} B={batch} cluster {cluster} "
-                          f"groups {groups}{'' if len(trees) == 1 else ' tree ' + tree}: "
+                          f"groups {groups} per_team {per_team}"
+                          f"{'' if len(trees) == 1 else ' tree ' + tree}: "
                           f"{ms:.3f} ms ({launch_text(launch, pack)}, {launch.threads} "
                           f"threads, {launch.shared_bytes} bytes shared; "
                           f"{batch * args.steps * nx / ms * 1e3:,.0f} cell-steps/s)", flush=True)

@@ -88,8 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fused", choices=["auto", "true", "false"], default="auto",
                         help="whole-interval fused kernel between snapshots; "
                         "auto = on a CUDA device when the kernel takes the shape: "
-                        "nx >= 32, a trajectory in one block or split over a cluster "
-                        "of up to 16 (fused_kernels.learned_rk4_refusal)")
+                        "nx >= 16 with whole trajectories in one block, or nx >= 32 "
+                        "split over a cluster of up to 16 (fused_kernels.learned_rk4_refusal)")
     parser.add_argument("--domain_factor", type=int, default=1,
                         help="integrate on a domain this many times larger "
                         "than the checkpoint was trained on (same dx; the "
@@ -164,10 +164,10 @@ def choose_route(fused: str, ensemble: Ensemble, pack,
     frozen artifact and a resumable run (``--output_path``) do not read it:
     they take RHS steps.
 
-    The kernel takes a shape when the grid has at least 32 points and the
-    weights it keeps in shared memory (or the window of one conv tap's
-    slice) fit the card's opt-in limit per block beside one trajectory, or
-    beside one segment of a trajectory split over a cluster of up to
+    The kernel takes a shape when the weights it keeps in shared memory (or
+    the window of one conv tap's slice) fit the card's opt-in limit per
+    block beside one trajectory of at least 16 points, or beside one segment
+    of a trajectory of at least 32 points split over a cluster of up to
     ``fused_kernels.MAX_CLUSTER`` blocks (as at ``--domain_factor`` grids,
     and for every tower wider than 128 filters). ``--fused true`` on a shape
     it cannot take raises; on the CPU it runs the kernel's plain version.
@@ -201,9 +201,9 @@ def choose_route(fused: str, ensemble: Ensemble, pack,
                       f"blocks of {launch.segment} points ({launch.blocks} blocks, "
                       f"{launch.groups} warp groups each), {weights} and a segment in "
                       f"{launch.shared_bytes} bytes of shared memory per block fit")
-    return True, (f"auto: cuda, {launch.blocks} blocks of {launch.teams} trajectories, "
-                  f"{launch.threads} threads and {launch.shared_bytes} bytes of shared memory "
-                  "per block fit")
+    return True, (f"auto: cuda, {launch.blocks} blocks of {launch.teams} warp groups of "
+                  f"{launch.per_team} trajectories, {launch.threads} threads and "
+                  f"{launch.shared_bytes} bytes of shared memory per block fit")
 
 
 def _gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:

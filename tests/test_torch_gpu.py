@@ -247,6 +247,7 @@ def test_forced_learned_rk4_matches_plain(cuda, cons, size, nx, filters):
     ("kdv", False, 7, 32, 3, 265, 128), ("ks", True, 6, 64, 2, 7, 128),
     ("ks", True, 10, 32, 3, 530, 32), ("kdv", True, 10, 32, 3, 530, 32),
     ("kdv", True, 10, 64, 3, 530, 32), ("ks", True, 8, 32, 3, 397, 64),
+    ("burgers", True, 8, 32, 3, 1061, 16),
 ])
 def test_learned_rk4_flagship_width_ragged_blocks(cuda, name, cons, size, filters, layers,
                                                   batch, nx):
@@ -255,12 +256,18 @@ def test_learned_rk4_flagship_width_ragged_blocks(cuda, name, cons, size, filter
     4 + 2 (the last block holds 2 of 4), 397 = 132 x 3 + 1 (forced), 265 =
     132 x 2 + 1; and the widest instantiation that shares a block, 64
     filters, one per block.
-    Then the zoo's shapes: KS-32x and KdV-16x (nx = 32, 10 taps) at 32
-    filters and at 64 (the KdV-16x f64 model: 4 teams beside 64-channel
-    weights, the fullest block the kernel launches), KS-16x (nx = 64, 8
-    taps). Limits as in test_fused_learned_rk4_matches_plain, the run's
-    with RUN_CONDITIONING for the unforced cases; every trajectory is
-    compared, so a team that read or wrote another's rows would show."""
+    Then the zoo's shapes, packed P trajectories a team: KS-32x and KdV-16x
+    (nx = 32, 10 taps) at 32 filters and at 64 (the KdV-16x f64 model), 530
+    = 132 x 4 + 2 in 133 teams of 4, the last holding 2; KS-16x (nx = 64, 8
+    taps), 397 in 199 teams of 2, the last holding 1; Burgers-64x's forced
+    16 points, 1061 in 133 teams of 8, the last holding 5. Limits as in
+    test_fused_learned_rk4_matches_plain, the run's with RUN_CONDITIONING
+    for the unforced cases and for the forced one at nx 16 (its dx eight
+    times the flagship's: the kernel read 2.9e-5 of max|u| after 10 steps
+    on an H100, bit for bit its unpacked launch, which the plain version's
+    own distance from float64 sums bounds as at KdV-16x's nx 32); every
+    trajectory is compared, so a team that read or wrote another's rows, or
+    another trajectory's, would show."""
     model, params, _ = _model(name, cons, size, cuda, nx=nx, filters=filters, layers=layers)
     gen = torch.Generator().manual_seed(3)
     dt = model.equation.stable_time_step(model.grid, u_scale=3.0)
@@ -273,17 +280,19 @@ def test_learned_rk4_flagship_width_ragged_blocks(cuda, name, cons, size, filter
         fp = fk.pack_forcing(forcing, 3.7, model.equation, model.grid, dt, batch)
         terms = fp.amplitude.shape[-1]
     launch = fk.learned_rk4_launch(pack, nx, terms, batch)
-    assert launch.teams == max(1, min(batch // 132, 4))
-    assert launch.teams == 1 or batch % launch.teams
+    assert launch.per_team == {128: 1, 64: 2, 32: 4, 16: 8}[nx]
+    assert launch.teams == max(1, min(-(-batch // launch.per_team) // 132, 4))
+    assert launch.teams * launch.per_team == 1 or batch % (launch.teams * launch.per_team)
     rough = torch.from_numpy(
         np.random.default_rng(0).standard_normal((batch, nx)).astype(np.float32)).to(cuda)
     smooth = 0.3 * model.equation.initial_conditions(gen, model.grid, (batch,), cuda)
     want_inc = fk.fused_learned_rk4_plain(rough, pack, dt, 1, fp) - rough
     want = fk.fused_learned_rk4_plain(smooth, pack, dt, 10, fp)
     exact = None
-    if fp is None:
+    if fp is None or nx < 32:
+        fp64 = None if fp is None else fk.ForcingPack(*(leaf.double() for leaf in fp))
         exact = fk.fused_learned_rk4_plain(
-            smooth.double(), dataclasses.replace(pack, flat=pack.flat.double()), dt, 10)
+            smooth.double(), dataclasses.replace(pack, flat=pack.flat.double()), dt, 10, fp64)
     got_inc = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp) - rough
     got = fk.fused_learned_rk4(smooth, pack, dt, 10, forcing=fp)
     torch.cuda.synchronize()
@@ -357,12 +366,17 @@ def test_fused_rk4_refuses_on_card(cuda):
     assert fk.fused_rk4.launches == before + 1
 
 
+RK4_FORMS = [("ks", True), ("ks", False), ("kdv", True), ("kdv", False)]
+# chip_smoke.py phase 8 held these four cases in every form until they moved
+# here (each fused_rk4 check runs in one of the two places)
+RK4_WIDE_CASES = [(5, 32, {"stencil_size": 80}), (5, 14528, {}), (3, 65536, {}),
+                  (3, 16384, {"stencil_size": 48})]
+
+
 @pytest.mark.parametrize("name,cons,batch,nx,scheme", [
     ("ks", True, 37, 128, {"stencil_size": 40}), ("kdv", False, 37, 128, {"stencil_size": 40}),
-    ("ks", False, 5, 32, {"stencil_size": 80}), ("ks", True, 5, 14528, {}),
-    ("kdv", False, 3, 16384, {}), ("kdv", True, 3, 65536, {}),
-    ("ks", True, 3, 16384, {"stencil_size": 48}),
-])
+    ("kdv", False, 3, 16384, {}),
+] + [form + case for form in RK4_FORMS for case in RK4_WIDE_CASES])
 def test_fused_rk4_wide_schemes_and_long_grids_match_plain(cuda, name, cons, batch, nx, scheme):
     """fused_rk4 where it once refused: schemes of more than 32 taps an
     order (40 and 48, their coefficients in global memory; 80 taps on 32
@@ -370,7 +384,7 @@ def test_fused_rk4_wide_schemes_and_long_grids_match_plain(cuda, name, cons, bat
     periodic copy) and grids whose four rows do not fit a block (nx 14528
     and more: the rows in a global scratch), in the block form, bit for bit
     the plain version (20 steps of the classic scheme, 10 of the others at a
-    quarter of its stable step)."""
+    quarter of its stable step); RK4_WIDE_CASES in all four forms."""
     period = teq.from_name(name).period * nx / 128  # the same dx at every nx
     eq = teq.from_name(name, conservative=cons, period=period)
     grid = Grid(nx, period)
@@ -388,6 +402,42 @@ def test_fused_rk4_wide_schemes_and_long_grids_match_plain(cuda, name, cons, bat
     assert fk.fused_rk4.launches == before + 1
     assert torch.isfinite(want).all()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name,cons", RK4_FORMS)
+@pytest.mark.parametrize("nx", [32, 512, 2048])
+def test_fused_rk4_widest_register_scheme_matches_plain_and_integrate(cuda, name, cons, nx):
+    """The widest scheme the register forms take (stencil size 32: 32 taps
+    an order reaching 16 points; half the ring at nx = 32, run-time taps in
+    registers at 512, the block form's periodic copies at 2048) at B=1037
+    (no multiple of the warps a block), 10 steps at a quarter of the classic
+    scheme's stable step from the same dx at every nx: bit for bit the plain
+    version, and, where PolynomialDifferentiator builds the same scheme (a
+    conservative form; it makes a direct form's collocated stencil odd),
+    within 1e-5 of max|u| of ``integrate`` over its rhs_fn (chip_smoke.py
+    phase 8 held this until it moved here)."""
+    from pde_superresolution_torch import integrate
+
+    scheme = {"stencil_size": 32}
+    period = teq.from_name(name).period * nx / 128  # the same dx at every nx
+    eq = teq.from_name(name, conservative=cons, period=period)
+    grid = Grid(nx, period)
+    u = 0.3 * eq.initial_conditions(torch.Generator().manual_seed(2), grid, (1037,), cuda)
+    advance = fk.make_fused_rk4(eq, grid, eq.stable_time_step(grid) / 4, 10, **scheme)
+    want = fk.fused_rk4_plain(u, advance.scheme)
+    before = fk.fused_rk4.launches
+    got = advance(u)
+    torch.cuda.synchronize()
+    assert fk.fused_rk4.launches == before + 1
+    print(fk.rk4_launch(1037, nx, False, advance.scheme.taps))
+    assert torch.isfinite(want).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if cons:
+        differentiator = integrate.PolynomialDifferentiator(eq, grid, device=cuda, **scheme)
+        _, ref = integrate.integrate(differentiator.rhs_fn(), u, advance.scheme.dt, 10, 10)
+        err = float((got - ref[-1]).abs().max() / ref[-1].abs().max())
+        print(f"against integrate, of max|u|: {err:.3e}")
+        assert err <= 1e-5
 
 
 @pytest.mark.parametrize("name,cons,size,nx,filters", [
@@ -623,6 +673,78 @@ def test_learned_rk4_entry_refuses_groups_out_of_range(cuda, monkeypatch, filter
     with pytest.raises(RuntimeError, match=r"fused_learned_rk4 launch failed: invalid argument"):
         fk.fused_learned_rk4(rough, pack, dt, 1, cluster=2)
     assert fk.fused_learned_rk4.launches == before
+
+
+@pytest.mark.parametrize("per_team,nx,split", [(3, 32, False), (8, 32, False),
+                                               (16, 16, False), (2, 32, True)])
+def test_learned_rk4_entry_refuses_per_team_out_of_range(cuda, monkeypatch, per_team, nx,
+                                                         split):
+    """The C entry checks the trajectories a team itself: a launch handed 3
+    (no kernel has 3), 8 at nx 32 (256 rows, past a team's two tiles), 16,
+    or 2 in the split form, past the wrapper's own checks, is refused with
+    cudaErrorInvalidValue before anything runs."""
+    batch = 1061
+    model, params, _ = _model("ks", True, 6, cuda, nx=nx, filters=32)
+    pack = fk.pack_learned_rk4(params, model.equation, model.grid, model.config.kernel_size,
+                               model.constraint_layers, model.taps)
+    dt = model.equation.stable_time_step(model.grid, u_scale=3.0)
+    rough = torch.zeros(batch, nx, device=cuda)
+    good = fk.learned_rk4_launch(pack, nx, 0, batch, cluster=1 if split else None)
+    bad = good._replace(per_team=per_team)
+    monkeypatch.setattr(fk, "learned_rk4_launch", lambda *a, **k: bad)
+    before = fk.fused_learned_rk4.launches
+    with pytest.raises(RuntimeError, match=r"fused_learned_rk4 launch failed: invalid argument"):
+        fk.fused_learned_rk4(rough, pack, dt, 1)
+    assert fk.fused_learned_rk4.launches == before
+
+
+# The zoo's short-grid models (nx < 128: the launch packs 2, 4 or 8
+# trajectories a team from a batch of 132 teams or more)
+PACKED_ZOO = ["ckpt_ks16", "ckpt_ks32", "ks32_select_seed0", "ckpt_kdv8", "ckpt_kdv16",
+              "ckpt_kdv16_f64", "kdv16_select_seed7", "ckpt_burgers64"]
+
+
+@pytest.mark.parametrize("batch", [256, 4097, 10239, 10240])
+@pytest.mark.parametrize("checkpoint", PACKED_ZOO)
+def test_learned_rk4_packed_bit_for_bit_at_zoo_shapes(cuda, checkpoint, batch):
+    """Packing P trajectories a team changes which rows a warp holds, not
+    what a row computes: each row runs P = 1's products and sums in the same
+    order. So at each zoo model's own grid, with its trained weights (and
+    its members' forcing, for Burgers), the packed launch (the launch's own
+    P, and the most its grid takes, forced at B=256, whose launch keeps P =
+    1) gives the unpacked one's bits (per_team=1): one step from N(0,1) and
+    20 steps from a smooth state at the KdV protocols' ic_scale of 0.5,
+    ragged last teams (4097, 10239) and blocks included. A member that blows
+    up gives NaN in each (KdV-16x and Burgers-64x lose a few at full scale);
+    at least 99% stay finite, so the bits compared are numbers."""
+    model, params, _ = convert.load_asset(checkpoint, device=cuda)
+    eq, grid = model.equation, model.grid
+    pack = fk.pack_learned_rk4(params, eq, grid, model.config.kernel_size,
+                               model.constraint_layers, model.taps)
+    dt = model.stable_time_step(u_scale=3.0)
+    gen = torch.Generator().manual_seed(4)
+    fp, terms = None, 0
+    if eq.forced:
+        fp = fk.pack_forcing(eq.sample_forcing(gen, (batch,), cuda), 3.7, eq, grid, dt, batch)
+        terms = fp.amplitude.shape[-1]
+    rough = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (batch, grid.size)).astype(np.float32)).to(cuda)
+    smooth = 0.5 * eq.initial_conditions(gen, grid, (batch,), cuda)
+    most = fk.most_per_team(pack, grid.size)
+    launch = fk.learned_rk4_launch(pack, grid.size, terms, batch)
+    assert most > 1 and launch.per_team == (1 if batch == 256 else most)
+    runs = {}
+    for per_team in (1, None, most):
+        runs[per_team] = [fk.fused_learned_rk4(v, pack, dt, steps, forcing=fp, per_team=per_team)
+                          for v, steps in ((rough, 1), (smooth, 20))]
+    torch.cuda.synchronize()
+    print(f"{checkpoint} B={batch}: {launch}")
+    for per_team in (None, most):
+        for got, want in zip(runs[per_team], runs[1]):
+            assert torch.equal(got.nan_to_num(nan=7.0), want.nan_to_num(nan=7.0))
+    finite = int(torch.isfinite(runs[1][1]).all(-1).sum())
+    print(f"{finite} of {batch} members finite after 20 steps")
+    assert finite >= 0.99 * batch
 
 
 @pytest.mark.parametrize("name,cons,size,filters,nx,cluster,groups,stream", [
@@ -921,25 +1043,38 @@ def test_run_ensemble_takes_the_kernel_at_256_filters_on_card(cuda, tmp_path):
     assert result["finite"] == 64
 
 
-def test_run_ensemble_burgers64_refused_on_card(cuda, capsys):
-    """Burgers-64x's 16 points are below the learned kernel's 32: run_ensemble
-    --fused true raises learned_rk4_refusal's reason before any launch, and
-    --fused auto takes rhs_fn steps (four fused_rhs launches per step, at
-    8 trajectories of 16 points a block) and prints why."""
+def test_run_ensemble_burgers64_takes_the_kernel_on_card(cuda, capsys):
+    """Burgers-64x's 16 points, which the learned kernel refused before it
+    packed short grids (nx=16 < 32; rhs_fn steps), take the kernel at
+    --fused auto: one launch per save, no fused_rhs, 8 trajectories a team
+    at 1061 members (133 teams, the last holding 5); the members that stay
+    finite (a member near the model's stability edge blows up by both
+    routes: 1 of 1061 on an H100) are the same by both routes, at least
+    99%, and 90% of them end within 2e-3 of max|u| of --fused false's (the
+    JAX package's bound for its kernel against a float32 tower) at every
+    point. A few members near the edge amplify the bf16 tower's difference
+    from the float32 route on 16 points (45 of 16,960 values differed by up
+    to 0.29 on an H100), so the run is held at the quantile
+    chip_smoke.hold_run uses."""
     from pde_superresolution_torch.scripts import run_ensemble
 
-    args = ["--checkpoint_dir", "ckpt_burgers64", "--num_trajectories", "64",
+    args = ["--checkpoint_dir", "ckpt_burgers64", "--num_trajectories", "1061",
             "--time_max", "0.2", "--warmup_time", "0.2", "--num_saves", "2"]
     fk.fused_learned_rk4.launches = fk.fused_rhs.launches = 0
-    with pytest.raises(ValueError, match=r"^--fused true, but the kernel cannot take this "
-                                         r"shape: nx=16 < 32$"):
-        run_ensemble.main(args + ["--fused", "true"])
-    assert (fk.fused_learned_rk4.launches, fk.fused_rhs.launches) == (0, 0)
-    result = run_ensemble.main(args)
-    assert result["path"] == "rhs_fn steps" and result["reason"] == "auto: nx=16 < 32"
-    assert "route: rhs_fn steps (auto: nx=16 < 32)" in capsys.readouterr().out
-    assert fk.fused_learned_rk4.launches == 0
-    assert fk.fused_rhs.launches == 4 * result["num_steps"] and result["finite"] == 64
+    fused = run_ensemble.main(args)
+    assert fused["path"] == "fused kernel" and fused["reason"].startswith("auto: cuda")
+    assert "warp groups of 8 trajectories" in fused["reason"]
+    assert "route: fused kernel" in capsys.readouterr().out
+    assert (fk.fused_learned_rk4.launches, fk.fused_rhs.launches) == (2, 0)
+    steps = run_ensemble.main(args + ["--fused", "false"])
+    assert steps["path"] == "rhs_fn steps" and fused["nx"] == 16
+    live = torch.isfinite(fused["final"]).all(-1) & torch.isfinite(steps["final"]).all(-1)
+    assert fused["finite"] == steps["finite"] == int(live.sum()) >= 0.99 * 1061
+    worst = ((fused["final"][live] - steps["final"][live]).abs().amax(-1)
+             / float(steps["final"][live].abs().max()))
+    print(f"of max|u|, each member's worst point: 90% quantile "
+          f"{float(worst.quantile(0.9)):.3e}, max {float(worst.max()):.3e}")
+    assert float(worst.quantile(0.9)) <= 2e-3
 
 
 def test_run_ensemble_routes_on_card(cuda):

@@ -364,7 +364,11 @@ def test_forced_wrapper_checks():
     # 2048 forced points are more than one block holds: split, not refused
     assert fk.learned_rk4_refusal(advance.pack, 2048, 20) is None
     assert fk.learned_rk4_launch(advance.pack, 2048, 20, BATCH).split
-    assert "nx=16 < 32" in fk.learned_rk4_refusal(advance.pack, 16, 20)
+    # 16 points (Burgers-64x's grid), which the kernel refused before it
+    # packed short grids, are taken, 8 trajectories a team; 15 are refused
+    assert fk.learned_rk4_refusal(advance.pack, 16, 20) is None
+    assert fk.learned_rk4_launch(advance.pack, 16, 20, 10240).per_team == 8
+    assert fk.learned_rk4_refusal(advance.pack, 15, 20) == "nx=15 < 16"
     launch = fk.learned_rk4_launch(advance.pack, NX, 20, BATCH)
     # 8 filters pad to 16: 2 planes of nx + 4 halo rows + a dump row; u with 8
     # halo points at each end; the z row: F | 1 floats
@@ -795,6 +799,108 @@ def test_learned_rk4_launch_geometry(geometry_packs, filters, nx, terms, batch):
         assert launch.teams == min(fk.MAX_TEAMS, fit)
 
 
+def _packed_team_bytes(pack, nx, terms, per_team):
+    """A team's shared bytes counted here from the layout: P nx rows rounded
+    up to 64 with the conv's 4 halo rows of each trajectory and a dump row
+    in each of two bf16 buffers; u with 8 halo points of each trajectory a
+    side, fluxes, step start, k sum; one [32, F | 1] z tile per warp; forced,
+    the forcing row, 16 bytes of alignment, 16 bytes of constants per term
+    and trajectory, (sin, cos) per term and row."""
+    rows = -(-nx * per_team // 64) * 64
+    n = (2 * (pack.padded_channels // 8) * (rows + 4 * per_team + 1) * 16
+         + 4 * (4 * rows + 16 * per_team) + 4 * 32 * (pack.n_free | 1) * 4)
+    if terms:
+        n += 4 * rows + 16 + 16 * terms * per_team + 8 * terms * nx * per_team
+    return -(-n // 128) * 128
+
+
+@pytest.mark.parametrize("batch", [256, 263, 525, 1037, 4096, 4097, 10239, 10240])
+@pytest.mark.parametrize("terms", [0, 20])
+@pytest.mark.parametrize("nx", [16, 32, 48, 64, 96, 128])
+@pytest.mark.parametrize("filters", [8, 32])
+def test_learned_rk4_packed_launch_geometry(geometry_packs, filters, nx, terms, batch):
+    """The whole form on short grids packs P trajectories a team: the most
+    of 1, 2, 4, 8 whose P nx points fit two 64-row tiles (8 at nx 16, 4 at
+    32, 2 at 48 and 64, 1 from 96), as long as ceil(batch / P) teams are at
+    least the 132 SMs (at nx 32: P = 4 from B = 525, 2 from 263, 1 at 256).
+    The team's bytes follow the packed layout (``_packed_team_bytes``, the
+    rule of ``team_bytes_needed``); every trajectory has a slot, the last
+    team and block ragged; ``per_team=1`` gives the unpacked launch, which
+    every batch took before."""
+    pack = geometry_packs[filters]
+    launch = fk.learned_rk4_launch(pack, nx, terms, batch)
+    most = max(p for p in (1, 2, 4, 8) if p * nx <= 128 or p == 1)
+    want = max(p for p in (1, 2, 4, 8) if p <= most and (p == 1 or -(-batch // p) >= 132))
+    assert fk.learned_rk4_refusal(pack, nx, terms) is None
+    assert fk.most_per_team(pack, nx) == most
+    assert not launch.split and launch.per_team == want and launch.segment == nx
+    assert launch.team_bytes == _packed_team_bytes(pack, nx, terms, want)
+    assert launch.team_bytes == fk._team_bytes(pack, nx, terms, want)
+    slots = -(-batch // want)
+    fit = (232448 - pack.blob.numel()) // launch.team_bytes
+    assert launch.teams == min(4, fit, max(1, slots // 132)) >= 1
+    assert launch.threads == 128 * launch.teams
+    assert launch.shared_bytes == pack.blob.numel() + launch.teams * launch.team_bytes <= 232448
+    assert launch.blocks == -(-slots // launch.teams)
+    assert launch.blocks * launch.teams * want >= batch > (launch.blocks - 1) * launch.teams * want
+    assert slots >= 132 or want == 1
+    unpacked = fk.learned_rk4_launch(pack, nx, terms, batch, per_team=1)
+    assert unpacked.per_team == 1 and unpacked.team_bytes == _packed_team_bytes(pack, nx, terms, 1)
+    assert unpacked.teams == min(4, (232448 - pack.blob.numel()) // unpacked.team_bytes,
+                                 max(1, batch // 132))
+    assert unpacked.blocks == -(-batch // unpacked.teams)
+    for p in (2, 4, 8):
+        if p <= most:
+            forced_p = fk.learned_rk4_launch(pack, nx, terms, batch, per_team=p)
+            assert forced_p.per_team == p
+            assert forced_p.team_bytes == _packed_team_bytes(pack, nx, terms, p)
+        else:
+            with pytest.raises(ValueError, match=f"per_team={p}"):
+                fk.learned_rk4_launch(pack, nx, terms, batch, per_team=p)
+
+
+def test_learned_rk4_per_team_refusals():
+    """``per_team`` forces the packing of the whole form and raises outside
+    it: a count not in 1, 2, 4, 8; more than two 64-row tiles of points; 128
+    filters (one trajectory a block); beside ``cluster`` or ``groups``
+    (the split form, one segment a block); a team that does not fit beside
+    the weights. The split form takes nx >= 32, the whole form nx >= 16: at
+    16 to 31 points a shape only the split form holds (a conv kernel wider
+    than the grid) is refused. The CPU's plain version ignores per_team."""
+    model, params = _torch_model(8, nx=32)
+    pack = _pack(model, params)
+    for bad in (0, 3, 16):
+        with pytest.raises(ValueError, match=f"per_team={bad}"):
+            fk.learned_rk4_launch(pack, 32, 0, 10240, per_team=bad)
+    with pytest.raises(ValueError, match="per_team=8: the whole form packs"):
+        fk.learned_rk4_launch(pack, 32, 0, 10240, per_team=8)
+    with pytest.raises(ValueError, match="force the split form"):
+        fk.learned_rk4_launch(pack, 32, 0, 10240, cluster=1, per_team=2)
+    with pytest.raises(ValueError, match="force the split form"):
+        fk.learned_rk4_launch(pack, 32, 0, 10240, groups=2, per_team=4)
+    assert fk.learned_rk4_launch(pack, 32, 0, 10240, cluster=1, per_team=1).split
+    wide = _pack(*_torch_model(128, layers=1, nx=32))
+    assert fk.most_per_team(wide, 32) == 1
+    assert fk.learned_rk4_launch(wide, 32, 0, 10240).per_team == 1
+    with pytest.raises(ValueError, match="per_team=2"):
+        fk.learned_rk4_launch(wide, 32, 0, 10240, per_team=2)
+    # room for one unpacked team: the packed ones do not fit, so P = 1
+    limit = pack.blob.numel() + fk._team_bytes(pack, 32, 0)
+    assert fk._team_bytes(pack, 32, 0, 2) > fk._team_bytes(pack, 32, 0)
+    assert fk.learned_rk4_launch(pack, 32, 0, 10240, shared_limit=limit)[:5] == (
+        1, 128, fk._team_bytes(pack, 32, 0), limit, 10240)
+    with pytest.raises(ValueError, match="do not fit a team"):
+        fk.learned_rk4_launch(pack, 32, 0, 10240, shared_limit=limit, per_team=4)
+    reach = _pack(*_torch_model(8, layers=1, nx=32, kernel_size=35))
+    assert fk.learned_rk4_refusal(reach, 24) == "nx=24 < 32 in the split form"
+    assert fk.learned_rk4_refusal(reach, 32) is None
+    assert fk.learned_rk4_refusal(pack, 16) is None
+    assert fk.learned_rk4_refusal(pack, 8) == "nx=8 < 16"
+    u = torch.from_numpy(np.random.default_rng(2).standard_normal((6, 32)).astype(np.float32))
+    assert torch.equal(fk.fused_learned_rk4(u, pack, 1e-4, 2, per_team=4),
+                       fk.fused_learned_rk4_plain(u, pack, 1e-4, 2))
+
+
 def test_learned_rk4_refuses_wide_and_deep():
     """More than 128 filters, which the kernel refused before its chunked
     form ("136 filters > kernel limit 128"), are taken, in the split form
@@ -968,7 +1074,7 @@ def test_learned_rk4_split_launch_geometry(split_packs, filters, name, nx, clust
         most = 1 if wide else 4
         teams = min(most, (limit - whole) // one, batch // 132)
         assert launch == (teams, 128 * teams, one, whole + teams * one, -(-batch // teams),
-                          False, 1, nx, wide, 1)
+                          False, 1, nx, wide, 1, 1)
         return
     _check_split(pack, nx, terms, launch, batch, cluster, groups, limit)
     assert launch.cluster <= fk.MAX_CLUSTER

@@ -124,22 +124,28 @@ def test_zoo_fused_plain_matches_rhs_fn_route(name):
 
 # The launches the card makes at the zoo's shapes (fused_kernels decides them
 # in Python): fused_rhs at the evaluation's batch (32) and the ensemble's
-# (10240) as (rows, threads_x, halo, shared bytes, blocks), fused_learned_rk4
-# at 10240 as (teams, bytes a team, weight bytes, shared bytes), None where
-# the kernel refuses the grid.
+# (10240) as (rows, threads_x, halo, shared bytes, blocks); fused_learned_rk4
+# at 10240 unpacked (per_team=1, every launch before the kernel packed short
+# grids) as (teams, bytes a team, weight bytes, shared bytes), and as the
+# launch packs it (trajectories a team, teams a block, bytes a team, shared
+# bytes, blocks).
 GEOMETRY = {
     "ckpt_ks8_u16s8": ((1, 128, 4, 13360, 32), (1, 128, 4, 13360, 10240),
-                       (4, 26880, 23680, 131200)),
-    "ckpt_ks16": ((1, 64, 4, 6704, 32), (2, 64, 4, 13392, 5120), (4, 17664, 23680, 94336)),
-    "ckpt_ks32": ((1, 32, 5, 4144, 32), (4, 32, 5, 16560, 2560), (4, 20736, 25088, 108032)),
+                       (4, 26880, 23680, 131200), (1, 4, 26880, 131200, 2560)),
+    "ckpt_ks16": ((1, 64, 4, 6704, 32), (2, 64, 4, 13392, 5120), (4, 17664, 23680, 94336),
+                  (2, 4, 27392, 133248, 1280)),
+    "ckpt_ks32": ((1, 32, 5, 4144, 32), (4, 32, 5, 16560, 2560), (4, 20736, 25088, 108032),
+                  (4, 4, 31616, 151552, 640)),
     "ks32_select_seed0": ((1, 32, 5, 4144, 32), (4, 32, 5, 16560, 2560),
-                          (4, 20736, 25088, 108032)),
-    "ckpt_kdv16": ((1, 32, 5, 2864, 32), (4, 32, 5, 11440, 2560), (4, 17664, 24064, 94720)),
+                          (4, 20736, 25088, 108032), (4, 4, 31616, 151552, 640)),
+    "ckpt_kdv16": ((1, 32, 5, 2864, 32), (4, 32, 5, 11440, 2560), (4, 17664, 24064, 94720),
+                   (4, 4, 28544, 138240, 640)),
     "ckpt_kdv16_f64": ((1, 32, 5, 2864, 32), (4, 32, 5, 11440, 2560),
-                       (4, 26496, 87936, 193920)),
+                       (4, 26496, 87936, 193920), (4, 3, 47104, 229248, 854)),
     "kdv16_select_seed7": ((1, 32, 5, 2864, 32), (4, 32, 5, 11440, 2560),
-                           (4, 17664, 24064, 94720)),
-    "ckpt_burgers64": ((1, 32, 4, 1200, 32), (8, 32, 4, 9504, 1280), None),
+                           (4, 17664, 24064, 94720), (4, 4, 28544, 138240, 640)),
+    "ckpt_burgers64": ((1, 32, 4, 1200, 32), (8, 32, 4, 9504, 1280), (4, 17792, 23424, 94592),
+                       (8, 4, 51456, 229248, 320)),
 }
 
 
@@ -147,13 +153,16 @@ GEOMETRY = {
 def test_zoo_launch_geometry(name):
     """Each model's launches at the zoo's shapes, as predicted: a 16-point
     Burgers trajectory in a 32-lane row, 8 rows a block at B=10240; 10-tap
-    rows at nx=32 with a halo of 5, 4 a block; the 64-filter KdV-16x tower
-    with 4 teams in 193920 of the 232448 bytes of a block, the fullest block
-    the learned kernel launches; and Burgers-64x refused by the learned
-    kernel for its 16 points (JAX's kernel refuses it too: nx % 128)."""
+    rows at nx=32 with a halo of 5, 4 a block; unpacked, the 64-filter
+    KdV-16x tower with 4 teams in 193920 of the 232448 bytes of a block.
+    Packed, the learned kernel fills a team's 128 rows: 2 trajectories at nx
+    64, 4 at 32, 8 at Burgers-64x's 16 points, which it refused before it
+    packed (JAX's kernel refuses them: nx % 128), and 3 teams of 4 KdV-16x
+    f64 trajectories, 4 of 8 Burgers-64x ones, in 229248 bytes; nx 128 is
+    not packed. At B=256 every model keeps the unpacked launch."""
     model, params, config = convert.load_asset(name, device="cpu")
     nx = model.grid.size
-    rhs_32, rhs_ensemble, learned = GEOMETRY[name]
+    rhs_32, rhs_ensemble, learned, packed = GEOMETRY[name]
     for batch, want in ((32, rhs_32), (10240, rhs_ensemble)):
         launch = fk.rhs_launch(batch, nx, model.taps)
         assert (launch.rows, launch.threads_x, launch.halo, launch.shared_bytes,
@@ -162,31 +171,37 @@ def test_zoo_launch_geometry(name):
     pack = fk.pack_learned_rk4(params, model.equation, model.grid, model.config.kernel_size,
                                model.constraint_layers, model.taps)
     terms = 20 if model.equation.forced else 0
-    refusal = fk.learned_rk4_refusal(pack, nx, terms)
-    if learned is None:
-        assert refusal == f"nx={nx} < 32"
-        return
-    assert refusal is None
-    launch = fk.learned_rk4_launch(pack, nx, terms, 10240)
+    assert fk.learned_rk4_refusal(pack, nx, terms) is None
+    launch = fk.learned_rk4_launch(pack, nx, terms, 10240, per_team=1)
     assert (launch.teams, launch.team_bytes, pack.blob.numel(), launch.shared_bytes) == learned
     assert launch.shared_bytes <= fk.MAX_SHARED_BYTES and launch.blocks == 2560
+    launch = fk.learned_rk4_launch(pack, nx, terms, 10240)
+    assert (launch.per_team, launch.teams, launch.team_bytes, launch.shared_bytes,
+            launch.blocks) == packed
+    assert launch.shared_bytes <= fk.MAX_SHARED_BYTES and not launch.split
+    assert fk.learned_rk4_launch(pack, nx, terms, 256) == fk.learned_rk4_launch(
+        pack, nx, terms, 256, per_team=1)
     reach = max(abs(t) for taps in pack.taps.values() for t in taps)
     assert pack.padded_channels == config["model"]["filters"] and reach <= fk.U_HALO
 
 
 def test_burgers64_ensemble_route(capsys):
-    """run_ensemble on Burgers-64x: --fused true raises the learned kernel's
-    refusal (nx=16 < 32) before anything runs; --fused auto takes rhs_fn
-    steps and prints why (on the CPU: the device; the card's refusal is
-    tests/test_torch_gpu.py's)."""
+    """run_ensemble on Burgers-64x: the learned kernel takes its 16 points
+    (it refused them, nx=16 < 32, before it packed short grids), so --fused
+    true runs the fused route (on the CPU the kernel's plain version) and
+    holds rhs_fn's final state within 2e-3 of max|u| (the plain version's
+    bound against the float32 route); --fused auto takes rhs_fn steps on the
+    CPU and prints why (the card's kernel route is tests/test_torch_gpu.py's)."""
     args = ["--checkpoint_dir", "ckpt_burgers64", "--num_trajectories", "8", "--time_max",
             "0.2", "--warmup_time", "0.1", "--num_saves", "2", "--device", "cpu"]
-    with pytest.raises(ValueError, match=r"^--fused true, but the kernel cannot take this "
-                                         r"shape: nx=16 < 32$"):
-        run_ensemble.main(args + ["--fused", "true"])
+    fused = run_ensemble.main(args + ["--fused", "true"])
+    assert fused["path"].startswith("fused kernel") and fused["reason"] == "--fused true"
     result = run_ensemble.main(args)
     assert result["path"] == "rhs_fn steps" and result["reason"] == "auto: device is cpu"
-    assert result["nx"] == 16 and result["finite"] == 8
+    assert result["nx"] == fused["nx"] == 16 and result["finite"] == fused["finite"] == 8
+    assert torch.equal(fused["initial"], result["initial"])
+    err = float((fused["final"] - result["final"]).abs().max() / result["final"].abs().max())
+    assert err < 2e-3
     assert "route: rhs_fn steps (auto: device is cpu)" in capsys.readouterr().out
 
 
