@@ -69,15 +69,19 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      one trajectory alone; at B=256 and 10240 also KS at accuracy order 4,
      KdV at nx 512 and KS at nx 2048, each beside its bounds and its plain
      version), of the warm-up, and of both ensemble routes end to end;
- 11. ``fused_learned_rk4`` at 128 filters (the streamed form: a block per
-     trajectory, a conv tap's weights at a time through shared memory) and
-     at 256 (the chunked form: the split form in output chunks of 128
-     channels) on the KS-8x and, forced, the Burgers-8x checkpoints widened
-     by ``convert.widen_params``: one step from a standard-normal state
-     against the plain version, which must catch phase 4's three planted
-     weight faults, 10 and 100 steps at B=256; times per 100 steps at B=256
-     and 10240 (at 256 filters Burgers at B=256 only) beside the operations
-     bound, and the plain version's per 100 steps at B=256; and
+ 11. ``fused_learned_rk4`` at 128 filters (the ring: a block per
+     trajectory run by two warp groups, a conv tap's weights at a time
+     through a ring of slots fed by bulk copies shared by a cluster of
+     blocks) and at 256 (the chunked form: the split form in output chunks
+     of 128 channels) on the KS-8x and, forced, the Burgers-8x checkpoints
+     widened by ``convert.widen_params``: one step from a standard-normal
+     state against the plain version, which must catch phase 4's three
+     planted weight faults, 10 and 100 steps at B=256; times per 100 steps
+     at B=256 and 10240 (at 256 filters Burgers at B=256 only) beside the
+     operations bound, at 128 filters the ring held bit for bit against the
+     split form's one block and one group (``cluster=1, groups=1``) and
+     both timed in turns, and the plain version's per 100 steps at B=256;
+     and
      ``scripts.run_ensemble.main`` for the KS model (10240 members, 100
      steps in 10 saves) at ``--fused auto``, which must take the kernel, one
      launch per save;
@@ -94,8 +98,9 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      ``compute_loss(use_kernel=True)`` against ``use_kernel=False``, with a
      planted gross backward fault; ``fused_rhs`` launches per step (384
      forward + 384 recomputed by the rematerialized backward); times of
-     those train steps by route and of an eval step, the step's device-busy
-     share, peak memory beside what was allocated before the step,
+     those train steps by route and of an eval step (their device-busy
+     share is phase 17's, the bench's train leg), peak memory beside what
+     was allocated before the step,
      ``fused_rhs`` at B=128 against its bound and the launch floor, and the
      backward twin's share; ``training.loop.train`` for 4 steps (kernel
      route, the recipe's three learning rates switching after steps 1 and
@@ -376,10 +381,10 @@ SLEEP_CYCLES = 60_000_000  # about 30 ms of device-side sleep at H100 clocks
 # limit between the kernel and its plain version. TF32 left on and a planted fault (heads zeroed: 1.2e-4 for
 # KS-8x, 2.1e-3 for Burgers-8x) must fail the plain check.
 # (asset, run_export --num_steps): the first is exported in a process of its
-# own while the second is exported, checked and served here; the KS-8x
-# export's host tracing grows with its steps (78.8 s at 8 on a slow card
-# host, beside the Burgers-8x chain's 85 s on the same cores)
-SERVE_EXPORTS = (("ckpt_ks8", 4), ("ckpt_burgers8", 4))
+# own while the second is exported, checked and served here; the host
+# tracing grows with the steps (78.8 s at 8 on a slow card host, beside the
+# Burgers-8x chain's 85 s on the same cores; 29-34 s at 4 on an H100's host)
+SERVE_EXPORTS = (("ckpt_ks8", 2), ("ckpt_burgers8", 2))
 SERVE_RHS_TOL = 1e-4  # the served RHS against the live fused_rhs route
 SERVE_PLAIN_TOL = 1e-7  # ... against the live plain route
 SERVE_STEP_TOL = 1e-7  # served.advance against integrate of the live plain route
@@ -605,7 +610,11 @@ def tensor_core_line(library) -> str:
             # kernel's <NT, FORCED, CHUNKED, G>): channels = 8 NT, a chunk's
             found = re.search(r"fused_learned_rk4_(cluster_)?kernelILi(\d+)ELb(\d)E"
                               r"(?:Lb(\d)E)?(?:Li(\d)E)?E", name)
-            if found:
+            ring = re.search(r"fused_learned_rk4_wide_kernelILb(\d)E", name)
+            if ring:  # the whole form at 128 channels: <FORCED>
+                name = (f"fused_learned_rk4_wide<128 channels, "
+                        f"{'forced' if ring.group(1) == '1' else 'unforced'}, 2 warp groups>")
+            elif found:
                 count = found.group(5)
                 what = "warp groups" if found.group(1) else "trajectories a team"
                 name = (f"fused_learned_rk4{'_cluster' if found.group(1) else ''}"
@@ -1153,10 +1162,38 @@ def wide_phase(card: str, ks_dt: float, filters: int = WIDE_FILTERS) -> dict:
             def run():
                 return fk.fused_learned_rk4(u, pack, dt, STEPS, forcing=fpb)
 
-            row = {  # at ENSEMBLE one call of seconds
-                "ms": time_ms(run, queued=True) if batch == BATCH else once_ms(run),
-                "bound_ms": learned_rk4_bound_ms(pack, batch, STEPS, terms),
-            }
+            def timed(fn):  # at ENSEMBLE one call of seconds
+                return time_ms(fn, queued=True) if batch == BATCH else once_ms(fn)
+
+            row = {"bound_ms": learned_rk4_bound_ms(pack, batch, STEPS, terms)}
+            if chunked:
+                row["ms"] = timed(run)
+            else:
+                # the ring against the split form's one block and one group
+                # (one window of a slice, the same products in the same
+                # order): bit for bit, then timed in turns, ring first
+                def one_group():
+                    return fk.fused_learned_rk4(u, pack, dt, STEPS, forcing=fpb, cluster=1,
+                                                groups=1)
+
+                ring_launch = fk.learned_rk4_launch(pack, grid.size, terms, batch)
+                got, want = run(), one_group()
+                torch.cuda.synchronize()
+                if ring_launch.split or not torch.equal(got.nan_to_num(nan=7.0),
+                                                        want.nan_to_num(nan=7.0)):
+                    raise AssertionError(
+                        f"{label} {filters} filters B={batch}: the ring ({ring_launch}) is not "
+                        "bit for bit cluster=1, groups=1")
+                del got, want
+                turns = {"ring": [], "one_group": []}
+                for name in ("ring", "one_group", "one_group", "ring"):
+                    turns[name].append(timed(run if name == "ring" else one_group))
+                row.update({
+                    "ms": statistics.median(turns["ring"]),
+                    "one_group_ms": statistics.median(turns["one_group"]),
+                    "turns_ms": turns, "bit_for_bit_one_group": True,
+                    "slots": ring_launch.slots, "multicast": ring_launch.multicast})
+                row["speedup"] = row["one_group_ms"] / row["ms"]
             if batch == BATCH:  # at ENSEMBLE not timed (cut to make room for phase 19)
                 row["plain_ms"] = time_ms(
                     lambda: fk.fused_learned_rk4_plain(u, pack, dt, STEPS, fpb), samples=1)
@@ -1373,11 +1410,6 @@ def training_phase(card: str, launch_floor_ms: float) -> dict:
                                 config.time_delta, unroll, substeps, use_kernel=True)
 
     eval_ms = time_ms(eval_step, samples=1)
-    start = time.perf_counter()
-    busy = sum(device_profile(lambda: train_step(True), 1, warm_up=False).values()) / 1e3
-    profile_s = time.perf_counter() - start
-    if not busy > 0:
-        raise AssertionError("torch.profiler recorded no device time in a train step")
     u = batch.inputs.contiguous()
     coeffs = {d: c.contiguous() for d, c in model.coefficients(params, u).items()}
     with torch.no_grad():
@@ -1395,9 +1427,6 @@ def training_phase(card: str, launch_floor_ms: float) -> dict:
     log(f"    train step (loss, gradients, Adam), B={config.batch_size}, one warm step each: "
         f"kernel route {step_ms['kernel']:.1f} ms, plain route {step_ms['plain']:.1f} ms; eval "
         f"step ({eval_set.num_samples} samples, kernel route, no grad) {eval_ms:.1f} ms")
-    log(f"    kernel-route step: device busy {busy:.1f} ms of {step_ms['kernel']:.1f} "
-        f"({100 * busy / step_ms['kernel']:.1f}%, torch.profiler, a lower bound; the profiled "
-        f"step took {profile_s:.1f} s)")
     log(f"    peak memory of a step {peak['kernel'] / 2**20:.1f} MiB (plain route "
         f"{peak['plain'] / 2**20:.1f} MiB): {resident / 2**20:.1f} MiB allocated before it "
         f"(the dataset, its splits, the earlier phases' tensors), so the step's own "
@@ -1499,7 +1528,7 @@ def training_phase(card: str, launch_floor_ms: float) -> dict:
         "trajectory_launches": traj_launches["device"] + traj_launches["host"],
         "loss_err": loss_err, "grad_err": worst, "rhs_ms": rhs_ms, "rhs_call_ms": rhs_call_ms,
         "rhs_plain_ms": rhs_plain_ms, "rhs_bound_ms": rhs_bound, "step_ms": step_ms,
-        "eval_ms": eval_ms, "vjp_ms": vjp_ms, "busy_ms": busy, "peak_bytes": peak,
+        "eval_ms": eval_ms, "vjp_ms": vjp_ms, "peak_bytes": peak,
         "data_s": data_s, "norms_s": norms_s, "smooth_grad_err": smooth_err, "phase_s": phase_s,
     }
 
@@ -3557,6 +3586,40 @@ def packed_kernel_row(zoo: dict) -> dict:
     }
 
 
+def ring_kernel_row(wide: dict) -> dict:
+    """The kernels line's row of the whole form at 128 filters (the ring,
+    towers of 65 to 128 filters), from phase 11 at WIDE_FILTERS: its
+    launches on the ``run_ensemble --fused auto`` path, its times at the
+    KS-8x shapes and, forced, the Burgers-8x ones, each beside the split
+    form's one block and one group timed in turns."""
+    ks = wide[f"ks8 B={BATCH}"]
+    return {
+        "name": "fused_learned_rk4_ring",
+        "route": "cuda",
+        "source": "pde_superresolution_torch/csrc/fused_learned_rk4_wide.cu",
+        "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:390",
+        "launches": wide["ensemble_launches"],
+        "launches_by_path": {f"ks8 shapes at {WIDE_FILTERS} filters, ensemble --fused auto":
+                             wide["ensemble_launches"]},
+        "shape": f"B={BATCH} nx=128, {STEPS} steps, {WIDE_FILTERS} filters",
+        "max_abs_err": wide["err"],
+        "ms": ks["ms"],
+        "plain_ms": ks["plain_ms"],
+        "bound_ms": ks["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": None,
+        "ms_by_batch": {BATCH: ks["ms"], ENSEMBLE: wide[f"ks8 B={ENSEMBLE}"]["ms"]},
+        "bound_ms_by_batch": {BATCH: ks["bound_ms"],
+                              ENSEMBLE: wide[f"ks8 B={ENSEMBLE}"]["bound_ms"]},
+        "rows": {key: row for key, row in wide.items() if " B=" in key},
+        "launch_ks8": wide["ks8 launch"],
+        "launch_burgers8": wide["burgers8 launch"],
+        "ensemble_route": wide["ensemble_route"],
+        "ensemble_traj_steps_per_s": wide["ensemble_traj_steps_per_s"],
+        "phase_11_s": wide["phase_s"],
+    }
+
+
 def chunked_kernel_row(chunked: dict, domain: dict) -> dict:
     """The kernels line's row of the chunked form (towers wider than 128
     filters), from phase 11 at CHUNKED_FILTERS (its launches on the
@@ -4224,14 +4287,11 @@ def main() -> int:
             "source": "pde_superresolution_torch/csrc/fused_learned_rk4.cu",
             "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:390",
             "launches": (launches["fused_learned_rk4"] + unforced_ensemble_launches
-                         + wide["ensemble_launches"]
                          + parallel["ks_mesh_launches"] + parallel["trained_served_launches"]
                          + tools["launches"]["fused_learned_rk4"]
                          + sum(zoo_launches("fused_learned_rk4").values())),
             "launches_by_path": {"ks8 integrate_fused B=256": launches["fused_learned_rk4"],
                                  "ks8 ensemble --fused true": unforced_ensemble_launches,
-                                 f"ks8 shapes at {WIDE_FILTERS} filters, ensemble --fused auto":
-                                     wide["ensemble_launches"],
                                  "ks8 fused_rk4_fn(mesh=) B=10240": parallel["ks_mesh_launches"],
                                  "run_training --data_parallel 1 checkpoint, run_ensemble "
                                  "--data_parallel 1": parallel["trained_served_launches"],
@@ -4254,9 +4314,6 @@ def main() -> int:
                                       "fused_learned_rk4_plain_ms"],
                                   ENSEMBLE: full["unforced_rk4_plain_ms"]},
             "bench_fused_b256_steps_per_s": tools["bench"]["detail"]["fused"]["median"],
-            f"{WIDE_FILTERS}_filters": {k: v for k, v in wide.items()
-                                        if k not in ("ensemble_launches", "err")},
-            f"{WIDE_FILTERS}_filters_max_abs_err": wide["err"],
             "zoo": zoo_shapes(zoo["learned"]),
             "zoo_ensembles": {name: {k: v for k, v in row.items() if k != "launches"}
                               for name, row in zoo["ensembles"].items()},
@@ -4284,6 +4341,7 @@ def main() -> int:
             "library_ms": None,
         },
         packed_kernel_row(zoo),
+        ring_kernel_row(wide),
         split_kernel_row(domain, terms),
         chunked_kernel_row(chunked, domain),
         {

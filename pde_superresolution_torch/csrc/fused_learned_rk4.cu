@@ -3,11 +3,12 @@
 // pde_superresolution_tpu/ops/pallas_kernels.py (the pallas_call at line
 // 758). The design note and the kernel body are in fused_learned_rk4.cuh.
 //
-// This file builds the whole form (up to 4 teams a block, or one at 128
-// channels; fused_learned_rk4_whole.cuh) with one trajectory a team, and
-// holds the C entry point, which hands a packed launch (P > 1 trajectories a
-// team) to the kernel of its P (fused_learned_rk4_p2.cu, _p4.cu, _p8.cu) and
-// a split launch (cfg.cluster > 0, with its warp groups a block; every tower
+// This file builds the whole form below 128 channels (up to 4 teams a
+// block; fused_learned_rk4_whole.cuh) with one trajectory a team, and holds
+// the C entry point, which hands a packed launch (P > 1 trajectories a team)
+// to the kernel of its P (fused_learned_rk4_p2.cu, _p4.cu, _p8.cu), the
+// whole form at 128 channels to the ring (fused_learned_rk4_wide.cu) and a
+// split launch (cfg.cluster > 0, with its warp groups a block; every tower
 // wider than 128 filters) to the kernel of its warp-group count
 // (fused_learned_rk4_cluster.cuh).
 
@@ -36,7 +37,8 @@ extern template int pde::launch_learned_rk4_whole<kMaxPerTeam>(int, bool, const 
 //       ksize, layers, n_free, n_orders, size[3], tap0[3], free0[3],
 //       free_n[3], proj0[3], forcing terms (0 if unforced), teams per block
 //       (in the split form: its warp groups on the one segment, 1, 2 or 4,
-//       at most 2 at 128 channels and above), shared-memory bytes per team (a
+//       at most 2 at 128 channels and above; in the ring the kWideGroups on
+//       its trajectory), shared-memory bytes per team (a
 //       trajectory, or the segment's layout), halo (periodic points of u at
 //       each end, at least the reach of the conv kernel and of every order's
 //       taps), cluster (0: whole trajectories a block; C >= 1: the split
@@ -44,9 +46,13 @@ extern template int pde::launch_learned_rk4_whole<kMaxPerTeam>(int, bool, const 
 //       block in the split form), stream (the split form streams layer >= 1's
 //       weights a conv tap at a time: 1, or keeps them whole: 0), trajectories
 //       a team in the whole form (1, 2, 4 or 8; more than 1 below 128
-//       channels with nx times it at most 128 points; 1 in the split form).
+//       channels with nx times it at most 128 points; 1 in the split form),
+//       the ring's slots (1 to kMaxRingSlots in the whole form at 128
+//       channels, else 0) and the blocks of a cluster that share its copies
+//       (1 to kMaxWideCluster, a trajectory each).
 // offsets: the weights' bytes in shared memory (the whole buffer, or when
-//          streamed the window of one tap's slice, 2 x min(channels, 128)^2),
+//          streamed the window of one tap's slice, 2 x min(channels, 128)^2,
+//          or the ring's slots of one such slice each),
 //          then the blocks' byte offsets in buffer order: w[0], b[0], ...,
 //          w[layers-1], b[layers-1], hw, hb, projection. Layer l >= 1 must lie
 //          at a fixed stride from layer 1, as pack_learned_rk4 lays them out.
@@ -101,6 +107,15 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
   cfg.channels = channels;
   const bool chunked = channels > 8 * kWideNT;
   const int per_team = meta[30];
+  const bool wide = channels == 8 * kWideNT;
+  const bool ring = wide && !split;  // the whole form at 128 channels
+  cfg.ring = ring ? meta[31] : 0;
+  if (ring) cfg.cluster = meta[32];
+  if ((meta[31] != 0) != ring ||
+      (ring && (cfg.ring < 1 || cfg.ring > kMaxRingSlots || cfg.cluster < 1 ||
+                cfg.cluster > kMaxWideCluster || teams != kWideGroups))) {
+    return (int)cudaErrorInvalidValue;
+  }
   // the split form takes nx >= 32, the whole form nx >= 16
   if (cfg.layers < 1 || cfg.nx < (split ? 32 : 16) || cfg.ksize < 1 || cfg.halo < reach) {
     return (int)cudaErrorInvalidValue;
@@ -109,7 +124,6 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
       (per_team > 1 && (split || channels >= 8 * kWideNT || per_team * cfg.nx > kPackedRows))) {
     return (int)cudaErrorInvalidValue;
   }
-  const bool wide = channels == 8 * kWideNT;
   const bool stream_weights = wide || cfg.stream;
   // the chunked form: a multiple of 16 channels, always split and streamed
   if (chunked && (channels % 16 || !split || !cfg.stream)) return (int)cudaErrorInvalidValue;
@@ -142,7 +156,8 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
     fp.cos0 = forcing[4];
   }
   const int slice_channels = chunked ? 8 * kWideNT : channels;  // of the window's slice
-  if (stream_weights && cfg.weight_bytes != 2 * slice_channels * slice_channels) {
+  if (stream_weights &&
+      cfg.weight_bytes != (ring ? cfg.ring : 1) * 2 * slice_channels * slice_channels) {
     return (int)cudaErrorInvalidValue;
   }
   // the split form's later warp groups keep their z tiles after the segment's layout
@@ -155,16 +170,20 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
       return (int)cudaErrorInvalidValue;
     }
     group_bytes = (teams - 1) * group_z_bytes(cfg.n_free);
-  } else if (teams < 1 || teams > (fp.terms > 0 ? kMaxTeamsForced : kMaxTeams) ||
-             (wide && teams != 1) || cfg.halo > cfg.nx || cfg.ksize - 1 > cfg.nx) {
+  } else if (ring) {  // group 1's z tiles, then the barriers and the issuing thread's state
+    group_bytes = (kWideGroups - 1) * group_z_bytes(cfg.n_free) + kRingControlBytes;
+  } else if (teams < 1 || teams > (fp.terms > 0 ? kMaxTeamsForced : kMaxTeams)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!split && (cfg.halo > cfg.nx || cfg.ksize - 1 > cfg.nx)) {
     return (int)cudaErrorInvalidValue;  // its halos are single periodic copies
   }
   if (cfg.weight_bytes % 16 || cfg.team_bytes % 16 ||
       cfg.team_bytes <
           team_bytes_needed(cfg.seg, channels, cfg.ksize, cfg.n_free, fp.terms, cfg.halo,
                             per_team) ||
-      smem_bytes < cfg.weight_bytes + (split ? cfg.team_bytes + group_bytes
-                                             : teams * cfg.team_bytes)) {
+      smem_bytes < cfg.weight_bytes + (split || ring ? cfg.team_bytes + group_bytes
+                                                     : teams * cfg.team_bytes)) {
     return (int)cudaErrorInvalidValue;
   }
   const bool forced = fp.terms > 0;
@@ -183,6 +202,7 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
                                                   smem_bytes, s);
     }
   }
+  if (ring) return pde::launch_learned_rk4_wide(forced, u, weights, out, cfg, fp, smem_bytes, s);
   switch (per_team) {  // one kernel per count of trajectories a team
     case 1:
       return pde::launch_learned_rk4_whole<1>(channels, forced, u, weights, out, cfg, fp, teams,

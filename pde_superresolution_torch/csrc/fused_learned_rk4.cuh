@@ -1,8 +1,9 @@
 // fused_learned_rk4: num_steps whole RK4 steps of the learned model in one
-// launch. The kernel body, shared by its two forms:
+// launch. The kernel body, shared by its forms:
 // fused_learned_rk4_whole.cuh (whole trajectories a block, P a warp group,
 // built from fused_learned_rk4.cu, which also holds the C entry point, and
-// _p2.cu, _p4.cu, _p8.cu) and fused_learned_rk4_cluster.cuh (one trajectory
+// _p2.cu, _p4.cu, _p8.cu), fused_learned_rk4_wide.cu (the whole form at 128
+// channels: the ring) and fused_learned_rk4_cluster.cuh (one trajectory
 // split over a thread-block cluster, built from fused_learned_rk4_cluster.cu,
 // _g2.cu and _g4.cu).
 //
@@ -101,22 +102,80 @@
 //    the SMs. A trajectory takes about 24 KB of shared memory at the
 //    flagship (two activation buffers 17 KB, state, fluxes, RK4 sums, z
 //    tile) plus 21 KB of float32 phase state when forced.
-//  * Weights and the forcing pack are loaded once per launch with plain
-//    16-byte and 4-byte loads. TMA and cp.async buy nothing here: a launch
-//    reads about 1 KB per trajectory and runs for milliseconds. Layer l >= 1
-//    lies at a fixed stride from layer 1 in the buffer, so the kernel
-//    computes its offsets and a tower may have any number of layers.
+//  * Below 128 channels the weights (about 24 KB at the flagship) and the
+//    forcing pack are loaded once per launch with plain 16-byte and 4-byte
+//    loads: a launch reads about 1 KB of them per trajectory and runs for
+//    milliseconds, so a copy engine has nothing to hide. Layer l >= 1 lies
+//    at a fixed stride from layer 1 in the buffer, so the kernel computes
+//    its offsets and a tower may have any number of layers.
 //  * Towers of 65 to 128 filters (padded to 128, the "wide" form, NT = 16):
 //    one layer's weights alone are 160 KB at kernel 5, so they do not stay in
-//    shared memory. A block holds one team, and layer >= 1's weights pass
-//    through a window of one conv tap's 128 x 128 slice (32 KB): per 64-point
-//    tile and tap the team copies the slice from global memory (L2-resident:
-//    330 KB for the whole tower), waits at its barrier and runs the tap's
-//    eight wgmma.m64n128k16 from it. One tile at a time (64 accumulators a
-//    thread), so lanes 16-31 idle through the projection and stencil. Layer
-//    0's and the heads' fragments, the biases and the projection are read
-//    from global memory where they lie. A simple form: the copies do not
-//    overlap the products and each tile reads the slices again.
+//    shared memory; each conv tap's 128 x 128 slice (32 KB) passes through.
+//    That copy is what bounds a simple form: one warp group copying the
+//    slices with plain loads between two barriers, once per 64-row tile,
+//    moved 640 KB per trajectory and RHS from L2 at nx 128 and overlapped
+//    nothing (27% of the bound; forced, one block an SM, 18%). The whole
+//    form (RING, fused_learned_rk4_wide.cu) therefore runs:
+//    - two warp groups on one trajectory (64 accumulators a thread leave
+//      registers for two), its 64-row tiles dealt out in turn (pass i to
+//      group i mod 2, as in the split form), walking the slices in step so
+//      that one copy of a slice serves every tile: at nx 128 each slice
+//      enters shared memory once per RHS, not once per tile;
+//    - a ring of S slots (as many as fit beside the trajectory, at most
+//      kMaxRingSlots; 1 to 4 at nx 32-256) at the start of shared memory,
+//      each filled by one cp.async.bulk (the slices are contiguous and
+//      16-byte aligned in the buffer: no tensor map), completing on the
+//      slot's "full" mbarrier, whose next lap this block's thread 0 arms
+//      with the slice's byte count once the last one landed;
+//    - a producer warp beside the two groups (288 threads; the consumers
+//      keep their 168-170 registers): block 0's lane 0 issues every slice
+//      of the launch in the order the groups consume them, the first lap at
+//      once and each later slice as soon as its slot's "empty" mbarrier has
+//      an arrival from every consumer warp of the cluster, then leaves the
+//      block's work; the groups meet on a named barrier of their 256
+//      threads. Its count of slices is the launch's, so no copy is in
+//      flight when a block leaves, and a last cluster barrier keeps every
+//      block until the others' remote arrivals are done. Issuing from a
+//      consumer thread instead was 1.6x slower on an H100: that thread
+//      could refill a slot only when it came by, and often found it not yet
+//      free;
+//    - a cluster of C blocks (fused_kernels.WIDE_CLUSTER), a trajectory
+//      each, sharing every copy: the slice is multicast into the slot of
+//      every block (.multicast::cluster), and every warp releases a slot by
+//      a remote arrival on block 0's "empty" barrier (mapa +
+//      mbarrier.arrive.shared::cluster after its wgmma.wait_group), so a
+//      slice crosses from L2 once per cluster. Cluster-scoped acquire and
+//      release on these barriers made the kernel 1.2x slower; the default
+//      scopes, which CUTLASS's pipelines use, suffice (the copy engine and
+//      wgmma both act in the async proxy);
+//    - every RHS walks the same cyclic order of (L - 1) x passes x K slices,
+//      so each slot's phase parity carries across layers, stages and steps,
+//      and the next RHS's first slices load during layer 0 (mma.sync,
+//      weights read from global memory) and the tail;
+//    - with three slots or more a tap's products stay in flight while the
+//      next slice is awaited and its products issued (wgmma.wait_group 1),
+//      its slot released once they are done, so a group's tensor-core work
+//      does not drain at every slice (with two, holding both slots left
+//      the producer nothing to fill ahead: slower than draining). The
+//      barrier operations between them are single predicated asm blocks,
+//      and the last wait of a pass is on every path: where ptxas found a
+//      path without it, it inserted its own waits and serialized the
+//      function's wgmma (1.17x slower on an H100).
+//    A block of the last cluster past an odd batch holds no trajectory: it
+//    runs the rows on zeros, meets every barrier and receives every slice,
+//    and reads and writes nothing of u. Every wait is bounded
+//    (PDE_RING_WAIT_CYCLES): a fault of the protocol traps and fails the
+//    launch instead of hanging the card. The activations are still written
+//    by stmatrix (the generic proxy), so fence.proxy.async stays before the
+//    barrier that precedes the next layer's wgmma; the ring is written only
+//    by the copy engine. Each row's products run in the split form's order
+//    (the bias, then taps 0 .. K - 1, each over its 8 depth steps), so the
+//    ring gives fused_learned_rk4(..., cluster=1, groups=1) bit for bit.
+//    Layer 0's and the heads' fragments, the biases and the projection are
+//    read from global memory where they lie; one tile a pass, so lanes
+//    16-31 still idle through the projection and stencil. The split and
+//    chunked forms keep the window: a slice copied with plain loads between
+//    two block barriers.
 //  * The split form (SPLIT, fused_learned_rk4_cluster.cuh): where one block
 //    cannot hold a trajectory, a thread-block cluster of C blocks (up to 8,
 //    16 where the card schedules it) shares it. Block r of the cluster owns
@@ -179,7 +238,8 @@
 //    scripts/probe_learned_rk4.py: other team counts, and cycles by phase
 //    (each warp's counters written over its team's own output).
 //    -DPDE_FAULT_SKIP_LAST_PASS plants a fault for the card's tests: a split
-//    block's last warp group skips its last pass.
+//    block's last warp group skips its last pass; -DPDE_FAULT_RING_WRONG_SLOT
+//    one in the ring: each slice lands in the slot after its own.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -213,8 +273,9 @@ struct LearnedConfig {
   int team_bytes;    // shared memory of one team
   int halo;          // periodic points of u at each end (>= the reach)
   int seg;           // points a team's layout holds: nx, or a split segment
-  int cluster;       // split form: blocks of one trajectory
+  int cluster;       // split form: blocks of one trajectory; the ring: blocks sharing its copies
   int stream;        // split form: layer >= 1's weights a conv tap at a time
+  int ring;          // the whole form at 128 channels: slots of the ring (weight_bytes / slice)
   int batch, num_steps;
   float dx, eta, half_dt, dt, dt_sixth;
   int channels;  // the padded tower width (a multiple of 16 above 128: the chunked form)
@@ -238,6 +299,13 @@ int launch_learned_rk4_whole(int channels, bool forced, const float* u,
                              const LearnedForcing& fp, int teams, int smem_bytes,
                              cudaStream_t stream);
 
+// The whole form at 128 channels (fused_learned_rk4_wide.cu): kWideGroups
+// warp groups on one trajectory a block, the weights through the ring, a
+// cluster of cfg.cluster blocks sharing each slice's copy.
+int launch_learned_rk4_wide(bool forced, const float* u, const unsigned char* weights, float* out,
+                            const LearnedConfig& cfg, const LearnedForcing& fp, int smem_bytes,
+                            cudaStream_t stream);
+
 }  // namespace pde
 
 namespace {
@@ -252,7 +320,7 @@ using Forcing = pde::LearnedForcing;
 #endif
 constexpr int kMaxTeams = PDE_MAX_TEAMS;  // fused_kernels.MAX_TEAMS: trajectories per block
 constexpr int kTeamThreads = 128;         // one warp group owns a trajectory
-constexpr int kPhases = 10;               // of the PDE_PROFILE build
+constexpr int kPhases = 11;               // of the PDE_PROFILE build
 // A forced trajectory holds 20 KB of phase state: no more than 4 fit a block
 // at the flagship, and their kernel keeps the registers of a 512-thread block.
 constexpr int kMaxTeamsForced = kMaxTeams < 4 ? kMaxTeams : 4;  // MAX_TEAMS_FORCED
@@ -268,6 +336,18 @@ constexpr int kMaxCluster = 16;  // fused_kernels.MAX_CLUSTER
 // 255 that 64 accumulators a thread need
 constexpr int kMaxGroups = 4;
 constexpr int kMaxGroupsWide = 2;
+// the whole form at 128 channels (the ring, fused_learned_rk4_wide.cu):
+// kWideGroups warp groups on one trajectory and one producer warp, up to
+// kMaxRingSlots slots of one conv tap's slice, and after the team's layout
+// and group 1's z tiles kRingControlBytes for the slots' barriers
+// (fused_kernels.WIDE_GROUPS, MAX_RING_SLOTS, RING_CONTROL_BYTES); a
+// cluster of up to kMaxWideCluster blocks, a trajectory each, shares every
+// slice's copy (fused_kernels.MAX_WIDE_CLUSTER)
+constexpr int kWideGroups = 2;
+constexpr int kRingThreads = kTeamThreads * kWideGroups + 32;
+constexpr int kMaxRingSlots = 5;
+constexpr int kRingControlBytes = 128;
+constexpr int kMaxWideCluster = 8;
 // the chunked form: the bytes after the activation buffers that a 64-row
 // tile reads past a plane whose rows are rounded up to 8
 // (fused_kernels.CHUNK_SLACK)
@@ -339,10 +419,83 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// all but the last committed group of this warp group's wgmma are done
+__device__ __forceinline__ void wgmma_wait_all_but_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 // Generic-proxy stores to shared memory become visible to wgmma's reads.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+
+// ---- the ring (RING): mbarriers and bulk copies ----
+// A wait that has not ended after this many cycles (about 2 s at an H100's
+// clock) is a fault of the barrier protocol: the kernel traps and the launch
+// fails, rather than hanging the card.
+#ifndef PDE_RING_WAIT_CYCLES
+#define PDE_RING_WAIT_CYCLES (1ll << 32)
+#endif
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// the inits become visible to the cluster's bulk copies and remote arrivals
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Where a warp group's wgmma may be in flight the ring's barrier operations
+// are single asm blocks, predicated rather than branched: ptxas serializes
+// the wgmma of a function in which one is in flight across a divergent path.
+// One arrival that also expects `bytes` of a bulk copy in this phase, by
+// the threads with `pred`.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes, bool pred = true) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(bar),
+      "r"(bytes), "r"((int)pred)
+      : "memory");
+}
+// Until the phase of parity `parity` has completed; past
+// PDE_RING_WAIT_CYCLES the thread traps.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done, late;\n.reg .u64 t0, t;\nmov.u64 t0, %%clock64;\n"
+      "WAIT:\nmbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n@done bra DONE;\n"
+      "mov.u64 t, %%clock64;\nsub.u64 t, t, t0;\nsetp.gt.u64 late, t, %2;\n@late trap;\n"
+      "bra WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity), "l"((unsigned long long)PDE_RING_WAIT_CYCLES)
+      : "memory");
+}
+// an arrival, by the threads with `pred`, on the barrier at the same offset
+// in block `rank` of the cluster
+__device__ __forceinline__ void mbar_arrive_at(uint32_t bar, int rank, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 remote;\nsetp.ne.b32 p, %2, 0;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(rank), "r"((int)pred)
+      : "memory");
+}
+// `bytes` from global `src` to shared `dst` by the copy engine, completing
+// on the barrier `bar`; with a mask, into the same offsets of every block of
+// the cluster named in it (their barriers at `bar`'s offset too)
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar,
+                                          uint16_t mask) {
+  if (mask) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+        "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+        "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(dst),
+        "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+  }
+}
+
 
 // Pins the accumulators between plain code and the asynchronous wgmma.
 template <int NT>
@@ -494,7 +647,12 @@ constexpr bool kRolledPasses = G > 1 && (NT == 2 || NT == 8);
 // by point (row p P + j holds point p of the team's trajectory j), so a conv
 // tap or stencil shift of t points is one of t P rows and every loop over rows
 // and the tiles runs as for one trajectory of nx P points (the design note).
-template <int NT, bool FORCED, bool SPLIT, bool CHUNKED = false, int G = 1, int P = 1>
+// RING (the whole form at 128 channels): G = kWideGroups warp groups share
+// one trajectory as a split block's share its segment, and layer >= 1's
+// slices arrive by bulk copies into the ring, each shared by the cluster's
+// blocks (the design note).
+template <int NT, bool FORCED, bool SPLIT, bool CHUNKED = false, int G = 1, int P = 1,
+          bool RING = false>
 __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
                                                  const float* __restrict__ u_in,
                                                  const unsigned char* __restrict__ weights,
@@ -502,8 +660,12 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
                                                  const Forcing fp) {
   static_assert(!CHUNKED || (SPLIT && NT == kWideNT), "the chunked form is split, 128 a chunk");
   static_assert((G == 1 || G == 2 || G == 4) &&
-                    G <= (NT == kWideNT ? kMaxGroupsWide : kMaxGroups) && (SPLIT || G == 1),
+                    G <= (NT == kWideNT ? kMaxGroupsWide : kMaxGroups) && (SPLIT || RING || G == 1),
                 "1, 2 or 4 warp groups a split block (1 or 2 wide)");
+  static_assert(RING == (NT == kWideNT && !SPLIT) && (!RING || (G == kWideGroups && P == 1)),
+                "the whole form at 128 channels is the ring, kWideGroups groups a trajectory");
+  // the block's warp groups share one trajectory, or a segment of one
+  constexpr bool GROUPED = SPLIT || RING;
   static_assert((P == 1 || P == 2 || P == 4 || P == 8) && P <= kMaxPerTeam &&
                     (P == 1 || (!SPLIT && NT != kWideNT)),
                 "1, 2, 4 or 8 trajectories a team, more than one in the whole form below 128 "
@@ -535,12 +697,13 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   const int plane_bytes = (rows + (K - 1) * P + 1) * 16, dump_row = rows + (K - 1) * P;
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, q = lane & 3;
   // the block's warp groups: teams of whole trajectories, or in the split
-  // form G groups on the block's one segment
+  // form G groups on the block's one segment (in the ring, on its one
+  // trajectory)
   const int grp = SPLIT && G == 1 ? 0 : tid / kTeamThreads;
-  const int team = SPLIT ? 0 : grp;  // whose trajectory's layout
+  const int team = GROUPED ? 0 : grp;  // whose trajectory's layout
   const int tt = tid - grp * kTeamThreads, wt = tt >> 5;
   // the threads that share the loops over points: a team, or all G groups
-  const int lt = SPLIT ? tid : tt;
+  const int lt = GROUPED ? tid : tt;
   const int lthreads = kRolledPasses<NT, G> ? (int)blockDim.x : kTeamThreads * G;
 
   if (!stream) {
@@ -548,15 +711,45 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
       reinterpret_cast<uint4*>(smem)[i] = reinterpret_cast<const uint4*>(weights)[i];
     }
   }
+  // the ring: S slots of a slice at the start of shared memory; after the
+  // team's layout and group 1's z tiles a "full" barrier a slot (one
+  // arrival, this block's thread 0 expecting the slice's bytes) and an
+  // "empty" one (an arrival of each consumer warp of the cluster's blocks:
+  // the slot is free in every block; only block 0's is used)
+  const int S = RING ? cfg.ring : 1;
+  unsigned char* const ring_ctl =
+      smem + cfg.weight_bytes + cfg.team_bytes + (G - 1) * group_z_bytes(cfg.n_free);
+  const uint32_t ring0 = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t full0 = (uint32_t)__cvta_generic_to_shared(ring_ctl);
+  const uint32_t empty0 = full0 + 8 * kMaxRingSlots;
+  int ring_rank = 0;
+  if constexpr (RING) {
+    ring_rank = (int)cg::this_cluster().block_rank();
+    if (tid == 0) {
+      for (int s = 0; s < S; ++s) {
+        mbar_init(full0 + 8 * s, 1);
+        mbar_init(empty0 + 8 * s, 4 * G * cfg.cluster);
+      }
+      fence_mbarrier_init();
+      for (int s = 0; s < S; ++s) mbar_expect_tx(full0 + 8 * s, SLICE);  // the first lap
+    }
+  }
   fence_proxy_async();  // wgmma reads the weights
   __syncthreads();      // the only block-wide barrier
   long long traj;  // this team's (first) trajectory
   int seg0 = 0, n = nx;  // this team's first point and its count
-  int valid = 1;  // packed: the team's slots that hold a trajectory (the last team's are ragged)
+  // packed: the team's slots that hold a trajectory (the last team's are
+  // ragged); the ring: whether the block holds one (the last cluster's may not)
+  int valid = 1;
   if constexpr (SPLIT) {
     traj = blockIdx.x / cfg.cluster;
     seg0 = (int)cg::this_cluster().block_rank() * cfg.seg;
     n = min(cfg.seg, nx - seg0);
+  } else if constexpr (RING) {
+    // a block without a trajectory runs the rows on zeros, meets every
+    // barrier and receives every slice, and reads and writes no trajectory
+    traj = blockIdx.x;
+    valid = traj < cfg.batch;
   } else {
     traj = ((long long)blockIdx.x * (blockDim.x / kTeamThreads) + team) * P;
     if (traj >= cfg.batch) return;  // a ragged last block: whole teams leave
@@ -573,6 +766,70 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
     return l == 0 ? cfg.w0_off : cfg.w1_off + (l - 1) * cfg.layer_stride;
   };
   auto b_off = [&](int l) { return l == 0 ? cfg.b0_off : w_off(l) + cfg.w_bytes; };
+
+  // The ring (RING). Block 0's producer warp (its lane 0) copies every
+  // slice of the launch in the order the groups consume them (each RHS:
+  // layer, pass, tap) into slot after slot, once for every block of the
+  // cluster (the mask), each once the slot is free in all of them: the
+  // first lap at once, then S slices ahead of the slowest consumer warp.
+  // It holds no trajectory and leaves the block's work at once; every
+  // other block's producer warp only meets the cluster's barriers.
+  if constexpr (RING) {
+    cg::this_cluster().sync();  // every block's barriers are set before a copy or an arrival
+    if (tid >= kTeamThreads * G) {
+      if (ring_rank == 0 && lane == 0) {
+        const int passes = ((nx + 63) / 64 + G - 1) / G;  // of 64-row tiles a group
+        const long long total = (long long)cfg.num_steps * 4 * (L - 1) * passes * K;
+        const uint16_t mask = cfg.cluster > 1 ? (uint16_t)((1u << cfg.cluster) - 1) : 0;
+        int slot = 0, parity = 0, k = 0, pass = 0, layer = 1;
+        for (long long j = 0; j < total; ++j) {
+          if (j >= S) mbar_wait(empty0 + 8 * slot, parity);  // its last slice released
+#ifdef PDE_FAULT_RING_WRONG_SLOT
+          // a planted fault (tests/test_torch_gpu.py): each slice lands in
+          // the next slot, its barrier the right one
+          const int into = slot + 1 < S ? slot + 1 : 0;
+#else
+          const int into = slot;
+#endif
+          bulk_copy(ring0 + into * SLICE, weights + w_off(layer) + k * SLICE, SLICE,
+                    full0 + 8 * slot, mask);
+          if (++slot == S) {
+            slot = 0;
+            parity ^= j >= S;  // the first lap waits for no release
+          }
+          if (++k == K) {
+            k = 0;
+            if (++pass == passes) {
+              pass = 0;
+              if (++layer == L) layer = 1;
+            }
+          }
+        }
+      }
+      __syncwarp();
+      cg::this_cluster().sync();  // as the consumers' last
+      return;
+    }
+  }
+  // The consumers: the next slice's slot once its bytes have landed (thread
+  // 0 then expects the bytes of the slot's next lap), and a slot's release
+  // once the warp's products that read it are done (an arrival on block 0's
+  // "empty" barrier), in the order of the waits.
+  int ring_slot = 0, ring_parity = 0;
+  auto ring_wait = [&]() {
+    const int slot = ring_slot;
+    mbar_wait(full0 + 8 * slot, ring_parity);
+    mbar_expect_tx(full0 + 8 * slot, SLICE, tid == 0);
+    if (++ring_slot == S) {
+      ring_slot = 0;
+      ring_parity ^= 1;
+    }
+    return slot;
+  };
+  auto ring_release = [&](int slot) {
+    __syncwarp();
+    mbar_arrive_at(empty0 + 8 * slot, 0, lane == 0);
+  };
 
   unsigned char* base = smem + cfg.weight_bytes + team * cfg.team_bytes;
   // the two bf16 activation buffers [planes], chosen by a select. The
@@ -591,9 +848,9 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   float* s_flux = s_u + rows + halo * P;  // face fluxes, or u_t for a direct form
   float* s_u0 = s_flux + rows;  // the step's start value
   float* s_ksum = s_u0 + rows;  // running k1 + 2 k2 + 2 k3 + k4
-  // this warp's z tile [32][F | 1]; a split block's later groups keep theirs
-  // after the segment's layout
-  float* s_z = SPLIT && grp > 0
+  // this warp's z tile [32][F | 1]; a split block's (or the ring's) later
+  // groups keep theirs after the segment's (the trajectory's) layout
+  float* s_z = GROUPED && grp > 0
                    ? reinterpret_cast<float*>(smem + cfg.weight_bytes + cfg.team_bytes) +
                          (4 * (grp - 1) + wt) * 32 * z_stride
                    : s_ksum + rows + wt * 32 * z_stride;
@@ -609,7 +866,9 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   float* __restrict__ s_cos = s_sin + T * phase_rows;
 
   auto team_sync = [&]() {
-    if constexpr (SPLIT && G > 1) {
+    if constexpr (RING) {  // the consumer warps (the producer warp has left)
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kTeamThreads * G) : "memory");
+    } else if constexpr (GROUPED && G > 1) {
       __syncthreads();  // the block's groups share one segment
     } else {  // the team's named barrier (in the split form, the block's one group)
       asm volatile("bar.sync %0, %1;\n" ::"r"(team + 1), "n"(kTeamThreads) : "memory");
@@ -648,7 +907,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   };
   if constexpr (P == 1) {
     for (int p = lt; p < n; p += lthreads) {
-      const float v = u_in[traj * nx + seg0 + p];
+      const float v = !RING || valid ? u_in[traj * nx + seg0 + p] : 0.f;
       store_u(p, v);
       s_u0[p] = v;
     }
@@ -667,7 +926,9 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
     const size_t row = (size_t)traj * T;
     if constexpr (P == 1) {
       for (int i = lt; i < T; i += lthreads) {
-        s_term[i] = make_float4(fp.amp[row + i], fp.rot_c[row + i], fp.rot_s[row + i], 0.f);
+        s_term[i] = !RING || valid ? make_float4(fp.amp[row + i], fp.rot_c[row + i],
+                                                 fp.rot_s[row + i], 0.f)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
       }
     } else {  // [term][slot]: a warp's rows read one term's P slots, 16 P bytes
       for (int i = tt; i < P * T; i += kTeamThreads) {
@@ -691,6 +952,11 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
         s_sin[m * cfg.seg + p] = fp.sin0[(row + m) * nx + seg0 + p];
         s_cos[m * cfg.seg + p] = fp.cos0[(row + m) * nx + seg0 + p];
       }
+    } else if constexpr (RING) {
+      for (int i = lt; i < T * nx; i += lthreads) {
+        s_sin[i] = valid ? fp.sin0[row * nx + i] : 0.f;
+        s_cos[i] = valid ? fp.cos0[row * nx + i] : 0.f;
+      }
     } else {
       for (int i = tt; i < T * nx; i += kTeamThreads) {
         s_sin[i] = fp.sin0[row * nx + i];
@@ -707,7 +973,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
 #ifdef PDE_PROFILE
   // cycles by phase, written over the first floats of each warp's 16 rows of
   // the output: for scripts/probe_learned_rk4.py --profile only
-  long long prof[kPhases] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  long long prof[kPhases] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
   long long last_clock = clock64();
 #define PROF(i)                      \
   do {                               \
@@ -721,12 +987,13 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   } while (0)
 #endif
   const int tiles = (nr + 63) / 64;
-  // the split form: pass i (MT tiles from 64 MT i) to group i mod G; with
-  // streamed weights every group walks the same number of passes, in step,
-  // past the segment's last where it has none left (`active` false)
+  // the split form and the ring: pass i (MT tiles from 64 MT i) to group i
+  // mod G; with streamed weights every group walks the same number of
+  // passes, in step, past the segment's last where it has none left
+  // (`active` false)
   // the pass stride, MT G (from blockDim where the loop stays rolled)
   const int pass_step = MT * (lthreads / kTeamThreads);
-  const int tp_end = SPLIT && G > 1 && stream ? round_up(tiles, pass_step) : tiles;
+  const int tp_end = GROUPED && G > 1 && stream ? round_up(tiles, pass_step) : tiles;
   for (int step = 0; step < cfg.num_steps; ++step) {
     for (int stage = 0; stage < 4; ++stage) {
       for (int l = 0; l < L; ++l) {
@@ -741,14 +1008,15 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
 
         // MT 64-point tiles at a time; in each, warp wt holds rows 16 wt ..
         // 16 wt + 15: acc[tile][channel tile][fragment].
-        for (int tp = MT * grp * SPLIT; tp < tp_end; tp += pass_step) {
+        for (int tp = MT * grp * GROUPED; tp < tp_end; tp += pass_step) {
 #ifdef PDE_FAULT_SKIP_LAST_PASS
           // a planted fault (tests/test_torch_gpu.py): a split block's last
           // warp group of two or more skips its last pass (meets its barriers)
-          const bool active = !SPLIT || (tp < tiles && !(G > 1 && grp == G - 1 &&
-                                                         tp + pass_step >= tp_end));
+          const bool active =
+              !GROUPED || (tp < tiles && !(SPLIT && G > 1 && grp == G - 1 &&
+                                           tp + pass_step >= tp_end));
 #else
-          const bool active = !SPLIT || G == 1 || tp < tiles;
+          const bool active = !GROUPED || G == 1 || tp < tiles;
 #endif
           const bool two = MT == 2 && tp + 1 < tiles;
           const int row0 = 64 * tp + 16 * wt;  // this warp's first row of tile tp
@@ -795,6 +1063,45 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
                   for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b);
                 }
               }
+            } else if constexpr (RING) {
+              // layer >= 1 from the ring: tap k's slice, as below, from its
+              // slot (the products of every tap of the pass in the same
+              // order as from the window, so the same bits). A tap's
+              // products stay in flight while the next slice is awaited and
+              // its products issued; its slot is released once they are done.
+              // With fewer than three slots each tap's products finish before
+              // its release, so that the producer keeps a slice ahead.
+              const uint64_t a = smem_desc(
+                  (uint32_t)__cvta_generic_to_shared(in) + 64 * tp * 16, plane_bytes, 128);
+              const bool pipelined = S > 2;
+              fence_acc(acc[0]);
+              int held = -1;  // the slot whose products may still run
+              for (int k = 0; k < K; ++k) {
+                const int slot = ring_wait();
+                PROF(10);
+                if (active) {  // uniform over the warp group
+                  wgmma_fence();
+                  uint64_t b = smem_desc(ring0 + slot * SLICE, 128 * NT, 128);
+#pragma unroll
+                  for (int cs = 0; cs < CS; ++cs, b += 16 * NT) {
+                    wgmma_bf16<NT>(acc[0], a + (cs * (plane_bytes / 8) + k), b);
+                  }
+                  wgmma_commit();
+                }
+                if (pipelined) {
+                  wgmma_wait_all_but_one();
+                  if (k > 0) ring_release(held);
+                  held = slot;
+                } else {
+                  wgmma_wait();
+                  ring_release(slot);
+                }
+                PROF(2);
+              }
+              // on every path, or ptxas waits and serializes the wgmma itself
+              wgmma_wait();
+              fence_acc(acc[0]);
+              if (pipelined) ring_release(held);
             } else if (stream) {
               // As below, one slice of the weights at a time through the window
               // at the start of shared memory (the team is the block): one conv
@@ -1131,7 +1438,9 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
     }
   }
   if constexpr (P == 1) {
-    for (int p = lt; p < n; p += lthreads) u_out[traj * nx + seg0 + p] = s_u0[p];
+    if (!RING || valid) {
+      for (int p = lt; p < n; p += lthreads) u_out[traj * nx + seg0 + p] = s_u0[p];
+    }
   } else {  // the slots that hold a trajectory, in u's order
     for (int i = tt; i < valid * nx; i += kTeamThreads) {
       const int j = i / nx;
@@ -1141,15 +1450,20 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
 #ifdef PDE_PROFILE
   // warp wt's counters at floats kPhases wt on of the team's own output (its
   // valid slots' points, or a split block's segment), as many as fit there
-  if (lane == 0 && grp == team) {  // a split block: group 0's warps
+  if (lane == 0 && grp == team && valid) {  // a split block or the ring: group 0's warps
     for (int i = 0; i < kPhases && kPhases * wt + i < valid * n; ++i) {
       u_out[traj * nx + seg0 + kPhases * wt + i] = (float)prof[i];
     }
   }
 #endif
 #undef PROF
-  // no block leaves while another may still read its shared memory
-  cluster_sync();
+  // no block leaves while another may still read its shared memory (or,
+  // in the ring, arrive on its barriers)
+  if constexpr (RING) {
+    cg::this_cluster().sync();
+  } else {
+    cluster_sync();
+  }
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
-// fused_learned_rk4, the whole form: `teams` warp groups a block, each
-// owning P whole trajectories (P > 1 below 128 channels at nx < 128: the
-// packed rows of the design note in fused_learned_rk4.cuh). Launched by
+// fused_learned_rk4, the whole form below 128 channels: `teams` warp groups
+// a block, each owning P whole trajectories (P > 1 at nx < 128: the packed
+// rows of the design note in fused_learned_rk4.cuh; at 128 channels the
+// whole form is the ring, fused_learned_rk4_wide.cu). Launched by
 // pde_fused_learned_rk4 (fused_learned_rk4.cu) where one block holds whole
 // trajectories (fused_kernels.learned_rk4_launch). It replaces
 // make_fused_learned_rk4 (pde_superresolution_tpu/ops/pallas_kernels.py, the
@@ -14,8 +15,7 @@
 namespace {
 
 template <int NT, bool FORCED, int P>
-__global__ void __launch_bounds__(kTeamThreads *
-                                  (NT == kWideNT ? 1 : (FORCED ? kMaxTeamsForced : kMaxTeams)))
+__global__ void __launch_bounds__(kTeamThreads * (FORCED ? kMaxTeamsForced : kMaxTeams))
     fused_learned_rk4_kernel(const float* __restrict__ u_in,
                              const unsigned char* __restrict__ weights,
                              float* __restrict__ u_out, Config cfg, Forcing fp) {
@@ -61,14 +61,8 @@ int launch_learned_rk4_whole(int channels, bool forced, const float* u,
     case 64:
       return dispatch<8, P>(forced, u, weights, out, cfg, fp, teams, smem_bytes, stream);
     default:
-      break;
+      return (int)cudaErrorInvalidValue;  // 128 channels: the ring; wider: the chunked form
   }
-  if constexpr (P == 1) {  // 128 channels: one trajectory a block, one a team
-    if (channels == 8 * kWideNT) {
-      return dispatch<kWideNT, 1>(forced, u, weights, out, cfg, fp, teams, smem_bytes, stream);
-    }
-  }
-  return (int)cudaErrorInvalidValue;  // the chunked form is split
 }
 
 }  // namespace pde

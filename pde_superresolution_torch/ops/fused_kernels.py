@@ -12,7 +12,10 @@ The counterpart of ``pde_superresolution_tpu/ops/pallas_kernels.py``:
     all four stages). The tower and the heads run on the tensor cores
     (``wgmma`` and ``mma.sync`` on bf16, float32 sums); a warp group owns a
     trajectory, or below nx 128 up to eight of them packed point by point,
-    and a block holds up to four warp groups, or, where one block
+    and a block holds up to four warp groups; at 65-128 filters two warp
+    groups share a block's one trajectory, the weights arriving a conv
+    tap's slice at a time in a ring fed by bulk copies that a cluster of
+    blocks shares (``csrc/fused_learned_rk4_wide.cu``); where one block
     cannot hold a trajectory, a thread-block cluster shares it, a segment a
     block run by up to four warp groups, halos by distributed shared memory.
     For a forced equation (Burgers) the sum-of-sinusoids forcing is
@@ -63,11 +66,19 @@ from pde_superresolution_torch.utils import debugging
 EQUATION_CODES = {"burgers": 0, "kdv": 1, "ks": 2}
 MAX_ORDERS = 3
 # fused_learned_rk4.cuh's compile-time limits (kMaxTeams, kMaxCluster) and
-# the tower widths it is instantiated for; at WIDE_CHANNELS a block holds one
-# trajectory and streams layer >= 1's weights through a window of one conv
-# tap's slice (kWideNT). Where one block cannot hold a trajectory, the split
-# form shares it over a thread-block cluster of up to MAX_CLUSTER blocks
-# (above PORTABLE_CLUSTER the card must allow a non-portable size). Wider
+# the tower widths it is instantiated for; at WIDE_CHANNELS (kWideNT) a block
+# holds one trajectory run by WIDE_GROUPS warp groups and a producer warp,
+# RING_THREADS in all (kWideGroups, kRingThreads), layer >= 1's weights
+# reaching it through a ring of one conv tap's slices, as many slots as fit
+# up to RING_SLOTS (at most MAX_RING_SLOTS, kMaxRingSlots), each slice
+# copied once for a cluster of WIDE_CLUSTER blocks, a trajectory each (at
+# most MAX_WIDE_CLUSTER, kMaxWideCluster), with RING_CONTROL_BYTES of
+# barriers after the layout (kRingControlBytes): the ring,
+# fused_learned_rk4_wide.cu. RING_SLOTS and WIDE_CLUSTER are the rule's,
+# from a sweep on an H100 (PERF.md), not options. Where one block cannot
+# hold a trajectory, the split form shares it over a thread-block cluster of
+# up to MAX_CLUSTER blocks (above PORTABLE_CLUSTER the card must allow a
+# non-portable size). Wider
 # towers pad to a multiple of 16 and take the split form in chunks of
 # WIDE_CHANNELS output channels (the chunked form), their activation rows
 # rounded up to 8 with CHUNK_SLACK bytes after them (kChunkSlack). A split
@@ -93,6 +104,13 @@ PORTABLE_CLUSTER = 8
 GROUP_COUNTS = (1, 2, 4)  # one kernel each (no sweep shape chose 3)
 MAX_GROUPS = 4
 MAX_GROUPS_WIDE = 2
+WIDE_GROUPS = 2
+RING_THREADS = TEAM_THREADS * WIDE_GROUPS + 32
+MAX_RING_SLOTS = 5
+RING_SLOTS = 4
+RING_CONTROL_BYTES = 128
+MAX_WIDE_CLUSTER = 8
+WIDE_CLUSTER = 2
 PADDED_CHANNELS = (16, 32, 64, 128)
 WIDE_CHANNELS = 128
 CHUNK_SLACK = 64 * 16  # one 64-row tile of one plane
@@ -774,7 +792,10 @@ class LearnedRK4Launch(NamedTuple):
     """Geometry of one ``fused_learned_rk4`` launch.
 
     Whole trajectories a block (``split`` false): ``teams`` warp groups,
-    each owning ``per_team`` trajectories. The split form (``split``): a
+    each owning ``per_team`` trajectories; at ``WIDE_CHANNELS`` one
+    trajectory a block run by ``groups`` warp groups, layer >= 1's weights
+    through a ring of ``slots`` slices, each slice copied once for the
+    ``multicast`` blocks of a cluster. The split form (``split``): a
     thread-block cluster of ``cluster`` blocks per trajectory, each holding
     a segment of ``segment``
     points (the last block the rest) run by ``groups`` warp groups, with the
@@ -792,6 +813,8 @@ class LearnedRK4Launch(NamedTuple):
     stream: bool = False  # layer >= 1's weights through a window of one tap's slice
     groups: int = 1  # the split form: warp groups a block on its one segment
     per_team: int = 1  # the whole form: trajectories a team, packed point by point
+    slots: int = 0  # the whole form at WIDE_CHANNELS: the ring's slots of one tap's slice
+    multicast: int = 1  # ... and the blocks (a trajectory each) that share each slice's copy
 
 
 def learned_rk4_reach(pack: LearnedRK4Pack) -> int:
@@ -844,6 +867,14 @@ def _window_bytes(pack: LearnedRK4Pack) -> int:
     return 2 * min(pack.padded_channels, WIDE_CHANNELS) ** 2
 
 
+def _ring_bytes(pack: LearnedRK4Pack, nx: int, terms: int, slots: int) -> int:
+    """Shared memory of a block of the whole form at ``WIDE_CHANNELS`` (the
+    ring): ``slots`` slices of one conv tap, the trajectory's team bytes,
+    the z tiles of its second warp group and the barriers after them."""
+    return (slots * _window_bytes(pack) + _team_bytes(pack, nx, terms)
+            + (WIDE_GROUPS - 1) * _group_bytes(pack) + RING_CONTROL_BYTES)
+
+
 def most_per_team(pack: LearnedRK4Pack, nx: int) -> int:
     """The most trajectories a team of the whole form packs at ``nx``
     points: the largest count of ``PER_TEAM_COUNTS`` whose rows fit
@@ -868,8 +899,12 @@ def learned_rk4_launch(
     and fit. A block holds one copy of the weights and as many teams as fit
     the shared-memory limit, at most 4, but no more than leave the launch
     ``NUM_SMS`` blocks: a small batch spreads over the card, a large one
-    shares the weights. At ``WIDE_CHANNELS`` a block holds one trajectory
-    beside the window of streamed weights. Wider towers (the chunked form)
+    shares the weights. At ``WIDE_CHANNELS`` a block holds one trajectory,
+    run by ``WIDE_GROUPS`` warp groups, beside a ring of as many slots of
+    one conv tap's slice as fit, up to ``RING_SLOTS`` (``_ring_bytes``),
+    each slice copied once for a cluster of ``WIDE_CLUSTER`` blocks (fewer
+    where the batch is smaller; the last cluster's blocks past the batch
+    run on zeros). Wider towers (the chunked form)
     always take the split form below, their weights streamed. ``per_team``
     forces P (one of ``PER_TEAM_COUNTS`` up to ``most_per_team``), whatever
     the batch; a value out of range raises, as does P > 1 with ``cluster``
@@ -905,9 +940,20 @@ def learned_rk4_launch(
                          "the split form")
     # a block of whole trajectories writes each halo as one periodic copy
     wraps_once = learned_rk4_halo(pack) <= nx and 2 * (pack.kernel_size // 2) <= nx
-    if cluster is None and groups is None and wraps_once and not chunked:
-        weights = window if wide else resident
-        most = 1 if wide else (MAX_TEAMS_FORCED if terms else MAX_TEAMS)
+    if cluster is None and groups is None and wraps_once and wide and not chunked:
+        team_bytes = _team_bytes(pack, nx, terms)
+        slots = min(RING_SLOTS, MAX_RING_SLOTS,
+                    max(0, shared_limit - _ring_bytes(pack, nx, terms, 0)) // window)
+        if slots >= 1:
+            share = max(1, min(WIDE_CLUSTER, MAX_WIDE_CLUSTER, batch))
+            return LearnedRK4Launch(
+                teams=1, threads=RING_THREADS, team_bytes=team_bytes,
+                shared_bytes=_ring_bytes(pack, nx, terms, slots),
+                blocks=-(-batch // share) * share, segment=nx, stream=True, groups=WIDE_GROUPS,
+                slots=slots, multicast=share)
+    elif cluster is None and groups is None and wraps_once and not chunked:
+        weights = resident
+        most = MAX_TEAMS_FORCED if terms else MAX_TEAMS
         for p in [per_team] if per_team is not None else packs[::-1]:
             slots = -(-batch // p)  # teams of p trajectories
             if per_team is None and p > 1 and slots < NUM_SMS:
@@ -919,7 +965,7 @@ def learned_rk4_launch(
                 return LearnedRK4Launch(
                     teams=teams, threads=TEAM_THREADS * teams, team_bytes=team_bytes,
                     shared_bytes=weights + teams * team_bytes, blocks=-(-slots // teams),
-                    segment=nx, stream=wide, per_team=p)
+                    segment=nx, per_team=p)
         if (per_team or 1) > 1:
             raise ValueError(f"per_team={per_team}: {per_team} trajectories of {nx} points do "
                              f"not fit a team beside the weights in {shared_limit} bytes")
@@ -1080,7 +1126,7 @@ def fused_learned_rk4(
     lib = _build.load_library()
     out = torch.empty_like(u)
     pad = [0] * (MAX_ORDERS - len(orders))
-    meta = (ctypes.c_int * 31)(
+    meta = (ctypes.c_int * 33)(
         EQUATION_CODES[pack.equation.name],
         int(pack.equation.conservative),
         nx, pack.padded_channels, pack.kernel_size, pack.num_layers, pack.n_free,
@@ -1090,12 +1136,14 @@ def fused_learned_rk4(
         *[first for first, _, _ in pack.free_ranges], *pad,
         *[count for _, count, _ in pack.free_ranges], *pad,
         *[start for _, _, start in pack.free_ranges], *pad,
-        terms, launch.groups if launch.split else launch.teams, launch.team_bytes,
+        terms, launch.groups if launch.split or launch.slots else launch.teams,
+        launch.team_bytes,
         learned_rk4_halo(pack),
         launch.cluster if launch.split else 0, launch.segment, int(launch.stream),
-        launch.per_team,
+        launch.per_team, launch.slots, launch.multicast,
     )
-    weights = _window_bytes(pack) if launch.stream else pack.blob.numel()
+    weights = (_window_bytes(pack) * max(1, launch.slots) if launch.stream
+               else pack.blob.numel())
     offsets = (ctypes.c_int * (1 + len(pack.blob_offsets)))(weights, *pack.blob_offsets)
     scalars = (ctypes.c_float * 5)(
         pack.grid.dx, float(getattr(pack.equation, "eta", 0.0)),

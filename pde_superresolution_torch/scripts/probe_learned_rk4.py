@@ -38,13 +38,24 @@ takes them). The packed A/B at the zoo's short grids, on the same kernels:
 --filters 0 --nx 16,32 --batches 256,10240 --per_team 1,auto`` (a grid
 that is no multiple of a checkpoint's own is skipped).
 
+``--slots`` and ``--share`` time the whole form at 128 filters (the ring)
+with that many slots of a conv tap's slice and blocks of a cluster
+sharing each slice's copy (``auto``: the rule's ``fk.RING_SLOTS`` and
+``fk.WIDE_CLUSTER``; ``all``: 1 to 5 slots, where they fit, and 1, 2, 4
+and 8 blocks), setting the rule's constants for the launch: the sweep
+behind their values is ``--checkpoints ckpt_ks8,ckpt_burgers8 --filters
+128 --batches 256,10240 --slots all --share all``.
+
 ``--src DIR[,DIR...]`` builds the kernels from other ``csrc`` trees (``-``:
 this package's own) and times each launch on every tree in turn, forward
 then backward (A B B A), each tree's 10 steps bit for bit the first's: an
 older tree (``git archive`` of a parent commit's ``csrc``) is driven
 through this package's wrapper, so give it launches its entry takes (the
 split form before warp groups: ``--groups 1``; the whole form before packed
-teams: ``--per_team 1``). For example ``--src
+teams: ``--per_team 1``); a tree without the ring's source
+(``fused_learned_rk4_wide.cu``) gets the whole form at 128 filters as it
+was before the ring (``window_launch``: one warp group a block, one window
+of a slice). For example ``--src
 _checkout/parent/pde_superresolution_torch/csrc,- --checkpoints ckpt_ks8
 --filters 256 --nx 128 --clusters 1 --groups 1 --batches 10240 --steps 20
 --settings 4:4``. ``--ab`` and ``--profile`` build from the first tree.
@@ -90,6 +101,7 @@ from pde_superresolution_torch.ops import _build
 from pde_superresolution_torch.ops import fused_kernels as fk
 
 STEPS = 100
+RING_SLOTS, WIDE_CLUSTER = fk.RING_SLOTS, fk.WIDE_CLUSTER  # the package's rule
 CHECK_BATCH = 256  # trajectories of the 10-step check (the plain version's memory)
 FORCING_T0 = 3.7
 WIDE_NOISE = 0.02  # chip_smoke.WIDE_NOISE
@@ -113,7 +125,7 @@ def time_ms(fn, samples: int = 3) -> float:
 PHASES = ("layer 0 (mma.sync)", "layer 0 epilogue, stores", "later layers (wgmma)",
           "later layers' epilogues, stores", "heads, z tile", "projection, stencil, flux",
           "barriers between layers", "barrier after the fluxes", "forcing, stage combine",
-          "barrier after the combine")
+          "barrier after the combine", "ring waits (the whole form at 128 filters)")
 
 
 def load_case(name: str, filters: int, nx: int, device, stems: Path):
@@ -164,6 +176,9 @@ def fewest_blocks(pack, nx: int, terms: int, batch: int):
 def launch_text(launch, pack) -> str:
     """A launch in words, with what one SM holds of a split one
     (``fk.split_occupancy``)."""
+    if launch.slots:
+        return (f"{launch.blocks} blocks x {launch.groups} groups, a ring of {launch.slots} "
+                f"slots shared by clusters of {launch.multicast}")
     if not launch.split:
         return (f"{launch.blocks} blocks x {launch.teams} teams x {launch.per_team} "
                 "trajectories")
@@ -171,6 +186,16 @@ def launch_text(launch, pack) -> str:
     return (f"clusters of {launch.cluster} blocks x {launch.segment} points, {launch.groups} "
             f"groups" + (", weights streamed" if launch.stream else "")
             + f"; {per_sm} blocks an SM, {busy} busy warps, {passes} passes")
+
+
+def window_launch(ring, pack, batch: int):
+    """The whole form at 128 filters as it was before the ring, where the
+    launch ``ring`` takes the ring: one warp group a block (one trajectory)
+    beside one 32 KB window of a conv tap's slice."""
+    return fk.LearnedRK4Launch(
+        teams=1, threads=fk.TEAM_THREADS, team_bytes=ring.team_bytes,
+        shared_bytes=fk._window_bytes(pack) + ring.team_bytes, blocks=batch,
+        segment=ring.segment, stream=True)
 
 
 def rebuild(teams: int, profile: bool = False, src: str = "-") -> list:
@@ -188,10 +213,12 @@ def rebuild(teams: int, profile: bool = False, src: str = "-") -> list:
     _build.load_library.cache_clear()
     _build.load_library()
     report, keep = [], False
-    for line in _build.build().logs.get("fused_learned_rk4.cu", "").splitlines():
+    logs = _build.build().logs
+    for line in (logs.get("fused_learned_rk4.cu", "") + "\n"
+                 + logs.get("fused_learned_rk4_wide.cu", "")).splitlines():
         if "Compiling entry function" in line:
-            keep = "kernelILi4E" in line or "kernelILi16E" in line
-            width = 128 if "kernelILi16E" in line else 32
+            keep = "kernelILi4E" in line or "kernelILi16E" in line or "wide_kernel" in line
+            width = 32 if "kernelILi4E" in line else 128
             forced = "Lb1E" in line
         elif keep and ("registers" in line or "spill" in line):
             report.append(f"{width} channels, {'forced' if forced else 'unforced'}: "
@@ -239,6 +266,11 @@ def main(argv=None) -> None:
                         help="comma-separated warp groups a split block, auto or all")
     parser.add_argument("--per_team", default="auto",
                         help="comma-separated trajectories a team of the whole form, auto or all")
+    parser.add_argument("--slots", default="auto",
+                        help="comma-separated slots of the ring at 128 filters, auto or all")
+    parser.add_argument("--share", default="auto",
+                        help="comma-separated blocks of a cluster that share the ring's copies "
+                             "at 128 filters, auto or all")
     parser.add_argument("--steps", type=int, default=STEPS, help="RK4 steps a timed call")
     parser.add_argument("--sass", action="store_true",
                         help="compare the two --src trees' one-trajectory whole-form SASS")
@@ -290,7 +322,26 @@ def main(argv=None) -> None:
     per_teams = [None if p == "auto" else int(p) for p in args.per_team.split(",")
                  if p != "all"] + (list(fk.PER_TEAM_COUNTS)
                                    if "all" in args.per_team.split(",") else [])
+    slot_counts = [None if n == "auto" else int(n) for n in args.slots.split(",")
+                   if n != "all"] + (list(range(1, fk.MAX_RING_SLOTS + 1))
+                                     if "all" in args.slots.split(",") else [])
+    shares = [None if n == "auto" else int(n) for n in args.share.split(",") if n != "all"] + (
+        [1, 2, 4, 8] if "all" in args.share.split(",") else [])
     trees = args.src.split(",")
+    rule = fk.learned_rk4_launch
+
+    def ring_rule(slots, share, tree="-"):
+        """The rule with the ring's constants ``slots`` and ``share`` (None:
+        the package's), or for a tree without the ring the whole form at 128
+        filters as before it."""
+        fk.RING_SLOTS = RING_SLOTS if slots is None else slots
+        fk.WIDE_CLUSTER = WIDE_CLUSTER if share is None else share
+        fk.learned_rk4_launch = rule
+        if tree != "-" and not (Path(tree) / "fused_learned_rk4_wide.cu").is_file():
+            def old(pack, nx, terms=0, batch=fk.NUM_SMS * fk.MAX_TEAMS, **kwargs):
+                launch = rule(pack, nx, terms, batch, **kwargs)
+                return window_launch(launch, pack, batch) if launch.slots else launch
+            fk.learned_rk4_launch = old
 
     cases = {}
     gen = torch.Generator().manual_seed(0)
@@ -394,11 +445,13 @@ def main(argv=None) -> None:
             most = fk.MAX_GROUPS_WIDE if pack.padded_channels >= fk.WIDE_CHANNELS else (
                 fk.MAX_GROUPS)
             first = {}  # batches[0]'s plain version, its limit and the first kernel run
-            for batch, cluster, groups, per_team in [
-                    (b, c, g, p) for b in batches for c in clusters for g in group_counts
-                    for p in per_teams if g is None or g <= most]:
+            for batch, cluster, groups, per_team, slots, share in [
+                    (b, c, g, p, n, m) for b in batches for c in clusters for g in group_counts
+                    for p in per_teams for n in slot_counts for m in shares
+                    if g is None or g <= most]:
                 ub, fb = batch_of(u, forcing, batch)
                 nx = ub.shape[1]
+                ring_rule(slots, share)
                 refusal = fk.learned_rk4_refusal(pack, nx, terms, cluster=cluster, groups=groups)
                 if not refusal:
                     try:
@@ -412,9 +465,15 @@ def main(argv=None) -> None:
                     continue
                 if cluster and -(-nx // -(-nx // cluster)) < cluster:
                     continue  # as many blocks as a smaller cluster's: timed there
+                if (slots or share) and (launch.slots, launch.multicast) != (
+                        slots or launch.slots, share or launch.multicast):
+                    print(f"{name} B={batch} slots {slots} share {share}: skipped (the launch "
+                          f"takes {launch.slots} slots shared by {launch.multicast})")
+                    continue
                 for tree in trees if batch == batches[0] else ():
                     if len(trees) > 1:
                         rebuild(teams, src=tree)
+                    ring_rule(slots, share, tree)
                     uc, fc = batch_of(u, forcing, min(batch, CHECK_BATCH))
                     got = fk.fused_learned_rk4(uc, pack, dt, 10, forcing=fc, cluster=cluster,
                                                groups=groups, per_team=per_team)
@@ -456,14 +515,17 @@ def main(argv=None) -> None:
                 for tree in order:
                     if len(trees) > 1:
                         rebuild(teams, src=tree)
+                    ring_rule(slots, share, tree)
                     ms = time_ms(lambda: fk.fused_learned_rk4(
                         ub, pack, dt, args.steps, forcing=fb, cluster=cluster, groups=groups,
                         per_team=per_team))
+                    shown = fk.learned_rk4_launch(pack, nx, terms, batch, cluster=cluster,
+                                                  groups=groups, per_team=per_team)
                     print(f"caps {teams}:{forced_teams} {name} B={batch} cluster {cluster} "
-                          f"groups {groups} per_team {per_team}"
+                          f"groups {groups} per_team {per_team} slots {slots} share {share}"
                           f"{'' if len(trees) == 1 else ' tree ' + tree}: "
-                          f"{ms:.3f} ms ({launch_text(launch, pack)}, {launch.threads} "
-                          f"threads, {launch.shared_bytes} bytes shared; "
+                          f"{ms:.3f} ms ({launch_text(shown, pack)}, {shown.threads} "
+                          f"threads, {shown.shared_bytes} bytes shared; "
                           f"{batch * args.steps * nx / ms * 1e3:,.0f} cell-steps/s)", flush=True)
 
 

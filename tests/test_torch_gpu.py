@@ -447,8 +447,10 @@ def test_fused_rk4_widest_register_scheme_matches_plain_and_integrate(cuda, name
 ])
 def test_learned_rk4_128_filters_matches_plain(cuda, name, cons, size, nx, filters):
     """Towers of 65 to 128 filters (padded to 128): a block holds one
-    trajectory and streams each layer's weights a conv tap's slice at a
-    time. One step's increment from N(0,1) within WIDE_STEP_RMS_TOL and
+    trajectory, run by two warp groups, each layer's weights reaching it a
+    conv tap's slice at a time through the ring (clusters of two blocks
+    sharing each slice's copy; the last block of B=397 runs empty). One
+    step's increment from N(0,1) within WIDE_STEP_RMS_TOL and
     WIDE_STEP_MAX_TOL; 10 steps from a smooth state as in
     test_fused_learned_rk4_matches_plain (RUN_TOL, with RUN_CONDITIONING
     against float64 sums where unforced), 3 layers,
@@ -469,7 +471,8 @@ def test_learned_rk4_128_filters_matches_plain(cuda, name, cons, size, nx, filte
         fp = fk.pack_forcing(forcing, 3.7, model.equation, model.grid, dt, batch)
         terms = fp.amplitude.shape[-1]
     launch = fk.learned_rk4_launch(pack, nx, terms, batch)
-    assert (launch.teams, launch.blocks) == (1, batch)
+    assert (launch.teams, launch.groups, launch.multicast) == (1, 2, 2) and launch.slots >= 1
+    assert launch.blocks == batch + batch % 2 and not launch.split
     rough = torch.from_numpy(
         np.random.default_rng(0).standard_normal((batch, nx)).astype(np.float32)).to(cuda)
     smooth = 0.3 * model.equation.initial_conditions(gen, model.grid, (batch,), cuda)
@@ -486,6 +489,118 @@ def test_learned_rk4_128_filters_matches_plain(cuda, name, cons, size, nx, filte
     assert fk.fused_learned_rk4.launches == before + 2
     _assert_step_close(got_inc, want_inc, WIDE_STEP_RMS_TOL, WIDE_STEP_MAX_TOL)
     _assert_run_close(got, want, RUN_TOL, exact)
+
+
+# test_learned_rk4_128_filters_matches_plain's shapes
+WIDE_SHAPES = [
+    ("ks", True, 6, 128, 128), ("kdv", False, 7, 64, 128), ("ks", True, 10, 32, 128),
+    ("ks", False, 7, 256, 72), ("kdv", True, 6, 160, 128), ("burgers", True, 8, 128, 128),
+    ("burgers", False, 5, 256, 96),
+]
+
+
+def _ring_against_split(cuda, name, cons, size, nx, filters, batch, **rule):
+    """The ring's launch (with the rule's constants ``rule`` set, e.g.
+    RING_SLOTS and WIDE_CLUSTER) against the split form's launch of one
+    block and one warp group on the same inputs (the window that every
+    tap's slice passes through, the same products in the same order), one
+    step from N(0,1) and 10 steps from a smooth state: bit for bit."""
+    pack, dt, fp, rough, smooth = _split_inputs(name, cons, size, filters, nx, batch, cuda)
+    terms = 0 if fp is None else fp.amplitude.shape[-1]
+    saved = {key: getattr(fk, key) for key in rule}
+    try:
+        for key, value in rule.items():
+            setattr(fk, key, value)
+        launch = fk.learned_rk4_launch(pack, nx, terms, batch)
+        assert not launch.split and launch.slots >= 1 and launch.groups == 2
+        before = fk.fused_learned_rk4.launches
+        for u, steps in ((rough, 1), (smooth, 10)):
+            got = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp)
+            single = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, cluster=1, groups=1)
+            torch.cuda.synchronize()
+            print(f"{launch}: {steps} steps, max abs diff to the split form's one block "
+                  f"{float((got - single).abs().nan_to_num(nan=float('inf')).max()):.3e}")
+            torch.testing.assert_close(got, single, rtol=0, atol=0, equal_nan=True)
+        assert fk.fused_learned_rk4.launches == before + 4
+    finally:
+        for key, value in saved.items():
+            setattr(fk, key, value)
+    return launch
+
+
+# every shape at B 3, 397 and 530; B=10239 at the KS-8x and Burgers-8x shapes
+RING_CASES = [shape + (batch,) for shape in WIDE_SHAPES for batch in (3, 397, 530)] + [
+    shape + (10239,) for shape in WIDE_SHAPES if shape[3] == 128 and shape[0] != "kdv"]
+
+
+@pytest.mark.parametrize("name,cons,size,nx,filters,batch", RING_CASES)
+def test_learned_rk4_ring_bit_for_bit(cuda, name, cons, size, nx, filters, batch):
+    """The whole form at 65-128 filters (the ring: two warp groups on a
+    trajectory, each conv tap's slice copied once for a cluster of two
+    blocks into a ring of slots) gives the split form's one-block,
+    one-group result bit for bit, forced (Burgers) and not, nx 32 to 256
+    (one to four tiles, so a group without a pass), odd batches (3, 397,
+    10239: the last cluster's second block holds no trajectory)."""
+    _ring_against_split(cuda, name, cons, size, nx, filters, batch)
+
+
+# (name, cons, size, nx, slots): every ring size up to the most that fits
+# beside the trajectory (4 at KS nx 128, 2 at forced Burgers nx 160, 5 at
+# KS nx 32)
+RING_SIZES = [("ks", True, 6, 128, slots) for slots in (1, 2, 3, 4)] + [
+    ("burgers", True, 8, 160, slots) for slots in (1, 2)] + [("ks", True, 6, 32, 5)]
+
+
+@pytest.mark.parametrize("share", [1, 2, 4, 8])
+@pytest.mark.parametrize("name,cons,size,nx,slots", RING_SIZES)
+def test_learned_rk4_ring_slots_and_clusters_bit_for_bit(cuda, name, cons, size, nx, slots,
+                                                         share):
+    """Every ring size the kernel takes beside the trajectory, and clusters
+    of 1 to 8 blocks sharing each copy, give the same bits as the split
+    form's one block (B=37: the last cluster ragged but at one and
+    37 = 4 x 9 + 1 = 8 x 4 + 5)."""
+    batch = 37
+    launch = _ring_against_split(cuda, name, cons, size, nx, 128, batch, RING_SLOTS=slots,
+                                 WIDE_CLUSTER=share)
+    assert (launch.slots, launch.multicast) == (slots, share)
+    assert launch.blocks == -(-batch // share) * share
+
+
+def test_learned_rk4_ring_planted_fault_is_caught(cuda):
+    """The check above has power: the kernels built with
+    -DPDE_FAULT_RING_WRONG_SLOT (every slice lands in the slot after its
+    own, its barrier the right one) give another result than the split
+    form's one block at the KS-8x and Burgers-8x shapes (nx 128, 4 and 3
+    slots), which the fault leaves alone: one step from N(0,1) by more than
+    1e-3 of max|u|, 10 steps from a smooth state not bit for bit (the
+    seeded towers move a 0.3-scaled state little: 2.3e-4 there)."""
+    from pde_superresolution_torch.ops import _build
+
+    flags = list(_build.NVCC_FLAGS)
+    _build.NVCC_FLAGS.append("-DPDE_FAULT_RING_WRONG_SLOT")
+    _build.build.cache_clear()
+    _build.load_library.cache_clear()
+    try:
+        for name, size in (("ks", 6), ("burgers", 8)):
+            batch, nx = 6, 128
+            pack, dt, fp, rough, smooth = _split_inputs(name, True, size, 128, nx, batch, cuda)
+            terms = 0 if fp is None else fp.amplitude.shape[-1]
+            assert fk.learned_rk4_launch(pack, nx, terms, batch).slots >= 2
+            for u, steps in ((rough, 1), (smooth, 10)):
+                faulty = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp)
+                single = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, cluster=1,
+                                              groups=1)
+                torch.cuda.synchronize()
+                # a stale slice's rows may blow up: a NaN counts as a difference
+                diff = float((faulty - single).abs().nan_to_num(nan=float("inf")).max())
+                print(f"{name} nx {nx}, {steps} steps: the planted fault's max abs diff "
+                      f"{diff:.3e}")
+                assert not torch.equal(faulty, single)
+                assert steps > 1 or diff > 1e-3 * float(single.abs().max())
+    finally:
+        _build.NVCC_FLAGS[:] = flags
+        _build.build.cache_clear()
+        _build.load_library.cache_clear()
 
 
 def _split_inputs(name, cons, size, filters, nx, batch, cuda, layers=3, kernel_size=5):

@@ -991,18 +991,40 @@ def wide_packs():
             for filters in (65, 72, 128) for name, size in (("ks", 6), ("burgers", 8))}
 
 
-@pytest.mark.parametrize("batch", [3, 256, 10240])
+def _ring_team_bytes(pack, nx, terms):
+    """A trajectory's shared bytes at 128 channels, counted here from the
+    layout (``team_bytes_needed``'s rule): nx rows rounded up to 64 with the
+    conv's K - 1 halo rows and a dump row in each of two bf16 buffers of 16
+    planes; u with the halo's points a side, fluxes, step start, k sum; one
+    [32, F | 1] z tile per warp; forced, the forcing row, 16 bytes of
+    alignment, 16 bytes of constants per term, (sin, cos) per term and
+    point."""
+    rows = -(-nx // 64) * 64
+    n = (2 * 16 * (rows + pack.kernel_size) * 16 + 4 * (4 * rows + 2 * fk.learned_rk4_halo(pack))
+         + 4 * 32 * (pack.n_free | 1) * 4)
+    if terms:
+        n += 4 * rows + 16 + 16 * terms + 8 * terms * nx
+    return -(-n // 128) * 128
+
+
+@pytest.mark.parametrize("batch", [1, 3, 256, 10239, 10240])
 @pytest.mark.parametrize("nx", [32, 64, 96, 128, 160, 256, 512])
 @pytest.mark.parametrize("filters,name", [(65, "ks"), (72, "ks"), (128, "ks"), (128, "burgers")])
 def test_learned_rk4_launch_geometry_128_filters(wide_packs, filters, name, nx, batch):
     """Towers of 65 to 128 filters pad to 128, where a block holds one
-    trajectory beside a window of one conv tap's 128 x 128 bf16 slice (32
-    KB; the whole buffer is 330 KB, which stays in global memory): taken at
-    nx 32 to 256, forced (20 terms) or not; at nx = 512 one trajectory's
-    activations alone exceed the block's shared memory, which the kernel
-    refused before the split form: a cluster shares it beside the same
-    window, in the blocks and warp groups the split form's rule ranks first. The buffer lays each layer's
-    slices one after the other."""
+    trajectory run by two warp groups and a producer warp (288 threads)
+    beside a ring of conv tap slices of
+    128 x 128 bf16 (32 KB each; the whole buffer is 330 KB, which stays in
+    global memory): as many slots as fit beside the trajectory, its second
+    group's z tiles and 128 bytes of barriers, up to RING_SLOTS (4; 3 forced
+    at nx 128, 2 unforced at nx 256, 1 forced), in clusters of WIDE_CLUSTER
+    blocks (2, or 1 for a batch of one), a block a trajectory and the last
+    cluster's blocks past an odd batch empty; taken at nx 32 to 256, forced
+    (20 terms) or not; at nx = 512 one trajectory's activations alone
+    exceed the block's shared memory, which the kernel refused before the
+    split form: a cluster shares it beside one window of a slice, in the
+    blocks and warp groups the split form's rule ranks first. The buffer
+    lays each layer's slices one after the other."""
     pack = wide_packs[(filters, name)]
     terms = 20 if name == "burgers" else 0
     assert pack.padded_channels == fk.WIDE_CHANNELS == 128 and pack.channels == filters
@@ -1012,15 +1034,72 @@ def test_learned_rk4_launch_geometry_128_filters(wide_packs, filters, name, nx, 
     if nx == 512:
         assert 2 * 128 * 128 + fk._team_bytes(pack, nx, terms) > 232448
         _check_split(pack, nx, terms, launch, batch)
+        assert (launch.slots, launch.multicast) == (0, 1)
         return
-    assert launch.team_bytes == fk._team_bytes(pack, nx, terms)
-    assert launch.shared_bytes == 2 * 128 * 128 + launch.teams * launch.team_bytes <= 232448
-    assert not launch.split
-    assert (launch.teams, launch.threads, launch.blocks) == (1, 128, batch)
+    team = _ring_team_bytes(pack, nx, terms)
+    fixed = team + 512 * (pack.n_free | 1) + 128
+    slots = min(4, (232448 - fixed) // (2 * 128 * 128))
+    assert launch.team_bytes == fk._team_bytes(pack, nx, terms) == team
+    assert not launch.split and launch.segment == nx and launch.cluster == 1
+    assert (launch.teams, launch.groups, launch.threads, launch.per_team) == (1, 2, 288, 1)
+    assert launch.slots == slots >= 1
+    assert launch.shared_bytes == slots * 2 * 128 * 128 + fixed <= 232448
+    assert launch.multicast == min(2, batch)
+    assert launch.blocks == -(-batch // launch.multicast) * launch.multicast
+    assert launch.blocks - launch.multicast < batch <= launch.blocks
     for l in range(1, pack.num_layers):  # K slices of 32 KB, each on 16 bytes
         assert pack.blob_offsets[2 * l + 1] - pack.blob_offsets[2 * l] == (
             pack.kernel_size * 2 * 128 * 128)
         assert pack.blob_offsets[2 * l] % 16 == 0
+
+
+def _cuh_constant(name):
+    """An integer constant of csrc/fused_learned_rk4.cuh (``constexpr int
+    name = value;``)."""
+    import re
+    from pde_superresolution_torch.ops import _build
+
+    text = (_build.SOURCE_DIR / "fused_learned_rk4.cuh").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("terms", [0, 20])
+@pytest.mark.parametrize("nx", [16, 32, 64, 100, 128, 192, 256, 320])
+def test_learned_rk4_ring_bytes_count_alike(wide_packs, nx, terms):
+    """The host and the kernel count the ring's shared memory alike: the
+    constants fused_kernels names after the kernel's (two warp groups, at
+    most 5 slots, 128 bytes of barriers, at most 8 blocks a cluster) are
+    the .cuh's; ``_team_bytes`` is the layout's count
+    (``team_bytes_needed``); ``_ring_bytes`` is what the C entry asks of a
+    block (the slots, the team, group 1's z tiles, the control bytes) and
+    the launch's; the control bytes hold a full and an empty barrier of 8
+    bytes a slot; the rule clamps its constants to the kernel's limits."""
+    assert (fk.WIDE_GROUPS, fk.MAX_RING_SLOTS, fk.RING_CONTROL_BYTES, fk.MAX_WIDE_CLUSTER) == (
+        _cuh_constant("kWideGroups"), _cuh_constant("kMaxRingSlots"),
+        _cuh_constant("kRingControlBytes"), _cuh_constant("kMaxWideCluster"))
+    assert 2 * 8 * fk.MAX_RING_SLOTS <= fk.RING_CONTROL_BYTES
+    pack = wide_packs[(128, "burgers" if terms else "ks")]
+    team = fk._team_bytes(pack, nx, terms)
+    assert team == _ring_team_bytes(pack, nx, terms) and team % 16 == 0
+    for slots in range(fk.MAX_RING_SLOTS + 1):
+        assert fk._ring_bytes(pack, nx, terms, slots) == (
+            slots * fk._window_bytes(pack) + team
+            + (fk.WIDE_GROUPS - 1) * fk._group_bytes(pack) + fk.RING_CONTROL_BYTES)
+    launch = fk.learned_rk4_launch(pack, nx, terms, 10240)
+    if launch.split:  # the ring does not fit: one slot beside the trajectory exceeds the limit
+        assert fk._ring_bytes(pack, nx, terms, 1) > fk.MAX_SHARED_BYTES
+        return
+    assert launch.shared_bytes == fk._ring_bytes(pack, nx, terms, launch.slots)
+    assert fk._ring_bytes(pack, nx, terms, launch.slots + 1) > fk.MAX_SHARED_BYTES or (
+        launch.slots == fk.RING_SLOTS)
+    saved = fk.RING_SLOTS, fk.WIDE_CLUSTER
+    try:
+        fk.RING_SLOTS, fk.WIDE_CLUSTER = 99, 99
+        clamped = fk.learned_rk4_launch(pack, nx, terms, 10240)
+        assert clamped.slots <= fk.MAX_RING_SLOTS and clamped.multicast == fk.MAX_WIDE_CLUSTER
+        assert clamped.shared_bytes <= fk.MAX_SHARED_BYTES
+    finally:
+        fk.RING_SLOTS, fk.WIDE_CLUSTER = saved
 
 
 @pytest.fixture(scope="module")
@@ -1071,10 +1150,14 @@ def test_learned_rk4_split_launch_geometry(split_packs, filters, name, nx, clust
     whole = 2 * 128 * 128 if wide else pack.blob.numel()
     one = fk._team_bytes(pack, nx, terms)
     if cluster is None and groups is None and whole + one <= limit:  # the whole form, unchanged
-        most = 1 if wide else 4
-        teams = min(most, (limit - whole) // one, batch // 132)
+        if wide:  # the ring: two groups beside as many slots as fit, clusters of two blocks
+            slots = min(4, (limit - fk._ring_bytes(pack, nx, terms, 0)) // whole)
+            assert launch == (1, 288, one, fk._ring_bytes(pack, nx, terms, slots), batch, False,
+                              1, nx, True, 2, 1, slots, 2)
+            return
+        teams = min(4, (limit - whole) // one, batch // 132)
         assert launch == (teams, 128 * teams, one, whole + teams * one, -(-batch // teams),
-                          False, 1, nx, wide, 1, 1)
+                          False, 1, nx, False, 1, 1, 0, 1)
         return
     _check_split(pack, nx, terms, launch, batch, cluster, groups, limit)
     assert launch.cluster <= fk.MAX_CLUSTER
