@@ -607,20 +607,23 @@ def tensor_core_line(library) -> str:
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             # the mangled template arguments <NT, FORCED, P> (the cluster
-            # kernel's <NT, FORCED, CHUNKED, G>): channels = 8 NT, a chunk's
-            found = re.search(r"fused_learned_rk4_(cluster_)?kernelILi(\d+)ELb(\d)E"
-                              r"(?:Lb(\d)E)?(?:Li(\d)E)?E", name)
+            # kernel's <NT, FORCED, G>, its ring's <NT, FORCED, CHUNKED, G>
+            # or, at 4 groups or 2 groups two blocks an SM, <NT, FORCED>):
+            # channels = 8 NT, a chunk's
+            found = re.search(r"fused_learned_rk4_(cluster_(?:ring_)?)?kernel(_g4|_2x2)?"
+                              r"ILi(\d+)ELb(\d)E(?:Lb(\d)E)?(?:Li(\d)E)?E", name)
             ring = re.search(r"fused_learned_rk4_wide_kernelILb(\d)E", name)
             if ring:  # the whole form at 128 channels: <FORCED>
                 name = (f"fused_learned_rk4_wide<128 channels, "
                         f"{'forced' if ring.group(1) == '1' else 'unforced'}, 2 warp groups>")
             elif found:
-                count = found.group(5)
+                count = found.group(6) or {"_g4": "4", "_2x2": "2"}.get(found.group(2))
                 what = "warp groups" if found.group(1) else "trajectories a team"
-                name = (f"fused_learned_rk4{'_cluster' if found.group(1) else ''}"
-                        f"<{8 * int(found.group(2))} channels"
-                        f"{' a chunk' if found.group(4) == '1' else ''}, "
-                        f"{'forced' if found.group(3) == '1' else 'unforced'}"
+                name = (f"fused_learned_rk4"
+                        f"{'_' + found.group(1).rstrip('_') if found.group(1) else ''}"
+                        f"<{8 * int(found.group(3))} channels"
+                        f"{' a chunk' if found.group(5) == '1' else ''}, "
+                        f"{'forced' if found.group(4) == '1' else 'unforced'}"
                         f"{f', {count} {what}' if count else ''}>")
         elif name and "fused_learned_rk4" in name:
             row = counts.setdefault(name, [0, 0, 0])
@@ -633,18 +636,11 @@ def tensor_core_line(library) -> str:
         "; ".join(f"{n}: {h} HMMA, {g} GMMA, {l} LDSM" for n, (h, g, l) in sorted(counts.items())))
 
 
-# the chunked form with one warp group (fused_learned_rk4_cluster_kernel<16,
-# forced, chunked, 1 group>): its 16-byte stack frame is the array of the two
-# activation buffers' pointers, which the kernel keeps for speed
-# (fused_learned_rk4.cuh, kPointerArray)
-POINTER_ARRAY_KERNEL = re.compile(r"cluster_kernelILi16ELb[01]ELb1ELi1E")
-
-
 def check_learned_builds(build) -> None:
     """Raises if ptxas gave an instantiation of fused_learned_rk4 (the whole
-    forms, the split form at every width and warp-group count, the chunked
-    form) a spill, or a stack frame other than the 16 bytes of the one-group
-    chunked kernels' array of pointers."""
+    forms, the split form at every width and warp-group count, with the
+    weights whole and through the ring, the chunked form) a spill or a
+    stack frame."""
     frames = []  # (kernel, ptxas' line)
     for source, text in build.logs.items():
         if not source.startswith("fused_learned_rk4"):
@@ -661,15 +657,11 @@ def check_learned_builds(build) -> None:
             "process)")
         return
     bad = [(kernel, line) for kernel, line in frames if not re.fullmatch(
-        r"%d bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
-        % (16 if POINTER_ARRAY_KERNEL.search(kernel) else 0), line)]
-    arrays = sum(bool(POINTER_ARRAY_KERNEL.search(kernel)) for kernel, _ in frames)
+        r"0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads", line)]
     log(f"    fused_learned_rk4: {len(frames)} instantiations read by ptxas, {len(bad)} with a "
-        f"spill or an unexpected stack frame ({arrays} one-group chunked kernels, whose "
-        "16-byte frame is their array of pointers)")
-    if bad or arrays != 2:
-        raise AssertionError(f"fused_learned_rk4 stack frames or spills: {bad}; one-group "
-                             f"chunked kernels read: {arrays} of 2")
+        "spill or a stack frame")
+    if bad:
+        raise AssertionError(f"fused_learned_rk4 stack frames or spills: {bad}")
 
 
 def check_stencil_builds(build) -> None:
@@ -1170,8 +1162,9 @@ def wide_phase(card: str, ks_dt: float, filters: int = WIDE_FILTERS) -> dict:
                 row["ms"] = timed(run)
             else:
                 # the ring against the split form's one block and one group
-                # (one window of a slice, the same products in the same
-                # order): bit for bit, then timed in turns, ring first
+                # (its own ring beside the trajectory, one group walking
+                # every tile, the same products in the same order): bit for
+                # bit, then timed in turns, ring first
                 def one_group():
                     return fk.fused_learned_rk4(u, pack, dt, STEPS, forcing=fpb, cluster=1,
                                                 groups=1)
@@ -3208,6 +3201,8 @@ def domain_phase(card: str) -> dict:
         if chosen.stream == other.stream:
             raise AssertionError(f"{label}: {chosen} and {other}: no streamed/whole pair")
         streamed, whole_w = (chosen, other) if chosen.stream else (other, chosen)
+        if streamed.slots < 1 or streamed.threads != fk.ring_threads(streamed.groups):
+            raise AssertionError(f"{label}: the streamed launch is not the ring: {streamed}")
         readings = {}
         for what, u, steps in (("one step from N(0,1)", rough_state(BATCH, nx), 1),
                                (f"{DOMAIN_RUN_STEPS} steps", 0.3 * case["u0"], DOMAIN_RUN_STEPS)):
@@ -3215,13 +3210,15 @@ def domain_phase(card: str) -> dict:
             got = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, cluster=blocks)
             readings[what] = float((got - want).abs().max())
             log(f"  {label}, {what}: {streamed.cluster} blocks of {streamed.segment} points, "
-                f"{streamed.groups} warp groups, weights streamed, against {whole_w.cluster} "
+                f"{streamed.groups} warp groups, weights streamed through a ring of "
+                f"{streamed.slots} slots, against {whole_w.cluster} "
                 f"blocks of {whole_w.segment}, {whole_w.groups} warp groups, with the weights "
                 f"whole: max abs diff {readings[what]:.3e} "
                 f"{'ok (bit for bit)' if torch.equal(got, want) else 'FAIL'}")
             if not torch.equal(got, want):
                 raise AssertionError(f"{label} {what}: streamed weights differ from whole ones")
         out["streamed"][label] = {"blocks": streamed.cluster, "segment": streamed.segment,
+                                  "groups": streamed.groups, "slots": streamed.slots,
                                   "whole_blocks": whole_w.cluster, **readings}
 
     # ---- reach 10: KS-8x's tower zero-padded to kernel 21, on the split grid
@@ -3452,8 +3449,8 @@ def chunked_domain_checks(rough_state) -> dict:
         log(f"  {label}: {model.config.num_layers} x {pack.channels} filters (padded "
             f"{pack.padded_channels}), weights {pack.blob.numel()} bytes, dt={dt:.6g}; at "
             f"B={batch}: {launch}")
-        if not (launch.split and launch.stream):
-            raise AssertionError(f"{label}: not the chunked form: {launch}")
+        if not (launch.split and launch.stream and launch.slots >= 1):
+            raise AssertionError(f"{label}: not the chunked form on the ring: {launch}")
         rough = rough_state(batch, nx)
         want_inc = fk.fused_learned_rk4_plain(rough, pack, dt, 1, fp) - rough
         got_inc = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp) - rough
@@ -3530,6 +3527,7 @@ def split_kernel_row(domain: dict, terms: int) -> dict:
                            if k not in ("launch", "fewest_blocks_launch")}
                    | {"cluster": row["launch"]["cluster"], "segment": row["launch"]["segment"],
                       "stream": row["launch"]["stream"], "groups": row["launch"]["groups"],
+                      "slots": row["launch"]["slots"],
                       "fewest_blocks_cluster": row["fewest_blocks_launch"]["cluster"],
                       "fewest_blocks_stream": row["fewest_blocks_launch"]["stream"]}
                    for label, row in domain["rows"].items()},
@@ -3650,7 +3648,7 @@ def chunked_kernel_row(chunked: dict, domain: dict) -> dict:
         "ensemble_route": chunked["ensemble_route"],
         "ensemble_traj_steps_per_s": chunked["ensemble_traj_steps_per_s"],
         "domain": {label: {k: v for k, v in row.items() if k != "launch"}
-                   | {"cluster": row["launch"]["cluster"], "segment": row["launch"]["segment"]}
+                   | {key: row["launch"][key] for key in ("cluster", "segment", "groups", "slots")}
                    for label, row in domain["chunked"].items()},
         "phase_11_s": chunked["phase_s"],
     }

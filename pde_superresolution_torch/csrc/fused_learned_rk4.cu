@@ -9,8 +9,8 @@
 // to the kernel of its P (fused_learned_rk4_p2.cu, _p4.cu, _p8.cu), the
 // whole form at 128 channels to the ring (fused_learned_rk4_wide.cu) and a
 // split launch (cfg.cluster > 0, with its warp groups a block; every tower
-// wider than 128 filters) to the kernel of its warp-group count
-// (fused_learned_rk4_cluster.cuh).
+// wider than 128 filters) to the kernel of its warp-group count, with the
+// weights whole or through the ring (fused_learned_rk4_cluster.cuh).
 
 #include "fused_learned_rk4_whole.cuh"
 
@@ -44,15 +44,17 @@ extern template int pde::launch_learned_rk4_whole<kMaxPerTeam>(int, bool, const 
 //       taps), cluster (0: whole trajectories a block; C >= 1: the split
 //       form, a cluster of C blocks per trajectory), segment (points of a
 //       block in the split form), stream (the split form streams layer >= 1's
-//       weights a conv tap at a time: 1, or keeps them whole: 0), trajectories
-//       a team in the whole form (1, 2, 4 or 8; more than 1 below 128
-//       channels with nx times it at most 128 points; 1 in the split form),
-//       the ring's slots (1 to kMaxRingSlots in the whole form at 128
-//       channels, else 0) and the blocks of a cluster that share its copies
-//       (1 to kMaxWideCluster, a trajectory each).
+//       weights through the ring: 1, always at 128 channels and above, or
+//       keeps them whole: 0), trajectories a team in the whole form (1, 2, 4
+//       or 8; more than 1 below 128 channels with nx times it at most 128
+//       points; 1 in the split form), the ring's slots (1 to kMaxRingSlots
+//       in the whole form at 128 channels and in a split launch that
+//       streams, else 0) and the blocks of a cluster that share its copies
+//       (the whole form at 128 channels: 1 to kMaxWideCluster, a trajectory
+//       each; 1 in the split form, whose cluster is one trajectory's).
 // offsets: the weights' bytes in shared memory (the whole buffer, or when
-//          streamed the window of one tap's slice, 2 x min(channels, 128)^2,
-//          or the ring's slots of one such slice each),
+//          streamed the ring's slots of one conv tap's slice each,
+//          2 x min(channels, 128)^2),
 //          then the blocks' byte offsets in buffer order: w[0], b[0], ...,
 //          w[layers-1], b[layers-1], hw, hb, projection. Layer l >= 1 must lie
 //          at a fixed stride from layer 1, as pack_learned_rk4 lays them out.
@@ -96,7 +98,7 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
   const bool split = meta[27] > 0;
   cfg.cluster = split ? meta[27] : 1;
   cfg.seg = split ? meta[28] : cfg.nx;
-  cfg.stream = split && meta[29];
+  const bool streamed = split && meta[29];  // the split form's ring
   cfg.batch = batch;
   cfg.num_steps = num_steps;
   cfg.dx = scalars[0];
@@ -109,11 +111,12 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
   const int per_team = meta[30];
   const bool wide = channels == 8 * kWideNT;
   const bool ring = wide && !split;  // the whole form at 128 channels
-  cfg.ring = ring ? meta[31] : 0;
+  cfg.ring = ring || streamed ? meta[31] : 0;
   if (ring) cfg.cluster = meta[32];
-  if ((meta[31] != 0) != ring ||
-      (ring && (cfg.ring < 1 || cfg.ring > kMaxRingSlots || cfg.cluster < 1 ||
-                cfg.cluster > kMaxWideCluster || teams != kWideGroups))) {
+  if ((meta[31] != 0) != (ring || streamed) ||
+      ((ring || streamed) && (cfg.ring < 1 || cfg.ring > kMaxRingSlots)) ||
+      (ring && (cfg.cluster < 1 || cfg.cluster > kMaxWideCluster || teams != kWideGroups)) ||
+      (split && meta[32] != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   // the split form takes nx >= 32, the whole form nx >= 16
@@ -124,9 +127,12 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
       (per_team > 1 && (split || channels >= 8 * kWideNT || per_team * cfg.nx > kPackedRows))) {
     return (int)cudaErrorInvalidValue;
   }
-  const bool stream_weights = wide || cfg.stream;
-  // the chunked form: a multiple of 16 channels, always split and streamed
-  if (chunked && (channels % 16 || !split || !cfg.stream)) return (int)cudaErrorInvalidValue;
+  const bool stream_weights = ring || streamed;
+  // the chunked form: a multiple of 16 channels, always split; from 128
+  // channels on the weights always stream
+  if ((chunked && (channels % 16 || !split)) || (channels >= 8 * kWideNT && !stream_weights)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cfg.weight_bytes = offsets[0];
   // the blocks: layer 0's weights and bias, then every later layer at a
   // fixed stride (its weights, then its bias w_bytes on), then the heads
@@ -155,12 +161,12 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
     fp.sin0 = forcing[3];
     fp.cos0 = forcing[4];
   }
-  const int slice_channels = chunked ? 8 * kWideNT : channels;  // of the window's slice
-  if (stream_weights &&
-      cfg.weight_bytes != (ring ? cfg.ring : 1) * 2 * slice_channels * slice_channels) {
+  const int slice_channels = chunked ? 8 * kWideNT : channels;  // of a slot's slice
+  if (stream_weights && cfg.weight_bytes != cfg.ring * 2 * slice_channels * slice_channels) {
     return (int)cudaErrorInvalidValue;
   }
-  // the split form's later warp groups keep their z tiles after the segment's layout
+  // the split form's later warp groups keep their z tiles after the segment's
+  // layout, and the ring its barriers after them
   int group_bytes = 0;
   if (split) {  // 1, 2 or 4 groups (2 wide); the segments cover nx, each block holds points
     if (teams < 1 || teams == 3 ||
@@ -169,7 +175,7 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
         cfg.cluster * cfg.seg < cfg.nx) {
       return (int)cudaErrorInvalidValue;
     }
-    group_bytes = (teams - 1) * group_z_bytes(cfg.n_free);
+    group_bytes = (teams - 1) * group_z_bytes(cfg.n_free) + (streamed ? kRingControlBytes : 0);
   } else if (ring) {  // group 1's z tiles, then the barriers and the issuing thread's state
     group_bytes = (kWideGroups - 1) * group_z_bytes(cfg.n_free) + kRingControlBytes;
   } else if (teams < 1 || teams > (fp.terms > 0 ? kMaxTeamsForced : kMaxTeams)) {
@@ -189,7 +195,20 @@ extern "C" int pde_fused_learned_rk4(const float* u, const unsigned char* weight
   const bool forced = fp.terms > 0;
   if (forced != (cfg.eq == 0) || cfg.eq < 0 || cfg.eq > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (split) {  // one kernel per warp-group count
+  if (streamed) {  // one kernel per warp-group count
+    switch (teams) {
+      case 1:
+        return pde::launch_learned_rk4_cluster_ring<1>(channels, forced, u, weights, out, cfg, fp,
+                                                       smem_bytes, s);
+      case 2:
+        return pde::launch_learned_rk4_cluster_ring<2>(channels, forced, u, weights, out, cfg, fp,
+                                                       smem_bytes, s);
+      default:
+        return pde::launch_learned_rk4_cluster_ring<4>(channels, forced, u, weights, out, cfg, fp,
+                                                       smem_bytes, s);
+    }
+  }
+  if (split) {
     switch (teams) {
       case 1:
         return pde::launch_learned_rk4_cluster<1>(channels, forced, u, weights, out, cfg, fp,

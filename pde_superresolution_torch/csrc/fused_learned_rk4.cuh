@@ -114,45 +114,58 @@
 //    That copy is what bounds a simple form: one warp group copying the
 //    slices with plain loads between two barriers, once per 64-row tile,
 //    moved 640 KB per trajectory and RHS from L2 at nx 128 and overlapped
-//    nothing (27% of the bound; forced, one block an SM, 18%). The whole
-//    form (RING, fused_learned_rk4_wide.cu) therefore runs:
-//    - two warp groups on one trajectory (64 accumulators a thread leave
-//      registers for two), its 64-row tiles dealt out in turn (pass i to
-//      group i mod 2, as in the split form), walking the slices in step so
-//      that one copy of a slice serves every tile: at nx 128 each slice
-//      enters shared memory once per RHS, not once per tile;
-//    - a ring of S slots (as many as fit beside the trajectory, at most
-//      kMaxRingSlots; 1 to 4 at nx 32-256) at the start of shared memory,
-//      each filled by one cp.async.bulk (the slices are contiguous and
-//      16-byte aligned in the buffer: no tensor map), completing on the
-//      slot's "full" mbarrier, whose next lap this block's thread 0 arms
-//      with the slice's byte count once the last one landed;
-//    - a producer warp beside the two groups (288 threads; the consumers
-//      keep their 168-170 registers): block 0's lane 0 issues every slice
-//      of the launch in the order the groups consume them, the first lap at
-//      once and each later slice as soon as its slot's "empty" mbarrier has
-//      an arrival from every consumer warp of the cluster, then leaves the
-//      block's work; the groups meet on a named barrier of their 256
-//      threads. Its count of slices is the launch's, so no copy is in
-//      flight when a block leaves, and a last cluster barrier keeps every
-//      block until the others' remote arrivals are done. Issuing from a
-//      consumer thread instead was 1.6x slower on an H100: that thread
-//      could refill a slot only when it came by, and often found it not yet
-//      free;
-//    - a cluster of C blocks (fused_kernels.WIDE_CLUSTER), a trajectory
-//      each, sharing every copy: the slice is multicast into the slot of
-//      every block (.multicast::cluster), and every warp releases a slot by
-//      a remote arrival on block 0's "empty" barrier (mapa +
-//      mbarrier.arrive.shared::cluster after its wgmma.wait_group), so a
-//      slice crosses from L2 once per cluster. Cluster-scoped acquire and
-//      release on these barriers made the kernel 1.2x slower; the default
-//      scopes, which CUTLASS's pipelines use, suffice (the copy engine and
-//      wgmma both act in the async proxy);
-//    - every RHS walks the same cyclic order of (L - 1) x passes x K slices,
-//      so each slot's phase parity carries across layers, stages and steps,
-//      and the next RHS's first slices load during layer 0 (mma.sync,
-//      weights read from global memory) and the tail;
-//    - with three slots or more a tap's products stay in flight while the
+//    nothing (27% of the bound; forced, one block an SM, 18%). Every launch
+//    that streams its weights therefore runs them through the ring (RING):
+//    the whole form at 128 channels (fused_learned_rk4_wide.cu) and the split
+//    and chunked forms wherever they stream (fused_learned_rk4_cluster.cuh).
+//  * The ring:
+//    - the block's warp groups walk their passes of 64-row tiles in step, so
+//      that one copy of a slice serves every tile: at nx 128 the whole form's
+//      two groups take each slice into shared memory once per RHS, not once
+//      per tile; a group without a pass (the ragged last segment's, or one
+//      with fewer) waits for and releases every slice and runs no product;
+//    - a ring of S slots (as many as fit beside the trajectory or segment,
+//      at most kMaxRingSlots) at the start of shared memory, each filled by
+//      one cp.async.bulk (the slices are contiguous and 16-byte aligned in
+//      the buffer: no tensor map), completing on the slot's "full" mbarrier,
+//      whose next lap this block's thread 0 arms with that slice's byte
+//      count once the last one landed;
+//    - a producer warp beside the groups (at 4 groups block 0's thread 0
+//      instead, see issue_ahead): block 0's lane 0 issues every
+//      slice of the launch in the order the groups consume them (each RHS:
+//      layer >= 1, pass, output chunk, conv tap, 128 input channels), the
+//      first lap at once and each later slice as soon as its slot's "empty"
+//      mbarrier has an arrival from every consumer warp of the cluster; the
+//      groups meet on a named barrier of their own threads. Its count of
+//      slices is the launch's, so no copy is in flight when a block leaves,
+//      and a last cluster barrier keeps every block until the others' remote
+//      arrivals are done. Issuing from a consumer thread instead was 1.6x
+//      slower on an H100 (the whole form): that thread could refill a slot
+//      only when it came by, and often found it not yet free;
+//    - the cluster's blocks share every copy: the slice is multicast into the
+//      slot of every block (.multicast::cluster, a mask of up to 16 bits),
+//      and every warp releases a slot by a remote arrival on block 0's
+//      "empty" barrier (mapa + mbarrier.arrive.shared::cluster after its
+//      wgmma.wait_group), so a slice crosses from L2 once per cluster: in
+//      the whole form a cluster of C blocks a trajectory each
+//      (fused_kernels.WIDE_CLUSTER), in the split form the blocks of one
+//      trajectory, which all walk the layout's passes (cfg.seg), so every
+//      block waits for and releases the same slices. Cluster-scoped acquire
+//      and release on these barriers made the whole form 1.2x slower; the
+//      default scopes, which CUTLASS's pipelines use, suffice (the copy
+//      engine and wgmma both act in the async proxy);
+//    - every RHS walks the same cyclic order of slices, so each slot's phase
+//      parity carries across layers, stages and steps, and the next RHS's
+//      first slices load during layer 0 (mma.sync, weights read from global
+//      memory) and the tail;
+//    - the split form's cluster barriers (a barrier.cluster waits for every
+//      thread of the cluster that has not exited, the producer warps too):
+//      the producer warp meets each of them in the consumers' order, having
+//      issued before it every slice whose slot the consumers free before it,
+//      S past the slices they consume before it. One slice more would wait
+//      for a release that comes only after the barrier: the two would wait
+//      for each other. The other blocks' producer warps only meet them;
+//    - with three slots or more a slice's products stay in flight while the
 //      next slice is awaited and its products issued (wgmma.wait_group 1),
 //      its slot released once they are done, so a group's tensor-core work
 //      does not drain at every slice (with two, holding both slots left
@@ -161,30 +174,32 @@
 //      and the last wait of a pass is on every path: where ptxas found a
 //      path without it, it inserted its own waits and serialized the
 //      function's wgmma (1.17x slower on an H100).
-//    A block of the last cluster past an odd batch holds no trajectory: it
-//    runs the rows on zeros, meets every barrier and receives every slice,
-//    and reads and writes nothing of u. Every wait is bounded
+//    A block of the whole form's last cluster past an odd batch holds no
+//    trajectory: it runs the rows on zeros, meets every barrier and receives
+//    every slice, and reads and writes nothing of u. Every wait is bounded
 //    (PDE_RING_WAIT_CYCLES): a fault of the protocol traps and fails the
 //    launch instead of hanging the card. The activations are still written
 //    by stmatrix (the generic proxy), so fence.proxy.async stays before the
 //    barrier that precedes the next layer's wgmma; the ring is written only
-//    by the copy engine. Each row's products run in the split form's order
-//    (the bias, then taps 0 .. K - 1, each over its 8 depth steps), so the
-//    ring gives fused_learned_rk4(..., cluster=1, groups=1) bit for bit.
-//    Layer 0's and the heads' fragments, the biases and the projection are
-//    read from global memory where they lie; one tile a pass, so lanes
-//    16-31 still idle through the projection and stencil. The split and
-//    chunked forms keep the window: a slice copied with plain loads between
-//    two block barriers.
+//    by the copy engine. Each row's products run in the order of the weights
+//    whole (the bias, then taps 0 .. K - 1, each over its depth steps, chunk
+//    by chunk), so the ring gives the same bits whatever its slots, cluster
+//    and groups. Layer 0's and the heads' fragments, the biases and the
+//    projection are read from global memory where they lie; at 128 channels
+//    one tile a pass, so lanes 16-31 still idle through the projection and
+//    stencil. The whole form keeps its two groups' 168 registers with 288
+//    threads; the split form's ring kernels have their own instantiations
+//    (fused_learned_rk4_cluster.cuh), beside the kernels that keep the
+//    weights whole.
 //  * The split form (SPLIT, fused_learned_rk4_cluster.cuh): where one block
 //    cannot hold a trajectory, a thread-block cluster of C blocks (up to 8,
 //    16 where the card schedules it) shares it. Block r of the cluster owns
 //    the points [r seg, r seg + seg) (the last block the rest: a ragged
 //    segment), their activations, state rows and phase state, and keeps its
-//    own copy of the weights, or at any width streams layer >= 1's weights a
-//    conv tap at a time as the wide form does (cfg.stream, where the whole
-//    buffer does not fit beside the segment, or where the host's rule finds
-//    more warps busy so). Every block of a cluster lays
+//    own copy of the weights, or streams layer >= 1's weights through the
+//    ring (always at 128 channels and above; below, where the whole buffer
+//    does not fit beside the segment, or where the host's rule finds more
+//    warps busy so). Every block of a cluster lays
 //    out its shared memory alike (from seg), so a neighbour's rows lie at the
 //    same offsets in its block. The halos come from the blocks that own the
 //    points, by distributed shared memory (cluster.map_shared_rank, modulo
@@ -198,48 +213,49 @@
 //  * A split block runs G warp groups (1, 2 or 4; 2 at 128 channels and above,
 //    whose 64 accumulators a thread leave registers for two) on its one
 //    segment: they share its activations, state rows and weights (or
-//    window). The segment's passes of MT 64-row tiles go to the groups in
+//    ring). The segment's passes of MT 64-row tiles go to the groups in
 //    turn (pass i to group i mod G, so a ragged last pass lands on a group
 //    with the most passes), each group with its own z tiles (group 0's in
 //    the segment's layout, the others' after it, so the layout that remote
 //    reads rely on does not change with G); the point loops (stage combine,
 //    halos, loads and stores) run over all G x 128 threads, and the team
-//    barrier is the block's. With streamed weights the groups walk their
-//    passes in step, so each slice crosses into the window once for all G
-//    groups (a group without a pass copies and waits, and runs no product).
-//    G is a template parameter, one kernel per count (a count read from
-//    blockDim cost 30-40% at G = 1: nvcc no longer unrolled the tile loop);
-//    the loop stays rolled where unrolled it overflowed the registers
-//    (kRolledPasses), and 2 groups below 128 channels are bounded to 128
-//    registers a thread, two blocks an SM. The host picks C, G and the
-//    weights' form from the occupancy they give an SM, by a rule fitted to
-//    a sweep on the card (fused_kernels.learned_rk4_launch, _split_rank).
-//    The same products run in the same order at every row, whichever group
-//    and block own it, so the split form gives the one-block form's result
-//    bit for bit at every C and G.
-//  * The chunked form (CHUNKED, split only): towers wider than 128 filters,
-//    padded to a multiple of 16 channels (cfg.channels). The output channels
-//    run in chunks of 128, each on wgmma.m64n128k16 with the 128-channel
-//    form's 64 accumulators a thread; the contraction runs over the input
-//    channels 128 at a time (the last slice the rest). The weights stream
-//    through the same 32 KB window, a slice per (chunk, conv tap, 128 input
-//    channels), laid out in that order by pack_learned_rk4 with the output
-//    columns zero-padded to whole chunks (so are layer 0's fragments and
-//    every bias). Layer 0 runs chunk by chunk; the last layer's chunks feed
-//    the heads one after the other, their products summed into the z tile.
-//    The last chunk stores only the planes the activations have. Activation
-//    planes hold the segment's rows rounded up to 8 (one core matrix), not
-//    64: a 64-row tile reads past them into the next plane, or the slack of
-//    one tile after the last, and its outputs there go to the dump row. A
-//    simple form: at 2384 filters and 128 points a block holds 8 of a tile's
-//    64 rows, and every block streams every layer's weights (57 MB at kernel
-//    5, past L2's 50 MB) once per stage.
+//    barrier is the groups'. G is a template parameter, one kernel per count
+//    (a count read from blockDim cost 30-40% at G = 1: nvcc no longer
+//    unrolled the tile loop); the loop stays rolled where unrolled it
+//    overflowed the registers (kRolledPasses), and 2 groups below 128
+//    channels are bounded to 128 registers a thread, two blocks an SM (with
+//    the ring's producer warp they take 164-168, one block an SM; 4 groups
+//    on the ring have no producer warp). The host picks C, G, the weights' form
+//    and the ring's slots from the occupancy they give an SM, by a rule
+//    fitted to a sweep on the card (fused_kernels.learned_rk4_launch,
+//    _split_rank). The same products run in the same order at every row,
+//    whichever group and block own it, so the split form gives the one-block
+//    form's result bit for bit at every C and G.
+//  * The chunked form (CHUNKED, split and streamed): towers wider than 128
+//    filters, padded to a multiple of 16 channels (cfg.channels). The output
+//    channels run in chunks of 128, each on wgmma.m64n128k16 with the
+//    128-channel form's 64 accumulators a thread; the contraction runs over
+//    the input channels 128 at a time (a tap's last slice the rest, its
+//    bytes its own). The weights stream through the ring's 32 KB slots, a
+//    slice per (chunk, conv tap, 128 input channels), laid out in that order
+//    by pack_learned_rk4 with the output columns zero-padded to whole chunks
+//    (so are layer 0's fragments and every bias). Layer 0 runs chunk by
+//    chunk; the last layer's chunks feed the heads one after the other, their
+//    products summed into the z tile. The last chunk stores only the planes
+//    the activations have. Activation planes hold the segment's rows rounded
+//    up to 8 (one core matrix), not 64: a 64-row tile reads past them into
+//    the next plane, or the slack of one tile after the last, and its
+//    outputs there go to the dump row. At 2384 filters and 128 points a block
+//    holds 8 of a tile's 64 rows: the padded tile sets the pace once each
+//    layer's 57 MB of weights (at kernel 5, past L2's 50 MB) cross from
+//    memory once per cluster and stage, not once per block.
 //  * -DPDE_MAX_TEAMS=n and -DPDE_PROFILE serve
 //    scripts/probe_learned_rk4.py: other team counts, and cycles by phase
 //    (each warp's counters written over its team's own output).
 //    -DPDE_FAULT_SKIP_LAST_PASS plants a fault for the card's tests: a split
 //    block's last warp group skips its last pass; -DPDE_FAULT_RING_WRONG_SLOT
-//    one in the ring: each slice lands in the slot after its own.
+//    one in the ring: each slice lands in the slot after its own;
+//    -DPDE_FAULT_RING_MASK_SHORT: each slice misses the cluster's last block.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -273,22 +289,32 @@ struct LearnedConfig {
   int team_bytes;    // shared memory of one team
   int halo;          // periodic points of u at each end (>= the reach)
   int seg;           // points a team's layout holds: nx, or a split segment
-  int cluster;       // split form: blocks of one trajectory; the ring: blocks sharing its copies
-  int stream;        // split form: layer >= 1's weights a conv tap at a time
-  int ring;          // the whole form at 128 channels: slots of the ring (weight_bytes / slice)
+  int cluster;       // split form: blocks of one trajectory; the whole ring: blocks sharing its copies
+  int ring;          // streamed weights (the ring): its slots of a slice (weight_bytes / slice)
   int batch, num_steps;
   float dx, eta, half_dt, dt, dt_sixth;
   int channels;  // the padded tower width (a multiple of 16 above 128: the chunked form)
 };
 
 // The split form's launch (fused_learned_rk4_cluster.cuh): a cluster of
-// cfg.cluster blocks per trajectory, G warp groups a block; one source per G
-// (fused_learned_rk4_cluster.cu, _g2.cu, _g4.cu), built in parallel.
+// cfg.cluster blocks per trajectory, G warp groups a block, the weights
+// whole in every block; one source per G (fused_learned_rk4_cluster.cu,
+// _g2.cu, _g4.cu), built in parallel.
 template <int G>
 int launch_learned_rk4_cluster(int channels, bool forced, const float* u,
                                const unsigned char* weights, float* out,
                                const LearnedConfig& cfg, const LearnedForcing& fp,
                                int smem_bytes, cudaStream_t stream);
+
+// The same with layer >= 1's weights streamed through the ring of cfg.ring
+// slots, G warp groups and a producer warp a block (every width; the
+// chunked form above 128 channels); one source per G
+// (fused_learned_rk4_cluster_ring.cu, _ring_g2.cu, _ring_g4.cu).
+template <int G>
+int launch_learned_rk4_cluster_ring(int channels, bool forced, const float* u,
+                                    const unsigned char* weights, float* out,
+                                    const LearnedConfig& cfg, const LearnedForcing& fp,
+                                    int smem_bytes, cudaStream_t stream);
 
 // The whole form's launch (fused_learned_rk4_whole.cuh): `teams` warp groups
 // a block, P trajectories a warp group; one source per P
@@ -336,6 +362,12 @@ constexpr int kMaxCluster = 16;  // fused_kernels.MAX_CLUSTER
 // 255 that 64 accumulators a thread need
 constexpr int kMaxGroups = 4;
 constexpr int kMaxGroupsWide = 2;
+// Threads of a block of G warp groups that streams through the ring: the
+// groups and a producer warp, but at kMaxGroups none (block 0's thread 0
+// issues the slices: see issue_ahead)
+__host__ __device__ constexpr int ring_threads(int G) {
+  return kTeamThreads * G + (G == kMaxGroups ? 0 : 32);
+}
 // the whole form at 128 channels (the ring, fused_learned_rk4_wide.cu):
 // kWideGroups warp groups on one trajectory and one producer warp, up to
 // kMaxRingSlots slots of one conv tap's slice, and after the team's layout
@@ -465,6 +497,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
       "bra WAIT;\nDONE:\n}\n" ::"r"(bar),
       "r"(parity), "l"((unsigned long long)PDE_RING_WAIT_CYCLES)
       : "memory");
+}
+// Whether the phase of parity `parity` has completed, without waiting.
+__device__ __forceinline__ bool mbar_test(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
 }
 // an arrival, by the threads with `pred`, on the barrier at the same offset
 // in block `rank` of the cluster
@@ -647,10 +690,12 @@ constexpr bool kRolledPasses = G > 1 && (NT == 2 || NT == 8);
 // by point (row p P + j holds point p of the team's trajectory j), so a conv
 // tap or stencil shift of t points is one of t P rows and every loop over rows
 // and the tiles runs as for one trajectory of nx P points (the design note).
-// RING (the whole form at 128 channels): G = kWideGroups warp groups share
-// one trajectory as a split block's share its segment, and layer >= 1's
-// slices arrive by bulk copies into the ring, each shared by the cluster's
-// blocks (the design note).
+// RING: layer >= 1's weights stream through a ring of slots, each slice
+// copied once for the cluster's blocks by a producer warp (the design note):
+// the whole form at 128 channels (G = kWideGroups warp groups share one
+// trajectory as a split block's share its segment; a cluster of blocks, a
+// trajectory each) and every split launch that streams (the chunked form
+// always; a cluster's blocks share one trajectory).
 template <int NT, bool FORCED, bool SPLIT, bool CHUNKED = false, int G = 1, int P = 1,
           bool RING = false>
 __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
@@ -658,12 +703,14 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
                                                  const unsigned char* __restrict__ weights,
                                                  float* __restrict__ u_out, const Config cfg,
                                                  const Forcing fp) {
-  static_assert(!CHUNKED || (SPLIT && NT == kWideNT), "the chunked form is split, 128 a chunk");
+  static_assert(!CHUNKED || (SPLIT && NT == kWideNT && RING),
+                "the chunked form is split and streamed, 128 a chunk");
   static_assert((G == 1 || G == 2 || G == 4) &&
                     G <= (NT == kWideNT ? kMaxGroupsWide : kMaxGroups) && (SPLIT || RING || G == 1),
                 "1, 2 or 4 warp groups a split block (1 or 2 wide)");
-  static_assert(RING == (NT == kWideNT && !SPLIT) && (!RING || (G == kWideGroups && P == 1)),
-                "the whole form at 128 channels is the ring, kWideGroups groups a trajectory");
+  static_assert(NT != kWideNT || RING, "at 128 channels the weights always stream");
+  static_assert(!RING || SPLIT || (NT == kWideNT && G == kWideGroups && P == 1),
+                "the whole form's ring is at 128 channels, kWideGroups groups a trajectory");
   // the block's warp groups share one trajectory, or a segment of one
   constexpr bool GROUPED = SPLIT || RING;
   static_assert((P == 1 || P == 2 || P == 4 || P == 8) && P <= kMaxPerTeam &&
@@ -671,18 +718,20 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
                 "1, 2, 4 or 8 trajectories a team, more than one in the whole form below 128 "
                 "channels only");
   constexpr int CS = NT / 2;  // depth-16 steps across the channels (of a chunk)
-  constexpr bool WIDE = NT == kWideNT;  // one team a block, layer >= 1's weights streamed
+  constexpr bool WIDE = NT == kWideNT;  // 64 accumulators a thread: one 64-row tile a pass
   constexpr int MT = WIDE ? 1 : 2;      // 64-point tiles per pass
   constexpr int SLICE = 128 * NT * NT;  // bytes of one conv tap's weights of a layer >= 1
   constexpr int STEP_BYTES = SLICE / CS;  // one depth step of 16 input channels of a slice
+  // the ring's slices issued by block 0's thread 0 between its own, not by
+  // a producer warp (4 warp groups: see issue_ahead)
+  constexpr bool kIssuerThread = RING && ring_threads(G) == kTeamThreads * G;
   // 8-channel planes of the activations, output chunks of 8 NT channels,
   // depth steps over all input channels
   const int planes = CHUNKED ? cfg.channels / 8 : NT;
   const int chunks = CHUNKED ? (planes + NT - 1) / NT : 1;
   const int all_cs = CHUNKED ? planes / 2 : CS;
-  // layer >= 1's weights through a window of one tap's slice: at 128
-  // channels always, in the split form where the host says so
-  const bool stream = WIDE || (SPLIT && cfg.stream);
+  // slices of a (chunk, tap): 128 input channels each, the last the rest
+  const int tap_slices = (all_cs + CS - 1) / CS;
   const int nx = cfg.nx, K = cfg.ksize, kh = (K - 1) / 2, F = cfg.n_free, L = cfg.layers;
   const int halo = cfg.halo;
   const int FT = (F + 7) / 8, z_stride = F | 1;  // odd: lanes on distinct banks
@@ -704,15 +753,18 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   const int tt = tid - grp * kTeamThreads, wt = tt >> 5;
   // the threads that share the loops over points: a team, or all G groups
   const int lt = GROUPED ? tid : tt;
-  const int lthreads = kRolledPasses<NT, G> ? (int)blockDim.x : kTeamThreads * G;
+  // (the ring's producer warp, after the groups, runs none of them)
+  const int lthreads = kRolledPasses<NT, G>
+                           ? (int)blockDim.x - (RING ? ring_threads(G) - kTeamThreads * G : 0)
+                           : kTeamThreads * G;
 
-  if (!stream) {
+  if constexpr (!RING) {
     for (int i = tid; i < cfg.weight_bytes / 16; i += blockDim.x) {
       reinterpret_cast<uint4*>(smem)[i] = reinterpret_cast<const uint4*>(weights)[i];
     }
   }
   // the ring: S slots of a slice at the start of shared memory; after the
-  // team's layout and group 1's z tiles a "full" barrier a slot (one
+  // team's layout and the later groups' z tiles a "full" barrier a slot (one
   // arrival, this block's thread 0 expecting the slice's bytes) and an
   // "empty" one (an arrival of each consumer warp of the cluster's blocks:
   // the slot is free in every block; only block 0's is used)
@@ -722,6 +774,11 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   const uint32_t ring0 = (uint32_t)__cvta_generic_to_shared(smem);
   const uint32_t full0 = (uint32_t)__cvta_generic_to_shared(ring_ctl);
   const uint32_t empty0 = full0 + 8 * kMaxRingSlots;
+  // the bytes of slice i of a (chunk, tap): 128 input channels, the last
+  // the rest (every slice of a tap but in the chunked form)
+  auto slice_bytes = [&](int i) {
+    return CHUNKED ? min(CS, all_cs - i * CS) * STEP_BYTES : SLICE;
+  };
   int ring_rank = 0;
   if constexpr (RING) {
     ring_rank = (int)cg::this_cluster().block_rank();
@@ -731,7 +788,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
         mbar_init(empty0 + 8 * s, 4 * G * cfg.cluster);
       }
       fence_mbarrier_init();
-      for (int s = 0; s < S; ++s) mbar_expect_tx(full0 + 8 * s, SLICE);  // the first lap
+      for (int s = 0; s < S; ++s) mbar_expect_tx(full0 + 8 * s, slice_bytes(s % tap_slices));
     }
   }
   fence_proxy_async();  // wgmma reads the weights
@@ -758,68 +815,155 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   const int nr = n * P;  // the rows of the team's points
 
   // the weights read where they lie: shared memory, or global memory when
-  // streamed (the shared weights are then the window of layer >= 1's slices)
-  const unsigned char* wts = stream ? weights : smem;
+  // streamed (the shared memory then holds the ring of layer >= 1's slices)
+  const unsigned char* wts = RING ? weights : smem;
   const float* s_hb = reinterpret_cast<const float*>(wts + cfg.hb_off);
   const float* s_proj = reinterpret_cast<const float*>(wts + cfg.proj_off);
   auto w_off = [&](int l) {
     return l == 0 ? cfg.w0_off : cfg.w1_off + (l - 1) * cfg.layer_stride;
   };
   auto b_off = [&](int l) { return l == 0 ? cfg.b0_off : w_off(l) + cfg.w_bytes; };
+  // the ring: every group walks the same passes of 64 MT-row tiles, those
+  // of the layout (cfg.seg, alike in every block of a cluster), so every
+  // block of a cluster waits for and releases the same slices
+  const int ring_passes = ((cfg.seg * P + 63) / 64 + MT * G - 1) / (MT * G);
 
-  // The ring (RING). Block 0's producer warp (its lane 0) copies every
-  // slice of the launch in the order the groups consume them (each RHS:
-  // layer, pass, tap) into slot after slot, once for every block of the
+  // The ring (RING). Block 0 copies every slice of the launch in the order
+  // the groups consume them (each RHS: layer, pass, output chunk, tap, 128
+  // input channels) into slot after slot, once for every block of the
   // cluster (the mask), each once the slot is free in all of them: the
   // first lap at once, then S slices ahead of the slowest consumer warp.
-  // It holds no trajectory and leaves the block's work at once; every
-  // other block's producer warp only meets the cluster's barriers.
-  if constexpr (RING) {
-    cg::this_cluster().sync();  // every block's barriers are set before a copy or an arrival
-    if (tid >= kTeamThreads * G) {
-      if (ring_rank == 0 && lane == 0) {
-        const int passes = ((nx + 63) / 64 + G - 1) / G;  // of 64-row tiles a group
-        const long long total = (long long)cfg.num_steps * 4 * (L - 1) * passes * K;
-        const uint16_t mask = cfg.cluster > 1 ? (uint16_t)((1u << cfg.cluster) - 1) : 0;
-        int slot = 0, parity = 0, k = 0, pass = 0, layer = 1;
-        for (long long j = 0; j < total; ++j) {
-          if (j >= S) mbar_wait(empty0 + 8 * slot, parity);  // its last slice released
-#ifdef PDE_FAULT_RING_WRONG_SLOT
-          // a planted fault (tests/test_torch_gpu.py): each slice lands in
-          // the next slot, its barrier the right one
-          const int into = slot + 1 < S ? slot + 1 : 0;
+  const long long per_layer = (long long)ring_passes * chunks * K * tap_slices;
+  const long long per_stage = (L - 1) * per_layer;
+  const long long ring_total = cfg.num_steps * 4 * per_stage;
+#ifdef PDE_FAULT_RING_MASK_SHORT
+  // a planted fault (tests/test_torch_gpu.py): each slice misses the
+  // cluster's last block
+  const uint16_t mask = cfg.cluster > 1 ? (uint16_t)((1u << (cfg.cluster - 1)) - 1) : 0;
 #else
-          const int into = slot;
+  const uint16_t mask = cfg.cluster > 1 ? (uint16_t)((1u << cfg.cluster) - 1) : 0;
 #endif
-          bulk_copy(ring0 + into * SLICE, weights + w_off(layer) + k * SLICE, SLICE,
-                    full0 + 8 * slot, mask);
-          if (++slot == S) {
-            slot = 0;
-            parity ^= j >= S;  // the first lap waits for no release
-          }
-          if (++k == K) {
-            k = 0;
-            if (++pass == passes) {
-              pass = 0;
-              if (++layer == L) layer = 1;
-            }
-          }
+  // the issuer's place in that order: the next slice, its slot and the
+  // parity of the slot's "empty" phase it waits for, the slice's place in
+  // its tap, its pass and layer, and its bytes into the layer's weights;
+  // and (an issuing thread) the slice it consumes next
+  struct Issue {
+    long long next, now;
+    int slot, parity, i, pass, layer, off;
+  };
+  // the next slice, into its slot (its last slice released, where waited for)
+  auto issue_one = [&](Issue& st) {
+#ifdef PDE_FAULT_RING_WRONG_SLOT
+    // a planted fault (tests/test_torch_gpu.py): each slice lands in the
+    // next slot, its barrier the right one
+    const int into = st.slot + 1 < S ? st.slot + 1 : 0;
+#else
+    const int into = st.slot;
+#endif
+    const int bytes = slice_bytes(st.i);
+    bulk_copy(ring0 + into * SLICE, weights + w_off(st.layer) + st.off, bytes,
+              full0 + 8 * st.slot, mask);
+    if (++st.slot == S) {
+      st.slot = 0;
+      st.parity ^= st.next >= S;  // the first lap waits for no release
+    }
+    ++st.next;
+    if (++st.i == tap_slices) st.i = 0;
+    st.off += bytes;  // a layer's slices lie in the order they are consumed
+    if (st.off == cfg.w_bytes) {
+      st.off = 0;
+      if (++st.pass == ring_passes) {
+        st.pass = 0;
+        if (++st.layer == L) st.layer = 1;
+      }
+    }
+  };
+  // 4 groups issue from block 0's thread 0, between its slices (the
+  // issuer's state in shared memory after the barriers, out of the
+  // registers of every thread): a producer warp beside 16 would leave each
+  // thread 96 registers (an SM quadrant's 16,384 hold 5 warps of 102), and
+  // the kernels spilled
+  Issue* const issue_state =
+      reinterpret_cast<Issue*>(ring_ctl + 16 * kMaxRingSlots);  // kIssuerThread
+  // every free slot of the slices up to S past the one thread 0 is about to
+  // wait for, waiting only for that slice's slot
+  static_assert(16 * kMaxRingSlots + sizeof(Issue) <= kRingControlBytes,
+                "the slots' barriers and the issuer's state in the control bytes");
+  auto issue_ahead = [&]() {
+    Issue& st = *issue_state;
+    const long long now = st.now++;
+    for (const long long end = min(now + S, ring_total); st.next < end;) {
+      if (st.next >= S) {
+        if (st.next > now) {
+          if (!mbar_test(empty0 + 8 * st.slot, st.parity)) break;
+        } else {
+          mbar_wait(empty0 + 8 * st.slot, st.parity);
         }
       }
+      issue_one(st);
+    }
+  };
+  if constexpr (RING) {
+    cg::this_cluster().sync();  // every block's barriers are set before a copy or an arrival
+    if constexpr (kIssuerThread) {
+      if (tid == 0 && ring_rank == 0) {
+        *issue_state = Issue{0, 0, 0, 0, 0, 0, 1, 0};
+        issue_ahead();  // the first lap
+        issue_state->now = 0;
+      }
+    } else if (tid >= kTeamThreads * G) {
+      // Block 0's producer warp (its lane 0) issues; it holds no
+      // trajectory. In the split form it meets every cluster barrier of the
+      // consumers, in their order, having issued before each barrier every
+      // slice whose slot the consumers free before it: S past those they
+      // consume before it (one more would wait for a release that comes
+      // only after the barrier). Every other block's producer warp only
+      // meets the cluster's barriers.
+      const bool issuer = ring_rank == 0 && lane == 0;
+      Issue st{0, 0, 0, 0, 0, 0, 1, 0};
+      auto issue_until = [&](long long end) {
+        if (!issuer) return;
+        for (end = min(end, ring_total); st.next < end;) {
+          if (st.next >= S) mbar_wait(empty0 + 8 * st.slot, st.parity);  // its last slice released
+          issue_one(st);
+        }
+      };
+      // a cluster barrier that the consumers meet once they have consumed
+      // (and so released) the first `consumed` slices
+      auto meet = [&](long long consumed) {
+        issue_until(consumed + S);
+        __syncwarp();
+        cg::this_cluster().sync();
+      };
+      if constexpr (SPLIT) {
+        meet(0);  // after the loads
+        for (int rhs = 0; rhs < cfg.num_steps * 4; ++rhs) {
+          const long long first = rhs * per_stage;
+          for (int l = 0; l + 1 < L; ++l) meet(first + l * per_layer);  // layer l's halos
+          meet(first + per_stage);  // after the fluxes
+          meet(first + per_stage);  // after the stage combine
+        }
+      }
+      issue_until(ring_total);
       __syncwarp();
       cg::this_cluster().sync();  // as the consumers' last
       return;
     }
   }
   // The consumers: the next slice's slot once its bytes have landed (thread
-  // 0 then expects the bytes of the slot's next lap), and a slot's release
-  // once the warp's products that read it are done (an arrival on block 0's
-  // "empty" barrier), in the order of the waits.
-  int ring_slot = 0, ring_parity = 0;
+  // 0 then expects the bytes of the slot's next lap, the slice S on), and a
+  // slot's release once the warp's products that read it are done (an
+  // arrival on block 0's "empty" barrier), in the order of the waits.
+  // Where block 0's thread 0 issues, it first issues every slice it can.
+  int ring_slot = 0, ring_parity = 0, ring_next = S % tap_slices;
   auto ring_wait = [&]() {
+    if constexpr (kIssuerThread) {
+      if (tid == 0 && ring_rank == 0) issue_ahead();
+    }
     const int slot = ring_slot;
     mbar_wait(full0 + 8 * slot, ring_parity);
-    mbar_expect_tx(full0 + 8 * slot, SLICE, tid == 0);
+    mbar_expect_tx(full0 + 8 * slot, slice_bytes(ring_next), tid == 0);
+    if (++ring_next == tap_slices) ring_next = 0;
     if (++ring_slot == S) {
       ring_slot = 0;
       ring_parity ^= 1;
@@ -832,16 +976,11 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   };
 
   unsigned char* base = smem + cfg.weight_bytes + team * cfg.team_bytes;
-  // the two bf16 activation buffers [planes], chosen by a select. The
-  // chunked form with one warp group reads them from an array of their
-  // pointers instead (a 16-byte stack frame), as every form did before warp
-  // groups: there a select, an offset, or pointers hidden by an empty asm
-  // each cost 8-27% on an H100, and the array alone won it back; the other
-  // forms run 1.7-2.0% faster with the select and keep no stack frame.
-  constexpr bool kPointerArray = CHUNKED && G == 1;
+  // the two bf16 activation buffers [planes], chosen by a select (on the
+  // ring an array of their pointers no longer paid in the chunked form's
+  // one-group kernels: 2.3% slower at 2384 filters on an H100)
   unsigned char* const act0 = base;
   unsigned char* const act1 = base + planes * plane_bytes;
-  unsigned char* act[2] = {act0, act1};
   // stage input, s_u[-halo .. rows + halo): periodic copies at both ends
   float* s_u = reinterpret_cast<float*>(base + 2 * planes * plane_bytes +
                                         (CHUNKED ? kChunkSlack : 0)) + halo * P;
@@ -866,7 +1005,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
   float* __restrict__ s_cos = s_sin + T * phase_rows;
 
   auto team_sync = [&]() {
-    if constexpr (RING) {  // the consumer warps (the producer warp has left)
+    if constexpr (RING) {  // the consumer warps (the producer warp runs apart)
       asm volatile("bar.sync 1, %0;\n" ::"n"(kTeamThreads * G) : "memory");
     } else if constexpr (GROUPED && G > 1) {
       __syncthreads();  // the block's groups share one segment
@@ -988,22 +1127,18 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
 #endif
   const int tiles = (nr + 63) / 64;
   // the split form and the ring: pass i (MT tiles from 64 MT i) to group i
-  // mod G; with streamed weights every group walks the same number of
-  // passes, in step, past the segment's last where it has none left
-  // (`active` false)
+  // mod G; in the ring every group walks the layout's passes in step,
+  // past its own last (the ragged last segment's, or a group with fewer)
+  // without a pass (`active` false)
   // the pass stride, MT G (from blockDim where the loop stays rolled)
   const int pass_step = MT * (lthreads / kTeamThreads);
-  const int tp_end = GROUPED && G > 1 && stream ? round_up(tiles, pass_step) : tiles;
+  const int tp_end = RING ? ring_passes * pass_step : tiles;
   for (int step = 0; step < cfg.num_steps; ++step) {
     for (int stage = 0; stage < 4; ++stage) {
       for (int l = 0; l < L; ++l) {
         const bool last = l == L - 1;
         unsigned char* out = l & 1 ? act1 : act0;
         const unsigned char* in = l & 1 ? act0 : act1;
-        if constexpr (kPointerArray) {
-          out = act[l & 1];
-          in = act[(l & 1) ^ 1];
-        }
         const float* bias = reinterpret_cast<const float*>(wts + b_off(l));
 
         // MT 64-point tiles at a time; in each, warp wt holds rows 16 wt ..
@@ -1016,7 +1151,7 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
               !GROUPED || (tp < tiles && !(SPLIT && G > 1 && grp == G - 1 &&
                                            tp + pass_step >= tp_end));
 #else
-          const bool active = !GROUPED || G == 1 || tp < tiles;
+          const bool active = !GROUPED || (!RING && G == 1) || tp < tiles;
 #endif
           const bool two = MT == 2 && tp + 1 < tiles;
           const int row0 = 64 * tp + 16 * wt;  // this warp's first row of tile tp
@@ -1064,86 +1199,59 @@ __device__ __forceinline__ void learned_rk4_body(unsigned char* smem,
                 }
               }
             } else if constexpr (RING) {
-              // layer >= 1 from the ring: tap k's slice, as below, from its
-              // slot (the products of every tap of the pass in the same
-              // order as from the window, so the same bits). A tap's
-              // products stay in flight while the next slice is awaited and
-              // its products issued; its slot is released once they are done.
-              // With fewer than three slots each tap's products finish before
-              // its release, so that the producer keeps a slice ahead.
+              // layer >= 1 from the ring: one slice at a time, each from its
+              // slot: one conv tap's [8 NT]^2, or in the chunked form the
+              // tap's next 128 input channels (or the rest) to this chunk's
+              // 128 outputs (the slices lie in the buffer in the order
+              // (chunk, tap, input channels)), the products of every tap in
+              // the order of the whole weights' (so the same bits). With
+              // three slots or more a slice's products stay in flight while
+              // the next slice is awaited and its products issued; its slot
+              // is released once they are done. With fewer each slice's
+              // products finish before its release, so that the producer
+              // keeps a slice ahead.
               const uint64_t a = smem_desc(
                   (uint32_t)__cvta_generic_to_shared(in) + 64 * tp * 16, plane_bytes, 128);
-              const bool pipelined = S > 2;
+              // (the issuing thread issues with no wgmma in flight: a divergent
+              // path beside one made ptxas serialize them)
+              const bool pipelined = S > 2 && !kIssuerThread;
               fence_acc(acc[0]);
+              fence_acc(acc[MT - 1]);
               int held = -1;  // the slot whose products may still run
               for (int k = 0; k < K; ++k) {
-                const int slot = ring_wait();
-                PROF(10);
-                if (active) {  // uniform over the warp group
-                  wgmma_fence();
-                  uint64_t b = smem_desc(ring0 + slot * SLICE, 128 * NT, 128);
+                for (int ic = 0; ic < all_cs; ic += CS) {  // ic: the slice's first depth step
+                  const int steps = CHUNKED ? min(CS, all_cs - ic) : CS;
+                  const int slot = ring_wait();
+                  PROF(10);
+                  if (active) {  // uniform over the warp group
+                    wgmma_fence();
+                    uint64_t b = smem_desc(ring0 + slot * SLICE, 128 * NT, 128);
 #pragma unroll
-                  for (int cs = 0; cs < CS; ++cs, b += 16 * NT) {
-                    wgmma_bf16<NT>(acc[0], a + (cs * (plane_bytes / 8) + k), b);
+                    for (int cs = 0; cs < CS; ++cs, b += 16 * NT) {
+                      if (!CHUNKED || cs < steps) {  // uniform over the warp group
+                        const uint64_t a_k = a + ((ic + cs) * (plane_bytes / 8) + k);
+                        wgmma_bf16<NT>(acc[0], a_k, b);
+                        if (two) wgmma_bf16<NT>(acc[MT - 1], a_k + 64, b);
+                      }
+                    }
+                    wgmma_commit();
                   }
-                  wgmma_commit();
+                  if (pipelined) {
+                    wgmma_wait_all_but_one();
+                    if (held >= 0) ring_release(held);
+                    held = slot;
+                  } else {
+                    wgmma_wait();
+                    ring_release(slot);
+                  }
+                  PROF(2);
                 }
-                if (pipelined) {
-                  wgmma_wait_all_but_one();
-                  if (k > 0) ring_release(held);
-                  held = slot;
-                } else {
-                  wgmma_wait();
-                  ring_release(slot);
-                }
-                PROF(2);
               }
               // on every path, or ptxas waits and serializes the wgmma itself
               wgmma_wait();
               fence_acc(acc[0]);
+              fence_acc(acc[MT - 1]);
               if (pipelined) ring_release(held);
-            } else if (stream) {
-              // As below, one slice of the weights at a time through the window
-              // at the start of shared memory (the team is the block): one conv
-              // tap's [8 NT]^2, or in the chunked form the tap's next 128 input
-              // channels (or the rest) to this chunk's 128 outputs, each slice
-              // contiguous in the buffer in the order (chunk, tap, input steps).
-              const uint64_t a = smem_desc(
-                  (uint32_t)__cvta_generic_to_shared(in) + 64 * tp * 16, plane_bytes, 128);
-              const uint64_t b0 =
-                  smem_desc((uint32_t)__cvta_generic_to_shared(smem), 128 * NT, 128);
-              const unsigned char* layer_w = weights + w_off(l);
-              for (int k = 0; k < K; ++k) {
-                for (int ic = 0; ic < all_cs; ic += CS) {  // ic: the slice's first depth step
-                  const int steps = CHUNKED ? min(CS, all_cs - ic) : CS;
-                  const uint4* slice = reinterpret_cast<const uint4*>(
-                      layer_w + ((size_t)(oc * K + k) * all_cs + ic) * STEP_BYTES);
-                  team_sync();  // every warp's products of the last slice are done
-                  for (int i = lt; i < steps * (STEP_BYTES / 16); i += lthreads) {
-                    reinterpret_cast<uint4*>(smem)[i] = slice[i];
-                  }
-                  fence_proxy_async();  // wgmma reads the window
-                  team_sync();
-                  if (!active) continue;  // uniform over the warp group
-#pragma unroll
-                  for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
-                  wgmma_fence();
-                  uint64_t b = b0;
-#pragma unroll
-                  for (int cs = 0; cs < CS; ++cs, b += 16 * NT) {
-                    if (!CHUNKED || cs < steps) {  // uniform over the warp group
-                      const uint64_t a_k = a + ((ic + cs) * (plane_bytes / 8) + k);
-                      wgmma_bf16<NT>(acc[0], a_k, b);
-                      if (two) wgmma_bf16<NT>(acc[MT - 1], a_k + 64, b);
-                    }
-                  }
-                  wgmma_commit();
-                  wgmma_wait();
-#pragma unroll
-                  for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
-                }
-              }
-              PROF(2);
             } else {
               // wgmma, both operands from shared memory. Tap k reads the input
               // planes shifted by (k - kh) P rows: the descriptor starts 16

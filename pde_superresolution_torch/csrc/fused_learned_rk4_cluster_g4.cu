@@ -1,5 +1,6 @@
-// fused_learned_rk4, the split form with 4 warp groups a block (the design
-// note in fused_learned_rk4.cuh, the kernel in fused_learned_rk4_cluster.cuh).
+// fused_learned_rk4, the split form with 4 warp groups a block and the weights
+// whole in every block (the design note in fused_learned_rk4.cuh, the
+// kernel in fused_learned_rk4_cluster.cuh).
 #include "fused_learned_rk4_cluster.cuh"
 
 template int pde::launch_learned_rk4_cluster<4>(int, bool, const float*, const unsigned char*,

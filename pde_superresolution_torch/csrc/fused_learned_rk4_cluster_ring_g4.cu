@@ -1,0 +1,10 @@
+// fused_learned_rk4, the split form with 4 warp groups a block and the weights
+// streamed through the ring (the design note in fused_learned_rk4.cuh, the
+// kernel in fused_learned_rk4_cluster.cuh).
+#include "fused_learned_rk4_cluster.cuh"
+
+template int pde::launch_learned_rk4_cluster_ring<4>(int, bool, const float*,
+                                                     const unsigned char*, float*,
+                                                     const pde::LearnedConfig&,
+                                                     const pde::LearnedForcing&, int,
+                                                     cudaStream_t);

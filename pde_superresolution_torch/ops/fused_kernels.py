@@ -85,7 +85,10 @@ MAX_ORDERS = 3
 # block runs one of GROUP_COUNTS warp groups on its segment, up to
 # MAX_GROUPS (kMaxGroups), at WIDE_CHANNELS and above up to MAX_GROUPS_WIDE
 # (kMaxGroupsWide: the kernel's thread bound leaves 255 registers a thread
-# for 64 accumulators).
+# for 64 accumulators). A split launch that streams its weights (always at
+# WIDE_CHANNELS and above) takes the ring too: a producer warp beside the
+# groups, up to RING_SLOTS slots beside the segment, each slice copied once
+# for the cluster's blocks (fused_learned_rk4_cluster_ring.cu).
 MAX_TEAMS = 4  # teams (warp groups) per block
 MAX_TEAMS_FORCED = 4  # the same for a forced equation (kMaxTeamsForced)
 TEAM_THREADS = 128  # one warp group owns a trajectory, or per_team of them (kTeamThreads)
@@ -799,8 +802,11 @@ class LearnedRK4Launch(NamedTuple):
     thread-block cluster of ``cluster`` blocks per trajectory, each holding
     a segment of ``segment``
     points (the last block the rest) run by ``groups`` warp groups, with the
-    weights whole in shared memory or, ``stream``, layer >= 1's a conv tap
-    at a time. ``teams`` is 0 when no form fits (1 in the split form)."""
+    weights whole in shared memory or, ``stream``, layer >= 1's through a
+    ring of ``slots`` slices, each copied once for the cluster's blocks
+    (``multicast`` 1: the cluster holds one trajectory). A launch with a
+    ring has a producer warp beside its groups (``ring_threads``). ``teams``
+    is 0 when no form fits (1 in the split form)."""
 
     teams: int  # warp groups (128 threads) per block, each its own trajectories
     threads: int  # per block
@@ -810,11 +816,11 @@ class LearnedRK4Launch(NamedTuple):
     split: bool = False  # the cluster form
     cluster: int = 1  # blocks per trajectory
     segment: int = 0  # points a block holds: nx, or a segment of it
-    stream: bool = False  # layer >= 1's weights through a window of one tap's slice
+    stream: bool = False  # layer >= 1's weights through the ring, a slice at a time
     groups: int = 1  # the split form: warp groups a block on its one segment
     per_team: int = 1  # the whole form: trajectories a team, packed point by point
-    slots: int = 0  # the whole form at WIDE_CHANNELS: the ring's slots of one tap's slice
-    multicast: int = 1  # ... and the blocks (a trajectory each) that share each slice's copy
+    slots: int = 0  # streamed: the ring's slots of one slice
+    multicast: int = 1  # the whole form: the blocks (a trajectory each) sharing each copy
 
 
 def learned_rk4_reach(pack: LearnedRK4Pack) -> int:
@@ -861,18 +867,31 @@ def _group_bytes(pack: LearnedRK4Pack) -> int:
     return 4 * 32 * (pack.n_free | 1) * 4
 
 
+def ring_threads(groups: int) -> int:
+    """Threads of a split block of ``groups`` warp groups that streams its
+    weights through the ring: the groups and a producer warp, but at
+    ``MAX_GROUPS`` none (block 0's first thread issues: a 17th warp would
+    leave each thread 96 registers; fused_learned_rk4.cuh ring_threads)."""
+    return TEAM_THREADS * groups + (0 if groups == MAX_GROUPS else 32)
+
+
 def _window_bytes(pack: LearnedRK4Pack) -> int:
-    """One conv tap's slice of a layer >= 1's weights, bf16 (in the chunked
-    form: of one chunk's 128 outputs from 128 inputs)."""
+    """One slot of the ring: one conv tap's slice of a layer >= 1's
+    weights, bf16 (in the chunked form: of one chunk's 128 outputs from 128
+    inputs; a tap's last slice may hold fewer inputs)."""
     return 2 * min(pack.padded_channels, WIDE_CHANNELS) ** 2
 
 
-def _ring_bytes(pack: LearnedRK4Pack, nx: int, terms: int, slots: int) -> int:
-    """Shared memory of a block of the whole form at ``WIDE_CHANNELS`` (the
-    ring): ``slots`` slices of one conv tap, the trajectory's team bytes,
-    the z tiles of its second warp group and the barriers after them."""
+def _ring_bytes(pack: LearnedRK4Pack, nx: int, terms: int, slots: int,
+                groups: int = WIDE_GROUPS) -> int:
+    """Shared memory of a block with a ring of ``slots`` slices: the whole
+    form at ``WIDE_CHANNELS`` (``nx``: the trajectory's points, two warp
+    groups) or a split block that streams (``nx``: its segment's points,
+    ``groups`` warp groups): the slots, the team bytes of the ``nx``
+    points, the z tiles of the later warp groups and the barriers after
+    them."""
     return (slots * _window_bytes(pack) + _team_bytes(pack, nx, terms)
-            + (WIDE_GROUPS - 1) * _group_bytes(pack) + RING_CONTROL_BYTES)
+            + (groups - 1) * _group_bytes(pack) + RING_CONTROL_BYTES)
 
 
 def most_per_team(pack: LearnedRK4Pack, nx: int) -> int:
@@ -919,7 +938,10 @@ def learned_rk4_launch(
     ``groups`` force the split form (also at a shape one block holds) with
     that many blocks (fewer where ``ceil(nx / cluster)``-point segments
     cover nx with fewer) or warp groups, the other chosen as above; a value
-    out of range raises. ``teams`` is 0 when nothing fits
+    out of range raises. A split block that streams its weights holds a
+    ring of as many slots as fit beside its segment, up to ``RING_SLOTS``
+    (``_ring_bytes``; fewer where that fits more blocks an SM), and a
+    producer warp (``ring_threads``). ``teams`` is 0 when nothing fits
     (``learned_rk4_refusal`` says so)."""
     window, resident = _window_bytes(pack), pack.blob.numel()
     wide = pack.padded_channels >= WIDE_CHANNELS
@@ -973,29 +995,36 @@ def learned_rk4_launch(
     counts = counts if groups is None else [groups]
     best = None
     for stream in (False, True) if not wide else (True,):
-        weights = window if stream else resident
         for size in sizes:
             segment = -(-nx // size)
             team_bytes = _team_bytes(pack, segment, terms)
             for count in counts:
-                shared = weights + team_bytes + (count - 1) * _group_bytes(pack)
-                if shared > shared_limit:
-                    continue
-                launch = LearnedRK4Launch(
-                    teams=1, threads=TEAM_THREADS * count, team_bytes=team_bytes,
-                    shared_bytes=shared, blocks=batch * -(-nx // segment), split=True,
-                    cluster=-(-nx // segment), segment=segment, stream=stream, groups=count)
-                rank = _split_rank(launch, wide, shared_limit)
-                if best is None or rank < best[0]:
-                    best = (rank, launch)
+                # streamed: each ring size that fits beside the segment, up
+                # to RING_SLOTS (fewer slots may fit more blocks an SM)
+                most = min(RING_SLOTS, MAX_RING_SLOTS, max(0, shared_limit - _ring_bytes(
+                    pack, segment, terms, 0, count)) // window) if stream else 0
+                for slots in range(most, 0, -1) if stream else [0]:
+                    shared = (_ring_bytes(pack, segment, terms, slots, count) if stream
+                              else resident + team_bytes + (count - 1) * _group_bytes(pack))
+                    if shared > shared_limit:
+                        continue
+                    launch = LearnedRK4Launch(
+                        teams=1,
+                        threads=ring_threads(count) if stream else TEAM_THREADS * count,
+                        team_bytes=team_bytes, shared_bytes=shared,
+                        blocks=batch * -(-nx // segment), split=True, cluster=-(-nx // segment),
+                        segment=segment, stream=stream, groups=count, slots=slots)
+                    rank = _split_rank(launch, wide, shared_limit)
+                    if best is None or rank < best[0]:
+                        best = (rank, launch)
     if best is not None:
         return best[1]
     segment = -(-nx // sizes[-1])
     team_bytes = _team_bytes(pack, segment, terms)
     return LearnedRK4Launch(
-        teams=0, threads=TEAM_THREADS * counts[0], team_bytes=team_bytes,
-        shared_bytes=window + team_bytes + (counts[0] - 1) * _group_bytes(pack), blocks=0,
-        split=True, cluster=sizes[-1], segment=segment, stream=True, groups=counts[0])
+        teams=0, threads=ring_threads(counts[0]), team_bytes=team_bytes,
+        shared_bytes=_ring_bytes(pack, segment, terms, 1, counts[0]), blocks=0, split=True,
+        cluster=sizes[-1], segment=segment, stream=True, groups=counts[0], slots=1)
 
 
 def split_occupancy(launch: LearnedRK4Launch, wide: bool,
@@ -1003,10 +1032,15 @@ def split_occupancy(launch: LearnedRK4Launch, wide: bool,
     """What one SM holds of a split launch: (blocks by shared memory and by
     registers, warps of them that have a pass of tiles to run, passes of
     64-row tiles per warp group and stage). A pass is two tiles below
-    ``WIDE_CHANNELS`` (MT = 2), one at and above it."""
+    ``WIDE_CHANNELS`` (MT = 2), one at and above it. A block that streams
+    its weights has a producer warp beside its groups (``ring_threads``);
+    at least one block fits by registers (its kernel's thread bound sees to
+    that)."""
+    warps = (ring_threads(launch.groups) if launch.stream else
+             TEAM_THREADS * launch.groups) // 32
     per_sm = min((shared_limit + BLOCK_RESERVED_BYTES)
                  // (launch.shared_bytes + BLOCK_RESERVED_BYTES),
-                 (SM_WARPS_WIDE if wide else SM_WARPS) // (4 * launch.groups))
+                 max(1, (SM_WARPS_WIDE if wide else SM_WARPS) // warps))
     tiles = -(-launch.segment // 64)
     units = -(-tiles // (1 if wide else 2))  # passes of the segment, over all groups
     return per_sm, 4 * per_sm * min(launch.groups, units), -(-units // launch.groups)
@@ -1017,20 +1051,23 @@ def _split_rank(launch: LearnedRK4Launch, wide: bool, shared_limit: int) -> tupl
     sweep of every cluster size and warp-group count on an H100
     (``scripts/probe_learned_rk4.py --clusters all --groups all``; PERF.md):
     the most warps with a pass to run resident an SM; then the weights
-    whole before streamed; then, streamed, the fewest copies of each slice
-    into a window a trajectory (blocks x passes: the groups of a block share
-    one); then the fewest tile slots a trajectory holds (blocks x groups x
-    passes: the padded tile work); then, where a group runs one pass between
+    whole before streamed; then, streamed, the fewest slices a trajectory's
+    blocks wait for (blocks x passes: the groups of a block share each; the
+    ring copies a slice once for the cluster, but each block still waits
+    for it, and at 128 filters nx 1024 4 blocks of 2 passes ran 1.17x
+    faster than 8 of one); then the fewest tile slots a trajectory holds
+    (blocks x groups x passes: the padded tile work); then, where a group
+    runs one pass between
     barriers, two blocks an SM or more before one (a block's cluster barrier
     then overlaps another's work: Burgers-8x nx 2048, 8 blocks of 2 groups
     against 4 of 4); then the fewest blocks (with two passes or more a group
     the barriers weigh less than the halos and barriers of more blocks:
     KS-8x nx 2048, 2 blocks of 4 groups against 4 of 2); then the fewest
-    warp groups."""
+    warp groups; then, streamed, the most slots of the ring."""
     per_sm, busy, passes = split_occupancy(launch, wide, shared_limit)
     copies = launch.cluster * passes if launch.stream else 0
     return (-busy, launch.stream, copies, launch.cluster * launch.groups * passes,
-            per_sm < 2 and passes < 2, launch.cluster, launch.groups)
+            per_sm < 2 and passes < 2, launch.cluster, launch.groups, -launch.slots)
 
 
 def learned_rk4_refusal(
@@ -1041,7 +1078,7 @@ def learned_rk4_refusal(
     """Why the kernel cannot take this shape, or None if it can. The limits
     are nx >= ``MIN_NX`` (16; ``MIN_SPLIT_NX``, 32, where the shape takes
     the split form) and the opt-in shared memory of a block (232448 bytes on
-    sm_90), which must hold the weights (or the window of one tap's slice)
+    sm_90), which must hold the weights (or one slot of the ring)
     and one trajectory, or one segment of a trajectory split over at most
     ``MAX_CLUSTER`` blocks (``cluster``, ``groups``: exactly that many
     blocks or warp groups a block, as ``learned_rk4_launch`` takes them).

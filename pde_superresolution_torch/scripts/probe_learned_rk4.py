@@ -125,7 +125,7 @@ def time_ms(fn, samples: int = 3) -> float:
 PHASES = ("layer 0 (mma.sync)", "layer 0 epilogue, stores", "later layers (wgmma)",
           "later layers' epilogues, stores", "heads, z tile", "projection, stencil, flux",
           "barriers between layers", "barrier after the fluxes", "forcing, stage combine",
-          "barrier after the combine", "ring waits (the whole form at 128 filters)")
+          "barrier after the combine", "ring waits (streamed weights)")
 
 
 def load_case(name: str, filters: int, nx: int, device, stems: Path):
@@ -176,7 +176,7 @@ def fewest_blocks(pack, nx: int, terms: int, batch: int):
 def launch_text(launch, pack) -> str:
     """A launch in words, with what one SM holds of a split one
     (``fk.split_occupancy``)."""
-    if launch.slots:
+    if launch.slots and not launch.split:
         return (f"{launch.blocks} blocks x {launch.groups} groups, a ring of {launch.slots} "
                 f"slots shared by clusters of {launch.multicast}")
     if not launch.split:
@@ -184,7 +184,8 @@ def launch_text(launch, pack) -> str:
                 "trajectories")
     per_sm, busy, passes = fk.split_occupancy(launch, pack.padded_channels >= fk.WIDE_CHANNELS)
     return (f"clusters of {launch.cluster} blocks x {launch.segment} points, {launch.groups} "
-            f"groups" + (", weights streamed" if launch.stream else "")
+            f"groups" + (f", weights streamed through {launch.slots} slots" if launch.stream
+                         else "")
             + f"; {per_sm} blocks an SM, {busy} busy warps, {passes} passes")
 
 
@@ -198,10 +199,21 @@ def window_launch(ring, pack, batch: int):
         segment=ring.segment, stream=True)
 
 
+def split_window_launch(launch, pack):
+    """A split launch that streams, as a tree before the split form's ring
+    takes it: the same blocks and warp groups, no producer warp, one window
+    of a slice in place of the ring's slots and barriers."""
+    return launch._replace(
+        threads=fk.TEAM_THREADS * launch.groups, slots=0,
+        shared_bytes=fk._window_bytes(pack) + launch.team_bytes
+        + (launch.groups - 1) * fk._group_bytes(pack))
+
+
 def rebuild(teams: int, profile: bool = False, src: str = "-") -> list:
     """Build and load the library for ``teams`` per block from the kernel
-    sources in ``src`` (``-``: this package's); ptxas' lines for the 32- and
-    128-channel kernels (empty when the build was already on disk)."""
+    sources in ``src`` (``-``: this package's); ptxas' lines for the 32-
+    and 128-channel kernels and the split form's ring kernels (empty when
+    the build was already on disk)."""
     source = _build.PACKAGE_DIR / "csrc" if src == "-" else Path(src).resolve()
     _build.SOURCE_DIR = source
     _build.BUILD_DIR = _build.PACKAGE_DIR / "_build" if src == "-" else source.parent / "_build"
@@ -214,14 +226,26 @@ def rebuild(teams: int, profile: bool = False, src: str = "-") -> list:
     _build.load_library()
     report, keep = [], False
     logs = _build.build().logs
-    for line in (logs.get("fused_learned_rk4.cu", "") + "\n"
-                 + logs.get("fused_learned_rk4_wide.cu", "")).splitlines():
-        if "Compiling entry function" in line:
-            keep = "kernelILi4E" in line or "kernelILi16E" in line or "wide_kernel" in line
-            width = 32 if "kernelILi4E" in line else 128
-            forced = "Lb1E" in line
+    # the whole form's 32- and 128-channel kernels, and every kernel of the
+    # split form's ring (fused_learned_rk4_cluster_ring*.cu)
+    ring = sorted(name for name in logs if name.startswith("fused_learned_rk4_cluster_ring"))
+    for line in "\n".join(logs.get(name, "") for name in (
+            "fused_learned_rk4.cu", "fused_learned_rk4_wide.cu", *ring)).splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name = found.group(1)
+            split = re.search(r"cluster_ring_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d)E", name)
+            keep = bool(split) or "kernelILi4E" in name or "kernelILi16E" in name or (
+                "wide_kernel" in name)
+            forced = "Lb1E" in name
+            label = f"{32 if 'kernelILi4E' in name else 128} channels"
+            if split:
+                forced = split.group(2) == "1"
+                label = (f"split ring, {8 * int(split.group(1))} channels"
+                         f"{' a chunk' if split.group(3) == '1' else ''}, "
+                         f"{split.group(4)} groups")
         elif keep and ("registers" in line or "spill" in line):
-            report.append(f"{width} channels, {'forced' if forced else 'unforced'}: "
+            report.append(f"{label}, {'forced' if forced else 'unforced'}: "
                           + line.replace("ptxas info    : ", "").strip())
     return report
 
@@ -333,14 +357,21 @@ def main(argv=None) -> None:
     def ring_rule(slots, share, tree="-"):
         """The rule with the ring's constants ``slots`` and ``share`` (None:
         the package's), or for a tree without the ring the whole form at 128
-        filters as before it."""
+        filters as before it, and for a tree without the split form's ring
+        its streamed launches through one window."""
         fk.RING_SLOTS = RING_SLOTS if slots is None else slots
         fk.WIDE_CLUSTER = WIDE_CLUSTER if share is None else share
         fk.learned_rk4_launch = rule
-        if tree != "-" and not (Path(tree) / "fused_learned_rk4_wide.cu").is_file():
+        whole_ring = tree == "-" or (Path(tree) / "fused_learned_rk4_wide.cu").is_file()
+        split_ring = tree == "-" or (Path(tree) / "fused_learned_rk4_cluster_ring.cu").is_file()
+        if not (whole_ring and split_ring):
             def old(pack, nx, terms=0, batch=fk.NUM_SMS * fk.MAX_TEAMS, **kwargs):
                 launch = rule(pack, nx, terms, batch, **kwargs)
-                return window_launch(launch, pack, batch) if launch.slots else launch
+                if launch.split and launch.stream and not split_ring:
+                    return split_window_launch(launch, pack)
+                if launch.slots and not launch.split and not whole_ring:
+                    return window_launch(launch, pack, batch)
+                return launch
             fk.learned_rk4_launch = old
 
     cases = {}
@@ -373,6 +404,7 @@ def main(argv=None) -> None:
     if args.ab:
         teams, forced_teams = settings[0]
         rebuild(teams, src=trees[0])
+        ring_rule(None, None, trees[0])
         fk.MAX_TEAMS, fk.MAX_TEAMS_FORCED = teams, forced_teams
         print(f"card: {torch.cuda.get_device_name(0)}; per {args.steps} RK4 steps, ms; the "
               f"fewest-blocks split launch (P) against the rule's (N), in turns P N N P, "
@@ -409,6 +441,7 @@ def main(argv=None) -> None:
     if args.profile:
         teams, forced_teams = settings[0]
         rebuild(teams, profile=True, src=trees[0])
+        ring_rule(None, None, trees[0])
         fk.MAX_TEAMS, fk.MAX_TEAMS_FORCED = teams, forced_teams
         steps = 20
         print(f"card: {torch.cuda.get_device_name(0)}; cycles per RHS by phase, warp 0, "

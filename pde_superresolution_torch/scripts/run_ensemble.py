@@ -165,7 +165,7 @@ def choose_route(fused: str, ensemble: Ensemble, pack,
     they take RHS steps.
 
     The kernel takes a shape when the weights it keeps in shared memory (or
-    the window of one conv tap's slice) fit the card's opt-in limit per
+    a ring of one conv tap's slices) fit the card's opt-in limit per
     block beside one trajectory of at least 16 points, or beside one segment
     of a trajectory of at least 32 points split over a cluster of up to
     ``fused_kernels.MAX_CLUSTER`` blocks (as at ``--domain_factor`` grids,

@@ -218,8 +218,8 @@ def test_route_takes_the_kernel_at_256_filters(monkeypatch, tmp_path):
     256 filters (convert.widen_params), which it refused before ("256
     filters > kernel limit 128"): the chunked form, a cluster of one block
     per trajectory holding its 128 points (two 64-row tiles, one for each of
-    its 2 warp groups) beside the window of one slice of the streamed
-    weights, and says so; with less than that window and a
+    its 2 warp groups) beside a ring of slices of the streamed weights,
+    and says so; with less than one slot of that ring, its barriers and a
     16th of the grid, rhs_fn steps with the refusal's reason."""
     import json
     import types
@@ -247,7 +247,9 @@ def test_route_takes_the_kernel_at_256_filters(monkeypatch, tmp_path):
         f"{launch.segment} points ({16 * launch.cluster} blocks, {launch.groups} warp groups "
         f"each), a conv tap's weights at a time and a segment in {launch.shared_bytes} bytes "
         "of shared memory per block fit"))
-    limit["optin"] = fk._window_bytes(pack) + fk._team_bytes(pack, 128 // 16, 0) - 1
+    # the least a block of the ring takes: one slot, its barriers and a 16th
+    # of the grid, one warp group
+    limit["optin"] = fk._ring_bytes(pack, 128 // 16, 0, 1, 1) - 1
     fused, reason = run_ensemble.choose_route("auto", ensemble, pack)
     assert not fused and reason.startswith("auto: needs ") and "split over 16 blocks" in reason
 

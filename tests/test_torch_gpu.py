@@ -502,9 +502,10 @@ WIDE_SHAPES = [
 def _ring_against_split(cuda, name, cons, size, nx, filters, batch, **rule):
     """The ring's launch (with the rule's constants ``rule`` set, e.g.
     RING_SLOTS and WIDE_CLUSTER) against the split form's launch of one
-    block and one warp group on the same inputs (the window that every
-    tap's slice passes through, the same products in the same order), one
-    step from N(0,1) and 10 steps from a smooth state: bit for bit."""
+    block and one warp group on the same inputs (another kernel: its own
+    ring beside the segment, one group walking every tile, the same products
+    in the same order), one step from N(0,1) and 10 steps from a smooth
+    state: bit for bit."""
     pack, dt, fp, rough, smooth = _split_inputs(name, cons, size, filters, nx, batch, cuda)
     terms = 0 if fp is None else fp.amplitude.shape[-1]
     saved = {key: getattr(fk, key) for key in rule}
@@ -567,36 +568,45 @@ def test_learned_rk4_ring_slots_and_clusters_bit_for_bit(cuda, name, cons, size,
 
 
 def test_learned_rk4_ring_planted_fault_is_caught(cuda):
-    """The check above has power: the kernels built with
+    """The checks above have power: the kernels built with
     -DPDE_FAULT_RING_WRONG_SLOT (every slice lands in the slot after its
-    own, its barrier the right one) give another result than the split
-    form's one block at the KS-8x and Burgers-8x shapes (nx 128, 4 and 3
-    slots), which the fault leaves alone: one step from N(0,1) by more than
-    1e-3 of max|u|, 10 steps from a smooth state not bit for bit (the
-    seeded towers move a 0.3-scaled state little: 2.3e-4 there)."""
+    own, its barrier the right one) give another result than the same
+    launch built without it: the whole form's ring at the KS-8x and
+    Burgers-8x shapes (nx 128, 4 and 3 slots) and the split form's at 32
+    filters on nx 2048 over 3 blocks (4 slots), one step from N(0,1) by
+    more than 1e-3 of max|u|, 10 steps from a smooth state not bit for bit
+    (the seeded towers move a 0.3-scaled state little: 2.3e-4 there). The
+    launches without the fault give the weights whole or the split form's
+    one block and one group their bits (the tests above)."""
     from pde_superresolution_torch.ops import _build
 
+    batch, clean = 6, {}
+    # (name, size, filters, nx, the ring's launch)
+    cases = (("ks", 6, 128, 128, {}), ("burgers", 8, 128, 128, {}),
+             ("burgers", 8, 32, 2048, {"cluster": 3}))
+    for name, size, filters, nx, ring in cases:
+        pack, dt, fp, rough, smooth = _split_inputs(name, True, size, filters, nx, batch, cuda)
+        terms = 0 if fp is None else fp.amplitude.shape[-1]
+        assert fk.learned_rk4_launch(pack, nx, terms, batch, **ring).slots >= 2
+        clean[name, filters] = (pack, dt, fp, [
+            (u, steps, fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, **ring))
+            for u, steps in ((rough, 1), (smooth, 10))])
     flags = list(_build.NVCC_FLAGS)
     _build.NVCC_FLAGS.append("-DPDE_FAULT_RING_WRONG_SLOT")
     _build.build.cache_clear()
     _build.load_library.cache_clear()
     try:
-        for name, size in (("ks", 6), ("burgers", 8)):
-            batch, nx = 6, 128
-            pack, dt, fp, rough, smooth = _split_inputs(name, True, size, 128, nx, batch, cuda)
-            terms = 0 if fp is None else fp.amplitude.shape[-1]
-            assert fk.learned_rk4_launch(pack, nx, terms, batch).slots >= 2
-            for u, steps in ((rough, 1), (smooth, 10)):
-                faulty = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp)
-                single = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, cluster=1,
-                                              groups=1)
+        for name, size, filters, nx, ring in cases:
+            pack, dt, fp, runs = clean[name, filters]
+            for u, steps, want in runs:
+                faulty = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, **ring)
                 torch.cuda.synchronize()
                 # a stale slice's rows may blow up: a NaN counts as a difference
-                diff = float((faulty - single).abs().nan_to_num(nan=float("inf")).max())
-                print(f"{name} nx {nx}, {steps} steps: the planted fault's max abs diff "
-                      f"{diff:.3e}")
-                assert not torch.equal(faulty, single)
-                assert steps > 1 or diff > 1e-3 * float(single.abs().max())
+                diff = float((faulty - want).abs().nan_to_num(nan=float("inf")).max())
+                print(f"{name} {filters} filters nx {nx}, {steps} steps: the planted fault's "
+                      f"max abs diff {diff:.3e}")
+                assert not torch.equal(faulty, want)
+                assert steps > 1 or diff > 1e-3 * float(want.abs().max())
     finally:
         _build.NVCC_FLAGS[:] = flags
         _build.build.cache_clear()
@@ -717,7 +727,7 @@ def test_learned_rk4_split_groups_bit_for_bit(cuda, name, cons, size, filters, n
     one = fk.learned_rk4_launch(pack, nx, terms, batch)
     print(f"{launch}; against {one}")
     assert launch.split and (launch.cluster, launch.groups) == (cluster, groups)
-    assert launch.threads == 128 * groups
+    assert launch.threads == 128 * groups + (32 if launch.stream and groups < 4 else 0)
     before = fk.fused_learned_rk4.launches
     for u, steps in ((rough, 1), (smooth, 10)):
         got = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, cluster=cluster, groups=groups)
@@ -1107,6 +1117,110 @@ def test_learned_rk4_chunked_shared_shapes_bit_for_bit(cuda, name, cons, size, f
               f"{float((split - chunked).abs().max()):.3e}")
         torch.testing.assert_close(chunked, narrow, rtol=0, atol=0)
         torch.testing.assert_close(split, chunked, rtol=0, atol=0)
+
+
+# Split launches that stream their weights through the ring, each against a
+# launch of the same function that holds the weights otherwise: (name, cons,
+# size, filters, nx, cluster, reference): 32 filters at Burgers-8x's nx 2048
+# over 3 blocks (the rule keeps the weights whole over 8: "whole"); 256
+# filters, a 128-filter tower widened with zero channels, over 2 blocks (the
+# chunked form; the 128-filter tower's whole ring: "narrow"); 128 filters at
+# nx 1024 over 16 blocks (C = 16, the ring's mask of 16 bits; the same
+# function over 4 blocks of 1 group: "cluster 4").
+SPLIT_RING_SHAPES = [
+    ("burgers", True, 8, 32, 2048, 3, "whole"), ("ks", True, 6, 256, 128, 2, "narrow"),
+    ("kdv", False, 7, 200, 128, 4, "narrow"), ("ks", True, 6, 128, 1024, 16, "cluster 4"),
+]
+
+
+@pytest.mark.parametrize("name,cons,size,filters,nx,cluster,reference", SPLIT_RING_SHAPES)
+def test_learned_rk4_split_ring_slots_bit_for_bit(cuda, name, cons, size, filters, nx, cluster,
+                                                  reference):
+    """The split form's ring at every size from one slot to the most that
+    fit beside the segment (RING_SLOTS set to each, up to MAX_RING_SLOTS),
+    each slice multicast to every block of the trajectory's cluster: below
+    128 channels, in the chunked form (a ragged last chunk at 200 filters)
+    and over 16 blocks, an odd batch (5), bit for bit the reference launch,
+    one step from N(0,1) and 10 steps from a smooth state: every row runs
+    the same products in the same order whatever the slots and blocks."""
+    batch = 5
+    narrow_pack, dt, fp, rough, smooth = _split_inputs(
+        name, cons, size, min(filters, 128), nx, batch, cuda)
+    pack = narrow_pack
+    if filters > 128:
+        model, params, _ = _model(name, cons, size, cuda, nx=nx, filters=128, layers=3)
+        pack = fk.pack_learned_rk4(convert.widen_params(params, filters, 0, 0.0), model.equation,
+                                   model.grid, model.config.kernel_size, model.constraint_layers,
+                                   model.taps)
+    terms = 0 if fp is None else fp.amplitude.shape[-1]
+    wants = []
+    for u, steps in ((rough, 1), (smooth, 10)):
+        if reference == "narrow":
+            wants.append(fk.fused_learned_rk4(u, narrow_pack, dt, steps, forcing=fp))
+        elif reference == "whole":
+            assert not fk.learned_rk4_launch(pack, nx, terms, batch).stream
+            wants.append(fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp))
+        else:
+            wants.append(fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, cluster=4, groups=1))
+    saved = fk.RING_SLOTS
+    sizes = []
+    try:
+        for slots in range(1, fk.MAX_RING_SLOTS + 1):
+            fk.RING_SLOTS = slots
+            launch = fk.learned_rk4_launch(pack, nx, terms, batch, cluster=cluster)
+            assert launch.split and launch.stream and launch.cluster == cluster
+            if launch.slots < slots:
+                break  # no more fit beside the segment
+            sizes.append(slots)
+            for (u, steps), want in zip(((rough, 1), (smooth, 10)), wants):
+                got = fk.fused_learned_rk4(u, pack, dt, steps, forcing=fp, cluster=cluster)
+                torch.cuda.synchronize()
+                print(f"{launch}: {steps} steps, max abs diff to the {reference} launch "
+                      f"{float((got - want).abs().nan_to_num(nan=float('inf')).max()):.3e}")
+                torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    finally:
+        fk.RING_SLOTS = saved
+    print(f"slots {sizes}")
+    assert sizes[0] == 1 and len(sizes) >= 2
+
+
+def test_learned_rk4_split_ring_mask_fault_is_caught(cuda):
+    """The split ring's check has power against a slice that misses a block:
+    built with -DPDE_FAULT_RING_MASK_SHORT (each slice multicast to every
+    block of the cluster but the last) the launch of 32 filters at nx 2048
+    over 3 blocks fails (that block's wait for the slice runs out, the kernel
+    traps: a short PDE_RING_WAIT_CYCLES) or gives another result than the
+    weights whole. In a child process: a trap leaves its CUDA context
+    unusable."""
+    import subprocess
+    import sys
+    import textwrap
+
+    child = textwrap.dedent("""
+        import sys
+        import torch
+        sys.path.insert(0, "tests")
+        from pde_superresolution_torch.ops import _build
+        from pde_superresolution_torch.ops import fused_kernels as fk
+        import test_torch_gpu as t
+        _build.NVCC_FLAGS += ["-DPDE_FAULT_RING_MASK_SHORT", "-DPDE_RING_WAIT_CYCLES=(1ll<<28)"]
+        cuda = torch.device("cuda")
+        pack, dt, fp, rough, _ = t._split_inputs("burgers", True, 8, 32, 2048, 3, cuda)
+        whole = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp)
+        torch.cuda.synchronize()
+        try:
+            faulty = fk.fused_learned_rk4(rough, pack, dt, 1, forcing=fp, cluster=3)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            print("caught: the launch failed:", str(e).splitlines()[0])
+        else:
+            print("caught: another result" if not torch.equal(faulty, whole)
+                  else "missed: the same bits")
+    """)
+    run = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True,
+                         timeout=900)
+    print(run.stdout[-2000:], run.stderr[-2000:])
+    assert "caught:" in run.stdout and "missed" not in run.stdout
 
 
 def test_run_ensemble_split_and_refusal_on_card(cuda):

@@ -384,16 +384,18 @@ def test_forced_wrapper_checks():
     short = fk.learned_rk4_launch(advance.pack, NX, 20, BATCH, shared_limit=limit)
     _check_split(advance.pack, NX, 20, short, BATCH, limit=limit)
     # a byte less than the whole weights and a segment of 16 blocks: the
-    # blocks and warp groups the rule ranks first beside one conv tap's
-    # slice, streamed
+    # blocks and warp groups the rule ranks first beside a ring of conv tap
+    # slices, streamed
     tight = advance.pack.blob.numel() + fk._team_bytes(advance.pack, NX // 16, 20) - 1
     streamed = fk.learned_rk4_launch(advance.pack, NX, 20, BATCH, shared_limit=tight)
     _check_split(advance.pack, NX, 20, streamed, BATCH, limit=tight)
     assert streamed.stream
     assert fk.learned_rk4_refusal(advance.pack, NX, 20,
                                   shared_limit=short.shared_bytes - 1) is None
-    # less than the window of one conv tap's slice and a segment of 16 blocks
-    least = fk._window_bytes(advance.pack) + fk._team_bytes(advance.pack, NX // 16, 20)
+    # less than a ring of one slot of a conv tap's slice, its barriers and a
+    # segment of 16 blocks
+    least = (fk._window_bytes(advance.pack) + fk._team_bytes(advance.pack, NX // 16, 20)
+             + fk.RING_CONTROL_BYTES)
     assert "shared memory" in fk.learned_rk4_refusal(advance.pack, NX, 20,
                                                      shared_limit=least - 1)
     assert fk.learned_rk4_refusal(advance.pack, NX, 20, shared_limit=least) is None
@@ -541,20 +543,36 @@ def _check_split(pack, nx, terms, launch, batch=None, cluster=None, groups=None,
     whose 64 accumulators a thread leave registers for two) of 128 threads,
     the weights streamed at and above 128 channels, segments of ceil(nx /
     blocks) points that cover nx with every block holding points, a block's
-    shared bytes (the weights whole or the window of one slice, the
-    segment's layout, 512 (F | 1) bytes of z tiles for each group after the
-    first) within ``limit``, and ``cluster`` and ``groups`` as asked."""
+    shared bytes (the weights whole, or the ring's slots of one slice each;
+    the segment's layout; 512 (F | 1) bytes of z tiles for each group after
+    the first; the ring's 128 bytes of barriers) within ``limit``, and
+    ``cluster`` and ``groups`` as asked. A block that streams holds a ring
+    of as many slots of a slice as fit, up to 4 (fewer only where that fits
+    more blocks an SM), and a producer warp of 32 threads beside 1 or 2
+    groups (4 issue from their first thread); its cluster holds one
+    trajectory."""
     wide = pack.padded_channels >= 128
-    assert launch.split and launch.teams == 1
+    assert launch.split and launch.teams == 1 and launch.multicast == 1
     assert launch.groups in ((1, 2) if wide else (1, 2, 4))
-    assert launch.threads == 128 * launch.groups
+    # a producer warp beside 1 or 2 streaming groups; 4 issue from a thread
+    assert launch.threads == 128 * launch.groups + (
+        32 if launch.stream and launch.groups < 4 else 0)
     assert launch.stream or not wide
     assert launch.segment == -(-nx // launch.cluster)
     assert (launch.cluster - 1) * launch.segment < nx <= launch.cluster * launch.segment
-    weights = 2 * min(pack.padded_channels, 128) ** 2 if launch.stream else pack.blob.numel()
     assert launch.team_bytes == fk._team_bytes(pack, launch.segment, terms)
-    assert launch.shared_bytes == (weights + launch.team_bytes
-                                   + (launch.groups - 1) * 512 * (pack.n_free | 1)) <= limit
+    fixed = launch.team_bytes + (launch.groups - 1) * 512 * (pack.n_free | 1)
+    if launch.stream:
+        slot = 2 * min(pack.padded_channels, 128) ** 2
+        most = min(4, (limit - fixed - 128) // slot)
+        assert 1 <= launch.slots <= most
+        assert launch.shared_bytes == launch.slots * slot + fixed + 128 <= limit
+        if launch.slots < most:  # fewer slots than fit: they fit more blocks an SM
+            fuller = launch._replace(slots=most, shared_bytes=most * slot + fixed + 128)
+            assert (fk.split_occupancy(launch, wide, limit)[0]
+                    > fk.split_occupancy(fuller, wide, limit)[0])
+    else:
+        assert launch.slots == 0 and launch.shared_bytes == pack.blob.numel() + fixed <= limit
     if batch is not None:
         assert launch.blocks == launch.cluster * batch
     if cluster is not None:
@@ -703,9 +721,10 @@ def test_pack_blob_reads_back_chunked(filters, layers, name, cons, size):
     padded to a multiple of 16 (144, 208, 256), the output columns of every
     layer, and its bias, to whole chunks of 128; a later layer's weights one
     [channels, 128] slice per output chunk and conv tap, in that order, each
-    as wgmma reads it, so that the kernel's window of one chunk, tap and 128
-    input channels (or the rest) lies contiguous at ((chunk K + tap)
-    channels / 16 + first depth step) x 4096 bytes; the layers at the fixed
+    as wgmma reads it, so that the kernel's slice of one chunk, tap and 128
+    input channels (or the rest), which one bulk copy brings into a slot of
+    its ring, lies contiguous at ((chunk K + tap) channels / 16 + first
+    depth step) x 4096 bytes; the layers at the fixed
     stride the kernel computes (K x channels x chunks' columns bf16, then the
     bias rounded up to 128 bytes)."""
     pack = _check_blob_reads_back(filters, layers, name, cons, size)
@@ -904,14 +923,14 @@ def test_learned_rk4_per_team_refusals():
 def test_learned_rk4_refuses_wide_and_deep():
     """More than 128 filters, which the kernel refused before its chunked
     form ("136 filters > kernel limit 128"), are taken, in the split form
-    beside the window of one slice of the streamed weights; a tower of 17
+    beside the ring of slices of the streamed weights; a tower of 17
     layers and a conv kernel of 19 (reach 9), which the kernel refused
     before the split form (its layer offsets were a table of 16, its halo 8
     points), are taken, the deep tower's 164 KB of weights whole beside two
     trajectories at nx 128, split at nx 2048 as the split form's rule ranks
-    its launches, and streamed a tap at a time beside a segment when 2 blocks
-    are asked for; a grid no cluster of 16 blocks holds is refused with the
-    bytes it needs."""
+    its launches, and streamed through the ring beside a segment when 2
+    blocks are asked for; a grid no cluster of 16 blocks holds is refused
+    with the bytes it needs."""
     model, params = _torch_model(136, layers=1)
     pack = _pack(model, params)
     assert pack.padded_channels == 144 and fk.learned_rk4_refusal(pack, NX) is None
@@ -927,9 +946,10 @@ def test_learned_rk4_refuses_wide_and_deep():
     _check_split(deep, 2048, 0, fk.learned_rk4_launch(deep, 2048, 0, 10240), 10240)
     assert fk.learned_rk4_refusal(deep, 2048) is None
     launch = fk.learned_rk4_launch(deep, 2048, 0, 10240, cluster=2)
-    assert launch.split and launch.stream and launch.segment == 1024
-    assert launch.shared_bytes == (fk._window_bytes(deep) + launch.team_bytes
-                                   + (launch.groups - 1) * fk._group_bytes(deep)) <= 232448
+    assert launch.split and launch.stream and launch.segment == 1024 and launch.slots >= 1
+    assert launch.shared_bytes == (launch.slots * fk._window_bytes(deep) + launch.team_bytes
+                                   + (launch.groups - 1) * fk._group_bytes(deep)
+                                   + fk.RING_CONTROL_BYTES) <= 232448
     wide = _pack(*_torch_model(8, layers=1, kernel_size=19))
     assert fk.learned_rk4_reach(wide) == 9 and fk.learned_rk4_halo(wide) == 9
     assert fk.learned_rk4_refusal(wide, NX) is None
@@ -1022,9 +1042,10 @@ def test_learned_rk4_launch_geometry_128_filters(wide_packs, filters, name, nx, 
     cluster's blocks past an odd batch empty; taken at nx 32 to 256, forced
     (20 terms) or not; at nx = 512 one trajectory's activations alone
     exceed the block's shared memory, which the kernel refused before the
-    split form: a cluster shares it beside one window of a slice, in the
-    blocks and warp groups the split form's rule ranks first. The buffer
-    lays each layer's slices one after the other."""
+    split form: a cluster shares it beside a ring of slices (each copied
+    once for the cluster), in the blocks and warp groups the split form's
+    rule ranks first. The buffer lays each layer's slices one after the
+    other."""
     pack = wide_packs[(filters, name)]
     terms = 20 if name == "burgers" else 0
     assert pack.padded_channels == fk.WIDE_CHANNELS == 128 and pack.channels == filters
@@ -1034,7 +1055,7 @@ def test_learned_rk4_launch_geometry_128_filters(wide_packs, filters, name, nx, 
     if nx == 512:
         assert 2 * 128 * 128 + fk._team_bytes(pack, nx, terms) > 232448
         _check_split(pack, nx, terms, launch, batch)
-        assert (launch.slots, launch.multicast) == (0, 1)
+        assert launch.slots >= 1 and launch.multicast == 1
         return
     team = _ring_team_bytes(pack, nx, terms)
     fixed = team + 512 * (pack.n_free | 1) + 128
@@ -1103,6 +1124,56 @@ def test_learned_rk4_ring_bytes_count_alike(wide_packs, nx, terms):
 
 
 @pytest.fixture(scope="module")
+def ring_split_packs():
+    """3-layer KS towers at 64, 128 and 256 filters (a chunked form)."""
+    return {filters: _pack(*_torch_model(filters, name="ks", size=6)) for filters in (64, 128, 256)}
+
+
+@pytest.mark.parametrize("terms", [0, 20])
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+@pytest.mark.parametrize("nx", [512, 1024, 2048])
+@pytest.mark.parametrize("filters", [64, 128, 256])
+def test_learned_rk4_split_ring_bytes_count_alike(ring_split_packs, filters, nx, cluster, groups,
+                                                  terms):
+    """The host and the kernel count a split block's ring alike: the
+    kernel's z tiles of a later warp group (``group_z_bytes``) are
+    ``_group_bytes``; ``_ring_bytes`` of a segment is what the C entry asks
+    of a streamed split block (the slots, the segment's layout, the later
+    groups' z tiles, kRingControlBytes) and the launch's, and the ring's
+    barriers, which the kernel lays after the layout and the z tiles (a full
+    and an empty barrier of 8 bytes a slot, up to kMaxRingSlots), end within
+    it; a forced cluster and group count that streams (always at 128
+    filters and above) takes as many slots as fit beside its segment, up to
+    RING_SLOTS, or fewer only where that fits more blocks an SM."""
+    import re
+    from pde_superresolution_torch.ops import _build
+
+    text = (_build.SOURCE_DIR / "fused_learned_rk4.cuh").read_text()
+    assert re.search(r"group_z_bytes\(int n_free\) \{ return 4 \* 32 \* \(n_free \| 1\) \* 4; \}",
+                     text)
+    assert (fk.RING_CONTROL_BYTES, fk.MAX_RING_SLOTS) == (
+        _cuh_constant("kRingControlBytes"), _cuh_constant("kMaxRingSlots"))
+    pack = ring_split_packs[filters]
+    launch = fk.learned_rk4_launch(pack, nx, terms, 10240, cluster=cluster, groups=groups)
+    if not launch.stream or not launch.teams:
+        assert filters < 128 or not launch.teams
+        return
+    seg = launch.segment
+    assert fk._group_bytes(pack) == 4 * 32 * (pack.n_free | 1) * 4
+    for slots in range(fk.MAX_RING_SLOTS + 1):
+        assert fk._ring_bytes(pack, seg, terms, slots, groups) == (
+            slots * fk._window_bytes(pack) + fk._team_bytes(pack, seg, terms)
+            + (groups - 1) * fk._group_bytes(pack) + fk.RING_CONTROL_BYTES)
+    assert launch.shared_bytes == fk._ring_bytes(pack, seg, terms, launch.slots, groups)
+    barriers = (launch.slots * fk._window_bytes(pack) + launch.team_bytes
+                + (groups - 1) * fk._group_bytes(pack))
+    assert barriers % 8 == 0
+    assert barriers + 2 * 8 * fk.MAX_RING_SLOTS <= launch.shared_bytes <= fk.MAX_SHARED_BYTES
+    _check_split(pack, nx, terms, launch, 10240, cluster, groups)
+
+
+@pytest.fixture(scope="module")
 def split_packs():
     """3-layer towers at the flagship's kernel: KS (unforced, stencil 6)
     and Burgers (forced, stencil 8) at 32, 64 and 128 filters."""
@@ -1112,9 +1183,13 @@ def split_packs():
 
 # The rule's choice at a few shapes of the 3-layer towers (filters, name,
 # nx): (blocks, warp groups, streamed); 32 filters at nx 1280 and 2048 are
-# the recorded shapes' (RECORDED_SPLIT) at this tower.
+# the recorded shapes' (RECORDED_SPLIT) at this tower. 64 filters at nx 1024
+# took 6 blocks of 2 groups beside one window (16 busy warps an SM) before
+# the split form streamed through the ring, whose 2-group blocks below 128
+# filters hold a producer warp and 168 registers, one block an SM; the rule
+# ranks 3 of 4 groups first now (PERF.md §6).
 SPLIT_PINS = {(32, "ks", 2048): (2, 4, False), (32, "burgers", 1280): (5, 2, False),
-              (32, "burgers", 2048): (8, 2, False), (64, "burgers", 1024): (6, 2, True),
+              (32, "burgers", 2048): (8, 2, False), (64, "burgers", 1024): (3, 4, True),
               (128, "ks", 1024): (4, 2, True)}
 
 
@@ -1264,19 +1339,56 @@ def test_learned_rk4_takes_what_jax_takes(filters, name, size, kernel_size, laye
 
 
 @pytest.mark.parametrize("name,size,terms", [("ks", 6, 0), ("burgers", 8, 20)])
+@pytest.mark.parametrize("filters", [16, 32, 64, 128, 256, 1024])
+def test_learned_rk4_ring_takes_what_the_window_took(filters, name, size, terms):
+    """The streamed launches' ring against the window they replaced: near
+    the longest grid each tower takes (and below it), the refusal takes
+    every nx that a launch of the weights whole, or of one window of a
+    slice beside a segment of up to 16 blocks, took, save where each such
+    launch left less of the block's 232448 bytes free than the ring's 128
+    bytes of barriers (the window's bytes and a segment's layout are
+    multiples of 128, so only a launch that filled the block exactly)."""
+    pack = _pack(*_torch_model(filters, name=name, size=size))
+    wide, limit = pack.padded_channels >= 128, 232448
+    groups = 512 * (pack.n_free | 1)
+
+    def window_took(nx):  # the least bytes of each form: 16 blocks, one group
+        team = fk._team_bytes(pack, -(-nx // 16), terms)
+        whole = not wide and pack.blob.numel() + team <= limit
+        return whole, fk._window_bytes(pack) + team
+
+    longest = max(nx for nx in range(32, 1 << 16, 32)
+                  if window_took(nx)[0] or window_took(nx)[1] <= limit)
+    edge = 0
+    for nx in range(max(32, longest - 600), longest + 48):
+        whole, streamed = window_took(nx)
+        took = whole or streamed <= limit
+        takes = fk.learned_rk4_refusal(pack, nx, terms) is None
+        if took and not takes:  # the barriers did not fit beside a full block
+            assert not whole and streamed > limit - fk.RING_CONTROL_BYTES
+            edge += 1
+        else:
+            assert takes == took
+    assert edge <= 16  # at most the nx of one segment's length
+    assert groups % 128 == 0 and fk._window_bytes(pack) % 128 == 0
+
+
+@pytest.mark.parametrize("name,size,terms", [("ks", 6, 0), ("burgers", 8, 20)])
 @pytest.mark.parametrize("filters", [129, 136, 192, 256, 384, 512, 768, 1024, 1536, 2304, 2384])
 def test_learned_rk4_chunked_launch_geometry(filters, name, size, terms):
     """The chunked form's launch at every nx JAX's tile-8 VMEM estimate
     admits (KS-8x shapes unforced, Burgers-8x forced; nothing at 2384
     filters forced): a cluster of at most 16 blocks of 1 or 2 warp groups
-    (128 threads each), the segments of ceil(nx / blocks) points covering
-    nx, the blocks and groups the split form's rule ranks first; each
-    block holds the 32 KB window of one slice
-    of the weights (128 output channels of a chunk from 128 input channels
-    of one conv tap) and its segment, within 232448 bytes: two bf16
-    activation buffers of channels / 8 planes of (the segment rounded up to
-    8) + K rows, one 64-row tile of one plane of slack, the four float32
-    rows, the z tiles and, forced, the phase state."""
+    (128 threads each) and a producer warp (32), the segments of ceil(nx /
+    blocks) points covering nx, the blocks and groups the split form's rule
+    ranks first; each block holds a ring of as many 32 KB slots as fit
+    beside its segment, up to 4 (a slot takes one slice of the weights: 128
+    output channels of a chunk from 128 input channels of one conv tap, the
+    tap's last slice the rest), 128 bytes of the ring's barriers and its
+    segment, within 232448 bytes: two bf16 activation buffers of channels /
+    8 planes of (the segment rounded up to 8) + K rows, one 64-row tile of
+    one plane of slack, the four float32 rows, the z tiles and, forced, the
+    phase state. The same at a batch of 8, 256 and 10240."""
     pack = _pack(*_torch_model(filters, 1, name, True, size))
     cp = pack.padded_channels
     assert cp == -(-filters // 16) * 16 and fk._window_bytes(pack) == 32 * 1024
@@ -1291,17 +1403,19 @@ def test_learned_rk4_chunked_launch_geometry(filters, name, size, terms):
              + (4 * rows + 16 + 16 * terms + 8 * terms * points if terms else 0))
         return -(-n // 128) * 128
 
-    for nx in admitted:
-        launch = fk.learned_rk4_launch(pack, nx, terms, 256)
+    for nx, batch in [(nx, batch) for nx in admitted for batch in (8, 256, 10240)]:
+        launch = fk.learned_rk4_launch(pack, nx, terms, batch)
         c, g, seg = launch.cluster, launch.groups, launch.segment
         assert fk.learned_rk4_refusal(pack, nx, terms) is None
-        assert launch.split and launch.stream and launch.teams == 1
-        assert 1 <= g <= fk.MAX_GROUPS_WIDE == 2 and launch.threads == 128 * g
+        assert launch.split and launch.stream and launch.teams == 1 and launch.multicast == 1
+        assert 1 <= g <= fk.MAX_GROUPS_WIDE == 2 and launch.threads == 128 * g + 32
         assert 1 <= c <= fk.MAX_CLUSTER and seg == -(-nx // c) and (c - 1) * seg < nx
         assert launch.team_bytes == team_bytes(seg) == fk._team_bytes(pack, seg, terms)
-        assert launch.shared_bytes == (32 * 1024 + launch.team_bytes
-                                       + (g - 1) * 512 * (pack.n_free | 1)) <= 232448
-        _check_split(pack, nx, terms, launch, 256)
+        fixed = launch.team_bytes + (g - 1) * 512 * (pack.n_free | 1) + 128
+        most = min(4, (232448 - fixed) // (32 * 1024))
+        assert launch.slots == most >= 1  # one block an SM at this width: every slot that fits
+        assert launch.shared_bytes == launch.slots * 32 * 1024 + fixed <= 232448
+        _check_split(pack, nx, terms, launch, batch)
 
 
 @pytest.mark.parametrize("batch", [3, 256, 1037, 4096, 10240])
