@@ -10,8 +10,12 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
   2. the kernels' build from ``pde_superresolution_torch/csrc`` (seconds,
      ptxas registers and spills); it fails if ptxas reports a stack frame or
      a spill for any instantiation of ``fused_rk4`` or ``fused_rhs``, or if
-     their SASS holds local-memory loads or stores, or ``fused_rk4``'s a
-     barrier;
+     their SASS holds local-memory loads or stores, or ``fused_rk4``'s
+     register forms a barrier (its block and rows forms need theirs), or if
+     ptxas gives a block-form kernel more than ``RK4_BLOCK_REGISTERS``
+     registers a thread (the SASS, read by cuobjdump in a thread while the
+     later phases run, and phase 6's tensor-core count in it are checked
+     before the report);
   3. ``fused_rhs`` against its plain version: at the flagship (KS-8x
      checkpoint coefficients, B=256 and 4096, nx=128), in all six equation
      forms at a ragged shape (B=3, nx=96, forced for Burgers), and at
@@ -36,7 +40,8 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      the ``rhs_fn`` route's device time (one RK4 step queued behind a
      device-side sleep, times 100) and its launches per RHS, and its device
      time by kernel (torch.profiler, which can drop records); and which
-     tensor-core instructions the built ``fused_learned_rk4`` holds;
+     tensor-core instructions the built ``fused_learned_rk4`` holds (read
+     from phase 2's SASS and checked before the report);
   7. forced ``fused_learned_rk4`` (Burgers-8x checkpoint, forcing evaluated
      in the kernel from t0 = 3.7) against its plain version: one step from a
      standard-normal state (which must catch the weight faults), one, 10
@@ -52,12 +57,14 @@ Runs from the repository root on a machine with one NVIDIA H100 (sm_90a) and
      holds one warp); then every scheme ``make_fused_rk4`` builds (accuracy
      orders 4 and 6, stencil sizes 8 and 16: taps at run time) at B=256,
      nx=128, and the classic scheme on grids of 32, 512 and 2048 points (the
-     block form) at B=1037, in all four forms (stencil size 32 at those
-     grids, and the block form's wider schemes and longer grids, are
-     ``tests/test_torch_gpu.py``'s alone); and the block form's new forms
-     (40 taps an order at nx 128, nx 16384) driven as the baseline leg
-     (``integrate_fused``, one launch a save, counted) and timed beside their
-     bounds and plain versions;
+     block form: 4 warps of a block, their edges through shared memory) at
+     B=1037, in all four forms (stencil size 32 at those grids, and the block
+     form's wider schemes, longer grids and forced clusters, are
+     ``tests/test_torch_gpu.py``'s alone); and the block form's paths (40
+     taps an order at nx 128, in the rows form since this kernel's block
+     form measured slower there; nx 16384 over a cluster of 8 blocks) driven
+     as the baseline leg (``integrate_fused``, one launch a
+     save, counted) and timed beside their bounds and plain versions;
   9. the ensemble path at full width, in-process through
      ``scripts.run_ensemble.main``: the Burgers-8x checkpoint, 10240
      trajectories, an exact-solver warm-up, 100 RK4 steps in 10 saves, by
@@ -589,21 +596,15 @@ def planted_faults(params: dict) -> dict:
     }
 
 
-def tensor_core_line(library) -> str:
+def tensor_core_line(sass) -> str:
     """Which tensor-core instructions the built fused_learned_rk4 kernels
     hold: counts of HMMA (mma.sync) and of GMMA (wgmma) in the library's
-    SASS, per kernel, read with the toolkit's cuobjdump."""
-    from pde_superresolution_torch.ops import _build
-
-    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
-    if not tool.is_file():
+    SASS (``probe_stencil_kernels.read_sass``'s text, None where there is no
+    cuobjdump), per kernel."""
+    if sass is None:
         return "tensor-core instructions: not read (no cuobjdump beside nvcc)"
-    out = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
-                         timeout=300)
-    if out.returncode != 0:
-        return f"tensor-core instructions: not read (cuobjdump exit code {out.returncode})"
     counts, name = {}, None
-    for line in out.stdout.splitlines():
+    for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             # the mangled template arguments <NT, FORCED, P> (the cluster
@@ -636,6 +637,36 @@ def tensor_core_line(library) -> str:
         "; ".join(f"{n}: {h} HMMA, {g} GMMA, {l} LDSM" for n, (h, g, l) in sorted(counts.items())))
 
 
+def read_sass_in_background(library):
+    """Starts reading ``library``'s SASS (``probe_stencil_kernels.read_sass``)
+    in a thread and returns a function that waits for it: (the text, None
+    without cuobjdump; seconds), raising what the read raised."""
+    import threading
+
+    from pde_superresolution_torch.scripts.probe_stencil_kernels import read_sass
+
+    out = {}
+
+    def read():
+        start = time.perf_counter()
+        try:
+            out["sass"] = read_sass(library)
+        except BaseException as error:  # handed to the caller by result()
+            out["error"] = error
+        out["seconds"] = time.perf_counter() - start
+
+    thread = threading.Thread(target=read)  # not a daemon: the script waits for cuobjdump
+    thread.start()
+
+    def result():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["sass"], out["seconds"]
+
+    return result
+
+
 def check_learned_builds(build) -> None:
     """Raises if ptxas gave an instantiation of fused_learned_rk4 (the whole
     forms, the split form at every width and warp-group count, with the
@@ -664,11 +695,16 @@ def check_learned_builds(build) -> None:
         raise AssertionError(f"fused_learned_rk4 stack frames or spills: {bad}")
 
 
-def check_stencil_builds(build) -> None:
+def check_stencil_builds(build, sass) -> None:
     """Raises if ptxas gave an instantiation of fused_rk4 or fused_rhs a
-    stack frame or a spill, or if their SASS holds local-memory loads or
-    stores (LDL, STL), or fused_rk4's register forms a barrier (BAR; its
-    block form, ``fused_rk4_block_kernel``, needs its barriers)."""
+    stack frame or a spill, or a block-form kernel more registers than the
+    launch rule counts (``fk.RK4_BLOCK_REGISTERS``), or if their SASS holds
+    local-memory loads or stores (LDL, STL), or fused_rk4's register forms a
+    barrier (BAR; the block form's kernels, ``fused_rk4_block_kernel`` and
+    ``fused_rk4_block_scheme_kernel``, and the rows form's,
+    ``fused_rk4_rows_kernel``, need their barriers). ``sass``: the
+    library's SASS (``probe_stencil_kernels.read_sass``), read once for this
+    check and phase 6's tensor-core line."""
     from pde_superresolution_torch.scripts.probe_stencil_kernels import ptxas_lines, sass_counts
 
     frames = [line for line in ptxas_lines(build) if "stack frame" in line]
@@ -676,20 +712,34 @@ def check_stencil_builds(build) -> None:
         log("    stack frames: not read (the library was built by an earlier process)")
     bad = [line for line in frames if not line.endswith(
         ": 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
-    sass = sass_counts(build.library)
-    def registers(name):
-        return "fused_rk4" in name and "fused_rk4_block" not in name
+    from pde_superresolution_torch.ops import fused_kernels as fk
 
+    sass = sass_counts(build.library, sass)
+
+    def barriers_allowed(name):  # the block and rows forms synchronise their warps
+        return "fused_rk4_block" in name or "fused_rk4_rows" in name
+
+    def registers(name):
+        return "fused_rk4" in name and not barriers_allowed(name)
+
+    block_registers = [int(found.group(1)) for line in ptxas_lines(build)
+                       if "fused_rk4_block" in line
+                       for found in [re.search(r"Used (\d+) registers", line)] if found]
     log(f"    fused_rk4, fused_rhs: {len(frames)} instantiations read by ptxas, "
         f"{len(bad)} with a stack frame or a spill; in the SASS of {len(sass)} kernels: "
         + ", ".join(f"{op} {sum(row[op] for row in sass.values())}" for op in ("LDL", "STL"))
         + f", BAR in fused_rk4's register forms "
         f"{sum(r['BAR'] for n, r in sass.items() if registers(n))} "
-        f"({sum(registers(n) for n in sass)} kernels; the block form's "
-        f"{sum(r['BAR'] for n, r in sass.items() if 'fused_rk4_block' in n)}, exempt)")
+        f"({sum(registers(n) for n in sass)} kernels; the block and rows forms' "
+        f"{sum(r['BAR'] for n, r in sass.items() if barriers_allowed(n))}, exempt); "
+        f"block-form registers {sorted(set(block_registers))} (the rule counts "
+        f"{fk.RK4_BLOCK_REGISTERS})")
     if bad or any(row["LDL"] or row["STL"] or (registers(name) and row["BAR"])
                   for name, row in sass.items()):
         raise AssertionError(f"stack frames, spills or barriers: {bad}, {sass}")
+    if any(r > fk.RK4_BLOCK_REGISTERS for r in block_registers):
+        raise AssertionError(f"block-form registers {block_registers} above "
+                             f"{fk.RK4_BLOCK_REGISTERS}")
 
 
 def time_ms(fn, inner: int = 1, queued: bool = False, samples: int = 0) -> float:
@@ -810,11 +860,11 @@ SCHEME_STEPS = 10
 # held by tests/test_torch_gpu.py alone (each fused_rk4 check runs in one
 # place).
 RK4_GRIDS = (32, 512, 2048)
-# the new forms driven as the baseline leg drives the classic one
+# the rows and block forms' paths driven as the baseline leg drives the classic one
 # (integrate_fused over make_fused_rk4's advance, one launch a save), timed
 # per STEPS steps: (label, equation, nx, batch, scheme)
 RK4_NEW_FORMS = (("wide taps", "ks", 128, BATCH, {"stencil_size": 40}),
-                 ("global rows", "ks", 16384, BATCH, {}))
+                 ("cluster", "ks", 16384, BATCH, {}))
 RK4_GRID_BATCH = 1037  # no multiple of the warps per block
 # phase 10's extra fused_rk4 timings: (label, equation, nx, scheme)
 RK4_DOMAIN_TIMES = (("ks accuracy order 4", "ks", 128, {"accuracy_order": 4}),
@@ -895,12 +945,17 @@ def baseline_checks(gen, device) -> float:
                 got = advance(u)
                 taps = advance.scheme.taps
                 launch = fk.rk4_launch(batch, nx, fk.rk4_is_classic(advance.scheme), taps)
+                compiled = fk.rk4_is_classic(advance.scheme) and (
+                    launch.form == "registers"
+                    or launch.points == fk.RK4_BLOCK_CLASSIC_POINTS)
                 form = (f"{name} {'conservative' if cons else 'direct'} "
                         f"{scheme or 'classic'} B={batch} nx={nx} ({launch.form}"
-                        + (f", {launch.points} points on {launch.lanes} lanes" if launch.points
-                           else f", halo {launch.halo}, rows in "
-                           f"{'global' if launch.rows_global else 'shared'} memory")
-                        + (", taps compiled in" if fk.rk4_is_classic(advance.scheme)
+                        + (f", {launch.points} points on {launch.lanes} lanes"
+                           if launch.form == "registers"
+                           else f", {launch.cluster} x {launch.warps} warps of {launch.lanes}"
+                           f"{'+' if launch.extra else ''} lanes, {launch.points} points a lane"
+                           if launch.form == "block" else f", halo {launch.halo}")
+                        + (", taps compiled in" if compiled
                            else ", coefficients in global memory" if fk.rk4_wide(taps)
                            else ", taps at run time") + ")")
                 baseline_err = max(baseline_err, check(
@@ -915,7 +970,9 @@ def baseline_checks(gen, device) -> float:
 
 
 def baseline_new_forms(gen, device) -> dict:
-    """Phase 8's paths of the block form's new cases (RK4_NEW_FORMS): each
+    """Phase 8's paths past the register forms (RK4_NEW_FORMS: 40 taps an
+    order, the rows form; nx 16384, the block form over a thread-block
+    cluster): each
     driven as the baseline leg is (``integrate.integrate_fused`` over
     ``make_fused_rk4``'s advance, one launch a save), with the launch count
     zeroed just before and read just after, its final state bit for bit the
@@ -3686,7 +3743,10 @@ def main() -> int:
             if "Used " in line or "spill" in line)
         for line in report:
             log(f"    {source}: {line}")
-    check_stencil_builds(build)
+    # the library's SASS (cuobjdump, tens of seconds) is read in the
+    # background; its checks (phase 2's stencil kernels, phase 6's tensor
+    # cores) run before the report
+    sass_read = read_sass_in_background(build.library)
     check_learned_builds(build)
 
     model, params, config = convert.load_asset("ckpt_ks8", device=device)
@@ -3829,10 +3889,6 @@ def main() -> int:
     # ---- 6. times -------------------------------------------------------------
     log(f"[6] times (ms, median of {SAMPLES}; the routes and plain versions, calls of "
         f"0.4-1.1 s, of {LONG_SAMPLES}) on {card}")
-    tensor_cores = tensor_core_line(build.library)
-    log(f"    {tensor_cores}")
-    if "not read" not in tensor_cores and " 0 HMMA, 0 GMMA" in tensor_cores:
-        raise AssertionError("a fused_learned_rk4 kernel holds no tensor-core instruction")
     # the floor under any kernel's time: an empty kernel's launch, queued
     lib = _build.load_library()
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -4123,7 +4179,7 @@ def main() -> int:
         new_times[batch] = row
         log(f"    B={batch}: " + json.dumps(row))
     # fused_rk4 beyond the classic scheme and the nx=128 grid: in registers
-    # with the taps at run time, on 16 points a lane, and in shared memory
+    # with the taps at run time, on 16 points a lane, and the block form
     domain_times = baseline_domain_times(gen, device)
     # the floor that binds fused_rk4 at small batch: 4 x STEPS dependent
     # stages. One trajectory alone (one warp on the card) shows the latency of
@@ -4190,6 +4246,17 @@ def main() -> int:
 
     # ---- 19. the learned kernel's full domain ----------------------------------
     domain = domain_phase(card)
+
+    # ---- 2 and 6, the library's SASS (read in the background) -------------------
+    log("[2, 6] the library's SASS")
+    sass, sass_s = sass_read()
+    log(f"    read in {sass_s:.1f} s beside the phases")
+    check_stencil_builds(build, sass)
+    tensor_cores = tensor_core_line(sass)
+    del sass
+    log(f"    {tensor_cores}")
+    if "not read" not in tensor_cores and " 0 HMMA, 0 GMMA" in tensor_cores:
+        raise AssertionError("a fused_learned_rk4 kernel holds no tensor-core instruction")
 
     # ---- 20. report -----------------------------------------------------------
     flagship = times[BATCH]
@@ -4367,7 +4434,9 @@ def main() -> int:
         *[{
             "name": f"fused_rk4_{label.replace(' ', '_')}",
             "route": "cuda",
-            "source": "pde_superresolution_torch/csrc/fused_rk4.cu",
+            "source": ("pde_superresolution_torch/csrc/fused_rk4_block.cuh"
+                       if row["launch"]["form"] == "block"
+                       else "pde_superresolution_torch/csrc/fused_rk4.cu"),
             "replaces": "pde_superresolution_tpu/ops/pallas_kernels.py:304",
             "launches": row["launches"],
             "launches_by_path": {f"{row['shape']}, integrate_fused baseline leg":

@@ -1,7 +1,8 @@
 // fused_rk4: num_steps whole RK4 steps of the fixed classic-stencil baseline
-// scheme in one launch. Shared by fused_rk4.cu (the C entry and the block
-// form) and fused_rk4_{classic,scheme}_{kdv,ks}.cu (the register forms,
-// one source per equation so that nvcc compiles them in parallel).
+// scheme in one launch. Shared by fused_rk4.cu (the C entry and the rows
+// form), fused_rk4_{classic,scheme}_{kdv,ks}.cu (the register forms) and
+// fused_rk4_block_{classic,scheme}_{kdv,ks}.cu (the block form), one source
+// per form and equation so that nvcc compiles them in parallel.
 //
 // Replaces make_fused_rk4 in pde_superresolution_tpu/ops/pallas_kernels.py
 // (the pallas_call at line 374), which builds any classic scheme from
@@ -21,7 +22,7 @@
 // flux or equation of motion, an IEEE division by dx for the conservative
 // divergence and the stage combine.
 //
-// Three forms, chosen in Python (fused_kernels.rk4_launch) from nx and the
+// Four forms, chosen in Python (fused_kernels.rk4_launch) from nx and the
 // scheme:
 //  * register, classic (fused_rk4_classic.cuh): the four accuracy-order-2
 //    tap layouts of make_fused_rk4's default (Layout below) compiled in. A
@@ -42,17 +43,26 @@
 //    The tap loop runs as many times as the order has taps: no tap is
 //    padded with a zero coefficient (0 x inf would be NaN where the plain
 //    version gives inf).
-//  * block (fused_rk4.cu): above 1024 points (768 for a scheme whose taps
-//    are taken at run time), and at any nx for a scheme of more than
-//    kMaxTaps taps an order or a reach beyond kReach, a block owns a
-//    trajectory and keeps the stage input (with a periodic halo of the
-//    scheme's reach at both ends, every periodic copy where the reach
-//    exceeds nx), the fluxes, the step's start value and the k sum in
-//    shared memory, 16 nx + 8 halo bytes, or, where they do not fit (nx of
-//    about 14,500 and more), in a global scratch the wrapper allocates; the
-//    taps are taken at run time, their coefficients from the kernel's
-//    parameters or, for the wide schemes, from global memory. Barriers
-//    separate the tap sums, the divergence and the stage combine.
+//  * block (fused_rk4_block.cuh): above 1024 points (768 for a scheme whose
+//    taps are taken at run time), and for the wide schemes past the rows
+//    form's shared memory, the same ownership
+//    widened to the warps of a block, or of a thread-block cluster of up to
+//    16 blocks: the state in registers, P points a lane, neighbours inside a
+//    warp by shuffles, only the warps' edges through shared memory (double
+//    buffered, one cluster barrier a stage; a neighbour block's edges by
+//    distributed shared memory). The classic layouts compiled in at
+//    kBlockClassicPoints points a lane, any other scheme's taps at run time
+//    at 4 or 8 (coefficients copied once into shared memory).
+//  * rows (fused_rk4.cu): a wide scheme (more than kMaxTaps taps an order,
+//    or a reach beyond kReach) whose rows fit a block (a reach beyond the
+//    grid too: 80 taps on 32 points reach 40 points) keeps the stage input (with a periodic halo of the scheme's reach at
+//    both ends, every periodic copy), the fluxes, the step's start value and
+//    the k sum in shared memory, 16 nx + 8 halo bytes, a block a trajectory,
+//    its taps at run time and its coefficients copied once into shared
+//    memory; barriers separate the tap sums, the divergence and the stage
+//    combine. On an H100 it ran 40 taps at nx 128 3.3x faster than the block
+//    form's run-time taps. Past a block's shared memory the wide schemes take
+//    the block form.
 //
 // Points per lane: the register forms are built for the P of dispatch_points.
 // nx = 32 P' runs at the smallest P >= P' that divides nx, on L = nx / P
@@ -70,12 +80,20 @@ namespace pde_rk4 {
 using pde::kMaxOrders;
 
 // the register forms' schemes, whose coefficients are kernel parameters (the
-// block form takes any other with its coefficients in global memory)
+// block and rows forms take any other with its coefficients in global memory)
 constexpr int kMaxTaps = 32;   // fused_kernels.MAX_TAPS
 constexpr int kReach = 16;     // fused_kernels.RK4_REACH: taps lie in [-kReach, kReach]
 constexpr int kSlots = 2 * kReach + 1;  // coefficient slots per order, by tap
 constexpr int kMaxWarps = 8;   // fused_kernels.RK4_MAX_WARPS: warps per block
-constexpr int kBlockThreads = 256;  // fused_kernels.RK4_BLOCK_THREADS
+constexpr int kRowsThreads = 256;  // fused_kernels.RK4_ROWS_THREADS: the rows form's block
+// the block form: warps a block at most (the kernels' thread bound, which
+// leaves 128 registers a thread), blocks a cluster at most, the points a
+// lane of its compiled-tap kernel and the most of its run-time-tap kernel
+// (1, 2, 4 or 8)
+constexpr int kBlockMaxWarps = 16;     // fused_kernels.RK4_BLOCK_MAX_WARPS
+constexpr int kBlockMaxCluster = 16;   // fused_kernels.MAX_CLUSTER
+constexpr int kBlockClassicPoints = 8;   // fused_kernels.RK4_BLOCK_CLASSIC_POINTS
+constexpr int kBlockSchemePoints = 8;    // fused_kernels.RK4_BLOCK_SCHEME_POINTS
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // The classic schemes of make_fused_rk4 (accuracy order 2), per equation
@@ -157,6 +175,14 @@ __device__ __forceinline__ float combine(int stage, float k, float& u0, float& k
   return u0;
 }
 
+// The block form's geometry: a trajectory over `cluster` blocks of `warps`
+// warps; its nx / P lanes `base` a warp, one more in the first `extra` warps
+// of the trajectory; each warp's tail of `left` points and head of `right`
+// points in its block's edge buffer.
+struct Block {
+  int nx, warps, cluster, base, extra, left, right;
+};
+
 struct Launch {
   const float* u;
   float* out;
@@ -173,6 +199,19 @@ int launch_classic_kdv(bool cons, int points_per_lane, const Scalars& sc, const 
 int launch_classic_ks(bool cons, int points_per_lane, const Scalars& sc, const Launch& l);
 int launch_scheme_kdv(bool cons, int points_per_lane, const Scalars& sc, const Launch& l);
 int launch_scheme_ks(bool cons, int points_per_lane, const Scalars& sc, const Launch& l);
+
+// The block form's launches (fused_rk4_block_{classic,scheme}_{kdv,ks}.cu):
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a P
+// they are not built for. wide_coefs: every order's coefficients in tap
+// order (the wide schemes), or null (the kernel parameters' Scalars.coef).
+int launch_block_classic_kdv(bool cons, int points_per_lane, const Scalars& sc, const Block& g,
+                             const Launch& l, const float* wide_coefs, int shared_bytes);
+int launch_block_classic_ks(bool cons, int points_per_lane, const Scalars& sc, const Block& g,
+                            const Launch& l, const float* wide_coefs, int shared_bytes);
+int launch_block_scheme_kdv(bool cons, int points_per_lane, const Scalars& sc, const Block& g,
+                            const Launch& l, const float* wide_coefs, int shared_bytes);
+int launch_block_scheme_ks(bool cons, int points_per_lane, const Scalars& sc, const Block& g,
+                           const Launch& l, const float* wide_coefs, int shared_bytes);
 
 // Dispatch over the points per lane the register forms are built for
 // (fused_kernels.RK4_POINTS_PER_LANE, up to MAX_P).

@@ -135,7 +135,7 @@ def load_library() -> ctypes.CDLL:
         ctypes.POINTER(i32),  # meta: see fused_rk4.cu
         ctypes.POINTER(f32),  # coefficients [3][33], by tap
         ctypes.POINTER(f32),  # dx, eta, dt/2, dt, dt/6
-        ptr, ptr,  # a wide scheme's coefficients, the block form's global rows (or null)
+        ptr,  # a wide scheme's coefficients (or null)
         ptr,  # stream
     ]
     lib.pde_fused_rk4.restype = i32

@@ -29,8 +29,9 @@ The counterpart of ``pde_superresolution_tpu/ops/pallas_kernels.py``:
     holds it in registers (the default schemes' tap loops unrolled, each
     coefficient a kernel parameter read by its multiply; any other scheme's
     taps taken at run time), above that (and for a scheme of more than 32
-    taps an order) a block holds it in shared memory, or in a global scratch
-    where its rows do not fit.
+    taps an order) the warps of a block, or of a thread-block cluster's
+    blocks, hold it in registers and trade only their edges through shared
+    memory.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else. It takes its plain PyTorch version (``*_plain``, in this
@@ -140,21 +141,39 @@ SM_WARPS_WIDE = 8
 RHS_SHARED_BYTES = 49152
 RHS_BLOCK_POINTS = 128
 MAX_THREADS = 1024
-# fused_rk4.cu's compile-time limits (kMaxTaps, kReach, kMaxWarps,
-# kBlockThreads), the points per lane its register forms are built for (nx =
-# lanes x P, 17 to 32 lanes) and the classic schemes compiled into one of
-# them: (equation, conservative) -> {order: (first tap, number of taps)}.
-# Any other scheme of at most MAX_TAPS taps an order within RK4_REACH points
-# takes its taps at run time, in registers up to RK4_SCHEME_MAX_POINTS a lane
-# (at 32 its six register rows spill); longer grids and wider schemes take
-# the block form, its rows in global memory where they do not fit a block.
+# fused_rk4.cuh's compile-time limits (kMaxTaps, kReach, kMaxWarps), the
+# points per lane its register forms are built for (nx = lanes x P, 17 to 32
+# lanes) and the classic schemes compiled into one of them: (equation,
+# conservative) -> {order: (first tap, number of taps)}. Any other scheme of
+# at most MAX_TAPS taps an order within RK4_REACH points takes its taps at
+# run time, in registers up to RK4_SCHEME_MAX_POINTS a lane (at 32 its six
+# register rows spill). Longer grids and wider schemes take the block form:
+# a trajectory over the warps of a block, or of a cluster of up to
+# MAX_CLUSTER blocks, at most RK4_BLOCK_MAX_WARPS warps a block
+# (kBlockMaxWarps: the thread bound leaves RK4_BLOCK_REGISTERS registers a
+# thread), P points a lane (RK4_BLOCK_POINTS: 4 up to 128 points, else 8;
+# the classic layouts compiled in at RK4_BLOCK_CLASSIC_POINTS,
+# kBlockClassicPoints, 13-21% faster than 16 at nx 2048 on an H100; any
+# scheme's taps at run time, kBlockSchemePoints at most: at 16 its register
+# rows spill), the warps' edges in shared memory. The rule fills a block up
+# to RK4_BLOCK_WARPS warps before it adds a block to the cluster, up to
+# PORTABLE_CLUSTER blocks, then up to RK4_BLOCK_MAX_WARPS (on an H100, nx
+# 16384 at B=256 ran 4.29 ms on 8 blocks of 8 warps, 5.52 on 4 of 16; PERF.md). A wide scheme (rk4_wide) whose rows fit a block takes the rows
+# form (on an H100 3.3x faster than the block form at 40 taps, nx 128): a
+# block of RK4_ROWS_THREADS threads, its rows and coefficients in shared
+# memory.
 MAX_TAPS = 32
 RK4_REACH = 16  # the register forms' taps lie in [-RK4_REACH, RK4_REACH]
 RK4_MAX_WARPS = 8
-RK4_BLOCK_THREADS = 256
 RK4_POINTS_PER_LANE = (1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32)
 RK4_REGISTER_MAX_NX = 32 * RK4_POINTS_PER_LANE[-1]
 RK4_SCHEME_MAX_POINTS = 24  # fused_rk4.cuh's kSchemeMaxPoints
+RK4_BLOCK_POINTS = (4, 8)  # powers of two: each divides every nx % 32 == 0
+RK4_BLOCK_CLASSIC_POINTS = 8
+RK4_BLOCK_MAX_WARPS = 16
+RK4_BLOCK_WARPS = 8
+RK4_BLOCK_REGISTERS = 128
+RK4_ROWS_THREADS = 256
 RK4_LAYOUTS = {
     ("kdv", True): {0: (0, 2), 2: (-1, 4)},
     ("kdv", False): {1: (-1, 3), 3: (-2, 5)},
@@ -1252,15 +1271,18 @@ def fused_rk4_plain(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
 class RK4Launch(NamedTuple):
     """Geometry of one ``fused_rk4`` launch."""
 
-    form: str  # "registers" (a warp per trajectory) or "block" (a block per trajectory)
-    warps: int  # per block: trajectories (registers) or the block's warps (block)
+    form: str  # "registers" (a warp a trajectory), "block" (warps of a block or a cluster) or "rows"
+    warps: int  # per block: trajectories (registers) or the block's warps (block, rows)
     threads: int  # per block
     blocks: int
-    points: int  # register form: points per lane P (0 for the block form)
-    lanes: int  # register form: lanes of the ring, nx = lanes x points
-    shared_bytes: int  # block form: the rows in shared memory (0 in global memory)
-    halo: int = 0  # block form: periodic points of the stage input at each end
-    rows_global: bool = False  # block form: the rows in a global scratch
+    points: int  # points per lane P (registers, block; 0 for the rows form)
+    lanes: int  # registers: lanes of the ring, nx = lanes x points; block: lanes of a warp
+    shared_bytes: int  # block: the edge buffers and the coefficients; rows: the rows
+    halo: int = 0  # rows form: periodic points of the stage input at each end
+    cluster: int = 1  # block form: blocks a trajectory
+    extra: int = 0  # block form: the first `extra` warps of a trajectory have one lane more
+    left: int = 0  # block form: a warp's tail, the points its right neighbour reads
+    right: int = 0  # block form: a warp's head, the points its left neighbour reads
 
 
 def rk4_points(nx: int) -> tuple:
@@ -1270,11 +1292,11 @@ def rk4_points(nx: int) -> tuple:
     return next((p, nx // p) for p in RK4_POINTS_PER_LANE if 32 * p >= nx and nx % p == 0)
 
 
-def rk4_shared_bytes(nx: int, halo: int) -> int:
-    """The block form's rows: the stage input with ``halo`` periodic points
-    at both ends, the fluxes, the step's start value and the k sum,
-    float32."""
-    return 4 * (4 * nx + 2 * halo)
+def rk4_shared_bytes(nx: int, halo: int, taps: int) -> int:
+    """The rows form's shared memory: the stage input with ``halo`` periodic
+    points at both ends, the fluxes, the step's start value and the k sum,
+    then the scheme's ``taps`` coefficients, float32."""
+    return 4 * (4 * nx + 2 * halo + taps)
 
 
 def rk4_reach(taps: Mapping[int, Sequence[int]]) -> int:
@@ -1282,35 +1304,114 @@ def rk4_reach(taps: Mapping[int, Sequence[int]]) -> int:
     return max(max(-t[0], t[-1]) for t in taps.values())
 
 
+def rk4_edges(taps: Mapping[int, Sequence[int]]) -> tuple:
+    """(left, right) of the block form: a warp's tail, the points left of a
+    warp's first that its taps read and one more (the conservative
+    divergence's left face: each lane computes that flux itself), and its
+    head, the points right of its last."""
+    return (1 - min(0, min(t[0] for t in taps.values())),
+            max(0, max(t[-1] for t in taps.values())))
+
+
 def rk4_wide(taps: Mapping[int, Sequence[int]]) -> bool:
     """Whether a scheme has more than ``MAX_TAPS`` taps an order or reaches
-    beyond ``RK4_REACH`` points: the block form alone takes it, its
-    coefficients in global memory."""
+    beyond ``RK4_REACH`` points: the register forms do not take it, the
+    block form takes it with its coefficients from global memory, copied
+    once into shared memory."""
     return any(len(t) > MAX_TAPS for t in taps.values()) or rk4_reach(taps) > RK4_REACH
 
 
+def _rk4_geometry(nx: int, points: int, left: int, right: int,
+                  cluster: Optional[int]) -> Optional[tuple]:
+    """(cluster, warps a block, lanes a warp, warps with one lane more) of
+    the block form at P = ``points``: the trajectory's nx / P lanes over the
+    fewest warps of 32 lanes, in ``cluster`` blocks or the fewest (a power of
+    two) of at most ``RK4_BLOCK_WARPS`` warps, or past ``PORTABLE_CLUSTER``
+    blocks of at most ``RK4_BLOCK_MAX_WARPS``; None where a warp would hold
+    fewer points than the edges it publishes."""
+    lanes = nx // points
+    fewest = -(-lanes // 32)
+    if cluster is None:
+        sizes = (1, 2, 4, 8, 16)
+        cluster = next((c for c in sizes if c <= PORTABLE_CLUSTER
+                        and -(-fewest // c) <= RK4_BLOCK_WARPS),
+                       next((c for c in sizes if -(-fewest // c) <= RK4_BLOCK_MAX_WARPS), None))
+        if cluster is None:
+            return None
+    warps = -(-fewest // cluster)
+    base, extra = divmod(lanes, warps * cluster)
+    if not (1 <= cluster <= MAX_CLUSTER and warps <= RK4_BLOCK_MAX_WARPS and base >= 1
+            and base * points >= max(left, right)):
+        return None
+    return cluster, warps, base, extra
+
+
+def _rk4_block(batch: int, nx: int, taps: Mapping[int, Sequence[int]],
+               cluster: Optional[int]) -> Optional[RK4Launch]:
+    """The block form's launch, or None where its warps would hold fewer
+    points than the edges they publish (or a forced cluster size does not
+    fit). P: 4 up to 128 points, else 8, a classic scheme's taps compiled
+    in at ``RK4_BLOCK_CLASSIC_POINTS`` (``_rk4_geometry`` deals out the
+    lanes)."""
+    left, right = rk4_edges(taps)
+    points = RK4_BLOCK_POINTS[0] if nx <= 32 * RK4_BLOCK_POINTS[0] else RK4_BLOCK_POINTS[-1]
+    geometry = _rk4_geometry(nx, points, left, right, cluster)
+    if geometry is None:
+        return None
+    cluster, warps, base, extra = geometry
+    shared = 4 * (3 * warps * (left + right) + sum(len(t) for t in taps.values()))
+    return RK4Launch("block", warps, 32 * warps, batch * cluster, points, base, shared,
+                     cluster=cluster, extra=extra, left=left, right=right)
+
+
+def rk4_warp_spans(launch: RK4Launch) -> list:
+    """The block form's warps in trajectory order (block r of the cluster
+    holds warps r W to r W + W - 1): (first point, points) of each, as
+    fused_rk4_block.cuh's WarpEdges places them."""
+    total = launch.warps * launch.cluster
+    spans = []
+    for w in range(total):
+        lanes = launch.lanes + (w < launch.extra)
+        spans.append((launch.points * (w * launch.lanes + min(w, launch.extra)),
+                      launch.points * lanes))
+    return spans
+
+
 def rk4_launch(batch: int, nx: int, classic: bool,
-               taps: Mapping[int, Sequence[int]]) -> RK4Launch:
+               taps: Mapping[int, Sequence[int]], cluster: Optional[int] = None) -> RK4Launch:
     """The launch of ``fused_rk4`` for ``batch`` trajectories of ``nx``
     points, for a classic scheme (taps compiled in) or not, of ``taps`` (by
-    order). Up to
-    ``RK4_REGISTER_MAX_NX`` (``32 RK4_SCHEME_MAX_POINTS`` for taps taken at
-    run time) a warp owns a trajectory and warps never wait for each other,
-    so a block is only a package of warps: as many as leave the launch
-    ``NUM_SMS`` blocks, at most ``RK4_MAX_WARPS`` (8 timed 1-2% faster than
-    4 at B=10240 on an H100). Longer grids and wider schemes
-    (``rk4_wide``): a block of ``RK4_BLOCK_THREADS`` threads per trajectory,
-    its rows in shared memory with a halo of the scheme's reach where they
-    fit ``MAX_SHARED_BYTES``, else in a global scratch."""
-    if rk4_wide(taps) or nx > (RK4_REGISTER_MAX_NX if classic else 32 * RK4_SCHEME_MAX_POINTS):
-        halo = rk4_reach(taps)
-        rows = rk4_shared_bytes(nx, halo)
-        in_global = rows > MAX_SHARED_BYTES
-        return RK4Launch("block", RK4_BLOCK_THREADS // 32, RK4_BLOCK_THREADS, batch, 0, 0,
-                         0 if in_global else rows, halo, in_global)
-    warps = min(RK4_MAX_WARPS, max(1, batch // NUM_SMS))
-    points, lanes = rk4_points(nx)
-    return RK4Launch("registers", warps, 32 * warps, -(-batch // warps), points, lanes, 0)
+    order). Up to ``RK4_REGISTER_MAX_NX`` (``32 RK4_SCHEME_MAX_POINTS`` for
+    taps taken at run time) a warp owns a trajectory and warps never wait for
+    each other, so a block is only a package of warps: as many as leave the
+    launch ``NUM_SMS`` blocks, at most ``RK4_MAX_WARPS`` (8 timed 1-2% faster
+    than 4 at B=10240 on an H100). Longer grids and wider schemes
+    (``rk4_wide``), or any shape with ``cluster`` given: the block form
+    (``_rk4_block``), the trajectory over the warps of ``cluster`` blocks
+    (raises where that cluster does not fit). A wide scheme whose rows fit
+    a block's shared memory (nx up to about 14,500) takes the rows form
+    instead, a block of ``RK4_ROWS_THREADS`` threads a trajectory, its rows
+    with a halo of the scheme's reach and its coefficients in shared memory:
+    on an H100 it ran 40 taps at nx 128 3.3x faster than the block form
+    (PERF.md), and it takes a reach beyond what a warp holds (80 taps on 32
+    points reach 40)."""
+    wide = rk4_wide(taps)
+    if cluster is None and not wide and nx <= (
+            RK4_REGISTER_MAX_NX if classic else 32 * RK4_SCHEME_MAX_POINTS):
+        warps = min(RK4_MAX_WARPS, max(1, batch // NUM_SMS))
+        points, lanes = rk4_points(nx)
+        return RK4Launch("registers", warps, 32 * warps, -(-batch // warps), points, lanes, 0)
+    halo = rk4_reach(taps)
+    rows = rk4_shared_bytes(nx, halo, sum(len(t) for t in taps.values()))
+    if cluster is None and wide and rows <= MAX_SHARED_BYTES:
+        return RK4Launch("rows", RK4_ROWS_THREADS // 32, RK4_ROWS_THREADS, batch, 0, 0, rows,
+                         halo)
+    block = _rk4_block(batch, nx, taps, cluster)
+    if block is None:
+        raise ValueError(f"the block form does not take nx={nx} over a cluster of {cluster} "
+                         f"blocks (1 to {MAX_CLUSTER}, at most {RK4_BLOCK_MAX_WARPS} warps a "
+                         f"block, each warp holding the {max(rk4_edges(taps))} edge points)")
+    return block
 
 
 def rk4_is_classic(scheme: BaselineRK4) -> bool:
@@ -1326,7 +1427,9 @@ def rk4_refusal(scheme: BaselineRK4, nx: int) -> Optional[str]:
     can. It runs the unforced equations at any nx that is a multiple of 32
     (the JAX kernel: multiples of 128) with contiguous taps of any number
     and reach: in registers up to ``RK4_REGISTER_MAX_NX`` (768 for taps at
-    run time), in a block above and for the wide schemes (``rk4_launch``)."""
+    run time), over the warps of a block or a cluster above and for the
+    wide schemes, in a block's shared memory where a scheme reaches further
+    than a warp holds (``rk4_launch``)."""
     eq = scheme.equation
     if (eq.name, eq.conservative) not in RK4_LAYOUTS:
         return f"{eq.name} is forced: the kernel takes the unforced equations (KdV, KS)"
@@ -1338,12 +1441,15 @@ def rk4_refusal(scheme: BaselineRK4, nx: int) -> Optional[str]:
     return None
 
 
-def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
+def fused_rk4(u: torch.Tensor, scheme: BaselineRK4, cluster: Optional[int] = None
+              ) -> torch.Tensor:
     """``scheme.num_steps`` RK4 steps of the baseline scheme from ``u [B, nx]``
-    in one launch of ``csrc/fused_rk4.cu`` (its plain version for a CPU
-    tensor). On the card a warp owns a trajectory, a block above 1024
-    points or for a wide scheme; ``rk4_refusal`` says which shapes and
-    schemes it takes."""
+    in one launch of ``csrc/fused_rk4*.cu`` (its plain version for a CPU
+    tensor). On the card a warp owns a trajectory up to 1024 points, the
+    warps of a block or of a cluster of blocks above and for a wide scheme
+    (``cluster`` forces the block form over that many blocks);
+    ``rk4_refusal`` says which shapes and schemes it takes, ``rk4_launch``
+    how."""
     if u.dim() != 2:
         raise ValueError(f"u must be [batch, nx], got shape {tuple(u.shape)}")
     batch, nx = u.shape
@@ -1358,7 +1464,7 @@ def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
     refusal = rk4_refusal(scheme, nx)
     if refusal:
         raise ValueError(refusal)
-    launch = rk4_launch(batch, nx, rk4_is_classic(scheme), scheme.taps)
+    launch = rk4_launch(batch, nx, rk4_is_classic(scheme), scheme.taps, cluster)
     wide = rk4_wide(scheme.taps)
 
     from pde_superresolution_torch.ops import _build
@@ -1367,18 +1473,18 @@ def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
     out = torch.empty_like(u)
     orders = sorted(scheme.taps)
     pad = [0] * (MAX_ORDERS - len(orders))
-    meta = (ctypes.c_int * 18)(
+    meta = (ctypes.c_int * 20)(
         EQUATION_CODES[scheme.equation.name],
         int(scheme.equation.conservative),
         nx, launch.warps, len(orders),
         *[len(scheme.taps[d]) for d in orders], *pad,
         *[scheme.taps[d][0] for d in orders], *pad,
-        int(launch.form == "block"), launch.points, launch.lanes, launch.shared_bytes,
-        launch.halo, int(launch.rows_global), int(wide),
+        ("registers", "block", "rows").index(launch.form), launch.points, launch.lanes,
+        launch.shared_bytes, launch.halo, launch.cluster, int(wide), launch.left, launch.right,
     )
     slots = 2 * RK4_REACH + 1  # order i's coefficient of tap t at [i][t + RK4_REACH]
     coefs = (ctypes.c_float * (MAX_ORDERS * slots))()
-    wide_coefs = scratch = None
+    wide_coefs = None
     if wide:  # every order's coefficients in tap order, on the card
         wide_coefs = scheme.device_coefficients.get(u.device)
         if wide_coefs is None:
@@ -1389,8 +1495,6 @@ def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
         for i, d in enumerate(orders):
             for t, c in zip(scheme.taps[d], scheme.coefficients[d]):
                 coefs[i * slots + t + RK4_REACH] = c
-    if launch.rows_global:
-        scratch = torch.empty(batch * (4 * nx + 2 * launch.halo), device=u.device)
     dt = scheme.dt
     scalars = (ctypes.c_float * 5)(
         scheme.grid.dx, float(getattr(scheme.equation, "eta", 0.0)),
@@ -1398,8 +1502,7 @@ def fused_rk4(u: torch.Tensor, scheme: BaselineRK4) -> torch.Tensor:
     )
     code = lib.pde_fused_rk4(
         u.data_ptr(), out.data_ptr(), batch, scheme.num_steps, meta, coefs, scalars,
-        None if wide_coefs is None else wide_coefs.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), _stream(u.device),
+        None if wide_coefs is None else wide_coefs.data_ptr(), _stream(u.device),
     )
     _raise_on_cuda_error(code, "fused_rk4 launch")
     fused_rk4.launches += 1

@@ -22,8 +22,19 @@ device-side sleep while the host queues 100 calls (median of 5):
     ``rk4_launch``);
   * ``fused_rk4`` beyond the classic scheme at nx=128 (KS at accuracy order
     4, taps at run time; KdV on 512 points; KS on 2048, the block form) at
-    B=256, 4096 and 10240 (a tree whose kernel refuses a shape prints the
-    refusal).
+    B=256, 4096 and 10240, KS at accuracy order 4 on 2048 points and with 40
+    taps an order at nx=128 (B=256 and 10240) and KS on 16384 points
+    (B=256), each beside its operations bound
+    (a tree whose kernel refuses a shape prints the refusal);
+  * with ``--clusters`` (a tree whose ``fused_rk4`` takes ``cluster=``):
+    the block form forced over each of those cluster sizes at nx 2048
+    (B=10240) and 16384 (B=256), and over one block at 40 taps (beside the
+    rule's rows form);
+  * with ``--classic-points P,...``: the classic rows of the block form also
+    with its compiled taps at each P (``fk.RK4_BLOCK_CLASSIC_POINTS``);
+  * with ``--rival``: the block form forced over one block against the
+    run-time-tap register form at nx 128 and 512 (KS at accuracy order 4
+    and with 16 taps, B=256 and 10240), in turns.
 
 Each kernel is checked against its plain version at every timed shape
 before it is timed. The script uses only the wrappers' public calls, so it
@@ -40,6 +51,7 @@ import re
 import statistics
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -99,24 +111,34 @@ def ptxas_lines(build) -> list:
     return lines
 
 
-def sass_counts(library) -> dict:
-    """{kernel: {LDL, STL, BAR}} instruction counts of the two kernels (all
-    three forms of ``fused_rk4``)."""
+def read_sass(library) -> Optional[str]:
+    """The SASS of every kernel in ``library`` (``cuobjdump -sass``), or
+    None where the toolkit has no cuobjdump beside nvcc."""
     tool = Path(_build.find_nvcc()).with_name("cuobjdump")
     if not tool.is_file():
+        return None
+    return subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                          timeout=300).stdout
+
+
+def sass_counts(library, sass: Optional[str] = None) -> dict:
+    """{kernel: {LDL, STL, BAR}} instruction counts of the two kernels (every
+    form of ``fused_rk4``), from ``sass`` (``read_sass``'s text) or read
+    from ``library``."""
+    sass = read_sass(library) if sass is None else sass
+    if sass is None:
         return {}
-    out = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
-                         timeout=300)
     counts, name = {}, None
-    for line in out.stdout.splitlines():
+    ops = re.compile(r"\b(LDL|STL|BAR)\b")
+    for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             name = name if ("fused_rk4_" in name or "fused_rhs_kernel" in name) else None
             if name:
                 counts[name] = {"LDL": 0, "STL": 0, "BAR": 0}
         elif name:
-            for op in ("LDL", "STL", "BAR"):
-                counts[name][op] += bool(re.search(rf"\b{op}\b", line))
+            for op in set(ops.findall(line)):
+                counts[name][op] += 1
     return counts
 
 
@@ -131,6 +153,15 @@ def main(argv=None) -> None:
     parser.add_argument("--rhs-block-points", default="128,256,512",
                         help="fused_rhs points per block to time at B >= 4096 (when the "
                              "package has rhs_launch)")
+    parser.add_argument("--clusters", default="",
+                        help="fused_rk4's block form forced over these blocks a trajectory "
+                             "at nx 2048 and 16384, e.g. 1,2,4,8,16")
+    parser.add_argument("--classic-points", default="",
+                        help="also time the compiled-tap block form at nx >= 2048 with "
+                             "fk.RK4_BLOCK_CLASSIC_POINTS set to each of these (the C entry "
+                             "refuses a P its kernels are not built for)")
+    parser.add_argument("--rival", action="store_true",
+                        help="fused_rk4's block form against the run-time-tap register form")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("probe_stencil_kernels: no CUDA device is available")
@@ -225,15 +256,21 @@ def main(argv=None) -> None:
     print(f"{tag} fused_rk4, one trajectory alone: {stage_us:.4f} us per stage")
     result["fused_rk4"] = rk4
     domain = {}
-    for label, name, nx, scheme in (("ks accuracy order 4", "ks", 128, {"accuracy_order": 4}),
-                                    ("kdv nx 512", "kdv", 512, {}),
-                                    ("ks nx 2048", "ks", 2048, {})):
+    # (label, equation, nx, scheme, batches)
+    shapes = (("ks accuracy order 4", "ks", 128, {"accuracy_order": 4}, (256, 4096, 10240)),
+              ("kdv nx 512", "kdv", 512, {}, (256, 4096, 10240)),
+              ("ks nx 2048", "ks", 2048, {}, (256, 4096, 10240)),
+              ("ks accuracy order 4 nx 2048", "ks", 2048, {"accuracy_order": 4}, (256, 10240)),
+              ("ks stencil 40", "ks", 128, {"stencil_size": 40}, (256, 10240)),
+              ("ks nx 16384", "ks", 16384, {}, (256,)))
+    clusters = [int(c) for c in args.clusters.split(",") if c]
+    for label, name, nx, scheme, batches in shapes:
         period = equations.from_name(name).period * nx / 128  # the same dx
         e = equations.from_name(name, conservative=True, period=period)
         g = type(grid)(nx, period)
         advance = fk.make_fused_rk4(e, g, e.stable_time_step(g) / (4 if scheme else 1), STEPS,
                                     **scheme)
-        for batch in (256, 4096, 10240):
+        for batch in batches:
             u = 0.3 * e.initial_conditions(gen, g, (batch,), device)
             try:
                 got = advance(u)
@@ -244,10 +281,71 @@ def main(argv=None) -> None:
                 raise AssertionError(f"fused_rk4 {label} B={batch}: not its plain version")
             row = {"ms": time_ms(lambda: advance(u), inner=5),
                    "ops_bound_ms": rk4_ops_bound_ms(advance.scheme, batch)}
+            if has_warps:
+                row["launch"] = fk.rk4_launch(batch, nx, fk.rk4_is_classic(advance.scheme),
+                                              advance.scheme.taps)._asdict()
+            forced = (clusters if not scheme and nx in (2048, 16384)
+                      and batch == (10240 if nx == 2048 else 256) else [])
+            for c in forced:
+                try:
+                    fk.rk4_launch(batch, nx, fk.rk4_is_classic(advance.scheme),
+                                  advance.scheme.taps, c)
+                except ValueError as refusal:
+                    print(f"{tag} fused_rk4 {label} B={batch} over {c} blocks: {refusal}")
+                    continue
+                if not torch.equal(fk.fused_rk4(u, advance.scheme, cluster=c), got):
+                    raise AssertionError(f"fused_rk4 {label} B={batch} over {c} blocks")
+                row[f"ms_cluster_{c}"] = time_ms(
+                    lambda: fk.fused_rk4(u, advance.scheme, cluster=c), inner=5)
+            if scheme.get("stencil_size") == 40 and clusters:  # the block form beside the rule's
+                if not torch.equal(fk.fused_rk4(u, advance.scheme, cluster=1), got):
+                    raise AssertionError(f"fused_rk4 {label} B={batch} over one block")
+                row["ms_block_form"] = time_ms(
+                    lambda: fk.fused_rk4(u, advance.scheme, cluster=1), inner=5)
+            if args.classic_points and not scheme and nx >= 2048:
+                default = fk.RK4_BLOCK_CLASSIC_POINTS
+                for p in (int(n) for n in args.classic_points.split(",")):
+                    fk.RK4_BLOCK_CLASSIC_POINTS = p
+                    if not torch.equal(advance(u), got):
+                        raise AssertionError(f"fused_rk4 {label} B={batch} at {p} points")
+                    row[f"ms_{p}_points"] = time_ms(lambda: advance(u), inner=5)
+                fk.RK4_BLOCK_CLASSIC_POINTS = default
             domain[f"{label} B={batch}"] = row
             print(f"{tag} fused_rk4 {label} B={batch}, {STEPS} steps: "
-                  + ", ".join(f"{k} {v:.4g}" for k, v in row.items()))
+                  + ", ".join(f"{k} {v:.4g}" for k, v in row.items() if k != "launch")
+                  + (f"; {row['launch']}" if "launch" in row else ""))
+            del u, got
     result["fused_rk4_domain"] = domain
+    if args.rival:
+        rival = {}
+        for nx, scheme in ((128, {"accuracy_order": 4}), (128, {"stencil_size": 16}),
+                           (512, {"accuracy_order": 4}), (512, {"stencil_size": 16})):
+            period = equations.from_name("ks").period * nx / 128
+            e = equations.from_name("ks", conservative=True, period=period)
+            g = type(grid)(nx, period)
+            advance = fk.make_fused_rk4(e, g, e.stable_time_step(g) / 4, STEPS, **scheme)
+            for batch in (256, 10240):
+                u = 0.3 * e.initial_conditions(gen, g, (batch,), device)
+                want = fk.fused_rk4_plain(u, advance.scheme)
+
+                def registers(u=u, advance=advance):
+                    return advance(u)
+
+                def block(u=u, advance=advance):
+                    return fk.fused_rk4(u, advance.scheme, cluster=1)
+
+                if not (torch.equal(registers(), want) and torch.equal(block(), want)):
+                    raise AssertionError(f"fused_rk4 rival nx={nx} {scheme} B={batch}")
+                times = {"registers": [], "block": []}
+                for form, fn in (("registers", registers), ("block", block), ("block", block),
+                                 ("registers", registers)):
+                    times[form].append(time_ms(fn, inner=5))
+                key = f"ks {scheme} nx {nx} B={batch}"
+                rival[key] = times
+                print(f"{tag} fused_rk4 rival {key}: registers {times['registers']} ms, "
+                      f"block (one block) {times['block']} ms; "
+                      f"{fk.rk4_launch(batch, nx, False, advance.scheme.taps, 1)}")
+        result["fused_rk4_rival"] = rival
     print(json.dumps(result))
 
 

@@ -323,8 +323,9 @@ def test_fused_rk4_matches_plain(cuda, name, cons, batch, nx, scheme):
     taps at run time) a warp owns a trajectory, P points a lane on nx / P
     lanes (P = 3, 4, 8, 16, 32 and 1 here; nx = 160 runs 8 points on 20
     lanes); B=1037 runs 7 warps per block, the last block holding one;
-    above, the block form (shared memory, barriers): nx = 2048, and nx =
-    1024 with taps at run time."""
+    above, the block form (the warps of a block, their edges through shared
+    memory, one cluster barrier a stage): nx = 2048 (4 warps of 16 points a
+    lane, B=1037), and nx = 1024 with taps at run time (2 warps)."""
     period = teq.from_name(name).period * nx / 128  # the same dx at every nx
     eq = teq.from_name(name, conservative=cons, period=period)
     grid = Grid(nx, period)
@@ -379,12 +380,13 @@ RK4_WIDE_CASES = [(5, 32, {"stencil_size": 80}), (5, 14528, {}), (3, 65536, {}),
 ] + [form + case for form in RK4_FORMS for case in RK4_WIDE_CASES])
 def test_fused_rk4_wide_schemes_and_long_grids_match_plain(cuda, name, cons, batch, nx, scheme):
     """fused_rk4 where it once refused: schemes of more than 32 taps an
-    order (40 and 48, their coefficients in global memory; 80 taps on 32
-    points reach 40, beyond the grid, so the halo holds more than one
-    periodic copy) and grids whose four rows do not fit a block (nx 14528
-    and more: the rows in a global scratch), in the block form, bit for bit
-    the plain version (20 steps of the classic scheme, 10 of the others at a
-    quarter of its stable step); RK4_WIDE_CASES in all four forms."""
+    order (40, 48 and 80, their coefficients copied into shared memory) in
+    the rows form while their rows fit a block (80 taps on 32 points reach
+    40, so the halo holds more than one periodic copy), past that (48 taps
+    at nx 16384) in the block form, and grids past one block (nx 14528 and
+    more: over a cluster of 2 to 16 blocks) in the block form. Bit for bit
+    the plain version (20 steps of the classic scheme, 10 of the others at
+    a quarter of its stable step); RK4_WIDE_CASES in all four forms."""
     period = teq.from_name(name).period * nx / 128  # the same dx at every nx
     eq = teq.from_name(name, conservative=cons, period=period)
     grid = Grid(nx, period)
@@ -393,7 +395,8 @@ def test_fused_rk4_wide_schemes_and_long_grids_match_plain(cuda, name, cons, bat
                                 10 if scheme else 20, **scheme)
     launch = fk.rk4_launch(batch, nx, fk.rk4_is_classic(advance.scheme), advance.scheme.taps)
     print(launch)
-    assert launch.form == "block" and launch.rows_global == (nx >= 14528)
+    assert launch.form == ("rows" if scheme and nx < 14528 else "block")
+    assert (launch.cluster > 1) == (nx >= 14528)
     assert fk.rk4_wide(advance.scheme.taps) == bool(scheme)
     want = fk.fused_rk4_plain(u, advance.scheme)
     before = fk.fused_rk4.launches
@@ -402,6 +405,126 @@ def test_fused_rk4_wide_schemes_and_long_grids_match_plain(cuda, name, cons, bat
     assert fk.fused_rk4.launches == before + 1
     assert torch.isfinite(want).all()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# the block form forced over each cluster size it can take at the long grids
+# (the rule picks 8 blocks at nx 16384, 16 at 65,536, 4 at 8192), and over
+# one block at the register forms' grids (taps at run time)
+RK4_CLUSTER_CASES = ([(16384, {}, c) for c in (4, 8, 16)] + [(8192, {}, c) for c in (2, 8)]
+                     + [(65536, {}, 16)]
+                     + [(16384, {"stencil_size": 48}, 16), (2048, {}, 2), (2048, {}, 16),
+                        (128, {"accuracy_order": 4}, 1), (512, {"stencil_size": 16}, 1),
+                        (1024, {"accuracy_order": 4}, 4), (128, {"stencil_size": 40}, 1),
+                        (32, {"stencil_size": 48}, 1)])
+
+
+@pytest.mark.parametrize("nx,scheme,cluster", RK4_CLUSTER_CASES)
+@pytest.mark.parametrize("name,cons", [("ks", True), ("kdv", False)])
+def test_fused_rk4_block_clusters_match_plain(cuda, name, cons, nx, scheme, cluster):
+    """The block form forced over ``cluster`` blocks a trajectory (the
+    warps' edges across blocks by distributed shared memory): bit for bit
+    the plain version at every cluster size it takes at nx 16384 (4 to 16:
+    two blocks would need 32 warps), 8192 (2 and 8) and 65,536 (16), with 48 taps, on
+    2048 points over 2 and 16 blocks (16 warps of 8 lanes), over one block
+    where the register forms run (taps at run time at nx 128, 512, and nx
+    1024 over 4 blocks) and where the rows form runs (40 taps at nx 128, 48
+    on 32 points: one warp of 8 lanes). B=1037 at nx <= 2048 (no multiple of any
+    block count's warps), B=3 above; 20 steps of the classic scheme, 10 of
+    the others at a quarter of its stable step."""
+    batch = 1037 if nx <= 2048 else 3
+    period = teq.from_name(name).period * nx / 128  # the same dx at every nx
+    eq = teq.from_name(name, conservative=cons, period=period)
+    grid = Grid(nx, period)
+    u = 0.3 * eq.initial_conditions(torch.Generator().manual_seed(2), grid, (batch,), cuda)
+    advance = fk.make_fused_rk4(eq, grid, eq.stable_time_step(grid) / (4 if scheme else 1),
+                                10 if scheme else 20, **scheme)
+    launch = fk.rk4_launch(batch, nx, fk.rk4_is_classic(advance.scheme), advance.scheme.taps,
+                           cluster)
+    print(launch)
+    assert launch.form == "block" and launch.cluster == cluster
+    want = fk.fused_rk4_plain(u, advance.scheme)
+    before = fk.fused_rk4.launches
+    got = fk.fused_rk4(u, advance.scheme, cluster=cluster)
+    torch.cuda.synchronize()
+    assert fk.fused_rk4.launches == before + 1
+    assert torch.isfinite(want).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_fused_rk4_block_entry_refuses_geometry(cuda, monkeypatch):
+    """The C entry refuses a block-form launch it is not built for
+    (cudaErrorInvalidValue, no launch): points a lane outside 1, 2, 4, 8,
+    16; edges other than the scheme's reach; more than 16 warps a block; a
+    cluster of 17; lanes a warp other than the even deal; warps holding
+    fewer points than the edges they publish (62 taps on 32 points over 2
+    blocks: 16 points a warp against a tail of 31)."""
+    runs = []
+    for nx, scheme in ((2048, {}), (32, {"stencil_size": 62})):
+        eq = teq.from_name("ks", conservative=True, period=teq.from_name("ks").period * nx / 128)
+        grid = Grid(nx, eq.period)
+        advance = fk.make_fused_rk4(eq, grid, eq.stable_time_step(grid) / 4, 2, **scheme)
+        u = 0.3 * eq.initial_conditions(torch.Generator().manual_seed(2), grid, (4,), cuda)
+        runs.append((advance, u, fk._rk4_block(4, nx, advance.scheme.taps, None)))
+    (long, u_long, good), (short, u_short, whole) = runs
+    assert whole.form == "block" and whole.cluster == 1 and whole.left == 31
+    torch.testing.assert_close(short(u_short), fk.fused_rk4_plain(u_short, short.scheme),
+                               rtol=0, atol=0)
+    split = whole._replace(cluster=2, lanes=whole.lanes // 2, blocks=8)
+    bad = [(long, u_long, good._replace(points=3)),
+           (long, u_long, good._replace(left=good.left + 1)),
+           (long, u_long, good._replace(warps=32, threads=1024)),
+           (long, u_long, good._replace(cluster=17)),
+           (long, u_long, good._replace(lanes=good.lanes - 1)),
+           (short, u_short, split)]
+    with pytest.raises(ValueError, match="does not take nx=32 over a cluster of 2"):
+        fk.rk4_launch(4, 32, False, short.scheme.taps, 2)
+    before = fk.fused_rk4.launches
+    for advance, u, launch in bad:
+        monkeypatch.setattr(fk, "rk4_launch", lambda *args, launch=launch: launch)
+        with pytest.raises(RuntimeError, match=r"fused_rk4 launch failed: invalid argument"):
+            advance(u)
+    assert fk.fused_rk4.launches == before
+
+
+def test_fused_rk4_block_planted_fault_is_caught(cuda):
+    """The block form's checks have power: the kernels built with
+    -DPDE_FAULT_RK4_SKIP_EDGES (the third stage of every step skips
+    publishing its edges, so it reads the first stage's) give another
+    result than the same launch built without it, 20 steps from a smooth
+    state (the stale edges move it by 5.8e-6 of max|u| at nx 2048 on an
+    H100; the checks hold the form bit for bit, so any difference fails
+    them): the compiled taps at nx 2048 (one block) and 16384 (a cluster of
+    8), the run-time taps at 2048 and 16384 with 48 taps. The launches
+    without the fault equal the plain version bit for bit (the tests
+    above)."""
+    from pde_superresolution_torch.ops import _build
+
+    cases, clean = ((2048, {}), (16384, {}), (2048, {"accuracy_order": 4}),
+                    (16384, {"stencil_size": 48})), []
+    for nx, scheme in cases:
+        period = teq.from_name("ks").period * nx / 128
+        eq = teq.from_name("ks", conservative=True, period=period)
+        grid = Grid(nx, period)
+        u = 0.3 * eq.initial_conditions(torch.Generator().manual_seed(2), grid, (6,), cuda)
+        advance = fk.make_fused_rk4(eq, grid, eq.stable_time_step(grid) / (4 if scheme else 1),
+                                    20, **scheme)
+        assert fk.rk4_launch(6, nx, not scheme, advance.scheme.taps).form == "block"
+        clean.append((advance, u, advance(u)))
+    flags = list(_build.NVCC_FLAGS)
+    _build.NVCC_FLAGS.append("-DPDE_FAULT_RK4_SKIP_EDGES")
+    _build.build.cache_clear()
+    _build.load_library.cache_clear()
+    try:
+        for (nx, scheme), (advance, u, want) in zip(cases, clean):
+            faulty = advance(u)
+            torch.cuda.synchronize()
+            diff = float((faulty - want).abs().nan_to_num(nan=float("inf")).max())
+            print(f"nx {nx} {scheme or 'classic'}: the planted fault's max abs diff {diff:.3e}")
+            assert diff > 0 and not torch.equal(faulty, want)
+    finally:
+        _build.NVCC_FLAGS[:] = flags
+        _build.build.cache_clear()
+        _build.load_library.cache_clear()
 
 
 @pytest.mark.parametrize("name,cons", RK4_FORMS)

@@ -504,10 +504,14 @@ def test_fused_rk4_options_and_checks():
         advance(u_t.clone().requires_grad_())
     assert len(fk.make_fused_rk4(eq_t, grid_t, dt, 1, stencil_size=32).scheme.taps[3]) == 32
     # more than 32 taps: built (it raised "34 taps > kernel limit 32" before
-    # the block form took such schemes), the block form at any grid
+    # the block form took such schemes), the rows form while its rows fit a
+    # block (the block form's rows in shared memory before the block form
+    # moved to registers), the block form past that or with a cluster given
     wide = fk.make_fused_rk4(eq_t, grid_t, dt, 1, stencil_size=34).scheme
     assert len(wide.taps[3]) == 34 and fk.rk4_wide(wide.taps) and fk.rk4_refusal(wide, NX) is None
-    assert fk.rk4_launch(BATCH, NX, False, wide.taps).form == "block"
+    assert fk.rk4_launch(BATCH, NX, False, wide.taps).form == "rows"
+    assert fk.rk4_launch(BATCH, NX, False, wide.taps, cluster=1).form == "block"
+    assert fk.rk4_launch(BATCH, 16384, False, wide.taps).form == "block"
 
 
 def test_pack_rejects_even_kernel():
@@ -1432,19 +1436,77 @@ def test_rk4_launch_geometry(batch):
     assert launch.warps == {3: 1, 256: 1, 1037: 7, 4096: 8, 10240: 8}[batch]
 
 
+def _entry_takes(launch, nx, taps, wide, classic):
+    """What pde_fused_rk4 (csrc/fused_rk4.cu) checks of a launch before it
+    starts a kernel, and which P its kernels are built for, in Python: True
+    where the C entry takes it."""
+    if launch.form == "registers":
+        return (not wide and 1 <= launch.lanes <= 32 and launch.points * launch.lanes == nx
+                and 1 <= launch.warps <= fk.RK4_MAX_WARPS
+                and launch.points in fk.RK4_POINTS_PER_LANE)
+    if launch.form == "rows":
+        reach = fk.rk4_reach(taps)
+        return wide and launch.halo >= reach and launch.shared_bytes == 4 * (
+            4 * nx + 2 * launch.halo + sum(len(t) for t in taps.values()))
+    lo = min(0, min(t[0] for t in taps.values()))
+    hi = max(0, max(t[-1] for t in taps.values()))
+    total = launch.warps * launch.cluster
+    lanes = nx // launch.points
+    base, extra = divmod(lanes, total)
+    built = fk.RK4_BLOCK_POINTS + ((fk.RK4_BLOCK_CLASSIC_POINTS,) if classic else ())
+    return (launch.points in built and nx % launch.points == 0
+            and 1 <= launch.cluster <= fk.MAX_CLUSTER
+            and 1 <= launch.warps <= fk.RK4_BLOCK_MAX_WARPS
+            and (launch.left, launch.right) == (1 - lo, hi)
+            and launch.shared_bytes == 4 * (3 * launch.warps * (launch.left + launch.right)
+                                            + sum(len(t) for t in taps.values()))
+            and (launch.lanes, launch.extra) == (base, extra) and base >= 1
+            and base + (extra > 0) <= 32 and base * launch.points >= max(hi, 1 - lo))
+
+
+def _check_block(launch, nx, taps, batch):
+    """The block form's geometry: its warps cover nx exactly, in order, none
+    holding fewer points than the edges it publishes (the reach), each
+    block's segment at least that long too; blocks of at most
+    RK4_BLOCK_MAX_WARPS warps whose registers (RK4_BLOCK_REGISTERS a thread,
+    ptxas' bound at that thread count) fit an SM's 65,536; a cluster of at
+    most 16 blocks a trajectory, 8 unless a block would need more than 16
+    warps (16 blocks at P = 8 past 32,768 points); shared memory within the
+    48 KB that needs no opt-in."""
+    spans = fk.rk4_warp_spans(launch)
+    assert len(spans) == launch.warps * launch.cluster and launch.blocks == batch * launch.cluster
+    assert [a for a, _ in spans] == list(np.cumsum([0] + [n for _, n in spans[:-1]]))
+    assert sum(n for _, n in spans) == nx
+    need = max(launch.left, launch.right, fk.rk4_reach(taps))
+    assert min(n for _, n in spans) >= need
+    segments = [sum(n for _, n in spans[r * launch.warps:(r + 1) * launch.warps])
+                for r in range(launch.cluster)]
+    assert sum(segments) == nx and min(segments) >= need
+    assert launch.threads == 32 * launch.warps <= 32 * fk.RK4_BLOCK_MAX_WARPS
+    assert launch.threads * fk.RK4_BLOCK_REGISTERS <= 65536
+    fewest = -(-nx // (32 * launch.points))  # warps of 32 lanes
+    assert launch.cluster <= fk.PORTABLE_CLUSTER or -(-fewest // 8) > fk.RK4_BLOCK_MAX_WARPS
+    assert launch.shared_bytes <= 49152
+
+
 @pytest.mark.parametrize("nx", [32, 64, 96, 100, 128, 160, 224, 256, 352, 512, 544, 1024,
-                                1056, 2048, 4096, 14496, 14528, 16384, 65536])
+                                1056, 2048, 4096, 14496, 14528, 16384, 65536,
+                                8192, 32288, 65504])
 @pytest.mark.parametrize("name,cons", [("ks", True), ("ks", False), ("kdv", True),
                                        ("kdv", False)])
 def test_rk4_refusal(name, cons, nx):
     """The kernel takes every scheme make_fused_rk4 builds at every nx that
     is a multiple of 32: in registers up to 1024 points (P points a lane on
-    nx / P lanes, P the smallest built that fits), in a block above, its
-    four rows in shared memory while they fit the block (up to nx 14496)
-    and in a global scratch beyond (nx 14528 and more, which it refused
-    before); it says why it takes nothing else. A scheme shifted 16 points
-    to the right (reach 19, once refused) takes the block form. The CPU
-    path (the plain version) still takes every shape."""
+    nx / P lanes, P the smallest built that fits), over the warps of a block
+    above (P = 8 points a lane, 1056 and 2048 points in one block of up to 8
+    warps), and of a cluster of blocks past 2048 points (nx 16384 on 8
+    blocks of 8 warps, 32288 = 32 x 1009 on 8 of 16, 65504 = 32 x 2047 and
+    65,536 on 16 of 16; the first two deal their lanes out unevenly). No global scratch at any nx
+    (rows in global memory past nx 14496 before). It says why it takes
+    nothing else. A scheme shifted 16 points to the right (reach 19, once
+    refused) takes the rows form while its rows fit a block, the block form
+    past that (and wherever a cluster is given). The CPU path (the plain
+    version) still takes every shape."""
     period = teq.from_name(name).period * nx / 128
     eq = teq.from_name(name, conservative=cons, period=period)
     grid = TGrid(nx, period)
@@ -1466,19 +1528,29 @@ def test_rk4_refusal(name, cons, nx):
         assert launch.points == min(p for p in fk.RK4_POINTS_PER_LANE
                                     if 32 * p >= nx and nx % p == 0)
     elif launch is not None:
-        assert launch.form == "block" and launch.blocks == 256 and launch.threads == 256
-        # a halo of the scheme's own reach (16 points before the wide schemes)
-        assert launch.halo == fk.rk4_reach(scheme.taps) <= 3
-        assert launch.rows_global == (nx >= 14528)
-        assert launch.shared_bytes == (0 if nx >= 14528 else 4 * (4 * nx + 2 * launch.halo))
+        assert launch.form == "block" and launch.points == fk.RK4_BLOCK_CLASSIC_POINTS
+        # edges of the scheme's own reach (and one point more on the left)
+        assert launch.right == fk.rk4_reach(scheme.taps) <= 3 and launch.left <= 4
+        # blocks of up to 8 warps over up to 8 blocks, then of up to 16
+        assert launch.cluster == {1056: 1, 2048: 1, 4096: 2, 8192: 4, 14496: 8, 14528: 8,
+                                  16384: 8, 32288: 8, 65504: 16, 65536: 16}[nx]
+        assert launch.warps == {1056: 5, 2048: 8, 4096: 8, 8192: 8, 14496: 8, 14528: 8,
+                                16384: 8, 32288: 16, 65504: 16, 65536: 16}[nx]
+        _check_block(launch, nx, scheme.taps, 256)
+        assert _entry_takes(launch, nx, scheme.taps, False, True)
     for kwargs in ({"accuracy_order": 4}, {"accuracy_order": 6}, {"stencil_size": 16}):
         wide = fk.make_fused_rk4(eq, grid, eq.stable_time_step(grid), 1, **kwargs).scheme
         assert not fk.rk4_is_classic(wide) and fk.rk4_refusal(wide, nx) == refusal
     far = dataclasses.replace(scheme, taps={d: tuple(t + 16 for t in taps)
                                             for d, taps in scheme.taps.items()})
     assert fk.rk4_refusal(far, nx) == refusal and fk.rk4_wide(far.taps)
-    if launch is not None:
-        assert fk.rk4_launch(256, nx, False, far.taps).form == "block"
+    if launch is not None:  # wide: its rows in shared memory while they fit a block
+        wide_launch = fk.rk4_launch(256, nx, False, far.taps)
+        assert wide_launch.form == ("rows" if nx <= 14496 else "block")
+        assert _entry_takes(wide_launch, nx, far.taps, True, False)
+        block = fk._rk4_block(256, nx, far.taps, None)  # the block form's own launch
+        assert block.form == "block" and (block.left, block.right) == (1, fk.rk4_reach(far.taps))
+        assert _entry_takes(block, nx, far.taps, True, False)
     u = torch.zeros(2, nx)
     assert fk.fused_rk4(u, scheme).shape == (2, nx)  # the CPU's plain version
 
@@ -1488,11 +1560,16 @@ def test_rk4_refusal(name, cons, nx):
 def test_rk4_takes_every_scheme_and_grid(name, cons):
     """Every scheme make_fused_rk4 builds from stencil_size up to 48 (and
     accuracy orders 2 to 10) at every nx that is a multiple of 32 up to
-    65,536: rk4_refusal takes it, and rk4_launch gives a form the C entry
-    takes: registers within 32 taps an order and 16 points of reach, else a
-    block whose halo is the scheme's reach (beyond nx too: 48 taps reach 24
-    points on a grid of 32), its rows in shared memory within the block's
-    232448 bytes, else in a global scratch."""
+    65,536: rk4_refusal takes it, and rk4_launch gives a launch the C entry
+    takes (``_entry_takes``): registers within 32 taps an order and 16
+    points of reach; a wider scheme in the rows form while its rows and
+    coefficients fit a block's 232,448 bytes, past that in the block form;
+    else the block form, whose warps cover nx exactly and hold at least the
+    scheme's reach each (``_check_block``). The block form's own launch
+    (``_rk4_block``, what ``cluster=`` forces) takes each wide scheme too
+    wherever a warp holds its reach (48 taps reach 24 points, and the one
+    warp on a grid of 32 holds them). Nothing takes a global scratch, and nothing the kernel took
+    before (every such shape) is refused."""
     eq = teq.from_name(name, conservative=cons)
     grid = TGrid(NX, eq.period)
     dt = eq.stable_time_step(grid)
@@ -1501,6 +1578,7 @@ def test_rk4_takes_every_scheme_and_grid(name, cons):
     schemes += [fk.make_fused_rk4(eq, grid, dt, 1, accuracy_order=order).scheme
                 for order in (2, 4, 6, 8, 10)]
     assert max(len(t) for sc in schemes for t in sc.taps.values()) == 48
+    forms = set()
     for scheme in schemes:
         reach, wide = fk.rk4_reach(scheme.taps), fk.rk4_wide(scheme.taps)
         assert wide == (max(len(t) for t in scheme.taps.values()) > 32 or reach > 16)
@@ -1508,14 +1586,97 @@ def test_rk4_takes_every_scheme_and_grid(name, cons):
         for nx in range(32, 65536 + 1, 32):
             assert fk.rk4_refusal(scheme, nx) is None
             launch = fk.rk4_launch(7, nx, classic, scheme.taps)
+            forms.add(launch.form)
+            assert _entry_takes(launch, nx, scheme.taps, wide, classic)
             if launch.form == "registers":
                 assert not wide and nx <= (1024 if classic else 768)
                 continue
             assert wide or nx > (1024 if classic else 768)
-            assert launch.halo == reach and launch.blocks == 7
-            rows = 4 * (4 * nx + 2 * reach)
-            assert launch.rows_global == (rows > 232448)
-            assert launch.shared_bytes == (0 if launch.rows_global else rows)
+            if launch.form == "rows":
+                assert wide and launch.halo == reach and launch.blocks == 7
+                assert launch.shared_bytes <= fk.MAX_SHARED_BYTES
+                if nx % 1024 == 0 or nx == 32:  # the block form's own launch
+                    forced = fk._rk4_block(7, nx, scheme.taps, None)
+                    assert forced.form == "block" and _entry_takes(forced, nx, scheme.taps,
+                                                                   wide, classic)
+                    _check_block(forced, nx, scheme.taps, 7)
+                continue
+            assert not wide or 4 * (4 * nx + 2 * reach + sum(map(len, scheme.taps.values()))) \
+                > fk.MAX_SHARED_BYTES
+            if nx % 4096 == 0 or nx in (1056, 14528, 32288):
+                _check_block(launch, nx, scheme.taps, 7)
+    assert forms == {"registers", "block", "rows"}
+
+
+def _block_input(launch, nx, seed=5):
+    """A trajectory of ``nx`` distinct values, and the heads and tails its
+    warps publish (fused_rk4_block.cuh's WarpEdges: the first ``right``
+    points, the last ``left``), in trajectory order."""
+    u = torch.from_numpy(np.random.default_rng(seed).permutation(nx).astype(np.float32))
+    spans = fk.rk4_warp_spans(launch)
+    heads = [u[a:a + launch.right] for a, n in spans]
+    tails = [u[a + n - launch.left:a + n] for a, n in spans]
+    return u, spans, heads, tails
+
+
+def _neighbour_value(launch, spans, heads, tails, g, lane, q):
+    """What lane ``lane`` of warp ``g`` holds for its lane-relative point q
+    in the block form: its own point, another lane's by shuffle, or past the
+    warp's ends a neighbour's edge (fused_rk4_block.cuh: WarpEdges.before
+    and after)."""
+    p = launch.points
+    a, n = spans[g]
+    lanes = n // p
+    d, e = divmod(q, p)
+    src = lane + d
+    if 0 <= src < lanes:
+        return ("lane", a + src * p + e)
+    total = len(spans)
+    if src >= lanes:
+        return ("head", heads[(g + 1) % total][(src - lanes) * p + e])
+    return ("tail", tails[(g - 1) % total][launch.left + src * p + e])
+
+
+@pytest.mark.parametrize("nx,scheme,cluster", [
+    (1056, {}, None), (2048, {}, None), (16384, {}, None), (16384, {}, 16), (32288, {}, None),
+    (2048, {"stencil_size": 48}, 1), (128, {"stencil_size": 40}, 1),
+    (64, {"stencil_size": 80}, 1), (96, {"accuracy_order": 4}, 1), (2048, {}, 2)])
+@pytest.mark.parametrize("name,cons", [("ks", True), ("kdv", False)])
+def test_rk4_block_windows_match_roll(name, cons, nx, scheme, cluster):
+    """The block form's index arithmetic, in Python as the kernel computes
+    it: each lane's window of the stage input, from its own points, the
+    other lanes' (shuffles) and, past the warp's ends, the neighbour warps'
+    published heads and tails (their own block's or, across the cluster,
+    another's), equals torch.roll's at every point and offset the taps
+    read (the conservative form one more to the left). The run-time-tap
+    kernel's shifts take their values from the same places: every shift to
+    the right at the warp's first lane from the left neighbour's tail, every
+    shift to the left at the last lane from the right neighbour's head (tap
+    t >= 0) or the warp's own tail (t < 0); each equals torch.roll's too."""
+    period = teq.from_name(name).period * nx / 128
+    eq = teq.from_name(name, conservative=cons, period=period)
+    taps = fk.make_fused_rk4(eq, TGrid(nx, period), 1e-4, 1, **scheme).scheme.taps
+    launch = fk.rk4_launch(3, nx, not scheme, taps, cluster)
+    assert launch.form == "block" and (cluster is None or launch.cluster == cluster)
+    assert _entry_takes(launch, nx, taps, fk.rk4_wide(taps), not scheme)
+    u, spans, heads, tails = _block_input(launch, nx)
+    lo = min(t[0] for t in taps.values()) - cons
+    hi = max(t[-1] for t in taps.values())
+    p = launch.points
+    for g, (a, n) in enumerate(spans):
+        for lane in range(n // p):
+            for q in range(min(lo, 0), p + max(hi, 0)):
+                where, value = _neighbour_value(launch, spans, heads, tails, g, lane, q)
+                got = u[value] if where == "lane" else value
+                assert got == torch.roll(u, -(a + lane * p + q))[0]
+        # the last lane's shifts to the left past the warp's end: point n + t
+        for t in range(min(lo, 0), max(hi, 0)):
+            edge = tails[g][launch.left + t] if t < 0 else heads[(g + 1) % len(spans)][t]
+            assert edge == u[(a + n + t) % nx]
+        # the first lane's shifts to the right: point t - 1 - c, from the left tail
+        for t in range(0, min(lo, 0) + cons, -1):
+            assert tails[(g - 1) % len(spans)][launch.left + t - 1 - cons] == \
+                u[(a + t - 1 - cons) % nx]
 
 
 RHS_TAPS = {  # the KS-8x checkpoint's (3 orders of 6) and the Burgers-8x one's (2 of 8)
