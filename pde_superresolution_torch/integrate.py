@@ -25,6 +25,7 @@ from pde_superresolution_torch.device import resolve_device
 from pde_superresolution_torch.equations import Equation, ForcingParams
 from pde_superresolution_torch.grids import Grid
 from pde_superresolution_torch.ops import spectral
+from pde_superresolution_torch.utils import profiling
 
 # RHS signature: (u, t) -> du/dt. Forcing params are closed over.
 RHSFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -180,15 +181,16 @@ def integrate(
         raise ValueError(f"{num_steps=} not divisible by {save_every=}")
     num_saves = num_steps // save_every
     step = STEP_FUNCS[method]
-    u = u0
-    t = torch.as_tensor(t0, dtype=u0.dtype, device=u0.device)
-    traj = [u0]
-    for _ in range(num_saves):
-        for _ in range(save_every):
-            u = step(rhs, u, t, dt)
-            t = t + dt
-        traj.append(u)
-    return _save_times(u0, dt, save_every, num_saves, t0), torch.stack(traj)
+    with profiling.span(profiling.INTEGRATE):
+        u = u0
+        t = torch.as_tensor(t0, dtype=u0.dtype, device=u0.device)
+        traj = [u0]
+        for _ in range(num_saves):
+            for _ in range(save_every):
+                u = step(rhs, u, t, dt)
+                t = t + dt
+            traj.append(u)
+        return _save_times(u0, dt, save_every, num_saves, t0), torch.stack(traj)
 
 
 def integrate_fused(
@@ -209,14 +211,15 @@ def integrate_fused(
     if num_steps % save_every:
         raise ValueError(f"{num_steps=} not divisible by {save_every=}")
     num_saves = num_steps // save_every
-    u = u0
-    t = torch.as_tensor(t0, dtype=u0.dtype, device=u0.device)
-    traj = [u0]
-    for _ in range(num_saves):
-        u = advance(u, t)
-        t = t + dt * save_every
-        traj.append(u)
-    return _save_times(u0, dt, save_every, num_saves, t0), torch.stack(traj)
+    with profiling.span(profiling.INTEGRATE_FUSED):
+        u = u0
+        t = torch.as_tensor(t0, dtype=u0.dtype, device=u0.device)
+        traj = [u0]
+        for _ in range(num_saves):
+            u = advance(u, t)
+            t = t + dt * save_every
+            traj.append(u)
+        return _save_times(u0, dt, save_every, num_saves, t0), torch.stack(traj)
 
 
 def integrate_resumable(

@@ -35,6 +35,7 @@ from pde_superresolution_torch.equations import Equation, ForcingParams, forcing
 from pde_superresolution_torch.grids import Grid
 from pde_superresolution_torch.models import conv_net
 from pde_superresolution_torch.ops import fused_kernels
+from pde_superresolution_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,13 +163,15 @@ class StencilModel:
             if self.config.tower_dtype == "float32"
             else getattr(torch, self.config.tower_dtype)
         )
-        zs = functional_call(
-            self._tower, dict(params), (u,), {"dtype": dtype, "periodic": periodic},
-            strict=True,
-        )
-        return {
-            d: layer(zs[str(d)]) for d, layer in self.constraint_layers.items()
-        }
+        with profiling.span(profiling.TOWER):
+            zs = functional_call(
+                self._tower, dict(params), (u,), {"dtype": dtype, "periodic": periodic},
+                strict=True,
+            )
+        with profiling.span(profiling.PROJECTION):
+            return {
+                d: layer(zs[str(d)]) for d, layer in self.constraint_layers.items()
+            }
 
     def derivatives(
         self, params: Mapping[str, torch.Tensor], u: torch.Tensor
@@ -291,8 +294,9 @@ class StencilModel:
             coeffs = self.coefficients(params, u)
             f = None
             if forcing is not None:
-                f = forcing_term(forcing, x, t, self.equation.period, width)
-                f = f.expand(u.shape).reshape(-1, nx).contiguous()
+                with profiling.span(profiling.FORCING):
+                    f = forcing_term(forcing, x, t, self.equation.period, width)
+                    f = f.expand(u.shape).reshape(-1, nx).contiguous()
             u_t = fused_kernels.fused_rhs(
                 u.reshape(-1, nx),
                 {d: c.reshape(-1, nx, c.shape[-1]) for d, c in coeffs.items()},

@@ -62,7 +62,7 @@ import torch
 from pde_superresolution_torch import stencils
 from pde_superresolution_torch.equations import Equation, ForcingParams
 from pde_superresolution_torch.grids import Grid
-from pde_superresolution_torch.utils import debugging
+from pde_superresolution_torch.utils import debugging, profiling
 
 EQUATION_CODES = {"burgers": 0, "kdv": 1, "ks": 2}
 MAX_ORDERS = 3
@@ -310,29 +310,30 @@ def fused_rhs(
       f: ``[B, nx]`` forcing field, or None.
       taps: ``{order: integer taps}``; ``out[j]`` reads ``u[(j + t) % nx]``.
     """
-    orders = sorted(taps)
-    if orders != sorted(equation.derivative_orders) or sorted(coeffs) != orders:
-        raise ValueError(
-            f"{equation.name} needs orders {sorted(equation.derivative_orders)}; "
-            f"got taps for {orders} and coefficients for {sorted(coeffs)}"
-        )
-    if u.dim() != 2:
-        raise ValueError(f"u must be [batch, nx], got shape {tuple(u.shape)}")
-    batch, nx = u.shape
-    _check_f32("u", u, (batch, nx), u.device)
-    for d in orders:
-        if not _contiguous_run(taps[d]):
-            raise ValueError(f"taps of order {d} are not contiguous: {taps[d]}")
-        _check_f32(f"coeffs[{d}]", coeffs[d], (batch, nx, len(taps[d])), u.device)
-    if f is not None:
-        _check_f32("f", f, (batch, nx), u.device)
-    if u.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {u.device}")
-    static = (equation, grid, {d: taps[d] for d in orders})
-    tensors = (u, f, *(coeffs[d] for d in orders))
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        return _FusedRhs.apply(static, *tensors)
-    return _fused_rhs_forward(static, *tensors)
+    with profiling.span(profiling.FUSED_RHS):
+        orders = sorted(taps)
+        if orders != sorted(equation.derivative_orders) or sorted(coeffs) != orders:
+            raise ValueError(
+                f"{equation.name} needs orders {sorted(equation.derivative_orders)}; "
+                f"got taps for {orders} and coefficients for {sorted(coeffs)}"
+            )
+        if u.dim() != 2:
+            raise ValueError(f"u must be [batch, nx], got shape {tuple(u.shape)}")
+        batch, nx = u.shape
+        _check_f32("u", u, (batch, nx), u.device)
+        for d in orders:
+            if not _contiguous_run(taps[d]):
+                raise ValueError(f"taps of order {d} are not contiguous: {taps[d]}")
+            _check_f32(f"coeffs[{d}]", coeffs[d], (batch, nx, len(taps[d])), u.device)
+        if f is not None:
+            _check_f32("f", f, (batch, nx), u.device)
+        if u.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {u.device}")
+        static = (equation, grid, {d: taps[d] for d in orders})
+        tensors = (u, f, *(coeffs[d] for d in orders))
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+            return _FusedRhs.apply(static, *tensors)
+        return _fused_rhs_forward(static, *tensors)
 
 
 fused_rhs.launches = 0
@@ -733,34 +734,35 @@ def pack_forcing(
     and its sin and cos are rounded as the reference rounds them, which
     matters at a large ``t`` after a warm-up.
     """
-    leaves = tuple(forcing)
-    device = leaves[0].device if device is None else torch.device(device)
-    for name, leaf in zip(ForcingParams._fields, leaves):
-        if not isinstance(leaf, torch.Tensor) or leaf.dtype != torch.float32:
-            raise TypeError(f"forcing.{name} must be a float32 tensor")
-        if leaf.device != device:
-            raise ValueError(f"forcing.{name} is on {leaf.device}, expected {device}")
-    terms = leaves[0].shape[-1]
-    try:
-        amp, omega, k, phi = (leaf.expand(batch, terms) for leaf in leaves)
-    except RuntimeError as e:
-        raise ValueError(
-            f"forcing leaves {[tuple(l.shape) for l in leaves]} do not "
-            f"broadcast to [batch={batch}, terms={terms}]"
-        ) from e
-    with torch.no_grad():
-        kappa = 2 * np.pi * k / equation.period
-        if equation.conservative:
-            # exact cell average of sin over [x - dx/2, x + dx/2]
-            amp = amp * torch.sinc(kappa * grid.dx / 2 / np.pi)
-        x = torch.as_tensor(grid.x, dtype=torch.float32, device=device)
-        t = torch.as_tensor(t, dtype=torch.float32, device=device)
-        theta0 = omega[:, :, None] * t + kappa[:, :, None] * x + phi[:, :, None]
-        half = omega * (dt / 2)
-        return ForcingPack(
-            amp.contiguous(), torch.cos(half), torch.sin(half),
-            torch.sin(theta0), torch.cos(theta0),
-        )
+    with profiling.span(profiling.PACK_FORCING):
+        leaves = tuple(forcing)
+        device = leaves[0].device if device is None else torch.device(device)
+        for name, leaf in zip(ForcingParams._fields, leaves):
+            if not isinstance(leaf, torch.Tensor) or leaf.dtype != torch.float32:
+                raise TypeError(f"forcing.{name} must be a float32 tensor")
+            if leaf.device != device:
+                raise ValueError(f"forcing.{name} is on {leaf.device}, expected {device}")
+        terms = leaves[0].shape[-1]
+        try:
+            amp, omega, k, phi = (leaf.expand(batch, terms) for leaf in leaves)
+        except RuntimeError as e:
+            raise ValueError(
+                f"forcing leaves {[tuple(l.shape) for l in leaves]} do not "
+                f"broadcast to [batch={batch}, terms={terms}]"
+            ) from e
+        with torch.no_grad():
+            kappa = 2 * np.pi * k / equation.period
+            if equation.conservative:
+                # exact cell average of sin over [x - dx/2, x + dx/2]
+                amp = amp * torch.sinc(kappa * grid.dx / 2 / np.pi)
+            x = torch.as_tensor(grid.x, dtype=torch.float32, device=device)
+            t = torch.as_tensor(t, dtype=torch.float32, device=device)
+            theta0 = omega[:, :, None] * t + kappa[:, :, None] * x + phi[:, :, None]
+            half = omega * (dt / 2)
+            return ForcingPack(
+                amp.contiguous(), torch.cos(half), torch.sin(half),
+                torch.sin(theta0), torch.cos(theta0),
+            )
 
 
 def _force(fp: ForcingPack, s: torch.Tensor) -> torch.Tensor:
@@ -1139,83 +1141,84 @@ def fused_learned_rk4(
     plain version, which a CPU tensor takes, has no blocks and ignores
     them.
     """
-    if pack.equation.forced and forcing is None:
-        raise ValueError(f"{pack.equation.name} is forced: forcing required")
-    if not pack.equation.forced and forcing is not None:
-        # rhs_fn applies any forcing it is handed; dropping it here would
-        # make the two routes differ
-        raise ValueError(f"{pack.equation.name} is unforced but forcing was passed")
-    if u.dim() != 2:
-        raise ValueError(f"u must be [batch, nx], got shape {tuple(u.shape)}")
-    batch, nx = u.shape
-    _check_f32("u", u, (batch, nx), u.device)
-    if pack.blob.device != u.device:
-        raise ValueError(f"weights are on {pack.blob.device}, u on {u.device}")
-    _check_forward_only([u])
-    if num_steps < 0:
-        raise ValueError(f"num_steps must be >= 0, got {num_steps}")
-    terms = 0
-    if forcing is not None:
-        if not isinstance(forcing, ForcingPack):
-            forcing = pack_forcing(forcing, t, pack.equation, pack.grid, dt, batch, u.device)
-        terms = forcing.amplitude.shape[-1]
-        for name, leaf in zip(ForcingPack._fields, forcing):
-            shape = (batch, terms, nx) if name in ("sin0", "cos0") else (batch, terms)
-            _check_f32(f"forcing.{name}", leaf, shape, u.device)
-        _check_forward_only(forcing)
-    if u.device.type == "cpu":
-        return fused_learned_rk4_plain(u, pack, dt, num_steps, forcing)
-    if u.device.type != "cuda":
-        raise ValueError(f"unsupported device {u.device}")
+    with profiling.span(profiling.FUSED_LEARNED_RK4):
+        if pack.equation.forced and forcing is None:
+            raise ValueError(f"{pack.equation.name} is forced: forcing required")
+        if not pack.equation.forced and forcing is not None:
+            # rhs_fn applies any forcing it is handed; dropping it here would
+            # make the two routes differ
+            raise ValueError(f"{pack.equation.name} is unforced but forcing was passed")
+        if u.dim() != 2:
+            raise ValueError(f"u must be [batch, nx], got shape {tuple(u.shape)}")
+        batch, nx = u.shape
+        _check_f32("u", u, (batch, nx), u.device)
+        if pack.blob.device != u.device:
+            raise ValueError(f"weights are on {pack.blob.device}, u on {u.device}")
+        _check_forward_only([u])
+        if num_steps < 0:
+            raise ValueError(f"num_steps must be >= 0, got {num_steps}")
+        terms = 0
+        if forcing is not None:
+            if not isinstance(forcing, ForcingPack):
+                forcing = pack_forcing(forcing, t, pack.equation, pack.grid, dt, batch, u.device)
+            terms = forcing.amplitude.shape[-1]
+            for name, leaf in zip(ForcingPack._fields, forcing):
+                shape = (batch, terms, nx) if name in ("sin0", "cos0") else (batch, terms)
+                _check_f32(f"forcing.{name}", leaf, shape, u.device)
+            _check_forward_only(forcing)
+        if u.device.type == "cpu":
+            return fused_learned_rk4_plain(u, pack, dt, num_steps, forcing)
+        if u.device.type != "cuda":
+            raise ValueError(f"unsupported device {u.device}")
 
-    refusal = learned_rk4_refusal(pack, nx, terms, cluster=cluster, groups=groups)
-    if refusal:
-        raise ValueError(refusal)
-    if pack.blob.data_ptr() % 16:
-        raise ValueError("packed weights must be 16-byte aligned")
-    launch = learned_rk4_launch(pack, nx, terms, batch, cluster=cluster, groups=groups,
-                                per_team=per_team)
-    orders = list(pack.taps)
+        refusal = learned_rk4_refusal(pack, nx, terms, cluster=cluster, groups=groups)
+        if refusal:
+            raise ValueError(refusal)
+        if pack.blob.data_ptr() % 16:
+            raise ValueError("packed weights must be 16-byte aligned")
+        launch = learned_rk4_launch(pack, nx, terms, batch, cluster=cluster, groups=groups,
+                                    per_team=per_team)
+        orders = list(pack.taps)
 
-    from pde_superresolution_torch.ops import _build
+        from pde_superresolution_torch.ops import _build
 
-    lib = _build.load_library()
-    out = torch.empty_like(u)
-    pad = [0] * (MAX_ORDERS - len(orders))
-    meta = (ctypes.c_int * 33)(
-        EQUATION_CODES[pack.equation.name],
-        int(pack.equation.conservative),
-        nx, pack.padded_channels, pack.kernel_size, pack.num_layers, pack.n_free,
-        len(orders),
-        *[len(pack.taps[d]) for d in orders], *pad,
-        *[pack.taps[d][0] for d in orders], *pad,
-        *[first for first, _, _ in pack.free_ranges], *pad,
-        *[count for _, count, _ in pack.free_ranges], *pad,
-        *[start for _, _, start in pack.free_ranges], *pad,
-        terms, launch.groups if launch.split or launch.slots else launch.teams,
-        launch.team_bytes,
-        learned_rk4_halo(pack),
-        launch.cluster if launch.split else 0, launch.segment, int(launch.stream),
-        launch.per_team, launch.slots, launch.multicast,
-    )
-    weights = (_window_bytes(pack) * max(1, launch.slots) if launch.stream
-               else pack.blob.numel())
-    offsets = (ctypes.c_int * (1 + len(pack.blob_offsets)))(weights, *pack.blob_offsets)
-    scalars = (ctypes.c_float * 5)(
-        pack.grid.dx, float(getattr(pack.equation, "eta", 0.0)),
-        0.5 * dt, dt, dt / 6.0,
-    )
-    forcing_ptrs = (ctypes.c_void_p * 5)(
-        *([leaf.data_ptr() for leaf in forcing] if forcing is not None else [None] * 5)
-    )
-    code = lib.pde_fused_learned_rk4(
-        u.data_ptr(), pack.blob.data_ptr(), out.data_ptr(), batch, num_steps,
-        meta, offsets, scalars, forcing_ptrs, launch.shared_bytes, _stream(u.device),
-    )
-    _raise_on_cuda_error(code, "fused_learned_rk4 launch")
-    fused_learned_rk4.launches += 1
-    debugging.check_output("fused_learned_rk4", out)
-    return out
+        lib = _build.load_library()
+        out = torch.empty_like(u)
+        pad = [0] * (MAX_ORDERS - len(orders))
+        meta = (ctypes.c_int * 33)(
+            EQUATION_CODES[pack.equation.name],
+            int(pack.equation.conservative),
+            nx, pack.padded_channels, pack.kernel_size, pack.num_layers, pack.n_free,
+            len(orders),
+            *[len(pack.taps[d]) for d in orders], *pad,
+            *[pack.taps[d][0] for d in orders], *pad,
+            *[first for first, _, _ in pack.free_ranges], *pad,
+            *[count for _, count, _ in pack.free_ranges], *pad,
+            *[start for _, _, start in pack.free_ranges], *pad,
+            terms, launch.groups if launch.split or launch.slots else launch.teams,
+            launch.team_bytes,
+            learned_rk4_halo(pack),
+            launch.cluster if launch.split else 0, launch.segment, int(launch.stream),
+            launch.per_team, launch.slots, launch.multicast,
+        )
+        weights = (_window_bytes(pack) * max(1, launch.slots) if launch.stream
+                   else pack.blob.numel())
+        offsets = (ctypes.c_int * (1 + len(pack.blob_offsets)))(weights, *pack.blob_offsets)
+        scalars = (ctypes.c_float * 5)(
+            pack.grid.dx, float(getattr(pack.equation, "eta", 0.0)),
+            0.5 * dt, dt, dt / 6.0,
+        )
+        forcing_ptrs = (ctypes.c_void_p * 5)(
+            *([leaf.data_ptr() for leaf in forcing] if forcing is not None else [None] * 5)
+        )
+        code = lib.pde_fused_learned_rk4(
+            u.data_ptr(), pack.blob.data_ptr(), out.data_ptr(), batch, num_steps,
+            meta, offsets, scalars, forcing_ptrs, launch.shared_bytes, _stream(u.device),
+        )
+        _raise_on_cuda_error(code, "fused_learned_rk4 launch")
+        fused_learned_rk4.launches += 1
+        debugging.check_output("fused_learned_rk4", out)
+        return out
 
 fused_learned_rk4.launches = 0
 
@@ -1450,64 +1453,65 @@ def fused_rk4(u: torch.Tensor, scheme: BaselineRK4, cluster: Optional[int] = Non
     (``cluster`` forces the block form over that many blocks);
     ``rk4_refusal`` says which shapes and schemes it takes, ``rk4_launch``
     how."""
-    if u.dim() != 2:
-        raise ValueError(f"u must be [batch, nx], got shape {tuple(u.shape)}")
-    batch, nx = u.shape
-    _check_f32("u", u, (batch, nx), u.device)
-    if nx != scheme.grid.size:
-        raise ValueError(f"u has nx={nx}, the scheme's grid {scheme.grid.size}")
-    _check_forward_only([u])
-    if u.device.type == "cpu":
-        return fused_rk4_plain(u, scheme)
-    if u.device.type != "cuda":
-        raise ValueError(f"unsupported device {u.device}")
-    refusal = rk4_refusal(scheme, nx)
-    if refusal:
-        raise ValueError(refusal)
-    launch = rk4_launch(batch, nx, rk4_is_classic(scheme), scheme.taps, cluster)
-    wide = rk4_wide(scheme.taps)
+    with profiling.span(profiling.FUSED_RK4):
+        if u.dim() != 2:
+            raise ValueError(f"u must be [batch, nx], got shape {tuple(u.shape)}")
+        batch, nx = u.shape
+        _check_f32("u", u, (batch, nx), u.device)
+        if nx != scheme.grid.size:
+            raise ValueError(f"u has nx={nx}, the scheme's grid {scheme.grid.size}")
+        _check_forward_only([u])
+        if u.device.type == "cpu":
+            return fused_rk4_plain(u, scheme)
+        if u.device.type != "cuda":
+            raise ValueError(f"unsupported device {u.device}")
+        refusal = rk4_refusal(scheme, nx)
+        if refusal:
+            raise ValueError(refusal)
+        launch = rk4_launch(batch, nx, rk4_is_classic(scheme), scheme.taps, cluster)
+        wide = rk4_wide(scheme.taps)
 
-    from pde_superresolution_torch.ops import _build
+        from pde_superresolution_torch.ops import _build
 
-    lib = _build.load_library()
-    out = torch.empty_like(u)
-    orders = sorted(scheme.taps)
-    pad = [0] * (MAX_ORDERS - len(orders))
-    meta = (ctypes.c_int * 20)(
-        EQUATION_CODES[scheme.equation.name],
-        int(scheme.equation.conservative),
-        nx, launch.warps, len(orders),
-        *[len(scheme.taps[d]) for d in orders], *pad,
-        *[scheme.taps[d][0] for d in orders], *pad,
-        ("registers", "block", "rows").index(launch.form), launch.points, launch.lanes,
-        launch.shared_bytes, launch.halo, launch.cluster, int(wide), launch.left, launch.right,
-    )
-    slots = 2 * RK4_REACH + 1  # order i's coefficient of tap t at [i][t + RK4_REACH]
-    coefs = (ctypes.c_float * (MAX_ORDERS * slots))()
-    wide_coefs = None
-    if wide:  # every order's coefficients in tap order, on the card
-        wide_coefs = scheme.device_coefficients.get(u.device)
-        if wide_coefs is None:
-            wide_coefs = scheme.device_coefficients[u.device] = torch.tensor(
-                [c for d in orders for c in scheme.coefficients[d]], dtype=torch.float32,
-                device=u.device)
-    else:
-        for i, d in enumerate(orders):
-            for t, c in zip(scheme.taps[d], scheme.coefficients[d]):
-                coefs[i * slots + t + RK4_REACH] = c
-    dt = scheme.dt
-    scalars = (ctypes.c_float * 5)(
-        scheme.grid.dx, float(getattr(scheme.equation, "eta", 0.0)),
-        0.5 * dt, dt, dt / 6.0,
-    )
-    code = lib.pde_fused_rk4(
-        u.data_ptr(), out.data_ptr(), batch, scheme.num_steps, meta, coefs, scalars,
-        None if wide_coefs is None else wide_coefs.data_ptr(), _stream(u.device),
-    )
-    _raise_on_cuda_error(code, "fused_rk4 launch")
-    fused_rk4.launches += 1
-    debugging.check_output("fused_rk4", out)
-    return out
+        lib = _build.load_library()
+        out = torch.empty_like(u)
+        orders = sorted(scheme.taps)
+        pad = [0] * (MAX_ORDERS - len(orders))
+        meta = (ctypes.c_int * 20)(
+            EQUATION_CODES[scheme.equation.name],
+            int(scheme.equation.conservative),
+            nx, launch.warps, len(orders),
+            *[len(scheme.taps[d]) for d in orders], *pad,
+            *[scheme.taps[d][0] for d in orders], *pad,
+            ("registers", "block", "rows").index(launch.form), launch.points, launch.lanes,
+            launch.shared_bytes, launch.halo, launch.cluster, int(wide), launch.left, launch.right,
+        )
+        slots = 2 * RK4_REACH + 1  # order i's coefficient of tap t at [i][t + RK4_REACH]
+        coefs = (ctypes.c_float * (MAX_ORDERS * slots))()
+        wide_coefs = None
+        if wide:  # every order's coefficients in tap order, on the card
+            wide_coefs = scheme.device_coefficients.get(u.device)
+            if wide_coefs is None:
+                wide_coefs = scheme.device_coefficients[u.device] = torch.tensor(
+                    [c for d in orders for c in scheme.coefficients[d]], dtype=torch.float32,
+                    device=u.device)
+        else:
+            for i, d in enumerate(orders):
+                for t, c in zip(scheme.taps[d], scheme.coefficients[d]):
+                    coefs[i * slots + t + RK4_REACH] = c
+        dt = scheme.dt
+        scalars = (ctypes.c_float * 5)(
+            scheme.grid.dx, float(getattr(scheme.equation, "eta", 0.0)),
+            0.5 * dt, dt, dt / 6.0,
+        )
+        code = lib.pde_fused_rk4(
+            u.data_ptr(), out.data_ptr(), batch, scheme.num_steps, meta, coefs, scalars,
+            None if wide_coefs is None else wide_coefs.data_ptr(), _stream(u.device),
+        )
+        _raise_on_cuda_error(code, "fused_rk4 launch")
+        fused_rk4.launches += 1
+        debugging.check_output("fused_rk4", out)
+        return out
 
 
 fused_rk4.launches = 0
